@@ -1,0 +1,30 @@
+"""Component-decomposed dehazing (PyTorch port of ``repro.core``).
+
+- ``config``     — DehazeConfig
+- ``env``        — validated ``REPRO_*`` accessors
+- ``algorithms`` — the three generic components + DCP/CAP instantiations
+- ``normalize``  — cross-frame atmospheric-light EMA normalization (§3.3)
+- ``placement``  — single and lane-batched placements
+- ``pipeline``   — single-stream and lane-batched dehaze steps
+"""
+from repro_torch.core.config import DehazeConfig
+from repro_torch.core.normalize import (AtmoState, ema_scan,
+                                        ema_scan_associative, ema_scan_lanes,
+                                        get_lane_state, init_atmo_state,
+                                        init_atmo_state_lanes, lane_carry,
+                                        pack_atmo_states, set_lane_state,
+                                        state_from_lane_carry,
+                                        unpack_atmo_states)
+from repro_torch.core.pipeline import (DehazeOutput, make_dehaze_step,
+                                       make_multi_stream_step, make_step,
+                                       resolve_device, resolve_lane_native)
+from repro_torch.core.placement import PlacementSpec
+
+__all__ = [
+    "DehazeConfig", "AtmoState", "ema_scan", "ema_scan_associative",
+    "ema_scan_lanes", "init_atmo_state", "init_atmo_state_lanes",
+    "lane_carry", "pack_atmo_states", "unpack_atmo_states",
+    "state_from_lane_carry", "get_lane_state", "set_lane_state",
+    "DehazeOutput", "PlacementSpec", "make_step", "make_dehaze_step",
+    "make_multi_stream_step", "resolve_device", "resolve_lane_native",
+]

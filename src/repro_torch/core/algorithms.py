@@ -1,0 +1,162 @@
+"""The three generic dehazing components (paper §3.1) + DCP/CAP instances.
+
+Component protocol (batched over leading frame axes, images NHWC):
+
+  TransmissionEstimator:     (frames, A_saved, cfg) -> t_raw
+  AtmosphericLightEstimator: (frames, t_raw, cfg)   -> A_new
+  HazeFreeGenerator:         (frames, t, A, cfg)    -> J
+
+Estimators are black boxes to the framework; new ones register through
+``register_algorithm``. The staged estimators sit on the plain ops
+(``kernels.ops``); the fused path runs all three components and the §3.3
+EMA as the megakernel.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.core.config import DehazeConfig
+from repro_torch.core.normalize import (AtmoState, lane_carry,
+                                        state_from_lane_carry)
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+
+TransmissionEstimator = Callable[[torch.Tensor, torch.Tensor, DehazeConfig],
+                                 torch.Tensor]
+
+
+def luminance(img: torch.Tensor) -> torch.Tensor:
+    """Rec.601 luma, the guided-filter guide."""
+    return kref.luminance(img).to(img.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Transmission map estimators (component 1)
+# ---------------------------------------------------------------------------
+
+def transmission_dcp(frames: torch.Tensor, a_saved: torch.Tensor,
+                     cfg: DehazeConfig) -> torch.Tensor:
+    """DCP, Eq. 3: t = 1 - ω · min_Ω min_c I^c/A^c, with the *saved*
+    shared A (§3.3: the estimator runs before the A refresh)."""
+    a = torch.clamp_min(a_saved, 1e-3)
+    norm = frames / a[..., None, None, :]
+    dark = ops.dark_channel(norm, cfg.patch_radius, cfg.kernel_mode)
+    return (1.0 - cfg.omega * dark).to(frames.dtype)
+
+
+def transmission_cap(frames: torch.Tensor, a_saved: torch.Tensor,
+                     cfg: DehazeConfig) -> torch.Tensor:
+    """CAP, Eq. 4: t = exp(-β (ω0 + ω1 v + ω2 s)), min-filtered depth."""
+    del a_saved                                        # CAP's t is A-free
+    d = ops.cap_depth(frames, cfg.cap_w0, cfg.cap_w1, cfg.cap_w2)
+    d = ops.min_filter_2d(d, cfg.patch_radius, cfg.kernel_mode)
+    return torch.exp(-cfg.beta * d).to(frames.dtype)
+
+
+_ALGORITHMS: Dict[str, TransmissionEstimator] = {}
+
+
+def register_algorithm(name: str, estimator: TransmissionEstimator) -> None:
+    _ALGORITHMS[name] = estimator
+
+
+def get_transmission_estimator(name: str) -> TransmissionEstimator:
+    try:
+        return _ALGORITHMS[name]
+    except KeyError:
+        raise KeyError(f"unknown dehazing algorithm {name!r}; "
+                       f"registered: {sorted(_ALGORITHMS)}") from None
+
+
+register_algorithm("dcp", transmission_dcp)
+register_algorithm("cap", transmission_cap)
+
+
+# ---------------------------------------------------------------------------
+# Components 2 and 3, and the guided-filter refinement
+# ---------------------------------------------------------------------------
+
+def estimate_atmospheric_light(frames: torch.Tensor, t_raw: torch.Tensor,
+                               cfg: DehazeConfig) -> torch.Tensor:
+    """Eq. 5/6: A = I at the pixel(s) of minimum raw transmission."""
+    return ops.atmospheric_light(frames, t_raw, cfg.topk, cfg.kernel_mode)
+
+
+def refine_transmission(frames: torch.Tensor, t_raw: torch.Tensor,
+                        cfg: DehazeConfig) -> torch.Tensor:
+    if not cfg.refine:
+        return t_raw
+    t = ops.guided_filter(luminance(frames), t_raw, cfg.gf_radius,
+                          cfg.gf_eps, cfg.kernel_mode)
+    return torch.clamp(t, 0.0, 1.0)
+
+
+def generate_haze_free(frames: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
+                       cfg: DehazeConfig) -> torch.Tensor:
+    """Eq. 8 with the serving tone-curve epilogue."""
+    return ops.recover(frames, t, A, cfg.t0, cfg.gamma, cfg.kernel_mode)
+
+
+# ---------------------------------------------------------------------------
+# The fused path (all three components in one megakernel)
+# ---------------------------------------------------------------------------
+
+def supports_fused(cfg: DehazeConfig) -> bool:
+    """The megakernel covers DCP and CAP with any top-k; the one fallback
+    is DCP with ``recompute_t_with_final_a`` (inherently two-stage). CAP's
+    transmission is A-free, so the flag does not gate it."""
+    return (cfg.algorithm in ("dcp", "cap")
+            and not (cfg.algorithm == "dcp" and cfg.recompute_t_with_final_a))
+
+
+def premap(frames: torch.Tensor, a_saved: torch.Tensor,
+           cfg: DehazeConfig) -> torch.Tensor:
+    """Per-pixel stage-1 pre-map (``kernels.ref.premap``)."""
+    a0 = torch.clamp_min(a_saved, 1e-3)
+    return kref.premap(frames, a0, cfg.algorithm,
+                       (cfg.cap_w0, cfg.cap_w1, cfg.cap_w2))
+
+
+def _fused_kw(cfg: DehazeConfig) -> dict:
+    return dict(algorithm=cfg.algorithm, radius=cfg.patch_radius,
+                omega=cfg.omega, beta=cfg.beta,
+                cap_w=(cfg.cap_w0, cfg.cap_w1, cfg.cap_w2),
+                refine=cfg.refine, gf_radius=cfg.gf_radius, gf_eps=cfg.gf_eps,
+                t0=cfg.t0, gamma=cfg.gamma, period=cfg.update_period,
+                lam=cfg.lam, topk=cfg.topk, out_dtype=cfg.out_dtype,
+                mode=cfg.kernel_mode)
+
+
+def fused_dehaze(frames: torch.Tensor, frame_ids: torch.Tensor,
+                 state: AtmoState, cfg: DehazeConfig):
+    """Components 1-3 + the §3.3 EMA as one fused op: (J, t, a_seq, new
+    state). ``initialized`` flips only once a valid (id >= 0) frame was
+    folded in."""
+    J, t, a_seq, a_fin, k_fin = ops.fused_dehaze(
+        frames, frame_ids, state.A, state.last_update, state.initialized,
+        **_fused_kw(cfg))
+    ids = frame_ids.to(a_fin.device)
+    new_state = AtmoState(
+        A=a_fin, last_update=k_fin,
+        initialized=state.initialized.to(a_fin.device) | (ids >= 0).any())
+    return J, t, a_seq, new_state
+
+
+def fused_dehaze_lanes(frames: torch.Tensor, frame_ids: torch.Tensor,
+                       state: AtmoState, cfg: DehazeConfig):
+    """Lane-native fused path: L streams in one megakernel call.
+    ``frames`` (L, B, H, W, 3), ``frame_ids`` (L, B), lane-batched
+    ``state``; per lane the same as :func:`fused_dehaze` on that lane."""
+    carry_f, carry_i = lane_carry(state)
+    J, t, a_seq, cf, ci = ops.fused_dehaze_lanes(
+        frames, frame_ids, carry_f, carry_i, **_fused_kw(cfg))
+    return J, t, a_seq, state_from_lane_carry(cf, ci)
+
+
+__all__ = ["luminance", "transmission_dcp", "transmission_cap",
+           "register_algorithm", "get_transmission_estimator",
+           "estimate_atmospheric_light", "refine_transmission",
+           "generate_haze_free", "supports_fused", "premap", "fused_dehaze",
+           "fused_dehaze_lanes"]

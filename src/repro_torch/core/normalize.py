@@ -1,0 +1,212 @@
+"""Cross-frame atmospheric-light normalization (paper §3.3), PyTorch port.
+
+The paper's update strategy: peers reuse the saved estimate while the
+frame distance to the last update is below the period ``l``; at distance
+>= l the state refreshes through the EMA ``A_m = λ·A_new + (1−λ)·A_k``
+(Eq. 9). Realized as a deterministic causal scan over the frame axis:
+
+  - ``ema_scan``             — a Python loop over frames, any sorted ids
+                               (gaps left by dropped frames included);
+  - ``ema_scan_associative`` — the same recurrence in its linear (c, d)
+                               form for consecutive ids: ``A_i = c_i·A_{i-1}
+                               + d_i``, composed directly (PyTorch has no
+                               associative scan).
+
+**Padding frames** (``frame_id < 0``) never trigger an update, never flip
+``initialized``, and carry the running A through; an empty or all-padding
+batch passes the state through untouched.
+
+**Lanes.** A lane-batched ``AtmoState`` stacks L streams' states on a
+leading axis (``A (L, 3)``, ``last_update (L,)``, ``initialized (L,)``).
+``lane_carry``/``state_from_lane_carry`` convert it to and from the
+megakernel's ``(L, 3)`` float32 / ``(L, 2)`` int32 carry rows.
+
+State constructors default to the CPU: the state is a few bytes that the
+serving tier keeps on the host and the step moves to its device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels.ref import ema_step
+
+#: ``last_update`` of a fresh stream (int32, as on the reference).
+BOOTSTRAP_ID = -(2 ** 30)
+
+
+@dataclasses.dataclass
+class AtmoState:
+    """Shared atmospheric-light state for one stream (or L lanes)."""
+    A: torch.Tensor            # (3,) float32 — current shared estimate A_k
+    last_update: torch.Tensor  # ()  int32   — frame id k of the last refresh
+    initialized: torch.Tensor  # ()  bool    — False until the first frame
+
+    def to(self, device) -> "AtmoState":
+        return AtmoState(A=self.A.to(device),
+                         last_update=self.last_update.to(device),
+                         initialized=self.initialized.to(device))
+
+
+def init_atmo_state(device="cpu") -> AtmoState:
+    """Bootstrap: white atmospheric light until the first estimate lands."""
+    return AtmoState(
+        A=torch.ones(3, dtype=torch.float32, device=device),
+        last_update=torch.tensor(BOOTSTRAP_ID, dtype=torch.int32,
+                                 device=device),
+        initialized=torch.tensor(False, device=device))
+
+
+def _state_tensors(state: AtmoState):
+    return (state.A.to(torch.float32), state.last_update.to(torch.int32),
+            state.initialized.to(torch.bool))
+
+
+def ema_scan(a_cand: torch.Tensor, frame_ids: torch.Tensor, state: AtmoState,
+             period: int, lam: float) -> Tuple[torch.Tensor, AtmoState]:
+    """Sequential scan: (B, 3) candidates, (B,) int32 ids (< 0 = padding)
+    -> ((B, 3) per-frame A, updated state)."""
+    a_cand = a_cand.to(torch.float32)
+    if a_cand.shape[0] == 0:
+        return a_cand.reshape(0, 3), state
+    A, k, inited = _state_tensors(state)
+    ids = frame_ids.to(device=a_cand.device, dtype=torch.int32)
+    seq = []
+    for i in range(a_cand.shape[0]):
+        A, k, inited = ema_step(a_cand[i], ids[i], A, k, inited,
+                                period=period, lam=lam)
+        seq.append(A)
+    return torch.stack(seq), AtmoState(A=A, last_update=k, initialized=inited)
+
+
+def _update_mask(frame_ids: torch.Tensor, state: AtmoState,
+                 period: int) -> torch.Tensor:
+    """Closed-form update positions for consecutive valid ids: the first
+    at ``u0 = max(fid0, k0 + period)`` (``fid0`` when uninitialized), then
+    every ``period`` frames; padding ids are masked out."""
+    valid = frame_ids >= 0
+    fid0 = frame_ids[torch.argmax(valid.to(torch.int32))]
+    u0 = torch.where(state.initialized.to(torch.bool),
+                     torch.maximum(fid0, state.last_update + period), fid0)
+    d = frame_ids - u0
+    return valid & (d >= 0) & (d % period == 0)
+
+
+def ema_scan_associative(a_cand: torch.Tensor, frame_ids: torch.Tensor,
+                         state: AtmoState, period: int,
+                         lam: float) -> Tuple[torch.Tensor, AtmoState]:
+    """Consecutive-id path: the linear recurrence ``A_i = c_i·A_{i-1} +
+    d_i`` with ``c_i = 1 - λ·m_i`` (0 on bootstrap) and ``d_i = λ·m_i·cand_i``
+    (``cand_i`` on bootstrap), composed as ``(c2, d2)∘(c1, d1) = (c2·c1,
+    c2·d1 + d2)`` and applied to the entry state once."""
+    a_cand = a_cand.to(torch.float32)
+    if a_cand.shape[0] == 0:
+        return a_cand.reshape(0, 3), state
+    A0, k0, inited0 = _state_tensors(state)
+    ids = frame_ids.to(device=a_cand.device, dtype=torch.int32)
+    state = AtmoState(A=A0, last_update=k0, initialized=inited0)
+    valid = ids >= 0
+    mask = _update_mask(ids, state, period)
+    first = torch.arange(ids.shape[0], device=ids.device) \
+        == torch.argmax(valid.to(torch.int32))
+    bootstrap = ~inited0 & valid & first
+    m = mask.to(torch.float32)[:, None]
+    c = torch.where(bootstrap[:, None], torch.zeros_like(m), 1.0 - lam * m)
+    d = torch.where(bootstrap[:, None], a_cand, lam * m * a_cand)
+    cc, dd = [c[0]], [d[0]]
+    for i in range(1, ids.shape[0]):
+        cc.append(c[i] * cc[-1])
+        dd.append(c[i] * dd[-1] + d[i])
+    a_seq = torch.stack(cc) * A0[None, :] + torch.stack(dd)
+
+    upd = mask | bootstrap
+    any_upd = upd.any()
+    masked = torch.where(upd, ids, torch.full_like(ids, BOOTSTRAP_ID))
+    idx_last = torch.where(any_upd, torch.argmax(masked),
+                           torch.zeros((), dtype=torch.int64,
+                                       device=ids.device))
+    new_state = AtmoState(
+        A=a_seq[-1],
+        last_update=torch.where(any_upd, ids[idx_last], k0),
+        initialized=inited0 | valid.any())
+    return a_seq, new_state
+
+
+# ---------------------------------------------------------------------------
+# Lane-batched state
+# ---------------------------------------------------------------------------
+
+def pack_atmo_states(states: Sequence[AtmoState]) -> AtmoState:
+    """Stack per-stream states into one lane-batched state (lane axis 0)."""
+    return AtmoState(A=torch.stack([s.A for s in states]),
+                     last_update=torch.stack([s.last_update for s in states]),
+                     initialized=torch.stack([s.initialized for s in states]))
+
+
+def init_atmo_state_lanes(n_lanes: int, device="cpu") -> AtmoState:
+    """``n_lanes`` independent bootstrap states on a leading lane axis."""
+    return pack_atmo_states([init_atmo_state(device) for _ in range(n_lanes)])
+
+
+def get_lane_state(state: AtmoState, lane: int) -> AtmoState:
+    """One lane's (3,)/()/() state (copies: safe to keep after the packed
+    state changes)."""
+    return AtmoState(A=state.A[lane].clone(),
+                     last_update=state.last_update[lane].clone(),
+                     initialized=state.initialized[lane].clone())
+
+
+def unpack_atmo_states(state: AtmoState) -> List[AtmoState]:
+    """Inverse of :func:`pack_atmo_states`."""
+    return [get_lane_state(state, i) for i in range(state.A.shape[0])]
+
+
+def set_lane_state(packed: AtmoState, lane: int,
+                   state: AtmoState) -> AtmoState:
+    """A new lane-batched state with one lane replaced (admission: a new
+    stream takes over a free lane). ``packed`` itself is not modified."""
+    out = AtmoState(A=packed.A.clone(),
+                    last_update=packed.last_update.clone(),
+                    initialized=packed.initialized.clone())
+    out.A[lane] = state.A.to(out.A.device, out.A.dtype)
+    out.last_update[lane] = state.last_update.to(out.last_update.device,
+                                                 out.last_update.dtype)
+    out.initialized[lane] = state.initialized.to(out.initialized.device,
+                                                 out.initialized.dtype)
+    return out
+
+
+def lane_carry(state: AtmoState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lane-batched state -> the megakernel's carry rows ``(carry_f (L, 3)
+    float32, carry_i (L, 2) int32 = (last_update, initialized))``."""
+    return (state.A.to(torch.float32),
+            torch.stack([state.last_update.to(torch.int32),
+                         state.initialized.to(torch.int32)], dim=-1))
+
+
+def state_from_lane_carry(carry_f: torch.Tensor,
+                          carry_i: torch.Tensor) -> AtmoState:
+    """Inverse of :func:`lane_carry`."""
+    return AtmoState(A=carry_f, last_update=carry_i[..., 0],
+                     initialized=carry_i[..., 1] != 0)
+
+
+def ema_scan_lanes(a_cand: torch.Tensor, frame_ids: torch.Tensor,
+                   state: AtmoState, period: int, lam: float,
+                   associative: bool = True) -> Tuple[torch.Tensor, AtmoState]:
+    """Per-lane scans: (L, B, 3) candidates, (L, B) ids, lane-batched state
+    -> ((L, B, 3), lane-batched state). Padding lanes pass through."""
+    scan = ema_scan_associative if associative else ema_scan
+    outs = [scan(a_cand[i], frame_ids[i], get_lane_state(state, i), period,
+                 lam) for i in range(a_cand.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            pack_atmo_states([o[1] for o in outs]))
+
+
+__all__ = ["AtmoState", "BOOTSTRAP_ID", "init_atmo_state", "ema_scan",
+           "ema_scan_associative", "init_atmo_state_lanes",
+           "pack_atmo_states", "unpack_atmo_states", "get_lane_state",
+           "set_lane_state", "lane_carry", "state_from_lane_carry",
+           "ema_scan_lanes"]

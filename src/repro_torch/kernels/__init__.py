@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for Hopper, their plain PyTorch versions and
+the dispatch layer (PyTorch port of ``repro.kernels``).
+
+Modules:
+  ref     — plain PyTorch versions of every kernel (the port's oracles)
+  fused   — the fused dehaze megakernel (``csrc/fused_dehaze.cu``): CUDA
+            passes, plain passes, and the wrappers
+  ops     — dispatch wrappers (ref | fused)
+  _build  — nvcc build + ctypes load of ``csrc/*.cu`` at first use
+"""
+from repro_torch.kernels import fused, ops, ref  # noqa: F401

@@ -1,0 +1,487 @@
+// Fused dehaze megakernel for NVIDIA Hopper (sm_90a): the whole DCP/CAP
+// chain for L lanes x B frames, as a short sequence of passes.
+//
+// Replaces the TPU kernel src/repro/kernels/fused.py::fused_dehaze_lanes_pallas
+// (body _fused_dehaze_kernel -> _dehaze_grid_step -> _frame_tmap,
+// _guided_refine, _ema_step), and with it the function of its
+// double-buffered body _fused_dehaze_dbuf_kernel (identical results).
+//
+// Why passes, not one block per frame: the TPU kernel holds a whole frame
+// in VMEM. A 480x640 float32 plane is 1.2 MB and a Hopper block has at
+// most 227 KB of shared memory, so the chain is split into passes over all
+// L*B frames at once, with the planes between passes in device memory
+// (L2 is 50 MB and catches much of it):
+//
+//   fd_premap        upcast, pre-map (DCP min_c I/A_saved, CAP depth), luma
+//   fd_min_rows      vertical windowed min of the pre-map
+//   fd_min_cols_tmap horizontal windowed min, then t_raw
+//   fd_topk_block    per-block k smallest (t, flat index) keys
+//   fd_topk_merge    per-frame merge of the block lists -> candidate rgb
+//   fd_ema           Eq. 9 EMA, one thread per lane, B steps in order
+//   fd_box_rows4     vertical window sums of g, t_raw, g*t_raw, g*g
+//   fd_box_cols_ab   horizontal sums -> means -> guided-filter a and b
+//   fd_box_rows2     vertical window sums of a and b
+//   fd_recover       horizontal sums -> refined t; J = clip((I-A)/max(t,t0)+A)^gamma
+//
+// Only the EMA is sequential: the pre-map of every frame in a batch uses
+// the lane's batch-entry saved A, so t and the candidates of all L*B frames
+// are independent and run in parallel; the EMA is one short pass after.
+//
+// Rounding follows the plain PyTorch version (repro_torch/kernels/ref.py)
+// one operation at a time: IEEE division and expf (no fast math),
+// __fmul_rn/__fadd_rn wherever a multiply-add could be contracted, uint8
+// ingest multiplied by float32(1/255). So t_raw and the EMA's A are bit
+// identical to it and a selection cannot flip on a 1-ulp difference.
+// Window sums are direct sums over the clipped window divided by the
+// closed-form in-bounds count (not cumsum differences): the guided filter
+// divides var_g = corr_gg - mean_g^2 by var_g + eps, which amplifies
+// summation error about 1000x.
+//
+// What bounds it on the H100: device-memory bytes. At L=4, B=8, 480x640,
+// uint8 in and float32 out the function must read 29.5 MB and write
+// 118.0 MB (J) + 39.3 MB (t) = 186.8 MB, >= 56 us at 3.35 TB/s (f32 in:
+// 275 MB, >= 82 us). This simple design does nothing about that yet: every
+// intermediate plane round-trips through L2/HBM and each window pass loops
+// over 2r+1 values per output. Fusing the passes into halo tiles is later
+// work.
+//
+// Every entry point launches on the caller's stream, allocates nothing and
+// returns the cudaError_t of its launches (0 on success).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+extern "C" {
+
+// Mirrors repro_torch/kernels/fused.py::_Params (ctypes.Structure).
+struct DehazeParams {
+    int L, B, H, W;
+    int in_dtype;        // 0 float32, 1 bfloat16, 2 uint8
+    int out_dtype;       // 0 float32, 1 bfloat16
+    int algorithm;       // 0 dcp, 1 cap
+    int radius;
+    int refine;
+    int gf_radius;
+    int period;
+    int topk;
+    float omega, neg_beta, w0, w1, w2;
+    float luma0, luma1, luma2;
+    float a_floor, gf_eps, t0, gamma, lam, one_minus_lam, u8_scale;
+};
+
+}  // extern "C"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kItems = 8;                        // pixels per thread, top-k
+constexpr int kTile = kThreads * kItems;         // pixels per top-k block
+constexpr unsigned long long kNoKey = ~0ULL;
+
+__device__ __forceinline__ float load_px(const void* p, long long i, int dt,
+                                         float u8_scale) {
+    if (dt == 0) return static_cast<const float*>(p)[i];
+    if (dt == 1) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+    return __fmul_rn(static_cast<float>(static_cast<const uint8_t*>(p)[i]), u8_scale);
+}
+
+__device__ __forceinline__ void store_px(void* p, long long i, int dt, float v) {
+    if (dt == 0) static_cast<float*>(p)[i] = v;
+    else static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float clip01(float v) {
+    return fminf(fmaxf(v, 0.0f), 1.0f);
+}
+
+// Closed-form count of in-bounds window elements along one axis.
+__device__ __forceinline__ int win_count(int i, int n, int r) {
+    return min(i + r, n - 1) - max(i - r, 0) + 1;
+}
+
+// Order-preserving key: t's bits in the high word (sign handled: DCP t_raw
+// is negative where I/A > 1/omega), flat pixel index in the low word. The
+// smallest key is the smallest t, ties to the lowest index.
+__device__ __forceinline__ unsigned long long make_key(float t, unsigned idx) {
+    if (t == 0.0f) t = 0.0f;                     // -0.0 ties with +0.0
+    unsigned u = __float_as_uint(t);
+    u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+    return (static_cast<unsigned long long>(u) << 32) | idx;
+}
+
+__device__ __forceinline__ unsigned long long warp_min_u64(unsigned long long v) {
+    for (int off = 16; off > 0; off >>= 1) {
+        unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
+        v = o < v ? o : v;
+    }
+    return v;
+}
+
+// Block-wide minimum, broadcast to every thread. Needs kThreads threads.
+__device__ unsigned long long block_min_u64(unsigned long long v,
+                                            unsigned long long* red) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    v = warp_min_u64(v);
+    __syncthreads();                             // red[] free from last call
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        v = lane < kThreads / 32 ? red[lane] : kNoKey;
+        v = warp_min_u64(v);
+        if (lane == 0) red[kThreads / 32] = v;
+    }
+    __syncthreads();
+    return red[kThreads / 32];
+}
+
+__global__ void premap_kernel(const void* __restrict__ img,
+                              const float* __restrict__ carry_f,
+                              float* __restrict__ pre, float* __restrict__ g,
+                              DehazeParams p) {
+    const long long P = static_cast<long long>(p.H) * p.W;
+    const long long total = P * p.L * p.B;
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= total) return;
+    const float r = load_px(img, 3 * i, p.in_dtype, p.u8_scale);
+    const float gg = load_px(img, 3 * i + 1, p.in_dtype, p.u8_scale);
+    const float b = load_px(img, 3 * i + 2, p.in_dtype, p.u8_scale);
+    float v;
+    if (p.algorithm == 0) {
+        const int lane = static_cast<int>(i / P / p.B);
+        const float* a = carry_f + 3 * lane;
+        const float a0r = fmaxf(a[0], p.a_floor);
+        const float a0g = fmaxf(a[1], p.a_floor);
+        const float a0b = fmaxf(a[2], p.a_floor);
+        v = fminf(fminf(__fdiv_rn(r, a0r), __fdiv_rn(gg, a0g)), __fdiv_rn(b, a0b));
+    } else {
+        const float mx = fmaxf(fmaxf(r, gg), b);
+        const float mn = fminf(fminf(r, gg), b);
+        const float s = mx > 0.0f ? __fdiv_rn(__fsub_rn(mx, mn), fmaxf(mx, 1e-12f)) : 0.0f;
+        v = __fadd_rn(__fadd_rn(p.w0, __fmul_rn(p.w1, mx)), __fmul_rn(p.w2, s));
+    }
+    pre[i] = v;
+    if (g != nullptr)
+        g[i] = __fadd_rn(__fadd_rn(__fmul_rn(p.luma0, r), __fmul_rn(p.luma1, gg)),
+                         __fmul_rn(p.luma2, b));
+}
+
+__global__ void min_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
+                                DehazeParams p) {
+    const long long P = static_cast<long long>(p.H) * p.W;
+    const long long total = P * p.L * p.B;
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= total) return;
+    const int row = static_cast<int>((i % P) / p.W);
+    const long long col0 = i - static_cast<long long>(row) * p.W;   // row 0, same column
+    const int lo = max(row - p.radius, 0), hi = min(row + p.radius, p.H - 1);
+    float m = INFINITY;
+    for (int k = lo; k <= hi; ++k) m = fminf(m, x[col0 + static_cast<long long>(k) * p.W]);
+    y[i] = m;
+}
+
+__global__ void min_cols_tmap_kernel(const float* __restrict__ x, float* __restrict__ t,
+                                     DehazeParams p) {
+    const long long P = static_cast<long long>(p.H) * p.W;
+    const long long total = P * p.L * p.B;
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= total) return;
+    const int col = static_cast<int>(i % p.W);
+    const long long row0 = i - col;
+    const int lo = max(col - p.radius, 0), hi = min(col + p.radius, p.W - 1);
+    float m = INFINITY;
+    for (int k = lo; k <= hi; ++k) m = fminf(m, x[row0 + k]);
+    t[i] = p.algorithm == 0 ? __fsub_rn(1.0f, __fmul_rn(p.omega, m))
+                            : expf(__fmul_rn(p.neg_beta, m));
+}
+
+// grid (blocks_per_frame, N): block (j, n) writes the k smallest keys of
+// pixels [j*kTile, (j+1)*kTile) of frame n, ascending, kNoKey-padded.
+__global__ void topk_block_kernel(const float* __restrict__ t,
+                                  unsigned long long* __restrict__ keys,
+                                  DehazeParams p) {
+    __shared__ unsigned long long red[kThreads / 32 + 1];
+    const long long P = static_cast<long long>(p.H) * p.W;
+    const long long n = blockIdx.y;
+    const long long base = static_cast<long long>(blockIdx.x) * kTile;
+    unsigned long long mine[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+        const long long idx = base + j * kThreads + threadIdx.x;
+        mine[j] = idx < P ? make_key(t[n * P + idx], static_cast<unsigned>(idx)) : kNoKey;
+    }
+    unsigned long long* out = keys + (n * gridDim.x + blockIdx.x) * p.topk;
+    for (int s = 0; s < p.topk; ++s) {
+        unsigned long long best = kNoKey;
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) best = mine[j] < best ? mine[j] : best;
+        const unsigned long long m = block_min_u64(best, red);
+        // Keys are unique (the low word is the index): one owner retires it.
+#pragma unroll
+        for (int j = 0; j < kItems; ++j)
+            if (mine[j] == m) mine[j] = kNoKey;
+        if (threadIdx.x == 0) out[s] = m;
+    }
+}
+
+// grid (N,): merge frame n's block lists, then cand[n] = mean of I over the
+// k picks, summed in ascending (t, index) order.
+__global__ void topk_merge_kernel(const unsigned long long* __restrict__ keys,
+                                  const void* __restrict__ img,
+                                  float* __restrict__ cand, int n_lists,
+                                  DehazeParams p) {
+    __shared__ unsigned long long red[kThreads / 32 + 1];
+    const long long P = static_cast<long long>(p.H) * p.W;
+    const long long n = blockIdx.x;
+    const int m_total = n_lists * p.topk;
+    const unsigned long long* mine = keys + n * static_cast<long long>(m_total);
+    unsigned long long prev = 0;                 // real keys are > 0
+    float sr = 0.0f, sg = 0.0f, sb = 0.0f;
+    for (int s = 0; s < p.topk; ++s) {
+        unsigned long long best = kNoKey;
+        for (int j = threadIdx.x; j < m_total; j += kThreads) {
+            const unsigned long long k = mine[j];
+            if (k > prev && k < best) best = k;
+        }
+        prev = block_min_u64(best, red);
+        if (threadIdx.x == 0) {
+            const long long px = 3 * (n * P + static_cast<long long>(prev & 0xffffffffULL));
+            sr = __fadd_rn(sr, load_px(img, px, p.in_dtype, p.u8_scale));
+            sg = __fadd_rn(sg, load_px(img, px + 1, p.in_dtype, p.u8_scale));
+            sb = __fadd_rn(sb, load_px(img, px + 2, p.in_dtype, p.u8_scale));
+        }
+    }
+    if (threadIdx.x == 0) {
+        const float k = static_cast<float>(p.topk);
+        cand[3 * n] = __fdiv_rn(sr, k);
+        cand[3 * n + 1] = __fdiv_rn(sg, k);
+        cand[3 * n + 2] = __fdiv_rn(sb, k);
+    }
+}
+
+// One thread per lane: B steps of Eq. 9, exactly _ema_step's semantics.
+__global__ void ema_kernel(const float* __restrict__ cand, const int* __restrict__ ids,
+                           const float* __restrict__ carry_f, const int* __restrict__ carry_i,
+                           float* __restrict__ a_seq, float* __restrict__ carry_f_out,
+                           int* __restrict__ carry_i_out, DehazeParams p) {
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= p.L) return;
+    float A[3] = {carry_f[3 * lane], carry_f[3 * lane + 1], carry_f[3 * lane + 2]};
+    int k = carry_i[2 * lane];
+    int inited = carry_i[2 * lane + 1];
+    for (int b = 0; b < p.B; ++b) {
+        const long long n = static_cast<long long>(lane) * p.B + b;
+        const int fid = ids[n];
+        const bool valid = fid >= 0;
+        const bool bootstrap = valid && inited == 0;
+        // int32 difference wraps, as in the reference.
+        const int gap = static_cast<int>(static_cast<unsigned>(fid) - static_cast<unsigned>(k));
+        const bool upd = valid && (bootstrap || gap >= p.period);
+        for (int c = 0; c < 3; ++c) {
+            const float cv = cand[3 * n + c];
+            const float target = bootstrap ? cv
+                : __fadd_rn(__fmul_rn(p.lam, cv), __fmul_rn(p.one_minus_lam, A[c]));
+            if (upd) A[c] = target;
+            a_seq[3 * n + c] = A[c];
+        }
+        if (upd) k = fid;
+        inited = max(inited, valid ? 1 : 0);
+    }
+    for (int c = 0; c < 3; ++c) carry_f_out[3 * lane + c] = A[c];
+    carry_i_out[2 * lane] = k;
+    carry_i_out[2 * lane + 1] = inited;
+}
+
+// Vertical window sums of g, p, g*p, g*g into four planes.
+__global__ void box_rows4_kernel(const float* __restrict__ g, const float* __restrict__ t,
+                                 float* __restrict__ out, DehazeParams p) {
+    const long long P = static_cast<long long>(p.H) * p.W;
+    const long long total = P * p.L * p.B;
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= total) return;
+    const int row = static_cast<int>((i % P) / p.W);
+    const long long col0 = i - static_cast<long long>(row) * p.W;
+    const int lo = max(row - p.gf_radius, 0), hi = min(row + p.gf_radius, p.H - 1);
+    float s_g = 0.0f, s_p = 0.0f, s_gp = 0.0f, s_gg = 0.0f;
+    for (int k = lo; k <= hi; ++k) {
+        const long long j = col0 + static_cast<long long>(k) * p.W;
+        const float gv = g[j], pv = t[j];
+        s_g = __fadd_rn(s_g, gv);
+        s_p = __fadd_rn(s_p, pv);
+        s_gp = __fadd_rn(s_gp, __fmul_rn(gv, pv));
+        s_gg = __fadd_rn(s_gg, __fmul_rn(gv, gv));
+    }
+    out[i] = s_g;
+    out[total + i] = s_p;
+    out[2 * total + i] = s_gp;
+    out[3 * total + i] = s_gg;
+}
+
+// Horizontal window sums of the four row-sum planes -> means -> a, b.
+__global__ void box_cols_ab_kernel(const float* __restrict__ rows, float* __restrict__ ab,
+                                   DehazeParams p) {
+    const long long P = static_cast<long long>(p.H) * p.W;
+    const long long total = P * p.L * p.B;
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= total) return;
+    const int col = static_cast<int>(i % p.W);
+    const int row = static_cast<int>((i % P) / p.W);
+    const long long row0 = i - col;
+    const int lo = max(col - p.gf_radius, 0), hi = min(col + p.gf_radius, p.W - 1);
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k = lo; k <= hi; ++k)
+        for (int q = 0; q < 4; ++q) s[q] = __fadd_rn(s[q], rows[q * total + row0 + k]);
+    const float cnt = __fmul_rn(static_cast<float>(win_count(row, p.H, p.gf_radius)),
+                                static_cast<float>(win_count(col, p.W, p.gf_radius)));
+    const float mean_g = __fdiv_rn(s[0], cnt), mean_p = __fdiv_rn(s[1], cnt);
+    const float corr_gp = __fdiv_rn(s[2], cnt), corr_gg = __fdiv_rn(s[3], cnt);
+    const float var_g = __fsub_rn(corr_gg, __fmul_rn(mean_g, mean_g));
+    const float cov_gp = __fsub_rn(corr_gp, __fmul_rn(mean_g, mean_p));
+    const float a = __fdiv_rn(cov_gp, __fadd_rn(var_g, p.gf_eps));
+    ab[i] = a;
+    ab[total + i] = __fsub_rn(mean_p, __fmul_rn(a, mean_g));
+}
+
+// Vertical window sums of a and b into two planes.
+__global__ void box_rows2_kernel(const float* __restrict__ ab, float* __restrict__ out,
+                                 DehazeParams p) {
+    const long long P = static_cast<long long>(p.H) * p.W;
+    const long long total = P * p.L * p.B;
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= total) return;
+    const int row = static_cast<int>((i % P) / p.W);
+    const long long col0 = i - static_cast<long long>(row) * p.W;
+    const int lo = max(row - p.gf_radius, 0), hi = min(row + p.gf_radius, p.H - 1);
+    float sa = 0.0f, sb = 0.0f;
+    for (int k = lo; k <= hi; ++k) {
+        const long long j = col0 + static_cast<long long>(k) * p.W;
+        sa = __fadd_rn(sa, ab[j]);
+        sb = __fadd_rn(sb, ab[total + j]);
+    }
+    out[i] = sa;
+    out[total + i] = sb;
+}
+
+// Refined t (horizontal sums of the a/b row sums; or t_raw without
+// refine), then Eq. 8 recovery with the frame's EMA output and gamma.
+__global__ void recover_kernel(const void* __restrict__ img, const float* __restrict__ t_raw,
+                               const float* __restrict__ g, const float* __restrict__ ab_rows,
+                               const float* __restrict__ a_seq, void* __restrict__ J,
+                               void* __restrict__ t_out, DehazeParams p) {
+    const long long P = static_cast<long long>(p.H) * p.W;
+    const long long total = P * p.L * p.B;
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= total) return;
+    float t;
+    if (p.refine) {
+        const int col = static_cast<int>(i % p.W);
+        const int row = static_cast<int>((i % P) / p.W);
+        const long long row0 = i - col;
+        const int lo = max(col - p.gf_radius, 0), hi = min(col + p.gf_radius, p.W - 1);
+        float sa = 0.0f, sb = 0.0f;
+        for (int k = lo; k <= hi; ++k) {
+            sa = __fadd_rn(sa, ab_rows[row0 + k]);
+            sb = __fadd_rn(sb, ab_rows[total + row0 + k]);
+        }
+        const float cnt = __fmul_rn(static_cast<float>(win_count(row, p.H, p.gf_radius)),
+                                    static_cast<float>(win_count(col, p.W, p.gf_radius)));
+        const float mean_a = __fdiv_rn(sa, cnt), mean_b = __fdiv_rn(sb, cnt);
+        t = clip01(__fadd_rn(__fmul_rn(mean_a, g[i]), mean_b));
+    } else {
+        t = t_raw[i];
+    }
+    const float tt = fmaxf(t, p.t0);
+    const float* A = a_seq + 3 * (i / P);
+    for (int c = 0; c < 3; ++c) {
+        const float x = load_px(img, 3 * i + c, p.in_dtype, p.u8_scale);
+        float v = clip01(__fadd_rn(__fdiv_rn(__fsub_rn(x, A[c]), tt), A[c]));
+        if (p.gamma != 1.0f) v = powf(v, p.gamma);
+        store_px(J, 3 * i + c, p.out_dtype, v);
+    }
+    store_px(t_out, i, p.out_dtype, t);
+}
+
+inline dim3 pixel_grid(const DehazeParams& p) {
+    const long long total = static_cast<long long>(p.H) * p.W * p.L * p.B;
+    return dim3(static_cast<unsigned>((total + kThreads - 1) / kThreads));
+}
+
+}  // namespace
+
+extern "C" {
+
+int fd_tile_pixels() { return kTile; }
+
+int fd_premap(const void* img, const float* carry_f, float* pre, float* g,
+              const DehazeParams* p, void* stream) {
+    premap_kernel<<<pixel_grid(*p), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        img, carry_f, pre, g, *p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int fd_min_rows(const float* x, float* y, const DehazeParams* p, void* stream) {
+    min_rows_kernel<<<pixel_grid(*p), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, y, *p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int fd_min_cols_tmap(const float* x, float* t, const DehazeParams* p, void* stream) {
+    min_cols_tmap_kernel<<<pixel_grid(*p), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, t, *p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int fd_topk_block(const float* t, unsigned long long* keys, const DehazeParams* p,
+                  void* stream) {
+    const long long P = static_cast<long long>(p->H) * p->W;
+    const dim3 grid(static_cast<unsigned>((P + kTile - 1) / kTile),
+                    static_cast<unsigned>(p->L * p->B));
+    topk_block_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(t, keys, *p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int fd_topk_merge(const unsigned long long* keys, const void* img, float* cand,
+                  const DehazeParams* p, void* stream) {
+    const long long P = static_cast<long long>(p->H) * p->W;
+    const int n_lists = static_cast<int>((P + kTile - 1) / kTile);
+    topk_merge_kernel<<<p->L * p->B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        keys, img, cand, n_lists, *p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int fd_ema(const float* cand, const int* ids, const float* carry_f, const int* carry_i,
+           float* a_seq, float* carry_f_out, int* carry_i_out, const DehazeParams* p,
+           void* stream) {
+    ema_kernel<<<(p->L + 31) / 32, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        cand, ids, carry_f, carry_i, a_seq, carry_f_out, carry_i_out, *p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int fd_box_rows4(const float* g, const float* t, float* out, const DehazeParams* p,
+                 void* stream) {
+    box_rows4_kernel<<<pixel_grid(*p), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        g, t, out, *p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int fd_box_cols_ab(const float* rows, float* ab, const DehazeParams* p, void* stream) {
+    box_cols_ab_kernel<<<pixel_grid(*p), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        rows, ab, *p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int fd_box_rows2(const float* ab, float* out, const DehazeParams* p, void* stream) {
+    box_rows2_kernel<<<pixel_grid(*p), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        ab, out, *p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int fd_recover(const void* img, const float* t_raw, const float* g, const float* ab_rows,
+               const float* a_seq, void* J, void* t_out, const DehazeParams* p,
+               void* stream) {
+    recover_kernel<<<pixel_grid(*p), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        img, t_raw, g, ab_rows, a_seq, J, t_out, *p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,180 @@
+"""The serving front door: ``ElasticServer.serve`` and ``serve_many``.
+
+``serve`` runs one stream through the dispatcher; ``serve_many`` runs N
+streams through the lane scheduler, whose step on a fused config is the
+lane-native megakernel (one call for all L lanes a tick). Steps come from
+a bounded LRU cache keyed by everything that shapes them. The server runs
+on CUDA unless it is built with ``device="cpu"``; without a card a CUDA
+server raises when it is built.
+
+Not ported yet (ROADMAP.md queue A): ``autoscale=True`` and eviction
+policies, ``n_hosts > 1`` (the fleet tier) and ``tick_overlap=True`` (the
+zero-copy tick path) raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Callable, Iterable, Optional, Sequence
+
+import torch
+
+from repro_torch.core import env as _env
+from repro_torch.core.config import DehazeConfig
+from repro_torch.core.pipeline import (DeviceLike, make_step, resolve_device,
+                                       resolve_lane_native)
+from repro_torch.core.placement import PlacementSpec
+from repro_torch.stream.dispatcher import StreamDispatcher
+from repro_torch.stream.monitor import DEADLINE_CLOCK, Monitor
+from repro_torch.stream.scheduler import (MultiStreamScheduler, ServeReport,
+                                          StreamReport, StreamRequest)
+from repro_torch.stream.spout import Spout
+from repro_torch.stream.state import StreamStateStore
+
+
+class _LRUStepCache:
+    """Bounded step cache: the ``maxsize`` most recently used steps."""
+
+    def __init__(self, maxsize: int):
+        self.maxsize = maxsize
+        self._d: "collections.OrderedDict" = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key, build: Callable):
+        with self._lock:
+            if key in self._d:
+                self._d.move_to_end(key)
+                return self._d[key]
+        step = build()                       # build outside the lock
+        with self._lock:
+            self._d[key] = step
+            self._d.move_to_end(key)
+            while len(self._d) > self.maxsize:
+                self._d.popitem(last=False)
+        return step
+
+
+_STEP_CACHE = _LRUStepCache(maxsize=_env.step_cache_size())
+
+
+def _cached_step(cfg: DehazeConfig, device: torch.device):
+    return _STEP_CACHE.get(
+        ("single", cfg, str(device)),
+        lambda: make_step(cfg, PlacementSpec.single(), device=device))
+
+
+def _cached_multi_step(cfg: DehazeConfig, n_lanes: int, lane_native: bool,
+                       device: torch.device):
+    """Keyed by lane count and path too: a resize or a
+    ``REPRO_LANE_NATIVE`` toggle never reuses a stale step."""
+    return _STEP_CACHE.get(
+        ("multi", cfg, n_lanes, lane_native, str(device)),
+        lambda: make_step(cfg, PlacementSpec.lane_batched(), device=device,
+                          lane_native=lane_native))
+
+
+def _no_overlap(tick_overlap: Optional[bool]) -> None:
+    if tick_overlap:
+        raise NotImplementedError(
+            "the zero-copy overlapped tick path is not ported yet "
+            "(ROADMAP.md queue A, overlap/iobuf)")
+
+
+class ElasticServer:
+    """Serves dehazing streams on one device."""
+
+    def __init__(self, cfg: DehazeConfig, n_workers: int = 1,
+                 batch: int = 8, timeout_s: float = 0.020,
+                 max_in_flight: int = 4,
+                 worker_delay_s: Optional[Callable[[int], float]] = None,
+                 device: DeviceLike = None):
+        self.cfg = cfg.validate()
+        self.device = resolve_device(device)
+        self.batch = batch
+        self.timeout_s = timeout_s
+        self.max_in_flight = max_in_flight
+        self.store = StreamStateStore()
+        self._worker_delay = worker_delay_s
+        self.n_workers = n_workers
+
+    def serve(self, frames: Iterable, stream_id: str = "default",
+              sink: Optional[Callable[[int, torch.Tensor], None]] = None,
+              tick_overlap: Optional[bool] = None) -> ServeReport:
+        """Serve one stream; ``sink(frame_id, frame)`` sees its frames in
+        order, each a CPU tensor."""
+        _no_overlap(tick_overlap)
+
+        def write(fid: int, payload: torch.Tensor) -> None:
+            if sink is not None:
+                sink(fid, payload)
+
+        step = _cached_step(self.cfg, self.device)
+        start = self.store.cursor(stream_id)
+        monitor = Monitor(write, timeout_s=self.timeout_s, start_frame=start)
+        spout = Spout(frames, batch=self.batch, start_frame=start,
+                      stream_id=stream_id)
+        dispatcher = StreamDispatcher(
+            step, monitor, max_in_flight=self.max_in_flight,
+            n_workers=self.n_workers, worker_delay_s=self._worker_delay)
+        mon_thread = threading.Thread(target=monitor.run, daemon=True)
+        mon_thread.start()
+        t0 = time.perf_counter()
+        state = dispatcher.run(iter(spout), self.store.get(stream_id))
+        monitor.close()
+        mon_thread.join(timeout=5.0)
+        monitor.drain()
+        wall = time.perf_counter() - t0
+
+        self.store.update(stream_id, state, start + dispatcher.stats.frames)
+        rep = StreamReport(stream_id=stream_id,
+                           frames=dispatcher.stats.frames,
+                           skipped=monitor.stats.skipped, wall_s=wall)
+        return ServeReport(
+            per_stream={stream_id: rep}, frames=rep.frames,
+            skipped=rep.skipped, wall_s=wall, n_lanes=self.n_workers,
+            ticks=dispatcher.stats.batches,
+            d2h_bytes=dispatcher.stats.d2h_bytes,
+            phases=dict(dispatcher.stats.phases))
+
+    def serve_many(self, streams: Sequence[StreamRequest],
+                   n_lanes: Optional[int] = None,
+                   sink: Optional[Callable[[str, int, torch.Tensor], None]]
+                   = None, autoscale: bool = False, policy=None,
+                   clock: Callable[[], float] = DEADLINE_CLOCK,
+                   n_hosts: int = 1,
+                   placement: Optional[PlacementSpec] = None,
+                   tick_overlap: Optional[bool] = None) -> ServeReport:
+        """Serve N videos concurrently via lane-batched continuous batching.
+
+        ``streams`` are :class:`StreamRequest` s sharing one (H, W) and wire
+        dtype; ``n_lanes`` defaults to one lane per stream, and with fewer
+        lanes the surplus queues in ``(priority, deadline, arrival)`` order
+        and takes lanes as they free up. Per stream the outputs, EMA
+        trajectories and cursors match sequential :meth:`serve` calls."""
+        if autoscale or policy is not None:
+            raise NotImplementedError(
+                "lane autoscaling and eviction policies are not ported yet "
+                "(ROADMAP.md queue A, autoscale/eviction)")
+        _no_overlap(tick_overlap)
+        if placement is None:
+            placement = PlacementSpec(lanes=True, n_hosts=n_hosts)
+        placement.validate()                 # mesh axes / n_hosts > 1 raise
+        if not placement.lanes:
+            raise ValueError("serve_many needs a lane placement; use "
+                             "PlacementSpec.lane_batched()")
+        streams = list(streams)
+        if not streams:
+            return ServeReport(per_stream={}, frames=0, skipped=0,
+                               wall_s=0.0, n_lanes=0, ticks=0)
+        lanes = n_lanes if n_lanes is not None else len(streams)
+        step = _cached_multi_step(self.cfg, lanes,
+                                  resolve_lane_native(self.cfg), self.device)
+        scheduler = MultiStreamScheduler(
+            step, self.store, n_lanes=lanes, batch=self.batch,
+            timeout_s=self.timeout_s, max_in_flight=self.max_in_flight,
+            clock=clock)
+        return scheduler.run(streams, sink=sink)
+
+
+__all__ = ["ElasticServer"]
