@@ -16,16 +16,21 @@ any error:
    cell has an all-padding lane and chains a warm second batch on the
    first batch's carries;
 3. serve 4 streams x 48 uint8 frames at 480x640 on 4 lanes through
-   ``ElasticServer.serve_many`` and one stream through ``serve`` with the
-   launch counters zeroed just before and read just after;
-4. time every pass and the whole with CUDA events at the serving shape,
+   ``ElasticServer.serve_many``, then one stream through ``serve``, with
+   the launch counters zeroed just before each path and read just after
+   it; every pass must have launched once per tick on each path;
+4. aggregate fps of ``serve_many`` over a longer window (4 streams x 192
+   frames) whose sink only records the order, so phase 3's per-frame
+   checks stay out of its wall;
+5. time every pass and the whole with CUDA events at the serving shape,
    beside its bound, its plain version and the matching PyTorch call;
-5. print ``{"kernels": [...]}``, the card line, and last
+6. print ``{"kernels": [...]}``, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import itertools
 import json
 import subprocess
 import sys
@@ -217,16 +222,29 @@ def phase_parity():
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def phase_serve():
-    from repro_torch.core import DehazeConfig, init_atmo_state
+def path_launches(path: str, ticks: int) -> dict:
+    """The launch counts since the last reset, read just after ``path``
+    ran ``ticks`` steps; the whole megakernel's runs are its first pass's
+    launches (``premap`` launches once per run). Every pass must have
+    launched exactly once per step."""
+    from repro_torch.kernels import fused as fk
+    counts = dict(fk.launches)
+    counts["fused_dehaze_lanes"] = counts["premap"]
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} never launched on the {path} path")
+        check(n == ticks, f"kernel {name}: {n} launches on the {path} path "
+              f"of {ticks} steps")
+    print(f"launches on {path} ({ticks} steps): " + json.dumps(counts),
+          flush=True)
+    return counts
+
+
+def phase_serve(cfg, vids):
+    from repro_torch.core import init_atmo_state
     from repro_torch.kernels import fused as fk
     from repro_torch.kernels import ref
     from repro_torch.stream import ElasticServer, StreamRequest
-    cfg = DehazeConfig(kernel_mode="fused", io_dtype="uint8")
-    n_frames = 48
-    rng = np.random.default_rng(1)
-    vids = [rng.integers(0, 256, (n_frames, H, W, 3), dtype=np.uint8)
-            for _ in range(4)]
+    n_frames = len(vids[0])
     lane0, order, bad = {}, {}, []
 
     def sink(sid, fid, frame):
@@ -244,7 +262,7 @@ def phase_serve():
     fk.reset_launches()
     rep = srv.serve_many([StreamRequest(f"cam{i}", iter(v))
                           for i, v in enumerate(vids)], n_lanes=4, sink=sink)
-    many_launches = dict(fk.launches)
+    many = path_launches("serve_many", rep.ticks)
     check(not bad, "; ".join(bad[:5]))
     check(rep.skipped == 0, f"serve_many skipped {rep.skipped} frames")
     check(rep.frames == 4 * n_frames, f"serve_many served {rep.frames}")
@@ -254,15 +272,14 @@ def phase_serve():
 
     single = {}
     solo = ElasticServer(cfg, batch=8, timeout_s=2.0)
+    fk.reset_launches()
     rep1 = solo.serve(iter(vids[0]), stream_id="cam0",
                       sink=lambda fid, f: single.setdefault(fid, f))
-    launches = dict(fk.launches)
+    one = path_launches("serve", rep1.ticks)
     check(rep1.skipped == 0 and sorted(single) == list(range(n_frames)),
           "serve: frames missing or skipped")
     e_single = max(max_err(single[f], lane0[f]) for f in range(n_frames))
     check(e_single <= 1e-5, f"serve vs serve_many lane: {e_single} > 1e-5")
-    for name in fk.PASSES + ("fused_dehaze_lanes",):
-        check(launches[name] > 0, f"kernel {name} never launched on the path")
 
     # The first batch of cam0 against the plain version from a fresh state.
     st = init_atmo_state("cuda")
@@ -277,18 +294,49 @@ def phase_serve():
         topk=cfg.topk)[0].cpu()
     e_ref = max(max_err(lane0[f], want[f]) for f in range(8))
     check(e_ref <= 1e-3, f"served frames vs plain version: {e_ref} > 1e-3")
-    print(f"serve_many: {rep.frames} frames, {rep.ticks} ticks, "
-          f"{rep.skipped} skipped, {rep.wall_s:.3f} s, "
-          f"aggregate {rep.fps:.1f} fps; serve: {rep1.frames} frames "
-          f"{rep1.fps:.1f} fps; serve == lane within {e_single:.2e}; "
-          f"vs plain {e_ref:.2e}", flush=True)
-    print("launches (serve_many + serve): " + json.dumps(launches), flush=True)
-    per_tick = {k: many_launches[k] / rep.ticks for k in many_launches}
-    return launches, per_tick, rep
+    print(f"serve_many (frames checked in the sink): {rep.frames} frames, "
+          f"{rep.ticks} ticks, {rep.skipped} skipped, {rep.wall_s} s; "
+          f"serve: {rep1.frames} frames, {rep1.wall_s} s; serve == lane "
+          f"within {e_single}; vs plain {e_ref}", flush=True)
+    return many, one, rep.ticks
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: times, bounds and yardsticks at the serving shape
+# Phase 4: aggregate fps of the main path
+# ---------------------------------------------------------------------------
+
+def phase_throughput(cfg, vids, repeats: int = 4):
+    """``serve_many`` of 4 fresh streams, each its video ``repeats`` times
+    over, with a sink that only records the order. The step is the one
+    phase 3 built and ran (the step cache is shared)."""
+    from repro_torch.kernels import fused as fk
+    from repro_torch.stream import ElasticServer, StreamRequest
+    order = {}
+
+    def sink(sid, fid, frame):
+        order.setdefault(sid, []).append(fid)
+
+    srv = ElasticServer(cfg, batch=8, timeout_s=2.0)
+    n = repeats * len(vids[0])
+    fk.reset_launches()
+    rep = srv.serve_many(
+        [StreamRequest(f"tput{i}", itertools.chain.from_iterable([v] * repeats))
+         for i, v in enumerate(vids)], n_lanes=4, sink=sink)
+    path_launches("serve_many (throughput)", rep.ticks)
+    check(rep.skipped == 0 and rep.frames == 4 * n,
+          f"throughput serve: {rep.frames} frames, {rep.skipped} skipped")
+    for i in range(4):
+        check(order[f"tput{i}"] == list(range(n)),
+              f"tput{i}: frames not exactly once in order")
+    print(f"serve_many throughput: {rep.frames} frames, {rep.ticks} ticks, "
+          f"{rep.wall_s} s, {rep.wall_s / rep.ticks * 1e3} ms per tick, "
+          f"aggregate {rep.fps} fps, d2h {rep.d2h_bytes} bytes, "
+          f"loop phases (s) " + json.dumps(rep.phases), flush=True)
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: times, bounds and yardsticks at the serving shape
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -398,6 +446,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 1
+    from repro_torch.core import DehazeConfig
     from repro_torch.kernels import _build, fused as fk
     t_start = time.perf_counter()
     card = card_line()
@@ -416,7 +465,12 @@ def main() -> int:
     check(fk.TILE_PIXELS == fk._lib().fd_tile_pixels(), "tile size mismatch")
 
     pass_errs, whole_errs = phase_parity()
-    launches, per_tick, rep = phase_serve()
+    cfg = DehazeConfig(kernel_mode="fused", io_dtype="uint8")
+    rng = np.random.default_rng(1)
+    vids = [rng.integers(0, 256, (48, H, W, 3), dtype=np.uint8)
+            for _ in range(4)]
+    launches, launches_serve, ticks = phase_serve(cfg, vids)
+    rep = phase_throughput(cfg, vids)
     times = phase_times()
 
     kernels = []
@@ -429,7 +483,8 @@ def main() -> int:
             else f"fused_dehaze_lanes.{name}",
             "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
             "launches": launches[name],
-            "launches_per_tick": per_tick[name],
+            "launches_serve": launches_serve[name],
+            "launches_per_tick": launches[name] / ticks,
             "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
@@ -437,10 +492,12 @@ def main() -> int:
               f"{r['bound_ms']:8.4f} ms ({r['bound_by']})  plain "
               f"{r['plain_ms']:9.3f} ms  library "
               f"{'-' if r['library_ms'] is None else '%.4f ms' % r['library_ms']}"
-              f"  launches {launches[name]} ({per_tick[name]:g}/tick)",
+              f"  launches {launches[name]} on serve_many "
+              f"({launches[name] / ticks:g}/tick), {launches_serve[name]} "
+              f"on serve",
               flush=True)
-    print(f"serve_many aggregate fps {rep.fps:.2f} "
-          f"({rep.frames} frames, {rep.wall_s:.3f} s); "
+    print(f"serve_many aggregate fps {rep.fps} "
+          f"({rep.frames} frames, {rep.wall_s} s); "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

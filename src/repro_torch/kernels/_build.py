@@ -3,8 +3,10 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``: no PyTorch headers, so a build takes
 seconds. Libraries go to ``build/repro_torch_kernels/`` at the root of the
-checkout, named by a hash of the source and the flags, so an edited
-``.cu`` rebuilds and an unchanged one loads the library already there.
+checkout (an installed copy, which has no checkout around it, uses
+``$XDG_CACHE_HOME/repro_torch_kernels``, by default under ``~/.cache``),
+named by a hash of the source and the flags, so an edited ``.cu`` rebuilds
+and an unchanged one loads the library already there.
 A missing ``nvcc`` or a failed build raises; nothing falls back.
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -18,10 +20,20 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+
+def _build_dir() -> Path:
+    root = Path(__file__).resolve().parents[3]       # <checkout>/src/repro_torch/kernels
+    if (root / "pyproject.toml").is_file() and (root / "src").is_dir():
+        return root / "build" / "repro_torch_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or str(Path.home() / ".cache")
+    return Path(cache) / "repro_torch_kernels"
+
+
+BUILD_DIR = _build_dir()
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
@@ -50,42 +62,37 @@ def find_nvcc() -> str:
         "kernels of repro_torch cannot be built")
 
 
-def build(source: str, extra_flags: Sequence[str] = (),
-          verbose: bool = False) -> Path:
+def build(source: str) -> Path:
     """Compile ``csrc/<source>`` unless its library exists; return its path.
 
     The library is written under a temporary name and renamed into place,
     so a concurrent build never loads a half-written file. A failed build
     raises ``RuntimeError`` carrying nvcc's output. The library's name
-    carries a hash of the source text and the flags."""
+    carries a hash of the source text and :data:`NVCC_FLAGS`."""
     text = (CSRC / source).read_bytes()
-    key = hashlib.sha256(text + repr((NVCC_FLAGS, tuple(extra_flags)))
-                         .encode()).hexdigest()[:16]
+    key = hashlib.sha256(text + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{Path(source).stem}-{key}.so"
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-           str(CSRC / source)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
                            f"{source}:\n{proc.stderr}{proc.stdout}")
-    if verbose:
-        print(proc.stderr + proc.stdout, end="", flush=True)
     os.replace(tmp, out)
     return out
 
 
-def load(source: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
+def load(source: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<source>``, once per process."""
     with _lock:
         lib: Optional[ctypes.CDLL] = _loaded.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source, extra_flags)))
+            lib = ctypes.CDLL(str(build(source)))
             _loaded[source] = lib
         return lib
 

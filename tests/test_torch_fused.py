@@ -199,6 +199,26 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         fused._lib()
 
 
+def test_kernel_build_dir_in_checkout_and_installed(monkeypatch, tmp_path):
+    root = _build.Path(_build.__file__).resolve().parents[3]
+    assert _build.BUILD_DIR == root / "build" / "repro_torch_kernels"
+    # An installed copy has no checkout around it: the user's cache.
+    fake = tmp_path / "lib" / "site-packages" / "repro_torch" / "kernels" / "_build.py"
+    monkeypatch.setattr(_build, "__file__", str(fake))
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert _build._build_dir() == tmp_path / "cache" / "repro_torch_kernels"
+
+
+def test_cpu_wrapper_launches_no_kernel():
+    x = torch.from_numpy(ramp_frames(18, L, B, h=H, w=W))
+    cf, ci = (torch.from_numpy(a) for a in _carry())
+    fused.reset_launches()
+    fused.fused_dehaze_lanes(x, torch.from_numpy(_ids(0)), cf, ci,
+                             refine=True, **KW)
+    assert set(fused.launches) == set(fused.PASSES)
+    assert not any(fused.launches.values())
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
