@@ -16,15 +16,29 @@ any error:
    cell has an all-padding lane and chains a warm second batch on the
    first batch's carries;
 3. serve 4 streams x 48 uint8 frames at 480x640 on 4 lanes through
-   ``ElasticServer.serve_many``, then one stream through ``serve``, with
-   the launch counters zeroed just before each path and read just after
-   it; every pass must have launched once per tick on each path;
-4. aggregate fps of ``serve_many`` over a longer window (4 streams x 192
-   frames) whose sink only records the order, so phase 3's per-frame
+   ``ElasticServer.serve_many`` with the fused config, then one stream
+   through ``serve``, with the launch counters zeroed just before each path
+   and read just after it; every pass must have launched once per tick on
+   each path, and no staged kernel;
+4. aggregate fps of that ``serve_many`` over a longer window (4 streams x
+   192 frames) whose sink only records the order, so phase 3's per-frame
    checks stay out of its wall;
 5. time every pass and the whole with CUDA events at the serving shape,
    beside its bound, its plain version and the matching PyTorch call;
-6. print ``{"kernels": [...]}``, the card line, and last
+6. the staged chain (the default ``kernel_mode="auto"``) at the serving
+   shape, DCP, top-1, refine, over uint8, float32 and bfloat16 ingest and
+   one uint8 cell with gamma != 1, each with an all-padding lane and two
+   chained batches: every staged kernel call of the lane step held against
+   its plain version on the same inputs; the whole step against the staged
+   plain chain on the card; and, at float32 output, against the fused step
+   (B1) on the same frames; neither step may make a synchronising CUDA
+   call;
+7. phases 3 and 4 again with the default config (staged): per tick one
+   dark channel, six box filters, one atmospheric light and one recover,
+   and no megakernel pass; the aggregate fps over 4 streams x 192 frames;
+8. time the four staged kernels as phase 5 does, and the whole staged and
+   fused lane steps back to back;
+9. print ``{"kernels": [...]}``, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -50,6 +64,19 @@ L, B, H, W = 4, 8, 480, 640
 SOURCE = "src/repro_torch/kernels/csrc/fused_dehaze.cu"
 CFG_KW = dict(radius=7, omega=0.95, beta=1.0, gf_radius=20, gf_eps=1e-3,
               t0=0.1, gamma=1.0, period=8, lam=0.05)
+
+STAGED_SOURCE = "src/repro_torch/kernels/csrc/staged.cu"
+
+# The TPU kernel each staged kernel replaces (file:line), and its launches
+# per tick of the staged lane step.
+STAGED_REPLACES = {
+    "dark_channel": "src/repro/kernels/dark_channel.py:45",
+    "box_filter": "src/repro/kernels/boxfilter.py:133",
+    "atmolight": "src/repro/kernels/atmolight.py:92",
+    "recover": "src/repro/kernels/recover.py:32",
+}
+STAGED_PER_TICK = {"dark_channel": 1, "box_filter": 6, "atmolight": 1,
+                   "recover": 1}
 
 # The part of the TPU kernel each pass replaces (file:line).
 REPLACES = {
@@ -222,26 +249,37 @@ def phase_parity():
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def path_launches(path: str, ticks: int) -> dict:
+def reset_launches() -> None:
+    from repro_torch.kernels import fused as fk, staged as sk
+    fk.reset_launches()
+    sk.reset_launches()
+
+
+def path_launches(path: str, ticks: int, staged: bool = False) -> dict:
     """The launch counts since the last reset, read just after ``path``
-    ran ``ticks`` steps; the whole megakernel's runs are its first pass's
-    launches (``premap`` launches once per run). Every pass must have
-    launched exactly once per step."""
-    from repro_torch.kernels import fused as fk
+    ran ``ticks`` steps. The fused path launches every megakernel pass
+    once a step (the whole megakernel's runs are its first pass's,
+    ``premap``) and no staged kernel; the staged path the staged kernels
+    :data:`STAGED_PER_TICK` times a step and no megakernel pass."""
+    from repro_torch.kernels import fused as fk, staged as sk
     counts = dict(fk.launches)
     counts["fused_dehaze_lanes"] = counts["premap"]
+    want = {name: 0 if staged else ticks for name in counts}
+    for name, n in sk.launches.items():
+        counts[f"staged.{name}"] = n
+        want[f"staged.{name}"] = STAGED_PER_TICK[name] * ticks if staged else 0
     for name, n in counts.items():
-        check(n > 0, f"kernel {name} never launched on the {path} path")
-        check(n == ticks, f"kernel {name}: {n} launches on the {path} path "
-              f"of {ticks} steps")
+        check(want[name] == 0 or n > 0,
+              f"kernel {name} never launched on the {path} path")
+        check(n == want[name], f"kernel {name}: {n} launches on the {path} "
+              f"path of {ticks} steps, expected {want[name]}")
     print(f"launches on {path} ({ticks} steps): " + json.dumps(counts),
           flush=True)
     return counts
 
 
-def phase_serve(cfg, vids):
+def phase_serve(cfg, vids, staged: bool = False):
     from repro_torch.core import init_atmo_state
-    from repro_torch.kernels import fused as fk
     from repro_torch.kernels import ref
     from repro_torch.stream import ElasticServer, StreamRequest
     n_frames = len(vids[0])
@@ -258,11 +296,12 @@ def phase_serve(cfg, vids):
         if sid == "cam0":
             lane0[fid] = frame
 
+    label = "staged " if staged else ""
     srv = ElasticServer(cfg, batch=8, timeout_s=2.0)
-    fk.reset_launches()
+    reset_launches()
     rep = srv.serve_many([StreamRequest(f"cam{i}", iter(v))
                           for i, v in enumerate(vids)], n_lanes=4, sink=sink)
-    many = path_launches("serve_many", rep.ticks)
+    many = path_launches(label + "serve_many", rep.ticks, staged)
     check(not bad, "; ".join(bad[:5]))
     check(rep.skipped == 0, f"serve_many skipped {rep.skipped} frames")
     check(rep.frames == 4 * n_frames, f"serve_many served {rep.frames}")
@@ -272,10 +311,10 @@ def phase_serve(cfg, vids):
 
     single = {}
     solo = ElasticServer(cfg, batch=8, timeout_s=2.0)
-    fk.reset_launches()
+    reset_launches()
     rep1 = solo.serve(iter(vids[0]), stream_id="cam0",
                       sink=lambda fid, f: single.setdefault(fid, f))
-    one = path_launches("serve", rep1.ticks)
+    one = path_launches(label + "serve", rep1.ticks, staged)
     check(rep1.skipped == 0 and sorted(single) == list(range(n_frames)),
           "serve: frames missing or skipped")
     e_single = max(max_err(single[f], lane0[f]) for f in range(n_frames))
@@ -294,7 +333,7 @@ def phase_serve(cfg, vids):
         topk=cfg.topk)[0].cpu()
     e_ref = max(max_err(lane0[f], want[f]) for f in range(8))
     check(e_ref <= 1e-3, f"served frames vs plain version: {e_ref} > 1e-3")
-    print(f"serve_many (frames checked in the sink): {rep.frames} frames, "
+    print(f"{label}serve_many (frames checked in the sink): {rep.frames} frames, "
           f"{rep.ticks} ticks, {rep.skipped} skipped, {rep.wall_s} s; "
           f"serve: {rep1.frames} frames, {rep1.wall_s} s; serve == lane "
           f"within {e_single}; vs plain {e_ref}", flush=True)
@@ -305,11 +344,10 @@ def phase_serve(cfg, vids):
 # Phase 4: aggregate fps of the main path
 # ---------------------------------------------------------------------------
 
-def phase_throughput(cfg, vids, repeats: int = 4):
+def phase_throughput(cfg, vids, repeats: int = 4, staged: bool = False):
     """``serve_many`` of 4 fresh streams, each its video ``repeats`` times
     over, with a sink that only records the order. The step is the one
-    phase 3 built and ran (the step cache is shared)."""
-    from repro_torch.kernels import fused as fk
+    phase 3 (or 7) built and ran (the step cache is shared)."""
     from repro_torch.stream import ElasticServer, StreamRequest
     order = {}
 
@@ -318,17 +356,18 @@ def phase_throughput(cfg, vids, repeats: int = 4):
 
     srv = ElasticServer(cfg, batch=8, timeout_s=2.0)
     n = repeats * len(vids[0])
-    fk.reset_launches()
+    label = "staged " if staged else ""
+    reset_launches()
     rep = srv.serve_many(
         [StreamRequest(f"tput{i}", itertools.chain.from_iterable([v] * repeats))
          for i, v in enumerate(vids)], n_lanes=4, sink=sink)
-    path_launches("serve_many (throughput)", rep.ticks)
+    path_launches(label + "serve_many (throughput)", rep.ticks, staged)
     check(rep.skipped == 0 and rep.frames == 4 * n,
           f"throughput serve: {rep.frames} frames, {rep.skipped} skipped")
     for i in range(4):
         check(order[f"tput{i}"] == list(range(n)),
               f"tput{i}: frames not exactly once in order")
-    print(f"serve_many throughput: {rep.frames} frames, {rep.ticks} ticks, "
+    print(f"{label}serve_many throughput: {rep.frames} frames, {rep.ticks} ticks, "
           f"{rep.wall_s} s, {rep.wall_s / rep.ticks * 1e3} ms per tick, "
           f"aggregate {rep.fps} fps, d2h {rep.d2h_bytes} bytes, "
           f"loop phases (s) " + json.dumps(rep.phases), flush=True)
@@ -351,6 +390,28 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_busy_ms(fn, reps: int = 5):
+    """Device time of ``fn`` a call: the durations of the kernels and
+    copies a ``torch.profiler`` trace of ``reps`` calls shows, summed; None
+    where the trace shows no device activity or the profiler fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    except Exception as e:       # a measurement only: report, go on
+        print(f"device time not measured: {e!r}", flush=True)
+        return None
+    return us / reps / 1e3 if us else None
 
 
 def nbytes(*ts) -> int:
@@ -441,13 +502,228 @@ def phase_times():
     return rows_out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the staged chain (kernel_mode "auto") against its plain versions
+# and against the fused step
+# ---------------------------------------------------------------------------
+
+BF16_STEP = 2.0 ** -8             # one bfloat16 step for values in [0.5, 1)
+
+
+def staged_tolerance(name: str, args) -> float:
+    """Kernel against plain version: selections bit-equal; window means
+    1e-5 relative to the mean's magnitude; recover 1e-6 in float32 at
+    gamma 1 (1e-5 through powf), one bfloat16 step in bfloat16."""
+    if name in ("dark_channel", "atmolight"):
+        return 0.0
+    if name == "box_filter":
+        return 1e-5
+    if args[0].dtype == torch.bfloat16:
+        return BF16_STEP
+    return 1e-6 if args[4] == 1.0 else 1e-5
+
+
+def staged_error(name: str, got, want) -> float:
+    d = (got.float() - want.float()).abs()
+    if name == "box_filter":
+        d = d / want.float().abs().clamp_min(1.0)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def run_staged(step, frames, ids, state, ops: str, errs=None, cell=""):
+    """One staged step with the staged ops routed to ``ops``: "plain"
+    (the plain versions, on the card) or "checked" (each call runs the
+    kernel and its plain version on the same inputs, holds them to
+    :func:`staged_tolerance` and returns the kernel's result)."""
+    from repro_torch.kernels import staged as sk
+    saved = {name: getattr(sk, f"{name}_op") for name in sk.KERNELS}
+
+    def checked(name):
+        kernel, plain = sk.PAIRS[name]
+
+        def op(*args):
+            got = kernel(*args)
+            want = plain(*args)
+            err, tol = staged_error(name, got, want), staged_tolerance(name, args)
+            check(err <= tol, f"staged {name} ({cell}): error {err} > {tol}")
+            errs[name] = max(errs.get(name, 0.0), err)
+            return got
+        return op
+
+    try:
+        for name in sk.KERNELS:
+            if ops == "plain":
+                setattr(sk, f"{name}_op", sk.PAIRS[name][1])
+            elif ops == "checked":
+                setattr(sk, f"{name}_op", checked(name))
+        return step(frames, ids, state)
+    finally:
+        for name, fn in saved.items():
+            setattr(sk, f"{name}_op", fn)
+
+
+def phase_staged_parity():
+    """The staged lane step at the serving shape, DCP, top-1, refine, each
+    cell two chained batches with an all-padding lane."""
+    from repro_torch.core import (DehazeConfig, init_atmo_state_lanes,
+                                  make_multi_stream_step)
+    cells = [(torch.uint8, 1.0), (torch.float32, 1.0), (torch.bfloat16, 1.0),
+             (torch.uint8, 1.0 / 2.2)]
+    frames = ramps(3, 2 * L * B).reshape(2, L, B, H, W, 3)
+    errs, whole = {}, {"vs_plain_J_t": 0.0, "vs_plain_a_seq": 0.0,
+                       "vs_fused_J_t": 0.0, "vs_fused_a_seq": 0.0}
+    for dt, gamma in cells:
+        io = str(dt).replace("torch.", "")
+        cfg = DehazeConfig(io_dtype=io, gamma=gamma)
+        step = make_multi_stream_step(cfg, device="cuda")
+        fused_step = make_multi_stream_step(
+            DehazeConfig(io_dtype=io, gamma=gamma, kernel_mode="fused"),
+            device="cuda")
+        states = {k: init_atmo_state_lanes(L, "cuda")
+                  for k in ("kernel", "plain", "fused")}
+        for batch in range(2):
+            cell = f"{io} gamma={gamma:.3f} b{batch}"
+            img = to_wire(frames[batch].reshape(-1, 3), dt).reshape(
+                L, B, H, W, 3).cuda()
+            ids = (torch.arange(B, dtype=torch.int32) + B * batch).repeat(L, 1)
+            ids[L - 1] = -1                                   # padding lane
+            ids = ids.cuda()
+            got = run_staged(step, img, ids, states["kernel"], "checked",
+                             errs, cell)
+            torch.cuda.synchronize()
+            plain = run_staged(step, img, ids, states["plain"], "plain")
+            fused = fused_step(img, ids, states["fused"])
+            torch.cuda.synchronize()
+            bf16 = got.frames.dtype == torch.bfloat16
+            e_jt = max(max_err(got.frames, plain.frames),
+                       max_err(got.transmission, plain.transmission))
+            e_a = max(max_err(got.atmo_light, plain.atmo_light),
+                      max_err(got.state.A, plain.state.A))
+            tol = 2e-2 if bf16 else 1e-3
+            check(e_jt <= tol, f"staged {cell}: J/t vs plain chain {e_jt} > {tol}")
+            check(e_a <= (2e-2 if bf16 else 1e-5),
+                  f"staged {cell}: a_seq/A vs plain chain {e_a}")
+            check(torch.equal(got.state.last_update, plain.state.last_update)
+                  and torch.equal(got.state.initialized,
+                                  plain.state.initialized),
+                  f"staged {cell}: last_update/initialized differ")
+            check(torch.equal(got.state.A[L - 1], states["kernel"].A[L - 1])
+                  and not bool(got.state.initialized[L - 1]),
+                  f"staged {cell}: the all-padding lane's state changed")
+            whole["vs_plain_J_t"] = max(whole["vs_plain_J_t"], e_jt)
+            whole["vs_plain_a_seq"] = max(whole["vs_plain_a_seq"], e_a)
+            if not bf16:                 # the fused step, at float32 output
+                f_jt = max(max_err(got.frames, fused.frames),
+                           max_err(got.transmission, fused.transmission))
+                f_a = max(max_err(got.atmo_light, fused.atmo_light),
+                          max_err(got.state.A, fused.state.A))
+                check(f_jt <= 1e-3, f"staged {cell}: J/t vs fused {f_jt} > 1e-3")
+                check(f_a <= 1e-5, f"staged {cell}: a_seq vs fused {f_a} > 1e-5")
+                check(torch.equal(got.state.last_update,
+                                  fused.state.last_update),
+                      f"staged {cell}: last_update differs from fused")
+                whole["vs_fused_J_t"] = max(whole["vs_fused_J_t"], f_jt)
+                whole["vs_fused_a_seq"] = max(whole["vs_fused_a_seq"], f_a)
+            states = {"kernel": got.state, "plain": plain.state,
+                      "fused": fused.state}
+        print(f"staged parity {io} gamma={gamma:.3f}: ok", flush=True)
+        check_no_sync(step, img, ids, states["kernel"], f"staged {io}")
+        check_no_sync(fused_step, img, ids, states["fused"], f"fused {io}")
+    print("staged parity max errors: kernels " + json.dumps(errs)
+          + " whole " + json.dumps(whole), flush=True)
+    return errs, whole
+
+
+def check_no_sync(step, frames, ids, state, label: str) -> None:
+    """One step on device-resident inputs must make no synchronising CUDA
+    call: a sync would also wait for the D2H copies of earlier ticks that
+    the serve loop's completion threads have queued."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(frames, ids, state)
+    except RuntimeError as e:
+        fail(f"{label} step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the staged kernels' times at the serving shape
+# ---------------------------------------------------------------------------
+
+def phase_staged_times():
+    """Each staged kernel on the serving config's inputs (uint8 frames
+    upcast to float32, 32 frames of 480x640). The bound counts each input
+    read once and each output written once; of the atmospheric light's
+    frames it counts the one pixel a frame that this data needs (its
+    argmin t), not all of I."""
+    from repro_torch.core import (DehazeConfig, init_atmo_state_lanes,
+                                  make_multi_stream_step)
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import staged as sk
+    n = L * B
+    npx = n * H * W
+    x = ref.upcast_frames(to_wire(ramps(4, n).reshape(-1, 3), torch.uint8)
+                          ).reshape(n, H, W, 3).cuda()
+    dark = sk.cuda_dark_channel(x, 7)
+    t_raw = 1.0 - 0.95 * dark
+    mean = sk.cuda_box_filter(t_raw, 20)
+    a = sk.cuda_atmolight(x, t_raw)
+    J = sk.cuda_recover(x, t_raw, a, 0.1, 1.0)
+    rows = torch.arange(n, device="cuda")
+    # name -> (args, bytes moved, float32 operations, PyTorch call)
+    work = {
+        "dark_channel": ((x, 7), nbytes(x, dark), 4 * npx,
+                         lambda: F.max_pool2d(-x.amin(-1)[:, None], 15, 1, 7)),
+        "box_filter": ((t_raw, 20), nbytes(t_raw, mean), 5 * npx,
+                       lambda: F.avg_pool2d(t_raw[:, None], 41, 1, 20,
+                                            count_include_pad=False)),
+        # t, then the picked pixel of I and a, each n x 3 floats
+        "atmolight": ((x, t_raw), nbytes(t_raw, a, a), npx,
+                      lambda: x.reshape(n, -1, 3)[
+                          rows, t_raw.reshape(n, -1).argmin(-1)]),
+        "recover": ((x, t_raw, a, 0.1, 1.0), nbytes(x, t_raw, a, J),
+                    16 * npx, None),
+    }
+    out = {}
+    # Whole lane steps on device-resident uint8 frames, back to back: the
+    # CUDA-event time includes the gaps where the host launches slower than
+    # the card runs.
+    u8 = to_wire(ramps(4, n).reshape(-1, 3), torch.uint8).reshape(
+        L, B, H, W, 3).cuda()
+    ids = torch.arange(B, dtype=torch.int32).repeat(L, 1).cuda()
+    for mode in ("auto", "fused"):
+        step = make_multi_stream_step(
+            DehazeConfig(io_dtype="uint8", kernel_mode=mode), device="cuda")
+        state = init_atmo_state_lanes(L, "cuda")
+        ms = time_ms(lambda: step(u8, ids, state))
+        busy = device_busy_ms(lambda: step(u8, ids, state))
+        print(f"lane step {mode} ({L} x {B} x {H}x{W} uint8) back to back: "
+              f"{ms} ms a step, device busy "
+              + ("not measured" if busy is None else
+                 f"{busy} ms a step (idle share {1.0 - busy / ms})"),
+              flush=True)
+    for name, (args, nb, ops, lib) in work.items():
+        kernel, plain = sk.PAIRS[name]
+        t_bytes = nb / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+        out[name] = dict(
+            ms=time_ms(lambda: kernel(*args)),
+            plain_ms=time_ms(lambda: plain(*args), reps=5, warmup=1),
+            library_ms=time_ms(lib) if lib else None,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 1
     from repro_torch.core import DehazeConfig
-    from repro_torch.kernels import _build, fused as fk
+    from repro_torch.kernels import _build, fused as fk, staged as sk
     t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
@@ -463,6 +739,7 @@ def main() -> int:
     print(f"built {[p.name for p in built]} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(fk.TILE_PIXELS == fk._lib().fd_tile_pixels(), "tile size mismatch")
+    sk._lib()                                # checks its tile constants
 
     pass_errs, whole_errs = phase_parity()
     cfg = DehazeConfig(kernel_mode="fused", io_dtype="uint8")
@@ -472,6 +749,13 @@ def main() -> int:
     launches, launches_serve, ticks = phase_serve(cfg, vids)
     rep = phase_throughput(cfg, vids)
     times = phase_times()
+
+    staged_errs, staged_whole = phase_staged_parity()
+    cfg_staged = DehazeConfig(io_dtype="uint8")            # kernel_mode "auto"
+    s_launches, s_launches_serve, s_ticks = phase_serve(cfg_staged, vids,
+                                                        staged=True)
+    s_rep = phase_throughput(cfg_staged, vids, staged=True)
+    s_times = phase_staged_times()
 
     kernels = []
     for name in ("fused_dehaze_lanes",) + fk.PASSES:
@@ -496,9 +780,29 @@ def main() -> int:
               f"({launches[name] / ticks:g}/tick), {launches_serve[name]} "
               f"on serve",
               flush=True)
-    print(f"serve_many aggregate fps {rep.fps} "
-          f"({rep.frames} frames, {rep.wall_s} s); "
-          f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    for name in sk.KERNELS:
+        r = s_times[name]
+        kernels.append({
+            "name": f"staged.{name}", "route": "cuda",
+            "source": STAGED_SOURCE, "replaces": STAGED_REPLACES[name],
+            "launches": s_launches[f"staged.{name}"],
+            "launches_serve": s_launches_serve[f"staged.{name}"],
+            "launches_per_tick": s_launches[f"staged.{name}"] / s_ticks,
+            "max_abs_err": staged_errs[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        print(f"{kernels[-1]['name']:36s} {r['ms']:9.4f} ms  bound "
+              f"{r['bound_ms']:8.4f} ms ({r['bound_by']})  plain "
+              f"{r['plain_ms']:9.3f} ms  library "
+              f"{'-' if r['library_ms'] is None else '%.4f ms' % r['library_ms']}"
+              f"  launches {kernels[-1]['launches']} on staged serve_many "
+              f"({kernels[-1]['launches_per_tick']:g}/tick), "
+              f"{kernels[-1]['launches_serve']} on staged serve",
+              flush=True)
+    print(f"serve_many aggregate fps: fused {rep.fps} ({rep.frames} frames, "
+          f"{rep.wall_s} s), staged {s_rep.fps} ({s_rep.frames} frames, "
+          f"{s_rep.wall_s} s); total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

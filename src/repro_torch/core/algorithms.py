@@ -7,9 +7,9 @@ Component protocol (batched over leading frame axes, images NHWC):
   HazeFreeGenerator:         (frames, t, A, cfg)    -> J
 
 Estimators are black boxes to the framework; new ones register through
-``register_algorithm``. The staged estimators sit on the plain ops
-(``kernels.ops``); the fused path runs all three components and the §3.3
-EMA as the megakernel.
+``register_algorithm``. The staged estimators sit on ``kernels.ops``
+(the staged CUDA kernels, or the plain chain under ``ref``); the fused
+path runs all three components and the §3.3 EMA as the megakernel.
 """
 from __future__ import annotations
 
@@ -39,8 +39,11 @@ def luminance(img: torch.Tensor) -> torch.Tensor:
 def transmission_dcp(frames: torch.Tensor, a_saved: torch.Tensor,
                      cfg: DehazeConfig) -> torch.Tensor:
     """DCP, Eq. 3: t = 1 - ω · min_Ω min_c I^c/A^c, with the *saved*
-    shared A (§3.3: the estimator runs before the A refresh)."""
-    a = torch.clamp_min(a_saved, 1e-3)
+    shared A (§3.3: the estimator runs before the A refresh). ``a_saved``
+    is one stream's (3,), one row per lane (L, 3) against (L, B, H, W, 3)
+    frames, or one row per frame."""
+    a = ops.per_frame(torch.clamp_min(a_saved, 1e-3),
+                      tuple(frames.shape[:-3]))
     norm = frames / a[..., None, None, :]
     dark = ops.dark_channel(norm, cfg.patch_radius, cfg.kernel_mode)
     return (1.0 - cfg.omega * dark).to(frames.dtype)
@@ -95,7 +98,8 @@ def refine_transmission(frames: torch.Tensor, t_raw: torch.Tensor,
 
 def generate_haze_free(frames: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
                        cfg: DehazeConfig) -> torch.Tensor:
-    """Eq. 8 with the serving tone-curve epilogue."""
+    """Eq. 8 with the serving tone-curve epilogue; ``A`` as in
+    :func:`transmission_dcp` (per frame: (B, 3) or (L, B, 3))."""
     return ops.recover(frames, t, A, cfg.t0, cfg.gamma, cfg.kernel_mode)
 
 

@@ -42,9 +42,9 @@ class DehazeConfig:
     recompute_t_with_final_a: bool = False # extra accuracy pass (beyond paper)
     kernel_mode: str = "auto"              # ref | pallas | interpret | fused | auto
     #   In the port: "ref" is the plain PyTorch chain on any device, "fused"
-    #   the hand-written CUDA megakernel on CUDA tensors (its plain version
-    #   on CPU tensors). "pallas"/"auto" name the staged per-stage kernels,
-    #   not ported yet; "interpret" has no counterpart (kernels.ops).
+    #   the hand-written CUDA megakernel, "pallas" (and "auto") the staged
+    #   chain of hand-written CUDA kernels; on CPU tensors each kernel's
+    #   plain version runs. "interpret" has no counterpart (kernels.ops).
     dtype: str = "float32"
 
     # Perf levers for the sharded pipeline (not ported yet; kept so the two

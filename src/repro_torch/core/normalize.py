@@ -12,6 +12,9 @@ frame distance to the last update is below the period ``l``; at distance
                                + d_i``, composed directly (PyTorch has no
                                associative scan).
 
+Both take leading lane axes on the candidates, ids and state, so L lanes
+scan in the same tensor operations (``ema_scan_lanes``).
+
 **Padding frames** (``frame_id < 0``) never trigger an update, never flip
 ``initialized``, and carry the running A through; an empty or all-padding
 batch passes the state through untouched.
@@ -66,71 +69,65 @@ def _state_tensors(state: AtmoState):
 
 def ema_scan(a_cand: torch.Tensor, frame_ids: torch.Tensor, state: AtmoState,
              period: int, lam: float) -> Tuple[torch.Tensor, AtmoState]:
-    """Sequential scan: (B, 3) candidates, (B,) int32 ids (< 0 = padding)
-    -> ((B, 3) per-frame A, updated state)."""
+    """Sequential scan: (..., B, 3) candidates, (..., B) int32 ids (< 0 =
+    padding) and a state with the same leading axes -> ((..., B, 3)
+    per-frame A, updated state)."""
     a_cand = a_cand.to(torch.float32)
-    if a_cand.shape[0] == 0:
-        return a_cand.reshape(0, 3), state
+    if a_cand.shape[-2] == 0:
+        return a_cand, state
     A, k, inited = _state_tensors(state)
     ids = frame_ids.to(device=a_cand.device, dtype=torch.int32)
     seq = []
-    for i in range(a_cand.shape[0]):
-        A, k, inited = ema_step(a_cand[i], ids[i], A, k, inited,
+    for i in range(a_cand.shape[-2]):
+        A, k, inited = ema_step(a_cand[..., i, :], ids[..., i], A, k, inited,
                                 period=period, lam=lam)
         seq.append(A)
-    return torch.stack(seq), AtmoState(A=A, last_update=k, initialized=inited)
-
-
-def _update_mask(frame_ids: torch.Tensor, state: AtmoState,
-                 period: int) -> torch.Tensor:
-    """Closed-form update positions for consecutive valid ids: the first
-    at ``u0 = max(fid0, k0 + period)`` (``fid0`` when uninitialized), then
-    every ``period`` frames; padding ids are masked out."""
-    valid = frame_ids >= 0
-    fid0 = frame_ids[torch.argmax(valid.to(torch.int32))]
-    u0 = torch.where(state.initialized.to(torch.bool),
-                     torch.maximum(fid0, state.last_update + period), fid0)
-    d = frame_ids - u0
-    return valid & (d >= 0) & (d % period == 0)
+    return (torch.stack(seq, dim=-2),
+            AtmoState(A=A, last_update=k, initialized=inited))
 
 
 def ema_scan_associative(a_cand: torch.Tensor, frame_ids: torch.Tensor,
                          state: AtmoState, period: int,
                          lam: float) -> Tuple[torch.Tensor, AtmoState]:
-    """Consecutive-id path: the linear recurrence ``A_i = c_i·A_{i-1} +
-    d_i`` with ``c_i = 1 - λ·m_i`` (0 on bootstrap) and ``d_i = λ·m_i·cand_i``
-    (``cand_i`` on bootstrap), composed as ``(c2, d2)∘(c1, d1) = (c2·c1,
-    c2·d1 + d2)`` and applied to the entry state once."""
+    """Consecutive-id path, shaped as :func:`ema_scan`: the linear
+    recurrence ``A_i = c_i·A_{i-1} + d_i`` with ``c_i = 1 - λ·m_i`` (0 on
+    bootstrap) and ``d_i = λ·m_i·cand_i`` (``cand_i`` on bootstrap),
+    composed as ``(c2, d2)∘(c1, d1) = (c2·c1, c2·d1 + d2)`` and applied to
+    the entry state once. The update positions ``m_i`` are closed-form: the
+    first at ``u0 = max(fid0, k0 + period)`` (``fid0``, the first valid id,
+    when uninitialized), then every ``period`` frames. Every index stays on
+    the device: nothing here synchronises with the card."""
     a_cand = a_cand.to(torch.float32)
-    if a_cand.shape[0] == 0:
-        return a_cand.reshape(0, 3), state
+    if a_cand.shape[-2] == 0:
+        return a_cand, state
     A0, k0, inited0 = _state_tensors(state)
     ids = frame_ids.to(device=a_cand.device, dtype=torch.int32)
-    state = AtmoState(A=A0, last_update=k0, initialized=inited0)
     valid = ids >= 0
-    mask = _update_mask(ids, state, period)
-    first = torch.arange(ids.shape[0], device=ids.device) \
-        == torch.argmax(valid.to(torch.int32))
-    bootstrap = ~inited0 & valid & first
-    m = mask.to(torch.float32)[:, None]
-    c = torch.where(bootstrap[:, None], torch.zeros_like(m), 1.0 - lam * m)
-    d = torch.where(bootstrap[:, None], a_cand, lam * m * a_cand)
-    cc, dd = [c[0]], [d[0]]
-    for i in range(1, ids.shape[0]):
-        cc.append(c[i] * cc[-1])
-        dd.append(c[i] * dd[-1] + d[i])
-    a_seq = torch.stack(cc) * A0[None, :] + torch.stack(dd)
+    first = torch.argmax(valid.to(torch.int32), dim=-1, keepdim=True)
+    fid0 = ids.gather(-1, first)
+    u0 = torch.where(inited0[..., None],
+                     torch.maximum(fid0, k0[..., None] + period), fid0)
+    d = ids - u0
+    mask = valid & (d >= 0) & (d % period == 0)
+    bootstrap = (~inited0[..., None] & valid
+                 & (torch.arange(ids.shape[-1], device=ids.device) == first))
+    m = mask.to(torch.float32)[..., None]
+    c = torch.where(bootstrap[..., None], torch.zeros_like(m), 1.0 - lam * m)
+    d = torch.where(bootstrap[..., None], a_cand, lam * m * a_cand)
+    cc, dd = [c[..., 0, :]], [d[..., 0, :]]
+    for i in range(1, ids.shape[-1]):
+        cc.append(c[..., i, :] * cc[-1])
+        dd.append(c[..., i, :] * dd[-1] + d[..., i, :])
+    a_seq = (torch.stack(cc, dim=-2) * A0[..., None, :]
+             + torch.stack(dd, dim=-2))
 
     upd = mask | bootstrap
-    any_upd = upd.any()
     masked = torch.where(upd, ids, torch.full_like(ids, BOOTSTRAP_ID))
-    idx_last = torch.where(any_upd, torch.argmax(masked),
-                           torch.zeros((), dtype=torch.int64,
-                                       device=ids.device))
+    last = masked.gather(-1, torch.argmax(masked, dim=-1, keepdim=True))
     new_state = AtmoState(
-        A=a_seq[-1],
-        last_update=torch.where(any_upd, ids[idx_last], k0),
-        initialized=inited0 | valid.any())
+        A=a_seq[..., -1, :],
+        last_update=torch.where(upd.any(-1), last[..., 0], k0),
+        initialized=inited0 | valid.any(-1))
     return a_seq, new_state
 
 
@@ -197,12 +194,11 @@ def ema_scan_lanes(a_cand: torch.Tensor, frame_ids: torch.Tensor,
                    state: AtmoState, period: int, lam: float,
                    associative: bool = True) -> Tuple[torch.Tensor, AtmoState]:
     """Per-lane scans: (L, B, 3) candidates, (L, B) ids, lane-batched state
-    -> ((L, B, 3), lane-batched state). Padding lanes pass through."""
+    -> ((L, B, 3), lane-batched state). Each lane scans its own causal
+    chain, all lanes in the same tensor operations; padding lanes (all ids
+    < 0) pass through."""
     scan = ema_scan_associative if associative else ema_scan
-    outs = [scan(a_cand[i], frame_ids[i], get_lane_state(state, i), period,
-                 lam) for i in range(a_cand.shape[0])]
-    return (torch.stack([o[0] for o in outs]),
-            pack_atmo_states([o[1] for o in outs]))
+    return scan(a_cand, frame_ids, state, period, lam)
 
 
 __all__ = ["AtmoState", "BOOTSTRAP_ID", "init_atmo_state", "ema_scan",

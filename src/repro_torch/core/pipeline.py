@@ -6,7 +6,10 @@ batched step (``single``) or the lane-batched multi-stream step
 (``lane_batched``), fused or staged. With ``kernel_mode="fused"`` and a
 config the megakernel covers, the single step is the megakernel's L=1
 view and the lane step runs all L lanes in one megakernel call
-(lane-native); otherwise the staged chain runs per lane.
+(lane-native). Otherwise (``"auto"``, the default, ``"pallas"``, ``"ref"``
+and the fused fallback) the step is the staged component chain; its lane
+step runs each component once over all L*B frames, with each lane's own
+saved A in the DCP pre-divide and a per-lane EMA.
 
 Every step runs on one device, fixed when it is built: ``device=None``
 means CUDA (and raises without a card), ``device="cpu"`` the CPU. The step
@@ -24,7 +27,7 @@ from repro_torch.core import algorithms as alg
 from repro_torch.core import env as _env
 from repro_torch.core.config import DehazeConfig
 from repro_torch.core.normalize import (AtmoState, ema_scan,
-                                        ema_scan_associative,
+                                        ema_scan_associative, ema_scan_lanes,
                                         get_lane_state, pack_atmo_states)
 from repro_torch.core.placement import PlacementSpec
 from repro_torch.kernels import ref as kref
@@ -95,16 +98,34 @@ def make_step(cfg: DehazeConfig, placement: Optional[PlacementSpec] = None,
     return on_device
 
 
+def _fused_covers(cfg: DehazeConfig) -> bool:
+    """Does ``cfg`` select the megakernel (``kernel_mode="fused"`` and a
+    config it covers)?"""
+    return cfg.kernel_mode == "fused" and alg.supports_fused(cfg)
+
+
 def _make_single_step(cfg: DehazeConfig, associative: bool = True):
-    if cfg.kernel_mode == "fused" and alg.supports_fused(cfg):
+    if _fused_covers(cfg):
         def fused_step(frames, frame_ids, state: AtmoState) -> DehazeOutput:
             out, t, a_seq, new_state = alg.fused_dehaze(frames, frame_ids,
                                                         state, cfg)
             return DehazeOutput(out, t, a_seq.to(out.dtype), new_state)
         return fused_step
+    return _make_staged_step(cfg, associative=associative, lanes=False)
 
+
+def _make_staged_step(cfg: DehazeConfig, associative: bool, lanes: bool):
+    """The staged component chain over frames (B, H, W, 3) with one
+    stream's state, or (``lanes``) over (L, B, H, W, 3) with a lane-batched
+    state: every component runs once over all frames; the DCP pre-divide
+    takes each lane's saved A and the EMA runs per lane."""
     t_est = alg.get_transmission_estimator(cfg.algorithm)
-    scan = ema_scan_associative if associative else ema_scan
+    if lanes:
+        def scan(a_new, frame_ids, state, period, lam):
+            return ema_scan_lanes(a_new, frame_ids, state, period, lam,
+                                  associative=associative)
+    else:
+        scan = ema_scan_associative if associative else ema_scan
 
     def step(frames, frame_ids, state: AtmoState) -> DehazeOutput:
         x, odt = _ingest(frames, cfg)
@@ -139,7 +160,7 @@ def resolve_lane_native(cfg: DehazeConfig) -> bool:
     per-lane path, ``=1`` forces lane-native and raises if the config
     cannot take it."""
     cfg = cfg.validate()
-    fused_ok = cfg.kernel_mode == "fused" and alg.supports_fused(cfg)
+    fused_ok = _fused_covers(cfg)
     forced = _env.lane_native()
     if forced:
         if not fused_ok:
@@ -159,7 +180,7 @@ def _make_lane_step(cfg: DehazeConfig, associative: bool = True,
     if lane_native is None:
         lane_native = resolve_lane_native(cfg)
     if lane_native:
-        if not (cfg.kernel_mode == "fused" and alg.supports_fused(cfg)):
+        if not _fused_covers(cfg):
             raise ValueError(
                 "lane_native=True requires kernel_mode='fused' and a config "
                 "the megakernel covers (algorithms.supports_fused)")
@@ -170,6 +191,11 @@ def _make_lane_step(cfg: DehazeConfig, associative: bool = True,
             return DehazeOutput(out, t, a_seq.to(out.dtype), new_state)
         return lane_step
 
+    if not _fused_covers(cfg):
+        return _make_staged_step(cfg, associative=associative, lanes=True)
+
+    # A fused config with the lane-native kernel forced off: the
+    # megakernel's single-stream view, lane by lane.
     single = _make_single_step(cfg, associative=associative)
 
     def per_lane_step(frames, frame_ids, state: AtmoState) -> DehazeOutput:

@@ -5,7 +5,10 @@ Modules:
   ref     — plain PyTorch versions of every kernel (the port's oracles)
   fused   — the fused dehaze megakernel (``csrc/fused_dehaze.cu``): CUDA
             passes, plain passes, and the wrappers
-  ops     — dispatch wrappers (ref | fused)
+  staged  — the staged component kernels (``csrc/staged.cu``): dark
+            channel, box filter, atmospheric light, recover; CUDA wrappers
+            and plain versions
+  ops     — dispatch wrappers (ref | pallas | fused)
   _build  — nvcc build + ctypes load of ``csrc/*.cu`` at first use
 """
-from repro_torch.kernels import fused, ops, ref  # noqa: F401
+from repro_torch.kernels import fused, ops, ref, staged  # noqa: F401

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-Each source is compiled by ``nvcc`` into a shared library with a plain C
-interface and loaded with ``ctypes``: no PyTorch headers, so a build takes
-seconds. Libraries go to ``build/repro_torch_kernels/`` at the root of the
-checkout (an installed copy, which has no checkout around it, uses
+Each source (with the shared headers it includes) is compiled by ``nvcc``
+into a shared library with a plain C interface and loaded with ``ctypes``:
+no PyTorch headers, so a build takes seconds. Libraries go to
+``build/repro_torch_kernels/`` at the root of the checkout (an installed
+copy, which has no checkout around it, uses
 ``$XDG_CACHE_HOME/repro_torch_kernels``, by default under ``~/.cache``),
-named by a hash of the source and the flags, so an edited ``.cu`` rebuilds
-and an unchanged one loads the library already there.
+named by a hash of the source, the headers and the flags, so an edited
+``.cu`` or ``.cuh`` rebuilds and an unchanged one loads the library already
+there.
 A missing ``nvcc`` or a failed build raises; nothing falls back.
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -68,8 +70,10 @@ def build(source: str) -> Path:
     The library is written under a temporary name and renamed into place,
     so a concurrent build never loads a half-written file. A failed build
     raises ``RuntimeError`` carrying nvcc's output. The library's name
-    carries a hash of the source text and :data:`NVCC_FLAGS`."""
-    text = (CSRC / source).read_bytes()
+    carries a hash of the source text, the shared headers (``csrc/*.cuh``)
+    and :data:`NVCC_FLAGS`."""
+    text = (CSRC / source).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(text + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{Path(source).stem}-{key}.so"
     if out.exists():

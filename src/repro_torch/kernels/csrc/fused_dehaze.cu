@@ -48,10 +48,7 @@
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns the cudaError_t of its launches (0 on success).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "dehaze_common.cuh"
 
 extern "C" {
 
@@ -75,66 +72,11 @@ struct DehazeParams {
 
 namespace {
 
+using namespace dehaze;
+
 constexpr int kThreads = 256;
 constexpr int kItems = 8;                        // pixels per thread, top-k
 constexpr int kTile = kThreads * kItems;         // pixels per top-k block
-constexpr unsigned long long kNoKey = ~0ULL;
-
-__device__ __forceinline__ float load_px(const void* p, long long i, int dt,
-                                         float u8_scale) {
-    if (dt == 0) return static_cast<const float*>(p)[i];
-    if (dt == 1) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-    return __fmul_rn(static_cast<float>(static_cast<const uint8_t*>(p)[i]), u8_scale);
-}
-
-__device__ __forceinline__ void store_px(void* p, long long i, int dt, float v) {
-    if (dt == 0) static_cast<float*>(p)[i] = v;
-    else static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float clip01(float v) {
-    return fminf(fmaxf(v, 0.0f), 1.0f);
-}
-
-// Closed-form count of in-bounds window elements along one axis.
-__device__ __forceinline__ int win_count(int i, int n, int r) {
-    return min(i + r, n - 1) - max(i - r, 0) + 1;
-}
-
-// Order-preserving key: t's bits in the high word (sign handled: DCP t_raw
-// is negative where I/A > 1/omega), flat pixel index in the low word. The
-// smallest key is the smallest t, ties to the lowest index.
-__device__ __forceinline__ unsigned long long make_key(float t, unsigned idx) {
-    if (t == 0.0f) t = 0.0f;                     // -0.0 ties with +0.0
-    unsigned u = __float_as_uint(t);
-    u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-    return (static_cast<unsigned long long>(u) << 32) | idx;
-}
-
-__device__ __forceinline__ unsigned long long warp_min_u64(unsigned long long v) {
-    for (int off = 16; off > 0; off >>= 1) {
-        unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
-        v = o < v ? o : v;
-    }
-    return v;
-}
-
-// Block-wide minimum, broadcast to every thread. Needs kThreads threads.
-__device__ unsigned long long block_min_u64(unsigned long long v,
-                                            unsigned long long* red) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    v = warp_min_u64(v);
-    __syncthreads();                             // red[] free from last call
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-        v = lane < kThreads / 32 ? red[lane] : kNoKey;
-        v = warp_min_u64(v);
-        if (lane == 0) red[kThreads / 32] = v;
-    }
-    __syncthreads();
-    return red[kThreads / 32];
-}
 
 __global__ void premap_kernel(const void* __restrict__ img,
                               const float* __restrict__ carry_f,
@@ -216,7 +158,7 @@ __global__ void topk_block_kernel(const float* __restrict__ t,
         unsigned long long best = kNoKey;
 #pragma unroll
         for (int j = 0; j < kItems; ++j) best = mine[j] < best ? mine[j] : best;
-        const unsigned long long m = block_min_u64(best, red);
+        const unsigned long long m = block_min_u64<kThreads>(best, red);
         // Keys are unique (the low word is the index): one owner retires it.
 #pragma unroll
         for (int j = 0; j < kItems; ++j)
@@ -244,7 +186,7 @@ __global__ void topk_merge_kernel(const unsigned long long* __restrict__ keys,
             const unsigned long long k = mine[j];
             if (k > prev && k < best) best = k;
         }
-        prev = block_min_u64(best, red);
+        prev = block_min_u64<kThreads>(best, red);
         if (threadIdx.x == 0) {
             const long long px = 3 * (n * P + static_cast<long long>(prev & 0xffffffffULL));
             sr = __fadd_rn(sr, load_px(img, px, p.in_dtype, p.u8_scale));

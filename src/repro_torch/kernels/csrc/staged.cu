@@ -1,0 +1,229 @@
+// The staged component kernels for NVIDIA Hopper (sm_90a): the paper's
+// three components as separate kernels, the chain that kernel_mode "auto"
+// (and "pallas") runs.
+//
+// Replaces the TPU kernels
+//   st_dark_channel  src/repro/kernels/dark_channel.py::dark_channel_pallas
+//   st_box_filter    src/repro/kernels/boxfilter.py::box_filter_2d_pallas
+//   st_atmolight     src/repro/kernels/atmolight.py::atmolight_pallas
+//   st_recover       src/repro/kernels/recover.py::recover_pallas
+// Each computes what its Pallas kernel computes: it reads float32 or
+// bfloat16, computes in float32 and writes its Pallas kernel's output dtype.
+//
+// Windows (dark channel, box filter). The TPU kernels hold a whole frame in
+// VMEM; a 480x640 float32 plane is 1.2 MB against at most 227 KB of shared
+// memory a block. So a block computes a kTileY x kTileX output tile: each
+// thread of a warp owns one output column; first the horizontal window of
+// every input row the tile's vertical windows touch (kTileY + 2r rows, at
+// most H) goes into shared memory, then the vertical window is taken from
+// there. Windows are clipped to the frame (+inf for the min, a closed-form
+// count for the mean), so any radius works, also r = 0 and windows wider
+// than the frame; shared memory is min(kTileY + 2r, H) * kTileX floats. The
+// min is a pure selection and equals its plain version bit for bit. The
+// mean is a direct sum over the clipped window divided by the closed-form
+// in-bounds count, not the Pallas kernel's cumsum differences: the same
+// function, better conditioned for the guided filter's var_g = corr_gg -
+// mean_g^2 over var_g + eps.
+//
+// Atmospheric light (argmin t). The TPU kernel folds row tiles through its
+// sequential grid; CUDA blocks run in no order, so one 1024-thread block
+// reduces a whole frame to the minimum of a 64-bit key (order-preserving
+// bits of t, flat index): ties go to the lowest index, -0.0 ties with +0.0,
+// and the result cannot depend on the order in which threads run. Then it
+// gathers I's RGB at the winner.
+//
+// Recovery. One elementwise pass: J = clip((I - A)/max(t, t0) + A, 0, 1),
+// then powf only when gamma != 1, with A per frame.
+//
+// What bounds them on the H100: device-memory bytes (each is a few
+// operations per byte). At 32 frames of 480x640 float32 the byte bounds are
+// 0.047 ms (dark channel, 16 B/px), 0.023 ms (box filter, 8 B/px), 0.047 ms
+// (atmospheric light, 16 B/px counting all of I) and 0.082 ms (recover,
+// 28 B/px). This first design does not reach them: each window tap is a
+// load (2r + 1 per output per axis, the dark channel's three channels each
+// time), and one block a frame leaves most SMs idle in the atmospheric
+// light at small batches.
+//
+// Rounding: IEEE division and powf (no fast math, --fmad=false), float32
+// constants rounded on the Python side exactly as PyTorch rounds a scalar
+// operand. Every entry point launches on the caller's stream, allocates
+// nothing and returns the cudaError_t of its launch (0 on success).
+
+#include "dehaze_common.cuh"
+
+namespace {
+
+using namespace dehaze;
+
+constexpr int kTileX = 32;                       // output columns a block (one warp)
+constexpr int kTileY = 64;                       // output rows a block
+constexpr int kRowThreads = 8;                   // warps a window block
+constexpr int kReduceThreads = 1024;             // threads of an atmolight block
+constexpr int kMaxSmem = 232448;                 // opt-in shared memory a block
+
+// (N, H, W, 3) with kDark: channel min, then the windowed min (+inf
+// border). (N, H, W) without: the windowed mean over the clipped window.
+// grid (ceil(W/kTileX), ceil(H/kTileY), N), block (kTileX, kRowThreads),
+// dynamic shared memory min(kTileY + 2r, H) * kTileX floats.
+template <bool kDark>
+__global__ void window_kernel(const void* __restrict__ x, void* __restrict__ out,
+                              int H, int W, int r, int dt) {
+    extern __shared__ float hwin[];              // [row - ylo][tx]
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int col = blockIdx.x * kTileX + tx;
+    const int y0 = blockIdx.y * kTileY;
+    const long long plane = static_cast<long long>(blockIdx.z) * H * W;
+    const int ylo = max(y0 - r, 0), yhi = min(y0 + kTileY - 1 + r, H - 1);
+    const int clo = max(col - r, 0), chi = min(col + r, W - 1);
+
+    // Horizontal windows of every input row the tile needs.
+    for (int k = ylo + ty; k <= yhi; k += kRowThreads) {
+        float h = kDark ? INFINITY : 0.0f;
+        if (col < W) {
+            const long long row = plane + static_cast<long long>(k) * W;
+            for (int c = clo; c <= chi; ++c) {
+                if (kDark) {
+                    const long long p = 3 * (row + c);
+                    const float m = fminf(fminf(load_px(x, p, dt, 1.0f),
+                                                load_px(x, p + 1, dt, 1.0f)),
+                                          load_px(x, p + 2, dt, 1.0f));
+                    h = fminf(h, m);
+                } else {
+                    h = __fadd_rn(h, load_px(x, row + c, dt, 1.0f));
+                }
+            }
+        }
+        hwin[(k - ylo) * kTileX + tx] = h;
+    }
+    __syncthreads();
+    if (col >= W) return;
+
+    // Vertical windows over them.
+    const float cnt_x = static_cast<float>(chi - clo + 1);
+    const int yend = min(y0 + kTileY, H);
+    for (int y = y0 + ty; y < yend; y += kRowThreads) {
+        const int lo = max(y - r, 0), hi = min(y + r, H - 1);
+        float acc = kDark ? INFINITY : 0.0f;
+        for (int k = lo; k <= hi; ++k) {
+            const float v = hwin[(k - ylo) * kTileX + tx];
+            acc = kDark ? fminf(acc, v) : __fadd_rn(acc, v);
+        }
+        if (!kDark)
+            acc = __fdiv_rn(acc, __fmul_rn(static_cast<float>(hi - lo + 1), cnt_x));
+        store_px(out, plane + static_cast<long long>(y) * W + col, dt, acc);
+    }
+}
+
+// grid (N,), block kReduceThreads: out[n] = I[n] at the smallest key of t[n].
+__global__ void atmolight_kernel(const void* __restrict__ img, const void* __restrict__ t,
+                                 void* __restrict__ out, long long P, int img_dt,
+                                 int t_dt) {
+    __shared__ unsigned long long red[kReduceThreads / 32 + 1];
+    const long long base = static_cast<long long>(blockIdx.x) * P;
+    constexpr int kUnroll = 4;                   // independent loads in flight
+    unsigned long long best = kNoKey;
+    long long i = threadIdx.x;
+    for (; i + (kUnroll - 1) * kReduceThreads < P; i += kUnroll * kReduceThreads) {
+        float v[kUnroll];
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j)
+            v[j] = load_px(t, base + i + j * kReduceThreads, t_dt, 1.0f);
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j) {
+            const unsigned long long key =
+                make_key(v[j], static_cast<unsigned>(i + j * kReduceThreads));
+            best = key < best ? key : best;
+        }
+    }
+    for (; i < P; i += kReduceThreads) {
+        const unsigned long long key =
+            make_key(load_px(t, base + i, t_dt, 1.0f), static_cast<unsigned>(i));
+        best = key < best ? key : best;
+    }
+    best = block_min_u64<kReduceThreads>(best, red);
+    if (threadIdx.x < 3) {
+        const long long px = base + static_cast<long long>(best & 0xffffffffULL);
+        const float v = load_px(img, 3 * px + threadIdx.x, img_dt, 1.0f);
+        store_px(out, 3LL * blockIdx.x + threadIdx.x, img_dt, v);
+    }
+}
+
+// One thread a pixel of N*P: J (img dtype) from I, t and the frame's A.
+__global__ void recover_kernel(const void* __restrict__ img, const void* __restrict__ t,
+                               const void* __restrict__ A, void* __restrict__ out,
+                               long long P, long long total, float t0, float gamma,
+                               int img_dt, int t_dt, int a_dt) {
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= total) return;
+    const long long n = i / P;
+    const float tt = fmaxf(load_px(t, i, t_dt, 1.0f), t0);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        const float a = load_px(A, 3 * n + c, a_dt, 1.0f);
+        const float x = load_px(img, 3 * i + c, img_dt, 1.0f);
+        float v = clip01(__fadd_rn(__fdiv_rn(__fsub_rn(x, a), tt), a));
+        if (gamma != 1.0f) v = powf(v, gamma);
+        store_px(out, 3 * i + c, img_dt, v);
+    }
+}
+
+template <bool kDark>
+int launch_window(const void* x, void* out, int N, int H, int W, int r, int dt,
+                  void* stream) {
+    const int rows = min(kTileY + 2 * r, H);
+    const size_t smem = static_cast<size_t>(rows) * kTileX * sizeof(float);
+    if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            window_kernel<kDark>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    const dim3 grid((W + kTileX - 1) / kTileX, (H + kTileY - 1) / kTileY, N);
+    window_kernel<kDark><<<grid, dim3(kTileX, kRowThreads), smem,
+                           static_cast<cudaStream_t>(stream)>>>(x, out, H, W, r, dt);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int st_tile_x() { return kTileX; }
+int st_tile_y() { return kTileY; }
+int st_max_smem() { return kMaxSmem; }
+
+// (N, H, W, 3) -> (N, H, W), both in dt (0 float32, 1 bfloat16).
+int st_dark_channel(const void* img, void* out, int N, int H, int W, int radius,
+                    int dt, void* stream) {
+    return launch_window<true>(img, out, N, H, W, radius, dt, stream);
+}
+
+// (N, H, W) -> (N, H, W), both in dt.
+int st_box_filter(const void* x, void* out, int N, int H, int W, int radius, int dt,
+                  void* stream) {
+    return launch_window<false>(x, out, N, H, W, radius, dt, stream);
+}
+
+// (N, H, W, 3) img_dt, (N, H, W) t_dt -> (N, 3) img_dt.
+int st_atmolight(const void* img, const void* t, void* out, int N, int H, int W,
+                 int img_dt, int t_dt, void* stream) {
+    atmolight_kernel<<<N, kReduceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        img, t, out, static_cast<long long>(H) * W, img_dt, t_dt);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// (N, H, W, 3) img_dt, (N, H, W) t_dt, (N, 3) a_dt -> (N, H, W, 3) img_dt.
+int st_recover(const void* img, const void* t, const void* A, void* out, int N, int H,
+               int W, float t0, float gamma, int img_dt, int t_dt, int a_dt,
+               void* stream) {
+    const long long P = static_cast<long long>(H) * W;
+    const long long total = P * N;
+    const int threads = 256;
+    const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+    recover_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        img, t, A, out, P, total, t0, gamma, img_dt, t_dt, a_dt);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

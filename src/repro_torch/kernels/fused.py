@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.staged import window_counts, window_sum
 
 SOURCE = "fused_dehaze.cu"
 
@@ -297,22 +298,6 @@ def cuda_recover(img, t_raw, g, rows2, a_seq, s: Static):
 # The plain passes (same signatures, any device)
 # ---------------------------------------------------------------------------
 
-def _win_sum(v: torch.Tensor, r: int, dim: int) -> torch.Tensor:
-    """Sum over the clipped window of radius r along dim -2 or -1."""
-    pad = (0, 0, r, r) if dim == -2 else (r, r)
-    return F.pad(v, pad).unfold(dim, 2 * r + 1, 1).sum(-1)
-
-
-def _counts(s: Static, device) -> torch.Tensor:
-    """(H, W) closed-form in-bounds window counts of the guided filter."""
-    def axis(n):
-        i = torch.arange(n, device=device)
-        r = s.gf_radius
-        return (torch.clamp_max(i + r, n - 1) - torch.clamp_min(i - r, 0)
-                + 1).to(torch.float32)
-    return axis(s.H)[:, None] * axis(s.W)[None, :]
-
-
 def _frames(img: torch.Tensor, s: Static) -> torch.Tensor:
     return ref.upcast_frames(img).reshape(s.n_frames, s.H, s.W, 3)
 
@@ -399,13 +384,13 @@ def plain_ema(cand, ids, carry_f, carry_i, s: Static):
 
 def plain_box_rows4(g, t_raw, s: Static):
     r = s.gf_radius
-    return torch.stack([_win_sum(v, r, -2)
+    return torch.stack([window_sum(v, r, -2)
                         for v in (g, t_raw, g * t_raw, g * g)])
 
 
 def plain_box_cols_ab(rows4, s: Static):
-    cnt = _counts(s, rows4.device)
-    mean_g, mean_p, corr_gp, corr_gg = (_win_sum(v, s.gf_radius, -1) / cnt
+    cnt = window_counts(s.H, s.W, s.gf_radius, rows4.device)
+    mean_g, mean_p, corr_gp, corr_gg = (window_sum(v, s.gf_radius, -1) / cnt
                                         for v in rows4)
     var_g = corr_gg - mean_g * mean_g
     cov_gp = corr_gp - mean_g * mean_p
@@ -414,15 +399,15 @@ def plain_box_cols_ab(rows4, s: Static):
 
 
 def plain_box_rows2(ab, s: Static):
-    return torch.stack([_win_sum(v, s.gf_radius, -2) for v in ab])
+    return torch.stack([window_sum(v, s.gf_radius, -2) for v in ab])
 
 
 def plain_recover(img, t_raw, g, rows2, a_seq, s: Static):
     x = _frames(img, s)
     if s.refine:
-        cnt = _counts(s, x.device)
-        mean_a = _win_sum(rows2[0], s.gf_radius, -1) / cnt
-        mean_b = _win_sum(rows2[1], s.gf_radius, -1) / cnt
+        cnt = window_counts(s.H, s.W, s.gf_radius, x.device)
+        mean_a = window_sum(rows2[0], s.gf_radius, -1) / cnt
+        mean_b = window_sum(rows2[1], s.gf_radius, -1) / cnt
         t = torch.clamp(mean_a * g + mean_b, 0.0, 1.0)
     else:
         t = t_raw

@@ -3,19 +3,26 @@
 ``mode`` selects how an op runs:
 
   - ``"ref"``    : the plain PyTorch chain (``kernels.ref``), any device;
+  - ``"pallas"`` : the staged chain, each component a hand-written CUDA
+                   kernel (``kernels.staged``) on CUDA tensors and its plain
+                   version on CPU tensors;
+  - ``"auto"``   : ``REPRO_KERNEL_MODE`` where it names a substrate (ref |
+                   pallas | interpret), else ``"pallas"``, as the reference
+                   resolves it on an accelerator;
   - ``"fused"``  : the whole chain as the hand-written CUDA megakernel
-                   (``kernels.fused``) on CUDA tensors, its plain version on
-                   CPU tensors;
-  - ``"pallas"`` / ``"auto"``: the staged per-stage kernels, not ported yet
-                   (ROADMAP.md queue B, rows B3-B6): raise
-                   ``NotImplementedError``;
+                   (``kernels.fused``); the staged ops of a config the
+                   megakernel does not cover (DCP with
+                   ``recompute_t_with_final_a``) run as under ``"pallas"``;
   - ``"interpret"``: a Pallas-on-CPU substrate with no counterpart here:
                    raises ``ValueError``.
 
-``REPRO_KERNEL_MODE`` replaces ``"auto"`` and, set to ``ref``, sends
-``"fused"`` to the plain chain, as on the reference. The TPU tiling knobs
-(``frames_per_block``, ``lane_major``, ``buffer_depth``, the tuning
-table) have no counterpart.
+``REPRO_KERNEL_MODE=ref`` also sends ``"fused"`` to the plain chain, as on
+the reference. Two staged kernels are not ported yet and raise
+``NotImplementedError`` on a CUDA tensor: the windowed min of staged CAP
+(ROADMAP.md queue B, row B3b) and the top-k atmospheric light for
+``k > 1`` (row B6b); on CPU tensors they run the plain chain. The TPU
+tiling knobs (``frames_per_block``, ``lane_major``, ``buffer_depth``, the
+tuning table) have no counterpart.
 """
 from __future__ import annotations
 
@@ -26,45 +33,34 @@ import torch
 from repro_torch.core import env as _env
 from repro_torch.kernels import fused as _fused
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import staged as _staged
 from repro_torch.kernels.ref import CAP_COEFFS
 
 Mode = Literal["auto", "ref", "pallas", "interpret", "fused"]
 
 MODES = _env.KERNEL_MODES
 
-_STAGED_TODO = ("the staged per-stage kernels (kernel_mode {mode!r}) are not "
-                "ported yet (ROADMAP.md queue B, rows B3-B6); use "
-                "kernel_mode='fused' or 'ref'")
+_NOT_PORTED = ("{what} on a CUDA tensor is not ported yet (ROADMAP.md queue "
+               "B, row {row}); use kernel_mode='fused' or 'ref'")
 
 
 def resolve_mode(mode: Mode = "auto") -> str:
-    """Resolve to ``"ref"`` or ``"fused"``; raise for the rest (see the
-    module docstring). Unknown values, in the argument or in
+    """Resolve to ``"ref"``, ``"pallas"`` or ``"fused"`` (see the module
+    docstring). ``"interpret"``, and unknown values in the argument or in
     ``REPRO_KERNEL_MODE``, raise ``ValueError``."""
     if mode not in MODES:
         raise ValueError(
             f"unknown kernel mode {mode!r}; expected one of {sorted(MODES)}")
     env = _env.kernel_mode()
     m = mode
-    if m == "auto" and env not in ("", "auto"):
-        m = env
+    if m == "auto":
+        m = env if env in _env.SUBSTRATES else "pallas"
     if m == "fused" and env == "ref":
         m = "ref"
     if m == "interpret":
         raise ValueError("kernel_mode 'interpret' runs Pallas kernel bodies "
                          "on the CPU and has no counterpart in repro_torch")
-    if m in ("pallas", "auto"):
-        raise NotImplementedError(_STAGED_TODO.format(mode=m))
     return m
-
-
-def _staged(mode: Mode, x: torch.Tensor) -> None:
-    """Staged ops run the plain version for ``ref``, and for ``fused`` on
-    CPU tensors (the fused path's fallback configs); on CUDA their kernels
-    are not ported yet."""
-    m = resolve_mode(mode)
-    if m == "fused" and x.device.type != "cpu":
-        raise NotImplementedError(_STAGED_TODO.format(mode=m))
 
 
 def _batched(x: torch.Tensor, rank: int):
@@ -74,30 +70,88 @@ def _batched(x: torch.Tensor, rank: int):
 
 
 def dark_channel(img, radius: int, mode: Mode = "auto"):
-    _staged(mode, img)
-    return _ref.dark_channel(img, radius)
+    """(..., H, W, 3) -> (..., H, W)."""
+    if resolve_mode(mode) == "ref":
+        return _ref.dark_channel(img, radius)
+    flat, lead = _batched(img, 3)
+    return _staged.dark_channel_op(flat, radius).reshape(lead + flat.shape[1:3])
 
 
 def min_filter_2d(x, radius: int, mode: Mode = "auto"):
-    _staged(mode, x)
+    """(..., H, W) -> (..., H, W)."""
+    if resolve_mode(mode) != "ref" and x.device.type != "cpu":
+        raise NotImplementedError(_NOT_PORTED.format(
+            what="the staged windowed min (CAP)", row="B3b"))
     return _ref.min_filter_2d(x, radius)
 
 
+def box_filter_2d(x, radius: int, mode: Mode = "auto"):
+    """(..., H, W) -> (..., H, W) windowed mean over the clipped box."""
+    if resolve_mode(mode) == "ref":
+        return _ref.box_filter_2d(x, radius)
+    flat, lead = _batched(x, 2)
+    return _staged.box_filter_op(flat, radius).reshape(x.shape)
+
+
 def guided_filter(guide, src, radius: int, eps: float, mode: Mode = "auto"):
-    _staged(mode, src)
-    return _ref.guided_filter(guide, src, radius, eps)
+    """Gray-guide guided filter: six box filters and pointwise algebra."""
+    if resolve_mode(mode) == "ref":
+        return _ref.guided_filter(guide, src, radius, eps)
+    g = guide.to(torch.float32)
+    p = src.to(torch.float32)
+
+    def bf(v):
+        return box_filter_2d(v, radius, mode)
+    mean_g = bf(g)
+    mean_p = bf(p)
+    corr_gp = bf(g * p)
+    corr_gg = bf(g * g)
+    var_g = corr_gg - mean_g * mean_g
+    cov_gp = corr_gp - mean_g * mean_p
+    a = cov_gp / (var_g + eps)
+    b = mean_p - a * mean_g
+    return (bf(a) * g + bf(b)).to(src.dtype)
 
 
 def atmospheric_light(img, t_raw, k: int = 1, mode: Mode = "auto"):
-    _staged(mode, img)
-    return _ref.atmospheric_light(img, t_raw, k)
+    """(..., H, W, 3), (..., H, W) -> (..., 3): I at the argmin of t
+    (``k == 1``), or the mean of I over the k smallest t."""
+    m = resolve_mode(mode)
+    if m == "ref" or (k > 1 and img.device.type == "cpu"):
+        return _ref.atmospheric_light(img, t_raw, k)
+    if k > 1:
+        raise NotImplementedError(_NOT_PORTED.format(
+            what=f"the staged top-k atmospheric light (k={k})", row="B6b"))
+    flat_i, lead = _batched(img, 3)
+    flat_t, _ = _batched(t_raw, 2)
+    return _staged.atmolight_op(flat_i, flat_t).reshape(lead + (3,))
+
+
+def per_frame(A: torch.Tensor, lead: Tuple[int, ...]) -> torch.Tensor:
+    """Broadcast an atmospheric light to one row per frame: ``A`` of shape
+    ``P + (3,)``, where ``P`` is a prefix of the frames' lead shape (``()``
+    shared, ``(L,)`` per lane, ``lead`` per frame) -> ``lead + (3,)``."""
+    p = A.dim() - 1
+    if tuple(A.shape[:p]) != tuple(lead[:p]):
+        raise ValueError(f"A {tuple(A.shape)} does not broadcast over frames "
+                         f"with leading shape {lead}")
+    return A.reshape(A.shape[:p] + (1,) * (len(lead) - p) + (3,)).expand(
+        lead + (3,))
 
 
 def recover(img, t, A, t0: float = 0.1, gamma: float = 1.0,
             mode: Mode = "auto"):
-    _staged(mode, img)
-    out = _ref.recover(img, t, A, t0)
-    return out ** gamma if gamma != 1.0 else out
+    """(..., H, W, 3), (..., H, W), A per frame, lane or stream -> J."""
+    lead = tuple(img.shape[:-3])
+    A = per_frame(A, lead)
+    if resolve_mode(mode) == "ref":
+        out = _ref.recover(img, t, A, t0)
+        return out ** gamma if gamma != 1.0 else out
+    flat_i, _ = _batched(img, 3)
+    flat_t, _ = _batched(t, 2)
+    out = _staged.recover_op(flat_i, flat_t,
+                             A.reshape(-1, 3).contiguous(), t0, gamma)
+    return out.reshape(img.shape)
 
 
 def cap_depth(img, w0: float, w1: float, w2: float):
@@ -159,5 +213,6 @@ def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
 
 
 __all__ = ["MODES", "resolve_mode", "dark_channel", "min_filter_2d",
-           "guided_filter", "atmospheric_light", "recover",
+           "box_filter_2d", "guided_filter", "atmospheric_light",
+           "per_frame", "recover",
            "cap_depth", "fused_dehaze", "fused_dehaze_lanes"]

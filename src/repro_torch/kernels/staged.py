@@ -1,0 +1,318 @@
+"""The staged component kernels on Hopper: wrappers and plain versions.
+
+The chain ``kernel_mode="auto"`` runs (the ``pallas`` substrate of the JAX
+package): the paper's three components as separate kernels, with the
+guided filter composed from box filters in ``kernels.ops``. One section per
+JAX module, each porting one Pallas kernel to ``csrc/staged.cu``:
+
+  dark channel      ``kernels/dark_channel.py::dark_channel_pallas``
+  box filter        ``kernels/boxfilter.py::box_filter_2d_pallas``
+  atmospheric light ``kernels/atmolight.py::atmolight_pallas`` (top-1)
+  recover           ``kernels/recover.py::recover_pallas``
+
+For each, ``cuda_<name>`` launches the hand-written kernel on CUDA tensors
+(built at first use; a failed build or launch raises) and adds one to
+:data:`launches`; ``plain_<name>`` is a plain PyTorch version that follows
+the Pallas kernel's arithmetic (upcast to float32, compute, one cast at the
+end, the Pallas kernel's output dtype); ``<name>_op`` takes a CPU tensor
+to the plain version and any other to the kernel. Nothing falls back from
+one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+SOURCE = "staged.cu"
+
+KERNELS = ("dark_channel", "box_filter", "atmolight", "recover")
+
+#: Kernel launches since the last :func:`reset_launches`, by kernel.
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
+
+#: Output tile of a window block and the shared memory a block may use
+#: (``kTileX``/``kTileY``/``kMaxSmem`` in the CUDA source, checked at load).
+TILE_X, TILE_Y, MAX_SMEM = 32, 64, 232448
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Build, bind, launch
+# ---------------------------------------------------------------------------
+
+_lib_handle: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    """Build (first use) and bind ``csrc/staged.cu``."""
+    global _lib_handle
+    if _lib_handle is None:
+        from repro_torch.kernels import _build
+        lib = _build.load(SOURCE)
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        sigs = {
+            "st_dark_channel": [vp, vp, i, i, i, i, i, vp],
+            "st_box_filter": [vp, vp, i, i, i, i, i, vp],
+            "st_atmolight": [vp, vp, vp, i, i, i, i, i, vp],
+            "st_recover": [vp, vp, vp, vp, i, i, i, f, f, i, i, i, vp],
+        }
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        for name in ("st_tile_x", "st_tile_y", "st_max_smem"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        got = (lib.st_tile_x(), lib.st_tile_y(), lib.st_max_smem())
+        if got != (TILE_X, TILE_Y, MAX_SMEM):
+            raise RuntimeError(f"{SOURCE} tiles {got}, expected "
+                               f"{(TILE_X, TILE_Y, MAX_SMEM)}")
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _launch(name: str, *args) -> None:
+    """Call ``st_<name>`` on the current stream; count it; raise on a
+    non-zero cudaError_t."""
+    fn = getattr(_lib(), f"st_{name}")
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel st_{name} failed: cudaError_t {rc}")
+    launches[name] += 1
+
+
+def _check_cuda(*tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    try:
+        return _DTYPES[t.dtype]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {t.dtype}; the staged kernels "
+                         "take float32 or bfloat16") from None
+
+
+def _check_sizes(n: int, h: int, w: int) -> None:
+    if min(n, h, w) < 1 or n > 65535 or h * w >= 2 ** 32:
+        raise ValueError(f"(N, H, W) = {(n, h, w)} outside the kernels' "
+                         "range (1 <= N <= 65535, 1 <= H*W < 2**32)")
+
+
+def _check_frames(img: torch.Tensor) -> None:
+    if img.dim() != 4 or img.shape[-1] != 3:
+        raise ValueError(f"expected (N, H, W, 3) frames, got {tuple(img.shape)}")
+    _check_sizes(*img.shape[:3])
+
+
+def _check_window(h: int, radius: int) -> None:
+    if radius < 0:
+        raise ValueError("window radius must be >= 0")
+    if min(TILE_Y + 2 * radius, h) * TILE_X * 4 > MAX_SMEM:
+        raise ValueError(f"radius {radius} over {h} rows needs more shared "
+                         f"memory than a block has ({MAX_SMEM} bytes)")
+
+
+def _on_kernel(x: torch.Tensor) -> bool:
+    """CPU tensors take the plain version (the caller asked for the CPU);
+    every other tensor takes the kernel, which raises off CUDA."""
+    return x.device.type != "cpu"
+
+
+# ---------------------------------------------------------------------------
+# Window sums (the plain box filter; also the megakernel's plain passes)
+# ---------------------------------------------------------------------------
+
+def window_sum(v: torch.Tensor, r: int, dim: int) -> torch.Tensor:
+    """Sum over the clipped window of radius r along dim -2 or -1."""
+    pad = (0, 0, r, r) if dim == -2 else (r, r)
+    return F.pad(v, pad).unfold(dim, 2 * r + 1, 1).sum(-1)
+
+
+def window_counts(h: int, w: int, r: int, device) -> torch.Tensor:
+    """(H, W) closed-form in-bounds counts of the clipped (2r+1)² window."""
+    def axis(n):
+        i = torch.arange(n, device=device)
+        return (torch.clamp_max(i + r, n - 1) - torch.clamp_min(i - r, 0)
+                + 1).to(torch.float32)
+    return axis(h)[:, None] * axis(w)[None, :]
+
+
+# ---------------------------------------------------------------------------
+# Dark channel (dark_channel.py::dark_channel_pallas)
+# ---------------------------------------------------------------------------
+
+def cuda_dark_channel(img: torch.Tensor, radius: int) -> torch.Tensor:
+    _check_frames(img)
+    _check_cuda(img)
+    dt = _dtype_code(img)
+    n, h, w, _ = img.shape
+    _check_window(h, radius)
+    out = torch.empty((n, h, w), dtype=img.dtype, device=img.device)
+    _launch("dark_channel", img.data_ptr(), out.data_ptr(), n, h, w, radius, dt)
+    return out
+
+
+def plain_dark_channel(img: torch.Tensor, radius: int) -> torch.Tensor:
+    """Channel min, then the (2r+1)² windowed min with +inf border."""
+    _check_frames(img)
+    _dtype_code(img)
+    v = img.to(torch.float32).amin(-1)[:, None]
+    k = 2 * radius + 1
+    return (-F.max_pool2d(-v, k, stride=1, padding=radius))[:, 0].to(img.dtype)
+
+
+def dark_channel_op(img: torch.Tensor, radius: int) -> torch.Tensor:
+    """(N, H, W, 3) -> (N, H, W) in the input dtype."""
+    return (cuda_dark_channel if _on_kernel(img)
+            else plain_dark_channel)(img, radius)
+
+
+# ---------------------------------------------------------------------------
+# Box filter (boxfilter.py::box_filter_2d_pallas)
+# ---------------------------------------------------------------------------
+
+def _check_plane(x: torch.Tensor) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"expected (N, H, W) planes, got {tuple(x.shape)}")
+    _check_sizes(*x.shape)
+
+
+def cuda_box_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
+    _check_plane(x)
+    _check_cuda(x)
+    dt = _dtype_code(x)
+    n, h, w = x.shape
+    _check_window(h, radius)
+    out = torch.empty_like(x)
+    _launch("box_filter", x.data_ptr(), out.data_ptr(), n, h, w, radius, dt)
+    return out
+
+
+def plain_box_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """Direct sums over the clipped window (horizontal, then vertical, as
+    the kernel) divided by the closed-form in-bounds count."""
+    _check_plane(x)
+    _dtype_code(x)
+    v = x.to(torch.float32)
+    s = window_sum(window_sum(v, radius, -1), radius, -2)
+    cnt = window_counts(x.shape[1], x.shape[2], radius, x.device)
+    return (s / cnt).to(x.dtype)
+
+
+def box_filter_op(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """(N, H, W) -> (N, H, W) windowed mean in the input dtype."""
+    return (cuda_box_filter if _on_kernel(x) else plain_box_filter)(x, radius)
+
+
+# ---------------------------------------------------------------------------
+# Atmospheric light, top-1 (atmolight.py::atmolight_pallas)
+# ---------------------------------------------------------------------------
+
+def _check_pair(img: torch.Tensor, t: torch.Tensor) -> None:
+    _check_frames(img)
+    if tuple(t.shape) != tuple(img.shape[:-1]):
+        raise ValueError(f"t {tuple(t.shape)} does not match frames "
+                         f"{tuple(img.shape)}")
+    _dtype_code(img)
+    _dtype_code(t)
+
+
+def cuda_atmolight(img: torch.Tensor, t_raw: torch.Tensor) -> torch.Tensor:
+    _check_pair(img, t_raw)
+    _check_cuda(img, t_raw)
+    n, h, w, _ = img.shape
+    out = torch.empty((n, 3), dtype=img.dtype, device=img.device)
+    _launch("atmolight", img.data_ptr(), t_raw.data_ptr(), out.data_ptr(),
+            n, h, w, _dtype_code(img), _dtype_code(t_raw))
+    return out
+
+
+def plain_atmolight(img: torch.Tensor, t_raw: torch.Tensor) -> torch.Tensor:
+    """I at the per-frame argmin of t (first index on ties; -0.0 == +0.0)."""
+    _check_pair(img, t_raw)
+    n = img.shape[0]
+    j = t_raw.to(torch.float32).reshape(n, -1).argmin(-1)
+    x = img.to(torch.float32).reshape(n, -1, 3)
+    return x[torch.arange(n, device=img.device), j].to(img.dtype)
+
+
+def atmolight_op(img: torch.Tensor, t_raw: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, 3), (N, H, W) -> (N, 3) in the frames' dtype."""
+    return (cuda_atmolight if _on_kernel(img) else plain_atmolight)(img, t_raw)
+
+
+# ---------------------------------------------------------------------------
+# Recover (recover.py::recover_pallas)
+# ---------------------------------------------------------------------------
+
+def _check_recover(img, t, A) -> None:
+    _check_pair(img, t)
+    if tuple(A.shape) != (img.shape[0], 3):
+        raise ValueError(f"A {tuple(A.shape)} != (N, 3) = {(img.shape[0], 3)}")
+    _dtype_code(A)
+
+
+def cuda_recover(img: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
+                 t0: float = 0.1, gamma: float = 1.0) -> torch.Tensor:
+    _check_recover(img, t, A)
+    _check_cuda(img, t, A)
+    n, h, w, _ = img.shape
+    out = torch.empty_like(img)
+    # ctypes rounds t0 and gamma to float32, as PyTorch rounds a scalar
+    # operand of a float32 operation.
+    _launch("recover", img.data_ptr(), t.data_ptr(), A.data_ptr(),
+            out.data_ptr(), n, h, w, t0, gamma, _dtype_code(img),
+            _dtype_code(t), _dtype_code(A))
+    return out
+
+
+def plain_recover(img: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
+                  t0: float = 0.1, gamma: float = 1.0) -> torch.Tensor:
+    """Eq. 8 in float32, ``clip((I - A)/max(t, t0) + A, 0, 1) ** gamma``,
+    cast once to the frames' dtype."""
+    _check_recover(img, t, A)
+    x = img.to(torch.float32)
+    tt = torch.clamp_min(t.to(torch.float32), t0)[..., None]
+    a = A.to(torch.float32)[:, None, None, :]
+    out = torch.clamp((x - a) / tt + a, 0.0, 1.0)
+    if gamma != 1.0:
+        out = out ** gamma
+    return out.to(img.dtype)
+
+
+def recover_op(img: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
+               t0: float = 0.1, gamma: float = 1.0) -> torch.Tensor:
+    """(N, H, W, 3), (N, H, W), (N, 3) -> (N, H, W, 3) in the frames' dtype."""
+    return (cuda_recover if _on_kernel(img) else plain_recover)(
+        img, t, A, t0, gamma)
+
+
+#: Kernel name -> (CUDA wrapper, plain version): what ``chip_smoke.py``
+#: holds against each other.
+PAIRS = {
+    "dark_channel": (cuda_dark_channel, plain_dark_channel),
+    "box_filter": (cuda_box_filter, plain_box_filter),
+    "atmolight": (cuda_atmolight, plain_atmolight),
+    "recover": (cuda_recover, plain_recover),
+}
+
+__all__ = ["SOURCE", "KERNELS", "launches", "reset_launches", "PAIRS",
+           "window_sum", "window_counts",
+           "cuda_dark_channel", "plain_dark_channel", "dark_channel_op",
+           "cuda_box_filter", "plain_box_filter", "box_filter_op",
+           "cuda_atmolight", "plain_atmolight", "atmolight_op",
+           "cuda_recover", "plain_recover", "recover_op"]

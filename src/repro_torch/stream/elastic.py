@@ -1,9 +1,11 @@
 """The serving front door: ``ElasticServer.serve`` and ``serve_many``.
 
 ``serve`` runs one stream through the dispatcher; ``serve_many`` runs N
-streams through the lane scheduler, whose step on a fused config is the
-lane-native megakernel (one call for all L lanes a tick). Steps come from
-a bounded LRU cache keyed by everything that shapes them. The server runs
+streams through the lane scheduler, whose step runs all L lanes of a tick
+in one call: the lane-native megakernel on a fused config, otherwise (the
+default ``kernel_mode="auto"``) the staged component kernels, each launched
+once over the tick's L*B frames. Steps come from a bounded LRU cache keyed
+by everything that shapes them. The server runs
 on CUDA unless it is built with ``device="cpu"``; without a card a CUDA
 server raises when it is built.
 

@@ -3,7 +3,8 @@
 N live videos are multiplexed onto L *lanes* of one fixed-shape
 ``(L, B, H, W, 3)`` batch, stepped by the lane-batched step
 (``core.pipeline.make_multi_stream_step``: the lane-native megakernel on
-fused configs). Per lane:
+fused configs, the staged component kernels over all lanes otherwise).
+Per lane:
 
   layer 1 (spout)        — one ``Spout`` per admitted stream assigns ids
                            from that stream's restart-safe cursor;

@@ -159,12 +159,13 @@ def test_single_stream_is_the_l1_view():
 # --- contracts: dispatch, no fallback ----------------------------------------
 
 def test_mode_resolution(monkeypatch):
+    """``auto`` resolves as the reference does on an accelerator: the
+    substrate ``REPRO_KERNEL_MODE`` names, else the staged kernels."""
     monkeypatch.delenv("REPRO_KERNEL_MODE", raising=False)
     assert tops.resolve_mode("ref") == "ref"
     assert tops.resolve_mode("fused") == "fused"
     for m in ("pallas", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tops.resolve_mode(m)
+        assert tops.resolve_mode(m) == "pallas"
     with pytest.raises(ValueError):
         tops.resolve_mode("interpret")
     with pytest.raises(ValueError):
@@ -172,6 +173,11 @@ def test_mode_resolution(monkeypatch):
     monkeypatch.setenv("REPRO_KERNEL_MODE", "ref")
     assert tops.resolve_mode("auto") == "ref"
     assert tops.resolve_mode("fused") == "ref"
+    monkeypatch.setenv("REPRO_KERNEL_MODE", "fused")
+    assert tops.resolve_mode("auto") == "pallas"
+    monkeypatch.setenv("REPRO_KERNEL_MODE", "interpret")
+    with pytest.raises(ValueError):
+        tops.resolve_mode("auto")
     monkeypatch.setenv("REPRO_KERNEL_MODE", "bogus")
     with pytest.raises(ValueError):
         tops.resolve_mode("fused")

@@ -124,3 +124,36 @@ def test_ema_scan_lanes_padding_lane_untouched():
     np.testing.assert_array_equal(as_np(got.last_update),
                                   as_np(want.last_update))
     assert torch.equal(got.A[1], packed.A[1]) and not bool(got.initialized[1])
+
+
+@pytest.mark.parametrize("associative", [True, False])
+def test_ema_scan_lanes_is_each_lanes_own_scan(associative):
+    """All lanes in one set of tensor operations equal each lane scanned
+    alone, bit for bit, and the reference's vmapped scan: a cold lane, a
+    warm lane, a lane with a padding head, an all-padding lane."""
+    rng = np.random.default_rng(4)
+    cand = rng.random((4, 5, 3)).astype(np.float32)
+    ids = np.stack([np.arange(5), np.arange(7, 12), [-1, -1, 3, 4, 5],
+                    [-1] * 5]).astype(np.int32)
+    states = [tn.init_atmo_state(), _states(True)[1], _states(True)[1],
+              tn.init_atmo_state()]
+    packed = tn.pack_atmo_states(states)
+    got_seq, got = tn.ema_scan_lanes(torch.from_numpy(cand),
+                                     torch.from_numpy(ids), packed, 2, 0.3,
+                                     associative=associative)
+    scan = tn.ema_scan_associative if associative else tn.ema_scan
+    for lane, st in enumerate(states):
+        seq, one = scan(torch.from_numpy(cand[lane]),
+                        torch.from_numpy(ids[lane]), st, 2, 0.3)
+        assert torch.equal(got_seq[lane], seq)
+        assert torch.equal(got.A[lane], one.A)
+        assert int(got.last_update[lane]) == int(one.last_update)
+        assert bool(got.initialized[lane]) == bool(one.initialized)
+    jpacked = jn.pack_atmo_states([_states(False)[0], _states(True)[0],
+                                   _states(True)[0], _states(False)[0]])
+    want_seq, want = jn.ema_scan_lanes(jnp.asarray(cand), jnp.asarray(ids),
+                                       jpacked, 2, 0.3,
+                                       associative=associative)
+    np.testing.assert_allclose(as_np(got_seq), as_np(want_seq), atol=1e-6)
+    np.testing.assert_array_equal(as_np(got.last_update),
+                                  as_np(want.last_update))

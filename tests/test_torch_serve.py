@@ -155,16 +155,21 @@ def test_state_carried_over_from_a_jax_store():
 
 @pytest.mark.parametrize("mode,algorithm,topk",
                          [("ref", "dcp", 1), ("ref", "cap", 4),
-                          ("fused", "cap", 1), ("fused", "dcp", 4)])
+                          ("fused", "cap", 1), ("fused", "dcp", 4),
+                          ("pallas", "dcp", 1)])
 def test_multi_stream_step_matches_jax_step(mode, algorithm, topk):
-    """The lane-batched step, staged per lane (``ref``) or lane-native
-    (``fused``), against the reference's step, with an all-padding lane;
-    each live lane equals the single-stream step on it."""
+    """The lane-batched step, staged over all lanes (``ref``, ``pallas``:
+    the staged kernels' plain versions here) or lane-native (``fused``),
+    against the reference's step, with an all-padding lane; each live lane
+    equals the single-stream step on it."""
     kw = dict(CFG, kernel_mode=mode, algorithm=algorithm, topk=topk)
     x = np.random.default_rng(5).random((3, 4, 16, 20, 3)).astype(np.float32)
     ids = np.tile(np.arange(4, dtype=np.int32), (3, 1))
     ids[2] = -1
-    want = jax_multi_step(JaxConfig(**kw))(jnp.asarray(x), jnp.asarray(ids),
+    # The JAX package cannot compile its Pallas kernels on the CPU; its
+    # staged chain there is the plain one (``ref``).
+    jkw = dict(kw, kernel_mode="ref" if mode == "pallas" else mode)
+    want = jax_multi_step(JaxConfig(**jkw))(jnp.asarray(x), jnp.asarray(ids),
                                            jax_init_lanes(3))
     step = make_multi_stream_step(DehazeConfig(**kw), device="cpu")
     got = step(torch.from_numpy(x), torch.from_numpy(ids),

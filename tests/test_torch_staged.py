@@ -1,0 +1,327 @@
+"""PyTorch port, the staged component chain (``kernel_mode`` "auto" and
+"pallas"): ``repro_torch.kernels.staged`` and the staged steps against the
+JAX package's Pallas kernels and steps in interpret mode, on the same numpy
+inputs.
+
+On the CPU each wrapper runs its plain version, which follows its Pallas
+kernel's arithmetic; the CUDA kernels (``csrc/staged.cu``) are held against
+those plain versions on the card (``chip_smoke.py``, and the ``cuda``-marked
+test below). Tolerances: selections (dark channel, atmospheric light)
+exact; box filter 1e-5 (float32; its direct sums against the Pallas
+kernel's cumsum differences); recover 1e-6 (float32); guided filter 1e-4
+as ``tests/test_kernels.py``; steps J/t 2e-4, A 1e-5, ``last_update``
+exact; bfloat16 2e-2 throughout.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import DehazeConfig as JaxConfig
+from repro.core import init_atmo_state as jax_init
+from repro.core import init_atmo_state_lanes as jax_init_lanes
+from repro.core import make_dehaze_step as jax_single_step
+from repro.core import make_multi_stream_step as jax_multi_step
+from repro.kernels import ops as jops
+from repro.kernels.atmolight import atmolight_pallas
+from repro.kernels.boxfilter import box_filter_2d_pallas
+from repro.kernels.dark_channel import dark_channel_pallas
+from repro.kernels.recover import recover_pallas
+from repro.stream import ElasticServer as JaxServer
+from repro.stream import StreamRequest as JaxRequest
+from repro_torch.core import (DehazeConfig, init_atmo_state,
+                              init_atmo_state_lanes, make_dehaze_step,
+                              make_multi_stream_step)
+from repro_torch.kernels import _build, staged
+from repro_torch.kernels import ops as tops
+from repro_torch.stream import ElasticServer, StreamRequest, StreamStateStore
+
+from _torch_common import as_np, ramp_frames, wire
+
+torch.set_num_threads(1)
+
+# (shape, radius): a plain cell, windows wider than the frame, radius 0.
+WINDOWS = [((2, 24, 32), 3), ((1, 16, 20), 12), ((2, 12, 16), 0)]
+STEP_CFG = dict(patch_radius=2, gf_radius=3, update_period=2, lam=0.3)
+
+
+def _maps(seed, shape):
+    return np.random.default_rng(seed).random(shape).astype(np.float32)
+
+
+def _tol(dtype, f32_tol):
+    return 2e-2 if dtype == "bfloat16" else f32_tol
+
+
+# --- each kernel's plain version against its Pallas kernel ------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,radius", WINDOWS)
+def test_dark_channel_matches_pallas(shape, radius, dtype):
+    jx, tx = wire(ramp_frames(1, shape[0], h=shape[1], w=shape[2]), dtype)
+    got = staged.dark_channel_op(tx, radius)
+    want = dark_channel_pallas(jx, radius, interpret=True)
+    assert got.dtype == tx.dtype
+    np.testing.assert_array_equal(as_np(got), as_np(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,radius", WINDOWS)
+def test_box_filter_matches_pallas(shape, radius, dtype):
+    jx, tx = wire(_maps(2, shape), dtype)
+    got = staged.box_filter_op(tx, radius)
+    want = box_filter_2d_pallas(jx, radius, interpret=True)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(as_np(got), as_np(want), rtol=0,
+                               atol=_tol(dtype, 1e-5))
+
+
+def _ties_t_map(h, w):
+    """Frame 0: negative values, its minimum at two indices; frame 1: all
+    positive but for -0.0/+0.0 at several indices, -0.0 first."""
+    t = np.stack([_maps(3, (h, w)) - 0.5, _maps(4, (h, w)) + 0.01])
+    t[0].flat[[17, 5]] = -0.75
+    t[1].flat[[40, 9, 23]] = [0.0, -0.0, 0.0]
+    return t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t_map", ["ramp", "ties"])
+def test_atmolight_matches_pallas(t_map, dtype):
+    x = ramp_frames(5, 2, h=12, w=16)
+    if t_map == "ramp":       # t_raw of the ramp itself: every level distinct
+        t = 1.0 - 0.95 * x.min(-1)
+    else:
+        t = _ties_t_map(12, 16)
+    jx, tx = wire(x, dtype)
+    jt, tt = wire(t.astype(np.float32), dtype)
+    got = staged.atmolight_op(tx, tt)
+    want = atmolight_pallas(jx, jt, interpret=True)
+    assert got.dtype == tx.dtype
+    np.testing.assert_array_equal(as_np(got), as_np(want))
+    if t_map == "ties":
+        flat = x.reshape(2, -1, 3)
+        np.testing.assert_array_equal(as_np(got.float()),
+                                      as_np(tx.float().reshape(2, -1, 3)[
+                                          torch.arange(2), [5, 9]]))
+        assert not np.array_equal(flat[1, 9], flat[1, 23])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gamma", [1.0, 1 / 2.2])
+def test_recover_matches_pallas(gamma, dtype):
+    x = _maps(6, (2, 12, 16, 3))
+    t = _maps(7, (2, 12, 16)) * 0.9          # some pixels below t0
+    a = 0.7 + 0.3 * _maps(8, (2, 3))
+    (jx, tx), (jt, tt), (ja, ta) = (wire(v, dtype) for v in (x, t, a))
+    got = staged.recover_op(tx, tt, ta, 0.1, gamma)
+    want = recover_pallas(jx, jt, ja, t0=0.1, gamma=gamma, interpret=True)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(as_np(got), as_np(want), rtol=0,
+                               atol=_tol(dtype, 1e-6))
+
+
+@pytest.mark.parametrize("radius", [2, 6])
+def test_guided_filter_matches_pallas(radius):
+    g, p = _maps(9, (2, 32, 24)), _maps(10, (2, 32, 24))
+    got = tops.guided_filter(torch.from_numpy(g), torch.from_numpy(p), radius,
+                             1e-3, mode="pallas")
+    want = jops.guided_filter(jnp.asarray(g), jnp.asarray(p), radius, 1e-3,
+                              mode="interpret")
+    np.testing.assert_allclose(as_np(got), as_np(want), atol=1e-4)
+
+
+# --- the staged steps against the JAX staged steps --------------------------
+
+def _compare_step(got, want, dtype):
+    tol = _tol(dtype, 2e-4)
+    for g, w in ((got.frames, want.frames),
+                 (got.transmission, want.transmission)):
+        np.testing.assert_allclose(as_np(g), as_np(w), atol=tol, rtol=0)
+    np.testing.assert_allclose(as_np(got.atmo_light), as_np(want.atmo_light),
+                               atol=_tol(dtype, 1e-5), rtol=0)
+    np.testing.assert_allclose(as_np(got.state.A), as_np(want.state.A),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(as_np(got.state.last_update),
+                                  as_np(want.state.last_update))
+    np.testing.assert_array_equal(as_np(got.state.initialized),
+                                  as_np(want.state.initialized))
+
+
+@pytest.mark.parametrize("mode,dtype", [("pallas", "float32"),
+                                        ("auto", "uint8"),
+                                        ("pallas", "bfloat16")])
+def test_staged_lane_step_matches_jax(mode, dtype, monkeypatch):
+    """Two chained batches over 3 lanes (the last all padding): each
+    component runs once a step over all lanes (the guided filter's box
+    filter six times), each lane's saved A feeds its own pre-divide, and
+    every live lane equals the single-stream step."""
+    monkeypatch.delenv("REPRO_KERNEL_MODE", raising=False)
+    calls = dict.fromkeys(staged.KERNELS, 0)
+    for name in staged.KERNELS:
+        def counted(*a, _name=name, _op=getattr(staged, f"{name}_op")):
+            calls[_name] += 1
+            return _op(*a)
+        monkeypatch.setattr(staged, f"{name}_op", counted)
+    L, B, H, W = 3, 2, 12, 16
+    x = ramp_frames(20, 2, L, B, h=H, w=W)
+    jstep = jax_multi_step(JaxConfig(kernel_mode="interpret", io_dtype=dtype,
+                                     **STEP_CFG))
+    cfg = DehazeConfig(kernel_mode=mode, io_dtype=dtype, **STEP_CFG)
+    step = make_multi_stream_step(cfg, device="cpu")
+    jstate, state = jax_init_lanes(L), init_atmo_state_lanes(L)
+    staged.reset_launches()
+    for batch in range(2):
+        jx, tx = wire(x[batch], dtype)
+        ids = np.tile(np.arange(B * batch, B * (batch + 1), dtype=np.int32),
+                      (L, 1))
+        ids[L - 1] = -1
+        want = jstep(jx, jnp.asarray(ids), jstate)
+        got = step(tx, torch.from_numpy(ids), state)
+        _compare_step(got, want, dtype)
+        assert torch.equal(got.state.A[L - 1], state.A[L - 1])
+        assert not bool(got.state.initialized[L - 1])
+        jstate, state = want.state, got.state
+    assert calls == {"dark_channel": 2, "box_filter": 12, "atmolight": 2,
+                     "recover": 2}
+    assert not any(staged.launches.values())     # CPU: plain versions only
+    single = make_dehaze_step(cfg, device="cpu")
+    one = init_atmo_state()
+    for batch in range(2):
+        _, tx = wire(x[batch], dtype)
+        out = single(tx[0], torch.arange(B * batch, B * (batch + 1),
+                                         dtype=torch.int32), one)
+        one = out.state
+    np.testing.assert_allclose(as_np(out.frames), as_np(got.frames[0]),
+                               atol=1e-6, rtol=0)
+
+
+def test_staged_fallback_under_fused_matches_jax(monkeypatch):
+    """DCP with ``recompute_t_with_final_a`` under ``"fused"``: the config
+    the megakernel does not cover runs the staged chain on both sides."""
+    monkeypatch.setenv("REPRO_KERNEL_MODE", "interpret")    # the JAX side
+    kw = dict(STEP_CFG, kernel_mode="fused", recompute_t_with_final_a=True)
+    x = ramp_frames(21, 4, h=12, w=16)
+    ids = np.arange(4, dtype=np.int32)
+    want = jax_single_step(JaxConfig(**kw))(jnp.asarray(x), jnp.asarray(ids),
+                                            jax_init())
+    got = make_dehaze_step(DehazeConfig(**kw), device="cpu")(
+        torch.from_numpy(x), torch.from_numpy(ids), init_atmo_state())
+    _compare_step(got, want, "float32")
+
+
+def test_jax_state_seeds_the_staged_server():
+    """A JAX server's store (the EMA ``AtmoState`` and cursors) seeds the
+    port's staged server (default ``kernel_mode``); the second half of each
+    stream matches a JAX server finishing from the same store."""
+    rng = np.random.default_rng(22)
+    vids = [[rng.random((12, 16, 3)).astype(np.float32) for _ in range(n)]
+            for n in (6, 5)]
+    cfg_j = JaxConfig(kernel_mode="ref", **STEP_CFG)
+    first = JaxServer(cfg_j, batch=2, timeout_s=5.0)
+    first.serve_many([JaxRequest(f"s{i}", iter(v[:3]))
+                      for i, v in enumerate(vids)])
+    tree = first.store.to_pytree()
+    jsrv = JaxServer(cfg_j, batch=2, timeout_s=5.0)
+    jsrv.store = type(first.store).from_pytree(tree)
+    jouts = {}
+    jsrv.serve_many([JaxRequest(f"s{i}", iter(v[3:]))
+                     for i, v in enumerate(vids)],
+                    sink=lambda sid, fid, f: jouts.setdefault((sid, fid), f))
+    srv = ElasticServer(DehazeConfig(**STEP_CFG), batch=2, timeout_s=5.0,
+                        device="cpu")
+    srv.store = StreamStateStore.from_jax_pytree(tree)
+    outs = {}
+    rep = srv.serve_many([StreamRequest(f"s{i}", iter(v[3:]))
+                          for i, v in enumerate(vids)],
+                         sink=lambda sid, fid, f: outs.setdefault((sid, fid), f))
+    assert rep.skipped == 0 and set(outs) == set(jouts)
+    for key, f in jouts.items():
+        np.testing.assert_allclose(as_np(outs[key]), as_np(f), atol=2e-4,
+                                   rtol=0)
+    for sid in ("s0", "s1"):
+        assert srv.store.cursor(sid) == jsrv.store.cursor(sid)
+        np.testing.assert_allclose(as_np(srv.store.get(sid).A),
+                                   as_np(jsrv.store.get(sid).A), atol=1e-5)
+
+
+# --- contracts: what is not ported raises, nothing falls back ---------------
+
+def _meta(*shape):
+    """A tensor off the CPU: the ops send it to the kernel path."""
+    return torch.empty(shape, device="meta")
+
+
+@pytest.mark.parametrize("mode", ["auto", "pallas", "fused"])
+def test_unported_staged_kernels_raise_off_the_cpu(mode, monkeypatch):
+    monkeypatch.delenv("REPRO_KERNEL_MODE", raising=False)
+    with pytest.raises(NotImplementedError, match="B3b"):
+        tops.min_filter_2d(_meta(2, 8, 8), 1, mode=mode)
+    with pytest.raises(NotImplementedError, match="B6b"):
+        tops.atmospheric_light(_meta(2, 8, 8, 3), _meta(2, 8, 8), k=4,
+                               mode=mode)
+
+
+def test_failed_staged_build_raises_instead_of_the_plain_version(
+        monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", tmp_path / "nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(staged, "_lib_handle", None)
+    monkeypatch.setattr(staged, "_check_cuda", lambda *t: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran for a device tensor")
+    for name in staged.KERNELS:
+        monkeypatch.setattr(staged, f"plain_{name}", plain)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        staged.dark_channel_op(_meta(2, 8, 8, 3), 1)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tops.box_filter_2d(_meta(2, 8, 8), 1, mode="pallas")
+    assert not any(staged.launches.values())
+
+
+def test_cuda_wrappers_refuse_cpu_tensors_and_other_dtypes():
+    x = torch.rand(1, 8, 8, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        staged.cuda_dark_channel(x, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        staged.cuda_recover(x, x[..., 0], torch.ones(1, 3))
+    for bad in (x.double(), (x * 255).to(torch.uint8)):
+        with pytest.raises(ValueError, match="dtype"):
+            staged.plain_dark_channel(bad, 1)
+        with pytest.raises(ValueError, match="dtype"):
+            staged.plain_atmolight(bad, x[..., 0])
+    with pytest.raises(ValueError, match="N, H, W"):
+        staged.plain_box_filter(x, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x = torch.from_numpy(ramp_frames(30, 4, h=48, w=64)).cuda()
+    t = torch.from_numpy(_maps(31, (4, 48, 64))).cuda()
+    a = torch.full((4, 3), 0.8, device="cuda")
+    cases = {"dark_channel": (x, 7), "box_filter": (t, 20),
+             "atmolight": (x, t), "recover": (x, t, a)}
+    for name, args in cases.items():
+        kernel, plain = staged.PAIRS[name]
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        tol = 1e-5 if name in ("box_filter", "recover") else 0.0
+        assert float((got - want).abs().max()) <= tol, name
+    # The staged lane step on device-resident frames never synchronises.
+    step = make_multi_stream_step(DehazeConfig(), device="cuda")
+    ids = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+    state = init_atmo_state_lanes(2, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(x.reshape(2, 2, 48, 64, 3), ids, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
