@@ -38,7 +38,31 @@ any error:
    and no megakernel pass; the aggregate fps over 4 streams x 192 frames;
 8. time the four staged kernels as phase 5 does, and the whole staged and
    fused lane steps back to back;
-9. print ``{"kernels": [...]}``, the card line, and last
+9. staged CAP and staged top-k at the serving shape: cells {cap, dcp} x
+   {topk 1, 4} x {uint8, bfloat16}, held as phase 6 holds its cells (every
+   staged kernel call against its plain version, the step against the
+   staged plain chain and, at float32 output, against the fused step; no
+   synchronising call); then the top-k atmospheric light alone on 8
+   frames at k above one tile's pixels, up to H*W (ramp and all-ties t),
+   against its plain version;
+10. ``serve_many`` (and ``serve``) of 4 x 48 uint8 frames with
+   ``DehazeConfig(algorithm="cap", topk=4, io_dtype="uint8")`` and the
+   default ``kernel_mode``: per tick one min filter, six box filters, one
+   top-k atmospheric light, one recover, and no dark channel, argmin
+   atmospheric light or megakernel pass;
+11. the data-parallel sharded step on ``make_host_mesh(1, 1)`` (one rank,
+   NCCL; the group is destroyed at the end of the phase), with the fused
+   config: the frame-sharded step over 32 uint8 frames (the fused
+   transmission stage, B7a) and the lane-sharded step with
+   ``lane_native=False`` over 4 x 8 frames (B7b), each two chained
+   batches: every transmission pass held against its plain version, t and
+   the candidates against the megakernel's on the same frames and saved A
+   (bit-equal), the step against the single-device fused step (t and J
+   2e-4, a_seq 1e-5), one transmission stage a step and no other kernel,
+   no synchronising call;
+12. time the min filter, the top-k atmospheric light and both transmission
+   stages as phase 8 does;
+13. print ``{"kernels": [...]}``, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -67,16 +91,28 @@ CFG_KW = dict(radius=7, omega=0.95, beta=1.0, gf_radius=20, gf_eps=1e-3,
 
 STAGED_SOURCE = "src/repro_torch/kernels/csrc/staged.cu"
 
-# The TPU kernel each staged kernel replaces (file:line), and its launches
-# per tick of the staged lane step.
+# The TPU kernel each staged kernel replaces (file:line).
 STAGED_REPLACES = {
     "dark_channel": "src/repro/kernels/dark_channel.py:45",
+    "min_filter": "src/repro/kernels/dark_channel.py:110",
     "box_filter": "src/repro/kernels/boxfilter.py:133",
     "atmolight": "src/repro/kernels/atmolight.py:92",
+    "atmolight_topk": "src/repro/kernels/atmolight.py:146",
     "recover": "src/repro/kernels/recover.py:32",
 }
-STAGED_PER_TICK = {"dark_channel": 1, "box_filter": 6, "atmolight": 1,
-                   "recover": 1}
+# Launches a tick of each counter (names as :func:`all_launches` gives
+# them) on each path; every counter not named launches no time.
+STAGED_PER_TICK = {"staged.dark_channel": 1, "staged.box_filter": 6,
+                   "staged.atmolight": 1, "staged.recover": 1}
+CAP_PER_TICK = {"staged.min_filter": 1, "staged.box_filter": 6,
+                "staged.atmolight_topk": 1, "staged.recover": 1}
+
+# The fused transmission stage of the sharded step (B7a and its lane form
+# B7b): the TPU kernels it replaces.
+TRANSMISSION_REPLACES = {
+    "fused_transmission": "src/repro/kernels/fused.py:520",
+    "fused_transmission_lanes": "src/repro/kernels/fused.py:566",
+}
 
 # The part of the TPU kernel each pass replaces (file:line).
 REPLACES = {
@@ -144,7 +180,7 @@ PASS_TOL = {                      # pass -> (tolerance, relative to magnitude?)
 }
 
 
-def pass_error(name: str, got, want) -> float:
+def pass_error(name: str, got, want, tols=PASS_TOL) -> float:
     """Max error of one pass's outputs (relative to max(1, |want|) for the
     window sums, whose magnitude grows with the window)."""
     if name == "topk_block":
@@ -156,7 +192,7 @@ def pass_error(name: str, got, want) -> float:
         if g is None:
             continue
         d = (g.float() - w.float()).abs()
-        if PASS_TOL[name][1]:
+        if tols[name][1]:
             d = d / w.float().abs().clamp_min(1.0)
         err = max(err, float(d.max()))
     return err
@@ -255,30 +291,49 @@ def reset_launches() -> None:
     sk.reset_launches()
 
 
-def path_launches(path: str, ticks: int, staged: bool = False) -> dict:
-    """The launch counts since the last reset, read just after ``path``
-    ran ``ticks`` steps. The fused path launches every megakernel pass
-    once a step (the whole megakernel's runs are its first pass's,
-    ``premap``) and no staged kernel; the staged path the staged kernels
-    :data:`STAGED_PER_TICK` times a step and no megakernel pass."""
+def all_launches() -> dict:
+    """Every launch counter since the last reset: the megakernel's passes
+    (and ``fused_dehaze_lanes``, its whole runs: its first pass's count),
+    ``staged.<kernel>``, and ``fused_transmission.<pass>`` (and
+    ``fused_transmission``, the stage's whole runs)."""
     from repro_torch.kernels import fused as fk, staged as sk
     counts = dict(fk.launches)
     counts["fused_dehaze_lanes"] = counts["premap"]
-    want = {name: 0 if staged else ticks for name in counts}
-    for name, n in sk.launches.items():
-        counts[f"staged.{name}"] = n
-        want[f"staged.{name}"] = STAGED_PER_TICK[name] * ticks if staged else 0
+    counts.update({f"staged.{k}": n for k, n in sk.launches.items()})
+    counts.update({f"fused_transmission.{k}": n
+                   for k, n in fk.transmission_launches.items()})
+    counts["fused_transmission"] = fk.transmission_launches["premap"]
+    return counts
+
+
+def fused_per_tick() -> dict:
+    from repro_torch.kernels import fused as fk
+    return {name: 1 for name in ("fused_dehaze_lanes",) + fk.PASSES}
+
+
+def transmission_per_tick() -> dict:
+    from repro_torch.kernels import fused as fk
+    return {f"fused_transmission.{name}": 1
+            for name in fk.TRANSMISSION_PASSES} | {"fused_transmission": 1}
+
+
+def path_launches(path: str, ticks: int, per_tick: dict) -> dict:
+    """The launch counts since the last reset, read just after ``path``
+    ran ``ticks`` steps: each counter must show ``per_tick`` launches a
+    step (0 for a counter ``per_tick`` does not name)."""
+    counts = all_launches()
     for name, n in counts.items():
-        check(want[name] == 0 or n > 0,
+        want = per_tick.get(name, 0) * ticks
+        check(want == 0 or n > 0,
               f"kernel {name} never launched on the {path} path")
-        check(n == want[name], f"kernel {name}: {n} launches on the {path} "
-              f"path of {ticks} steps, expected {want[name]}")
+        check(n == want, f"kernel {name}: {n} launches on the {path} "
+              f"path of {ticks} steps, expected {want}")
     print(f"launches on {path} ({ticks} steps): " + json.dumps(counts),
           flush=True)
     return counts
 
 
-def phase_serve(cfg, vids, staged: bool = False):
+def phase_serve(cfg, vids, per_tick: dict, label: str = ""):
     from repro_torch.core import init_atmo_state
     from repro_torch.kernels import ref
     from repro_torch.stream import ElasticServer, StreamRequest
@@ -296,12 +351,11 @@ def phase_serve(cfg, vids, staged: bool = False):
         if sid == "cam0":
             lane0[fid] = frame
 
-    label = "staged " if staged else ""
     srv = ElasticServer(cfg, batch=8, timeout_s=2.0)
     reset_launches()
     rep = srv.serve_many([StreamRequest(f"cam{i}", iter(v))
                           for i, v in enumerate(vids)], n_lanes=4, sink=sink)
-    many = path_launches(label + "serve_many", rep.ticks, staged)
+    many = path_launches(label + "serve_many", rep.ticks, per_tick)
     check(not bad, "; ".join(bad[:5]))
     check(rep.skipped == 0, f"serve_many skipped {rep.skipped} frames")
     check(rep.frames == 4 * n_frames, f"serve_many served {rep.frames}")
@@ -314,7 +368,7 @@ def phase_serve(cfg, vids, staged: bool = False):
     reset_launches()
     rep1 = solo.serve(iter(vids[0]), stream_id="cam0",
                       sink=lambda fid, f: single.setdefault(fid, f))
-    one = path_launches(label + "serve", rep1.ticks, staged)
+    one = path_launches(label + "serve", rep1.ticks, per_tick)
     check(rep1.skipped == 0 and sorted(single) == list(range(n_frames)),
           "serve: frames missing or skipped")
     e_single = max(max_err(single[f], lane0[f]) for f in range(n_frames))
@@ -344,7 +398,8 @@ def phase_serve(cfg, vids, staged: bool = False):
 # Phase 4: aggregate fps of the main path
 # ---------------------------------------------------------------------------
 
-def phase_throughput(cfg, vids, repeats: int = 4, staged: bool = False):
+def phase_throughput(cfg, vids, per_tick: dict, label: str = "",
+                     repeats: int = 4):
     """``serve_many`` of 4 fresh streams, each its video ``repeats`` times
     over, with a sink that only records the order. The step is the one
     phase 3 (or 7) built and ran (the step cache is shared)."""
@@ -356,12 +411,11 @@ def phase_throughput(cfg, vids, repeats: int = 4, staged: bool = False):
 
     srv = ElasticServer(cfg, batch=8, timeout_s=2.0)
     n = repeats * len(vids[0])
-    label = "staged " if staged else ""
     reset_launches()
     rep = srv.serve_many(
         [StreamRequest(f"tput{i}", itertools.chain.from_iterable([v] * repeats))
          for i, v in enumerate(vids)], n_lanes=4, sink=sink)
-    path_launches(label + "serve_many (throughput)", rep.ticks, staged)
+    path_launches(label + "serve_many (throughput)", rep.ticks, per_tick)
     check(rep.skipped == 0 and rep.frames == 4 * n,
           f"throughput serve: {rep.frames} frames, {rep.skipped} skipped")
     for i in range(4):
@@ -512,14 +566,19 @@ BF16_STEP = 2.0 ** -8             # one bfloat16 step for values in [0.5, 1)
 
 def staged_tolerance(name: str, args) -> float:
     """Kernel against plain version: selections bit-equal; window means
-    1e-5 relative to the mean's magnitude; recover 1e-6 in float32 at
-    gamma 1 (1e-5 through powf), one bfloat16 step in bfloat16."""
-    if name in ("dark_channel", "atmolight"):
+    1e-5 relative to the mean's magnitude; the top-k mean 1e-6 in float32
+    for any k (the kernel's compensated float32 sum and the plain float64
+    mean are each within a few float32 steps of the exact mean), one
+    bfloat16 step in bfloat16; recover 1e-6 in float32 at gamma 1 (1e-5 through
+    powf), one bfloat16 step in bfloat16."""
+    if name in ("dark_channel", "min_filter", "atmolight"):
         return 0.0
     if name == "box_filter":
         return 1e-5
     if args[0].dtype == torch.bfloat16:
         return BF16_STEP
+    if name == "atmolight_topk":
+        return 1e-6
     return 1e-6 if args[4] == 1.0 else 1e-5
 
 
@@ -562,27 +621,31 @@ def run_staged(step, frames, ids, state, ops: str, errs=None, cell=""):
             setattr(sk, f"{name}_op", fn)
 
 
-def phase_staged_parity():
-    """The staged lane step at the serving shape, DCP, top-1, refine, each
-    cell two chained batches with an all-padding lane."""
+# Phase 6's cells (DCP, top-1) and phase 9's: (algorithm, topk, dtype, gamma).
+STAGED_CELLS = [("dcp", 1, torch.uint8, 1.0), ("dcp", 1, torch.float32, 1.0),
+                ("dcp", 1, torch.bfloat16, 1.0), ("dcp", 1, torch.uint8, 1.0 / 2.2)]
+CAP_TOPK_CELLS = [(alg, k, dt, 1.0) for alg in ("cap", "dcp") for k in (1, 4)
+                  for dt in (torch.uint8, torch.bfloat16)]
+
+
+def phase_staged_parity(cells, label: str = "staged"):
+    """The staged lane step at the serving shape with refine, each cell two
+    chained batches with an all-padding lane."""
     from repro_torch.core import (DehazeConfig, init_atmo_state_lanes,
                                   make_multi_stream_step)
-    cells = [(torch.uint8, 1.0), (torch.float32, 1.0), (torch.bfloat16, 1.0),
-             (torch.uint8, 1.0 / 2.2)]
     frames = ramps(3, 2 * L * B).reshape(2, L, B, H, W, 3)
     errs, whole = {}, {"vs_plain_J_t": 0.0, "vs_plain_a_seq": 0.0,
                        "vs_fused_J_t": 0.0, "vs_fused_a_seq": 0.0}
-    for dt, gamma in cells:
+    for alg, k, dt, gamma in cells:
         io = str(dt).replace("torch.", "")
-        cfg = DehazeConfig(io_dtype=io, gamma=gamma)
-        step = make_multi_stream_step(cfg, device="cuda")
+        kw = dict(algorithm=alg, topk=k, io_dtype=io, gamma=gamma)
+        step = make_multi_stream_step(DehazeConfig(**kw), device="cuda")
         fused_step = make_multi_stream_step(
-            DehazeConfig(io_dtype=io, gamma=gamma, kernel_mode="fused"),
-            device="cuda")
-        states = {k: init_atmo_state_lanes(L, "cuda")
-                  for k in ("kernel", "plain", "fused")}
+            DehazeConfig(kernel_mode="fused", **kw), device="cuda")
+        states = {s: init_atmo_state_lanes(L, "cuda")
+                  for s in ("kernel", "plain", "fused")}
         for batch in range(2):
-            cell = f"{io} gamma={gamma:.3f} b{batch}"
+            cell = f"{alg} k={k} {io} gamma={gamma:.3f} b{batch}"
             img = to_wire(frames[batch].reshape(-1, 3), dt).reshape(
                 L, B, H, W, 3).cuda()
             ids = (torch.arange(B, dtype=torch.int32) + B * batch).repeat(L, 1)
@@ -626,12 +689,38 @@ def phase_staged_parity():
                 whole["vs_fused_a_seq"] = max(whole["vs_fused_a_seq"], f_a)
             states = {"kernel": got.state, "plain": plain.state,
                       "fused": fused.state}
-        print(f"staged parity {io} gamma={gamma:.3f}: ok", flush=True)
-        check_no_sync(step, img, ids, states["kernel"], f"staged {io}")
-        check_no_sync(fused_step, img, ids, states["fused"], f"fused {io}")
-    print("staged parity max errors: kernels " + json.dumps(errs)
+        print(f"{label} parity {alg} k={k} {io} gamma={gamma:.3f}: ok", flush=True)
+        check_no_sync(step, img, ids, states["kernel"], f"staged {alg} k={k} {io}")
+        check_no_sync(fused_step, img, ids, states["fused"], f"fused {alg} k={k} {io}")
+    print(f"{label} parity max errors: kernels " + json.dumps(errs)
           + " whole " + json.dumps(whole), flush=True)
     return errs, whole
+
+
+def check_large_topk(errs) -> None:
+    """The top-k atmospheric light at k above one tile's pixels, where the
+    merge exhausts whole tile lists, up to k = H*W: 8 frames, ramp and
+    all-ties t, float32 and bfloat16, against the plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import staged as sk
+    n = 8
+    u8 = to_wire(ramps(5, n).reshape(-1, 3), torch.uint8).reshape(n, H, W, 3)
+    x = ref.upcast_frames(u8).cuda()
+    ramp_t = 1.0 - 0.95 * sk.cuda_dark_channel(x, 7)
+    cases = [(x, t, k) for t in (ramp_t, torch.full_like(ramp_t, 0.375))
+             for k in (sk.TOPK_TILE + 1, 5000, H * W)]
+    cases.append((x.bfloat16(), ramp_t.bfloat16(), sk.TOPK_TILE + 1))
+    for args in cases:
+        got = sk.cuda_atmolight_topk(*args)
+        torch.cuda.synchronize()
+        want = sk.plain_atmolight_topk(*args)
+        err = staged_error("atmolight_topk", got, want)
+        tol = staged_tolerance("atmolight_topk", args)
+        check(err <= tol, f"staged atmolight_topk k={args[2]} "
+              f"{args[0].dtype}: error {err} > {tol}")
+        errs["atmolight_topk"] = max(errs["atmolight_topk"], err)
+    print("staged atmolight_topk at k up to H*W: ok, max error "
+          f"{errs['atmolight_topk']}", flush=True)
 
 
 def check_no_sync(step, frames, ids, state, label: str) -> None:
@@ -717,6 +806,211 @@ def phase_staged_times():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the data-parallel sharded step (the fused transmission stage)
+# ---------------------------------------------------------------------------
+
+TRANSMISSION_TOL = dict(PASS_TOL, candidate=(1e-6, False), tmap=(1e-4, False))
+
+
+def run_checked_transmission(img, a_saved, s, errs):
+    """The transmission stage's CUDA passes, each held against its plain
+    pass on the same inputs; also the megakernel's merge pass on the same
+    keys. Returns the CUDA outputs ``(t, t_min, cand)`` and the megakernel's
+    float32 candidates."""
+    from repro_torch.kernels import fused as fk
+    C, P = fk.TRANSMISSION_CUDA_PASSES, fk.TRANSMISSION_PLAIN_PASSES
+
+    def both(name, *args):
+        got = C[name](*args, s)
+        want = P[name](*args, s)
+        err = pass_error(name, got, want, TRANSMISSION_TOL)
+        tol = TRANSMISSION_TOL[name][0]
+        check(err <= tol, f"transmission pass {name} ({s.algorithm} k={s.topk} "
+              f"L={s.L}): error {err} > {tol}")
+        errs[name] = max(errs.get(name, 0.0), err)
+        return got
+
+    pre, g = both("premap", img, a_saved)
+    t_raw = both("min_cols_tmap", both("min_rows", pre))
+    keys = both("topk_block", t_raw)
+    t_min, cand = both("candidate", keys, img)
+    b1_cand = fk.CUDA_PASSES["topk_merge"](keys, img, s)
+    rows2 = None
+    if s.refine:
+        rows2 = both("box_rows2", both("box_cols_ab", both("box_rows4", g, t_raw)))
+    t = both("tmap", t_raw, g, rows2)
+    return (t, t_min.reshape(s.L, s.B), cand.reshape(s.L, s.B, 3)), b1_cand
+
+
+def check_transmission(frames, a_saved, kw, errs, label):
+    """The stage on (L, B, H, W, 3) frames and per-lane A (L, 3): its passes
+    against the plain passes, the whole against the plain version, and t
+    and the candidates against the megakernel's (B1) on the same frames
+    and saved A, bit for bit."""
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import ref
+    full = dict(kw, t0=0.1, gamma=1.0, period=1, lam=0.0)
+    s = fk.make_static(frames, **full)
+    (t, t_min, cand), b1_cand = run_checked_transmission(frames, a_saved, s, errs)
+    whole = fk.fused_transmission_lanes(frames, a_saved, **kw)
+    for g1, g2 in zip((t, t_min, cand), whole):
+        check(torch.equal(g1, g2), f"{label}: pass chain != wrapper")
+    torch.cuda.synchronize()
+    want = ref.fused_transmission_lanes(frames, a_saved, **kw)
+    e = [max_err(g1, g2) for g1, g2 in zip(whole, want)]
+    check(e[0] <= 1e-3 and max(e[1:]) <= 1e-5,
+          f"{label}: t/t_min/cand vs plain version {e}")
+    errs["whole"] = max(errs.get("whole", 0.0), *e)
+    ci = torch.tensor([[-(2 ** 30), 0]] * s.L, dtype=torch.int32, device="cuda")
+    ids = torch.arange(s.B, dtype=torch.int32, device="cuda").repeat(s.L, 1)
+    _, b1_t, *_ = fk.fused_dehaze_lanes(frames, ids, a_saved, ci, **full)
+    check(torch.equal(t, b1_t), f"{label}: t differs from the megakernel's")
+    check(torch.equal(cand.reshape(-1, 3), b1_cand.to(cand.dtype)),
+          f"{label}: candidates differ from the megakernel's")
+
+
+def phase_sharded():
+    """The frame-sharded (B7a) and lane-sharded (B7b, ``lane_native=False``)
+    steps on a one-rank NCCL mesh, each two chained batches, held against
+    the single-device fused steps."""
+    import torch.distributed as dist
+    from repro_torch.core import (DehazeConfig, PlacementSpec, init_atmo_state,
+                                  init_atmo_state_lanes, make_dehaze_step,
+                                  make_multi_stream_step,
+                                  make_sharded_dehaze_step, make_step)
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = DehazeConfig(kernel_mode="fused", io_dtype="uint8")
+    kw = dict(algorithm=cfg.algorithm, radius=cfg.patch_radius, omega=cfg.omega,
+              beta=cfg.beta, cap_w=(cfg.cap_w0, cfg.cap_w1, cfg.cap_w2),
+              refine=cfg.refine, gf_radius=cfg.gf_radius, gf_eps=cfg.gf_eps,
+              topk=cfg.topk, out_dtype=cfg.out_dtype)
+    frames = to_wire(ramps(5, 2 * L * B).reshape(-1, 3), torch.uint8).reshape(
+        2, L, B, H, W, 3).cuda()
+    mesh = make_host_mesh(1, 1)
+    errs, whole = {}, {}
+    launches = {name: {} for name in TRANSMISSION_REPLACES}
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        paths = {
+            "fused_transmission": (make_sharded_dehaze_step(cfg, mesh),
+                                   make_dehaze_step(cfg), False),
+            "fused_transmission_lanes": (
+                make_step(cfg, PlacementSpec.lane_sharded(), mesh,
+                          lane_native=False),
+                make_multi_stream_step(cfg), True),
+        }
+        for name, (step, single, lanes) in paths.items():
+            e_out = {"J_t": 0.0, "a_seq_A": 0.0}
+            state = init_atmo_state_lanes(L, "cuda") if lanes \
+                else init_atmo_state("cuda")
+            ref_state = state
+            for batch in range(2):
+                img = frames[batch] if lanes else frames[batch].reshape(L * B, H, W, 3)
+                ids = (torch.arange(L * B, dtype=torch.int32, device="cuda")
+                       + L * B * batch)
+                ids = ids.reshape(L, B) if lanes else ids
+                if lanes:
+                    ids[L - 1] = -1                           # padding lane
+                a_lanes = (state.A if lanes else state.A.reshape(1, 3)).contiguous()
+                check_transmission(img if lanes else img[None], a_lanes, kw,
+                                   errs.setdefault(name, {}), f"{name} b{batch}")
+                reset_launches()
+                out = step(img, ids, state)
+                for c, v in path_launches(f"{name} step", 1,
+                                          transmission_per_tick()).items():
+                    launches[name][c] = launches[name].get(c, 0) + v
+                want = single(img, ids, ref_state)
+                torch.cuda.synchronize()
+                e_jt = max(max_err(out.frames, want.frames),
+                           max_err(out.transmission, want.transmission))
+                e_a = max(max_err(out.atmo_light, want.atmo_light),
+                          max_err(out.state.A, want.state.A))
+                check(e_jt <= 2e-4, f"{name} b{batch}: J/t vs single device {e_jt}")
+                check(e_a <= 1e-5, f"{name} b{batch}: a_seq/A vs single device {e_a}")
+                check(torch.equal(out.state.last_update, want.state.last_update)
+                      and torch.equal(out.state.initialized, want.state.initialized),
+                      f"{name} b{batch}: last_update/initialized differ")
+                e_out = {"J_t": max(e_out["J_t"], e_jt),
+                         "a_seq_A": max(e_out["a_seq_A"], e_a)}
+                state, ref_state = out.state, want.state
+            check_no_sync(step, img, ids, state, f"sharded {name}")
+            whole[name] = e_out
+            print(f"sharded {name}: passes " + json.dumps(errs[name])
+                  + " vs single device " + json.dumps(e_out), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return errs, whole, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: this slice's kernels timed at the serving shape
+# ---------------------------------------------------------------------------
+
+def phase_slice3_times():
+    """The min filter on CAP's depth and the top-k atmospheric light (k = 4)
+    on DCP's t_raw, 32 frames of 480x640 float32 after the uint8 upcast; the
+    transmission stage over 32 uint8 frames (B7a) and 4 x 8 (B7b). Bounds
+    count each input read once and each output written once; of the top-k's
+    frames they count the k pixels a frame this data needs."""
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import staged as sk
+    n, k = L * B, 4
+    npx = n * H * W
+    u8 = to_wire(ramps(6, n).reshape(-1, 3), torch.uint8).reshape(
+        L, B, H, W, 3).cuda()
+    x = ref.upcast_frames(u8).reshape(n, H, W, 3)
+    depth = ref.cap_depth(x, *ref.CAP_COEFFS)
+    mins = sk.cuda_min_filter(depth, 7)
+    t_raw = 1.0 - 0.95 * sk.cuda_dark_channel(x, 7)
+    a = sk.cuda_atmolight_topk(x, t_raw, k)
+
+    def topk_library():
+        j = torch.topk(t_raw.reshape(n, -1), k, largest=False).indices
+        return torch.gather(x.reshape(n, -1, 3), 1, j[..., None].expand(n, k, 3)).mean(1)
+
+    kw = dict(algorithm="dcp", radius=7, omega=0.95, beta=1.0,
+              cap_w=ref.CAP_COEFFS, refine=True, gf_radius=20, gf_eps=1e-3,
+              topk=1, out_dtype=None)
+    a_lanes = torch.tensor([[0.9, 0.85, 0.8]] * L, device="cuda")
+    flat = u8.reshape(n, H, W, 3)
+    t7, tmin7, cand7 = fk.fused_transmission(flat, a_lanes[0], **kw)
+    # The stage's float32 operations: the megakernel's passes up to the
+    # guided filter (phase 5's counts), then the refined t.
+    stage_ops = (10 + 3 + 5 + 4 + 10 + 20 + 4 + 8) * npx
+    work = {
+        "staged.min_filter": (lambda: sk.cuda_min_filter(depth, 7),
+                              lambda: sk.plain_min_filter(depth, 7),
+                              lambda: -F.max_pool2d(-depth[:, None], 15, 1, 7),
+                              nbytes(depth, mins), 2 * npx),
+        "staged.atmolight_topk": (lambda: sk.cuda_atmolight_topk(x, t_raw, k),
+                                  lambda: sk.plain_atmolight_topk(x, t_raw, k),
+                                  topk_library,
+                                  nbytes(t_raw, a) + n * k * 12, npx),
+        "fused_transmission": (
+            lambda: fk.fused_transmission(flat, a_lanes[0], **kw),
+            lambda: ref.fused_transmission(flat, a_lanes[0], **kw), None,
+            nbytes(flat, a_lanes[0], t7, tmin7, cand7), stage_ops),
+        "fused_transmission_lanes": (
+            lambda: fk.fused_transmission_lanes(u8, a_lanes, **kw),
+            lambda: ref.fused_transmission_lanes(u8, a_lanes, **kw), None,
+            nbytes(u8, a_lanes, t7, tmin7, cand7), stage_ops),
+    }
+    out = {}
+    for name, (kernel, plain, lib, nb, ops) in work.items():
+        t_bytes = nb / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+        heavy = name.startswith("fused_transmission")
+        out[name] = dict(
+            ms=time_ms(kernel),
+            plain_ms=time_ms(plain, reps=3 if heavy else 5, warmup=1),
+            library_ms=time_ms(lib) if lib else None,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -746,59 +1040,61 @@ def main() -> int:
     rng = np.random.default_rng(1)
     vids = [rng.integers(0, 256, (48, H, W, 3), dtype=np.uint8)
             for _ in range(4)]
-    launches, launches_serve, ticks = phase_serve(cfg, vids)
-    rep = phase_throughput(cfg, vids)
+    launches, launches_serve, ticks = phase_serve(cfg, vids, fused_per_tick())
+    rep = phase_throughput(cfg, vids, fused_per_tick())
     times = phase_times()
 
-    staged_errs, staged_whole = phase_staged_parity()
+    staged_errs, _ = phase_staged_parity(STAGED_CELLS)
     cfg_staged = DehazeConfig(io_dtype="uint8")            # kernel_mode "auto"
-    s_launches, s_launches_serve, s_ticks = phase_serve(cfg_staged, vids,
-                                                        staged=True)
-    s_rep = phase_throughput(cfg_staged, vids, staged=True)
+    s_launches, s_launches_serve, s_ticks = phase_serve(
+        cfg_staged, vids, STAGED_PER_TICK, "staged ")
+    s_rep = phase_throughput(cfg_staged, vids, STAGED_PER_TICK, "staged ")
     s_times = phase_staged_times()
 
+    cap_errs, _ = phase_staged_parity(CAP_TOPK_CELLS, "staged CAP/top-k")
+    check_large_topk(cap_errs)
+    cfg_cap = DehazeConfig(algorithm="cap", topk=4, io_dtype="uint8")
+    c_launches, c_launches_serve, c_ticks = phase_serve(
+        cfg_cap, vids, CAP_PER_TICK, "staged CAP top-4 ")
+    t_errs, t_whole, t_launches = phase_sharded()
+    c_times = phase_slice3_times()
+
     kernels = []
-    for name in ("fused_dehaze_lanes",) + fk.PASSES:
-        r = times[name]
-        err = (max(whole_errs.values()) if name == "fused_dehaze_lanes"
-               else pass_errs[name])
+
+    def entry(name, source, replaces, r, err, many, serve, ticks_):
         kernels.append({
-            "name": name if name == "fused_dehaze_lanes"
-            else f"fused_dehaze_lanes.{name}",
-            "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name],
-            "launches_serve": launches_serve[name],
-            "launches_per_tick": launches[name] / ticks,
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": many[name],
+            "launches_serve": serve[name] if serve else None,
+            "launches_per_tick": many[name] / ticks_,
             "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
-        print(f"{kernels[-1]['name']:36s} {r['ms']:9.4f} ms  bound "
-              f"{r['bound_ms']:8.4f} ms ({r['bound_by']})  plain "
-              f"{r['plain_ms']:9.3f} ms  library "
+        print(f"{name:36s} {r['ms']:9.4f} ms  bound {r['bound_ms']:8.4f} ms "
+              f"({r['bound_by']})  plain {r['plain_ms']:9.3f} ms  library "
               f"{'-' if r['library_ms'] is None else '%.4f ms' % r['library_ms']}"
-              f"  launches {launches[name]} on serve_many "
-              f"({launches[name] / ticks:g}/tick), {launches_serve[name]} "
-              f"on serve",
+              f"  launches {many[name]} ({many[name] / ticks_:g}/step)"
+              + ("" if serve is None else f", {serve[name]} on serve"),
               flush=True)
-    for name in sk.KERNELS:
-        r = s_times[name]
-        kernels.append({
-            "name": f"staged.{name}", "route": "cuda",
-            "source": STAGED_SOURCE, "replaces": STAGED_REPLACES[name],
-            "launches": s_launches[f"staged.{name}"],
-            "launches_serve": s_launches_serve[f"staged.{name}"],
-            "launches_per_tick": s_launches[f"staged.{name}"] / s_ticks,
-            "max_abs_err": staged_errs[name], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        print(f"{kernels[-1]['name']:36s} {r['ms']:9.4f} ms  bound "
-              f"{r['bound_ms']:8.4f} ms ({r['bound_by']})  plain "
-              f"{r['plain_ms']:9.3f} ms  library "
-              f"{'-' if r['library_ms'] is None else '%.4f ms' % r['library_ms']}"
-              f"  launches {kernels[-1]['launches']} on staged serve_many "
-              f"({kernels[-1]['launches_per_tick']:g}/tick), "
-              f"{kernels[-1]['launches_serve']} on staged serve",
-              flush=True)
+
+    for name in ("fused_dehaze_lanes",) + fk.PASSES:
+        err = (max(whole_errs.values()) if name == "fused_dehaze_lanes"
+               else pass_errs[name])
+        full = name if name == "fused_dehaze_lanes" else f"fused_dehaze_lanes.{name}"
+        entry(full, SOURCE, REPLACES[name], times[name], err,
+              {full: launches[name]}, {full: launches_serve[name]}, ticks)
+    for name in ("dark_channel", "box_filter", "atmolight", "recover"):
+        entry(f"staged.{name}", STAGED_SOURCE, STAGED_REPLACES[name],
+              s_times[name], staged_errs[name], s_launches, s_launches_serve,
+              s_ticks)
+    for name in ("min_filter", "atmolight_topk"):
+        entry(f"staged.{name}", STAGED_SOURCE, STAGED_REPLACES[name],
+              c_times[f"staged.{name}"], cap_errs[name], c_launches,
+              c_launches_serve, c_ticks)
+    for name in TRANSMISSION_REPLACES:
+        entry(name, SOURCE, TRANSMISSION_REPLACES[name], c_times[name],
+              max(t_errs[name]["whole"], *t_whole[name].values()),
+              {name: t_launches[name]["fused_transmission"]}, None, 2)
     print(f"serve_many aggregate fps: fused {rep.fps} ({rep.frames} frames, "
           f"{rep.wall_s} s), staged {s_rep.fps} ({s_rep.frames} frames, "
           f"{s_rep.wall_s} s); total {time.perf_counter() - t_start:.1f} s",

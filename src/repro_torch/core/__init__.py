@@ -4,8 +4,9 @@
 - ``env``        — validated ``REPRO_*`` accessors
 - ``algorithms`` — the three generic components + DCP/CAP instantiations
 - ``normalize``  — cross-frame atmospheric-light EMA normalization (§3.3)
-- ``placement``  — single and lane-batched placements
-- ``pipeline``   — single-stream and lane-batched dehaze steps
+- ``placement``  — single, lane-batched and data-parallel placements
+- ``pipeline``   — single-stream, lane-batched and sharded dehaze steps
+- ``spatial``    — the masked filters of the sharded step
 """
 from repro_torch.core.config import DehazeConfig
 from repro_torch.core.normalize import (AtmoState, ema_scan,
@@ -16,7 +17,8 @@ from repro_torch.core.normalize import (AtmoState, ema_scan,
                                         state_from_lane_carry,
                                         unpack_atmo_states)
 from repro_torch.core.pipeline import (DehazeOutput, make_dehaze_step,
-                                       make_multi_stream_step, make_step,
+                                       make_multi_stream_step,
+                                       make_sharded_dehaze_step, make_step,
                                        resolve_device, resolve_lane_native)
 from repro_torch.core.placement import PlacementSpec
 
@@ -26,5 +28,6 @@ __all__ = [
     "lane_carry", "pack_atmo_states", "unpack_atmo_states",
     "state_from_lane_carry", "get_lane_state", "set_lane_state",
     "DehazeOutput", "PlacementSpec", "make_step", "make_dehaze_step",
-    "make_multi_stream_step", "resolve_device", "resolve_lane_native",
+    "make_multi_stream_step", "make_sharded_dehaze_step", "resolve_device",
+    "resolve_lane_native",
 ]

@@ -159,8 +159,33 @@ def fused_dehaze_lanes(frames: torch.Tensor, frame_ids: torch.Tensor,
     return J, t, a_seq, state_from_lane_carry(cf, ci)
 
 
+def _transmission_kw(cfg: DehazeConfig) -> dict:
+    """:func:`_fused_kw` less the EMA and recovery constants."""
+    kw = _fused_kw(cfg)
+    for k in ("t0", "gamma", "period", "lam"):
+        del kw[k]
+    return kw
+
+
+def fused_transmission(frames: torch.Tensor, a_saved: torch.Tensor,
+                       cfg: DehazeConfig):
+    """Fused t-map + A-candidate stage of the data-parallel sharded step:
+    (B, H, W, 3) + saved A (3,) -> (t, t_min (B,), cand_rgb (B, 3))."""
+    return ops.fused_transmission(frames, a_saved, **_transmission_kw(cfg))
+
+
+def fused_transmission_lanes(frames: torch.Tensor, a_saved: torch.Tensor,
+                             cfg: DehazeConfig):
+    """Per-lane saved-A form: (L, B, H, W, 3) + (L, 3) -> (t, t_min,
+    cand_rgb) with a leading lane axis, the lane-sharded step's stage
+    (lanes are whole on their rank, so the candidates need no merge)."""
+    return ops.fused_transmission_lanes(frames, a_saved,
+                                        **_transmission_kw(cfg))
+
+
 __all__ = ["luminance", "transmission_dcp", "transmission_cap",
            "register_algorithm", "get_transmission_estimator",
            "estimate_atmospheric_light", "refine_transmission",
            "generate_haze_free", "supports_fused", "premap", "fused_dehaze",
-           "fused_dehaze_lanes"]
+           "fused_dehaze_lanes", "fused_transmission",
+           "fused_transmission_lanes"]

@@ -13,18 +13,32 @@ saved A in the DCP pre-divide and a per-lane EMA.
 
 Every step runs on one device, fixed when it is built: ``device=None``
 means CUDA (and raises without a card), ``device="cpu"`` the CPU. The step
-moves its inputs there. Buffer donation and the mesh-sharded step of the
-reference are not ported.
+moves its inputs there.
+
+The data-parallel sharded placements (``frame_sharded``, ``lane_sharded``)
+build an SPMD step over a ``torch.distributed`` device mesh
+(``launch.mesh.make_host_mesh``): every rank calls it with its own block
+and the replicated state. Frame-sharded, each rank computes t and its
+frames' A candidates (fused: the megakernel's transmission passes, one
+sequence; staged: the masked filters of ``core.spatial`` and a stable
+top-k), the candidates and ids are all-gathered in rank order over the
+mesh's ``data`` group, and every rank scans the §3.3 EMA over the whole
+batch and keeps its slice. Lane-sharded, every rank serves whole lanes and
+scans them locally. Recovery runs the plain chain, as in the reference. A
+height or width mesh axis must have size 1: the halo exchange is not
+ported. Buffer donation is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import algorithms as alg
 from repro_torch.core import env as _env
+from repro_torch.core import spatial
 from repro_torch.core.config import DehazeConfig
 from repro_torch.core.normalize import (AtmoState, ema_scan,
                                         ema_scan_associative, ema_scan_lanes,
@@ -74,28 +88,50 @@ def _on(device: torch.device, frames, frame_ids, state: AtmoState):
 
 
 def make_step(cfg: DehazeConfig, placement: Optional[PlacementSpec] = None,
-              *, device: DeviceLike = None, associative: bool = True,
-              lane_native: Optional[bool] = None):
+              mesh=None, *, device: DeviceLike = None,
+              associative: bool = True, lane_native: Optional[bool] = None):
     """Build the step a placement declares:
     ``step(frames, frame_ids, state) -> DehazeOutput``.
 
     - ``single``: frames (B, H, W, 3), ids (B,), one stream's state;
     - ``lane_batched``: frames (L, B, H, W, 3), ids (L, B), a lane-batched
-      state; ``lane_native`` follows :func:`resolve_lane_native` when None.
+      state; ``lane_native`` follows :func:`resolve_lane_native` when None;
+    - ``frame_sharded`` / ``lane_sharded``: the SPMD step over ``mesh`` (a
+      device mesh with the placement's axes, required): each rank passes
+      its own frames and ids and the replicated (frame-sharded) or its own
+      lanes' (lane-sharded) state, and gets its block's output and the new
+      state. The device is the mesh's; an explicit ``device`` of another
+      type raises ``ValueError``.
     """
     placement = (placement if placement is not None
                  else PlacementSpec()).validate()
     cfg = cfg.validate()
-    dev = resolve_device(device)
-    if placement.lanes:
-        step = _make_lane_step(cfg, associative=associative,
-                               lane_native=lane_native)
+    if placement.sharded:
+        if mesh is None:
+            raise ValueError(f"placement {placement} names mesh axes "
+                             f"{placement.mesh_axes}; make_step needs the mesh")
+        dev = resolve_device(mesh.device_type)
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device_type} device")
+        step = _make_sharded_step(cfg, mesh, placement,
+                                  associative=associative,
+                                  lane_native=lane_native)
     else:
-        step = _make_single_step(cfg, associative=associative)
+        dev = resolve_device(device)
+        step = _make_local_step(cfg, placement, associative, lane_native)
 
     def on_device(frames, frame_ids, state: AtmoState) -> DehazeOutput:
         return step(*_on(dev, frames, frame_ids, state))
     return on_device
+
+
+def _make_local_step(cfg: DehazeConfig, placement: PlacementSpec,
+                     associative: bool, lane_native: Optional[bool]):
+    if placement.lanes:
+        return _make_lane_step(cfg, associative=associative,
+                               lane_native=lane_native)
+    return _make_single_step(cfg, associative=associative)
 
 
 def _fused_covers(cfg: DehazeConfig) -> bool:
@@ -220,6 +256,140 @@ def make_multi_stream_step(cfg: DehazeConfig, associative: bool = True,
                      associative=associative, lane_native=lane_native)
 
 
+# ---------------------------------------------------------------------------
+# The data-parallel sharded step
+# ---------------------------------------------------------------------------
+
+def _mesh_axis_size(mesh, name: str) -> int:
+    """Size of the mesh axis ``name``."""
+    if name not in mesh.mesh_dim_names:
+        raise ValueError(f"mesh axes {mesh.mesh_dim_names} have no {name!r}")
+    return mesh.shape[mesh.mesh_dim_names.index(name)]
+
+
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Rank-ordered concatenation of every rank's ``x`` along axis 0."""
+    x = x.contiguous()
+    out = x.new_empty((dist.get_world_size(group) * x.shape[0],)
+                      + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out
+
+
+def _local_topk_mean(t_raw: torch.Tensor, x: torch.Tensor,
+                     k: int) -> torch.Tensor:
+    """Per-frame candidate (N, 3) float32: the mean of I over the k
+    smallest t, ties to the lowest flat index (the reference's
+    ``lax.top_k`` of -t)."""
+    return kref.atmospheric_light(x.to(torch.float32),
+                                  t_raw.to(torch.float32), k)
+
+
+def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
+                       associative: bool = True,
+                       lane_native: Optional[bool] = None):
+    """The SPMD step of a data-parallel placement (see the module
+    docstring and ``make_step``)."""
+    lanes = placement.lanes
+    if not lanes and not placement.batch_axes:
+        raise ValueError("a sharded non-lane placement needs batch_axes (the "
+                         f"state sync gathers candidates over them); got "
+                         f"{placement}")
+    for ax in placement.mesh_axes:
+        _mesh_axis_size(mesh, ax)                    # names a mesh axis
+    for ax in (placement.height_axis, placement.width_axis):
+        if ax is not None and _mesh_axis_size(mesh, ax) > 1:
+            raise NotImplementedError(
+                f"mesh axis {ax!r} of size {_mesh_axis_size(mesh, ax)} splits "
+                "the frame: spatial (H/W halo) sharding is not ported yet "
+                "(ROADMAP.md queue B, rows B8-B10)")
+    if len(placement.batch_axes) > 1:
+        raise NotImplementedError(
+            f"frames over several mesh axes {placement.batch_axes} are not "
+            "ported; shard them over one ('data')")
+    use_fused = _fused_covers(cfg)
+    if lanes and lane_native is None:
+        lane_native = resolve_lane_native(cfg)
+    ref_cfg = dataclasses.replace(cfg, kernel_mode="ref")
+
+    def staged_t_and_candidates(x, a_saved):
+        """The staged chain on whole frames: masked filters with every row
+        valid -> (refined t, per-frame candidates (N, 3) float32)."""
+        valid = torch.ones(x.shape[-3], dtype=torch.bool, device=x.device)
+        pre = alg.premap(x, a_saved, cfg)
+        t_raw = kref.tmap_from_dark(
+            spatial.masked_min_filter_2d(pre, valid, cfg.patch_radius),
+            cfg.algorithm, cfg.omega, cfg.beta).to(x.dtype)
+        rgb = _local_topk_mean(t_raw, x, cfg.topk)
+        if not cfg.refine:
+            return t_raw, rgb
+        t = spatial.masked_guided_filter(alg.luminance(x), t_raw, valid,
+                                         cfg.gf_radius, cfg.gf_eps)
+        return torch.clamp(t, 0.0, 1.0), rgb
+
+    def finish(x, t, a_seq, new_state, odt) -> DehazeOutput:
+        a_seq = a_seq.to(x.dtype)
+        out = alg.generate_haze_free(x, t, a_seq, ref_cfg)
+        return DehazeOutput(out.to(odt), t.to(odt), a_seq.to(odt), new_state)
+
+    if not lanes:
+        (data_axis,) = placement.batch_axes
+        group = mesh.get_group(data_axis)
+        rank = mesh.get_local_rank(data_axis)
+
+        def local_step(frames, frame_ids, state: AtmoState) -> DehazeOutput:
+            b_loc = frames.shape[0]
+            x, odt = _ingest(frames, cfg)
+            if use_fused:
+                t, _, rgb = alg.fused_transmission(frames, state.A, cfg)
+            else:
+                t, rgb = staged_t_and_candidates(x, state.A)
+            # The §3.3 state sync: every rank scans the whole batch.
+            a_all = _all_gather(rgb.to(torch.float32), group)
+            ids_all = _all_gather(frame_ids, group)
+            a_seq_all, new_state = ema_scan_associative(
+                a_all, ids_all, state, cfg.update_period, cfg.lam)
+            a_seq = a_seq_all[rank * b_loc:(rank + 1) * b_loc]
+            return finish(x, t, a_seq, new_state, odt)
+        return local_step
+
+    def lane_local_step(frames, frame_ids, state: AtmoState) -> DehazeOutput:
+        # Whole lanes live on this rank: the EMA scans are rank-local.
+        l_loc, b = frames.shape[:2]
+        if use_fused and lane_native:
+            out, t, a_seq, new_state = alg.fused_dehaze_lanes(
+                frames, frame_ids, state, cfg)
+            return DehazeOutput(out, t, a_seq.to(out.dtype), new_state)
+        x, odt = _ingest(frames, cfg)
+        if use_fused:
+            t, _, rgb = alg.fused_transmission_lanes(frames, state.A, cfg)
+        else:
+            flat_x = x.reshape((l_loc * b,) + tuple(x.shape[2:]))
+            a_pf = state.A.to(torch.float32).repeat_interleave(b, 0)
+            t, rgb = staged_t_and_candidates(flat_x, a_pf[:, None, None, :])
+            t = t.reshape((l_loc, b) + tuple(t.shape[1:]))
+            rgb = rgb.reshape(l_loc, b, 3)
+        a_seq, new_state = ema_scan_lanes(rgb, frame_ids, state,
+                                          cfg.update_period, cfg.lam,
+                                          associative=associative)
+        return finish(x, t, a_seq, new_state, odt)
+    return lane_local_step
+
+
+def make_sharded_dehaze_step(cfg: DehazeConfig, mesh,
+                             batch_axes: Tuple[str, ...] = ("data",),
+                             height_axis: Optional[str] = "model",
+                             width_axis: Optional[str] = None):
+    """The frame-sharded step over ``mesh``: :func:`make_step` with
+    ``PlacementSpec.frame_sharded``. Each rank passes its own frames (B/n
+    of them, rank r holding frames r*B/n onwards) and ids and the
+    replicated state."""
+    placement = PlacementSpec.frame_sharded(batch_axes=tuple(batch_axes),
+                                            height_axis=height_axis,
+                                            width_axis=width_axis)
+    return make_step(cfg, placement, mesh)
+
+
 __all__ = ["DehazeOutput", "PlacementSpec", "resolve_device", "make_step",
            "make_dehaze_step", "make_multi_stream_step",
-           "resolve_lane_native"]
+           "make_sharded_dehaze_step", "resolve_lane_native"]

@@ -1,12 +1,24 @@
 """Declarative placement of the serving batch, PyTorch port.
 
-The reference's :class:`PlacementSpec` maps every batch axis (lane,
-frame, height, width) onto mesh axes. This port serves one device, so it
-realizes the two placements without a mesh: ``single()`` (a ``(B, H, W,
-3)`` batch) and ``lane_batched()`` (``(L, B, H, W, 3)``, L streams). A
-spec naming any mesh axis, or more than one host, raises
-``NotImplementedError``: sharding and the fleet tier are later slices
-(ROADMAP.md queue A).
+The reference's :class:`PlacementSpec` maps every batch axis onto mesh
+axes, and ``core.pipeline.make_step(cfg, placement, mesh)`` realizes it:
+
+  batch axis          mesh axes
+  ------------------  -------------------------------------------------
+  lane  (L)           ``lane_axis``    (lanes over "data": each rank whole lanes)
+  frame (B)           ``batch_axes``   (data-parallel frames)
+  height (H)          ``height_axis``  (halo-exchanged spatial shard)
+  width  (W)          ``width_axis``   (halo-exchanged spatial shard)
+  EMA / AtmoState     lane rows co-placed with their lanes, otherwise
+                      replicated
+
+The port realizes the placements without a mesh (``single()``,
+``lane_batched()``) and the data-parallel ones (``frame_sharded()``,
+``lane_sharded()``) over a ``torch.distributed`` device mesh
+(``launch.mesh.make_host_mesh``). A height or width axis is accepted where
+its mesh axis has size 1; the step raises ``NotImplementedError`` when one
+splits the frame (the halo exchange is not ported). ``validate()`` raises
+``NotImplementedError`` for more than one host (the fleet tier).
 """
 from __future__ import annotations
 
@@ -17,7 +29,14 @@ from typing import Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class PlacementSpec:
     """Where every axis of the serving batch lives (frozen, hashable: it
-    keys the serving step cache)."""
+    keys the serving step cache).
+
+    ``lanes`` declares a leading lane axis (``(L, B, ...)``);
+    ``lane_axis`` shards it over a mesh axis, each rank owning whole lanes,
+    so the per-lane EMA scans need no collective. ``batch_axes`` shards the
+    frame axis (mutually exclusive with lanes). ``height_axis`` /
+    ``width_axis`` shard the image plane. ``n_hosts`` sizes the fleet
+    tier."""
     lanes: bool = False
     lane_axis: Optional[str] = None
     batch_axes: Tuple[str, ...] = ()
@@ -32,10 +51,16 @@ class PlacementSpec:
     def validate(self) -> "PlacementSpec":
         if self.n_hosts < 1:
             raise ValueError(f"n_hosts must be >= 1, got {self.n_hosts}")
-        if self.mesh_axes:
-            raise NotImplementedError(
-                f"mesh-sharded placements ({self.mesh_axes}) are not ported "
-                "yet (ROADMAP.md queue A, sharding)")
+        if self.lane_axis is not None and not self.lanes:
+            raise ValueError(f"lane_axis={self.lane_axis!r} requires lanes=True")
+        if self.lanes and self.batch_axes:
+            raise ValueError(
+                "lane-batched placements do not shard the frame axis (each "
+                "lane's batch stays on its rank so its EMA scan is causal); "
+                f"got batch_axes={self.batch_axes!r}")
+        named = self.mesh_axes
+        if len(set(named)) != len(named):
+            raise ValueError(f"mesh axes must be distinct, got {named}")
         if self.n_hosts > 1:
             raise NotImplementedError(
                 "multi-host fleet serving is not ported yet (ROADMAP.md "
@@ -44,9 +69,15 @@ class PlacementSpec:
 
     @property
     def mesh_axes(self) -> Tuple[str, ...]:
+        """Every mesh axis the spec names, in batch-axis order."""
         return tuple(ax for ax in ((self.lane_axis,) + self.batch_axes
                                    + (self.height_axis, self.width_axis))
                      if ax is not None)
+
+    @property
+    def sharded(self) -> bool:
+        """Does realizing this placement need a mesh?"""
+        return bool(self.mesh_axes)
 
     @classmethod
     def single(cls) -> "PlacementSpec":
@@ -57,6 +88,24 @@ class PlacementSpec:
     def lane_batched(cls, n_hosts: int = 1) -> "PlacementSpec":
         """L streams on a leading lane axis, one device."""
         return cls(lanes=True, n_hosts=n_hosts).validate()
+
+    @classmethod
+    def lane_sharded(cls, lane_axis: str = "data",
+                     height_axis: Optional[str] = None,
+                     width_axis: Optional[str] = None,
+                     n_hosts: int = 1) -> "PlacementSpec":
+        """Lanes over the data mesh axis: each rank serves whole lanes."""
+        return cls(lanes=True, lane_axis=lane_axis, height_axis=height_axis,
+                   width_axis=width_axis, n_hosts=n_hosts).validate()
+
+    @classmethod
+    def frame_sharded(cls, batch_axes: Tuple[str, ...] = ("data",),
+                      height_axis: Optional[str] = "model",
+                      width_axis: Optional[str] = None) -> "PlacementSpec":
+        """One stream's frames over the data axes (the reference's
+        production placement, with height over the model axis)."""
+        return cls(batch_axes=tuple(batch_axes or ()),
+                   height_axis=height_axis, width_axis=width_axis).validate()
 
 
 __all__ = ["PlacementSpec"]

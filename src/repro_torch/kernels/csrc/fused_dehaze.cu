@@ -5,6 +5,12 @@
 // (body _fused_dehaze_kernel -> _dehaze_grid_step -> _frame_tmap,
 // _guided_refine, _ema_step), and with it the function of its
 // double-buffered body _fused_dehaze_dbuf_kernel (identical results).
+// Its passes also make up the fused transmission stage of the data-parallel
+// sharded step, fused_transmission_pallas / fused_transmission_lanes_pallas
+// (body _fused_tmap_kernel): the same passes up to the guided filter, the
+// merge writing the candidate in the output dtype with t_min, then fd_tmap
+// writing the refined t; no EMA and no recovery (the candidates cross
+// ranks first).
 //
 // Why passes, not one block per frame: the TPU kernel holds a whole frame
 // in VMEM. A 480x640 float32 plane is 1.2 MB and a Hopper block has at
@@ -15,13 +21,15 @@
 //   fd_premap        upcast, pre-map (DCP min_c I/A_saved, CAP depth), luma
 //   fd_min_rows      vertical windowed min of the pre-map
 //   fd_min_cols_tmap horizontal windowed min, then t_raw
-//   fd_topk_block    per-block k smallest (t, flat index) keys
-//   fd_topk_merge    per-frame merge of the block lists -> candidate rgb
+//   fd_topk_block    per-tile k smallest (t, flat index) keys
+//   fd_topk_merge    per-frame merge of the tile lists -> candidate rgb
+//                    (the top-k kernels of dehaze_common.cuh)
 //   fd_ema           Eq. 9 EMA, one thread per lane, B steps in order
 //   fd_box_rows4     vertical window sums of g, t_raw, g*t_raw, g*g
 //   fd_box_cols_ab   horizontal sums -> means -> guided-filter a and b
 //   fd_box_rows2     vertical window sums of a and b
 //   fd_recover       horizontal sums -> refined t; J = clip((I-A)/max(t,t0)+A)^gamma
+//   fd_tmap          (B7 only) horizontal sums -> refined t, no J
 //
 // Only the EMA is sequential: the pre-map of every frame in a batch uses
 // the lane's batch-entry saved A, so t and the candidates of all L*B frames
@@ -74,9 +82,7 @@ namespace {
 
 using namespace dehaze;
 
-constexpr int kThreads = 256;
-constexpr int kItems = 8;                        // pixels per thread, top-k
-constexpr int kTile = kThreads * kItems;         // pixels per top-k block
+constexpr int kThreads = 256;                    // threads of a pixel pass
 
 __global__ void premap_kernel(const void* __restrict__ img,
                               const float* __restrict__ carry_f,
@@ -136,70 +142,6 @@ __global__ void min_cols_tmap_kernel(const float* __restrict__ x, float* __restr
     for (int k = lo; k <= hi; ++k) m = fminf(m, x[row0 + k]);
     t[i] = p.algorithm == 0 ? __fsub_rn(1.0f, __fmul_rn(p.omega, m))
                             : expf(__fmul_rn(p.neg_beta, m));
-}
-
-// grid (blocks_per_frame, N): block (j, n) writes the k smallest keys of
-// pixels [j*kTile, (j+1)*kTile) of frame n, ascending, kNoKey-padded.
-__global__ void topk_block_kernel(const float* __restrict__ t,
-                                  unsigned long long* __restrict__ keys,
-                                  DehazeParams p) {
-    __shared__ unsigned long long red[kThreads / 32 + 1];
-    const long long P = static_cast<long long>(p.H) * p.W;
-    const long long n = blockIdx.y;
-    const long long base = static_cast<long long>(blockIdx.x) * kTile;
-    unsigned long long mine[kItems];
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-        const long long idx = base + j * kThreads + threadIdx.x;
-        mine[j] = idx < P ? make_key(t[n * P + idx], static_cast<unsigned>(idx)) : kNoKey;
-    }
-    unsigned long long* out = keys + (n * gridDim.x + blockIdx.x) * p.topk;
-    for (int s = 0; s < p.topk; ++s) {
-        unsigned long long best = kNoKey;
-#pragma unroll
-        for (int j = 0; j < kItems; ++j) best = mine[j] < best ? mine[j] : best;
-        const unsigned long long m = block_min_u64<kThreads>(best, red);
-        // Keys are unique (the low word is the index): one owner retires it.
-#pragma unroll
-        for (int j = 0; j < kItems; ++j)
-            if (mine[j] == m) mine[j] = kNoKey;
-        if (threadIdx.x == 0) out[s] = m;
-    }
-}
-
-// grid (N,): merge frame n's block lists, then cand[n] = mean of I over the
-// k picks, summed in ascending (t, index) order.
-__global__ void topk_merge_kernel(const unsigned long long* __restrict__ keys,
-                                  const void* __restrict__ img,
-                                  float* __restrict__ cand, int n_lists,
-                                  DehazeParams p) {
-    __shared__ unsigned long long red[kThreads / 32 + 1];
-    const long long P = static_cast<long long>(p.H) * p.W;
-    const long long n = blockIdx.x;
-    const int m_total = n_lists * p.topk;
-    const unsigned long long* mine = keys + n * static_cast<long long>(m_total);
-    unsigned long long prev = 0;                 // real keys are > 0
-    float sr = 0.0f, sg = 0.0f, sb = 0.0f;
-    for (int s = 0; s < p.topk; ++s) {
-        unsigned long long best = kNoKey;
-        for (int j = threadIdx.x; j < m_total; j += kThreads) {
-            const unsigned long long k = mine[j];
-            if (k > prev && k < best) best = k;
-        }
-        prev = block_min_u64<kThreads>(best, red);
-        if (threadIdx.x == 0) {
-            const long long px = 3 * (n * P + static_cast<long long>(prev & 0xffffffffULL));
-            sr = __fadd_rn(sr, load_px(img, px, p.in_dtype, p.u8_scale));
-            sg = __fadd_rn(sg, load_px(img, px + 1, p.in_dtype, p.u8_scale));
-            sb = __fadd_rn(sb, load_px(img, px + 2, p.in_dtype, p.u8_scale));
-        }
-    }
-    if (threadIdx.x == 0) {
-        const float k = static_cast<float>(p.topk);
-        cand[3 * n] = __fdiv_rn(sr, k);
-        cand[3 * n + 1] = __fdiv_rn(sg, k);
-        cand[3 * n + 2] = __fdiv_rn(sb, k);
-    }
 }
 
 // One thread per lane: B steps of Eq. 9, exactly _ema_step's semantics.
@@ -305,8 +247,31 @@ __global__ void box_rows2_kernel(const float* __restrict__ ab, float* __restrict
     out[total + i] = sb;
 }
 
-// Refined t (horizontal sums of the a/b row sums; or t_raw without
-// refine), then Eq. 8 recovery with the frame's EMA output and gamma.
+// Refined t of pixel i: horizontal sums of the a/b row sums -> means ->
+// clip(mean_a * g + mean_b, 0, 1); t_raw without refine.
+__device__ __forceinline__ float refined_t(long long i, const float* __restrict__ t_raw,
+                                           const float* __restrict__ g,
+                                           const float* __restrict__ ab_rows,
+                                           const DehazeParams& p) {
+    if (!p.refine) return t_raw[i];
+    const long long P = static_cast<long long>(p.H) * p.W;
+    const long long total = P * p.L * p.B;
+    const int col = static_cast<int>(i % p.W);
+    const int row = static_cast<int>((i % P) / p.W);
+    const long long row0 = i - col;
+    const int lo = max(col - p.gf_radius, 0), hi = min(col + p.gf_radius, p.W - 1);
+    float sa = 0.0f, sb = 0.0f;
+    for (int k = lo; k <= hi; ++k) {
+        sa = __fadd_rn(sa, ab_rows[row0 + k]);
+        sb = __fadd_rn(sb, ab_rows[total + row0 + k]);
+    }
+    const float cnt = __fmul_rn(static_cast<float>(win_count(row, p.H, p.gf_radius)),
+                                static_cast<float>(win_count(col, p.W, p.gf_radius)));
+    const float mean_a = __fdiv_rn(sa, cnt), mean_b = __fdiv_rn(sb, cnt);
+    return clip01(__fadd_rn(__fmul_rn(mean_a, g[i]), mean_b));
+}
+
+// Refined t, then Eq. 8 recovery with the frame's EMA output and gamma.
 __global__ void recover_kernel(const void* __restrict__ img, const float* __restrict__ t_raw,
                                const float* __restrict__ g, const float* __restrict__ ab_rows,
                                const float* __restrict__ a_seq, void* __restrict__ J,
@@ -315,24 +280,7 @@ __global__ void recover_kernel(const void* __restrict__ img, const float* __rest
     const long long total = P * p.L * p.B;
     const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (i >= total) return;
-    float t;
-    if (p.refine) {
-        const int col = static_cast<int>(i % p.W);
-        const int row = static_cast<int>((i % P) / p.W);
-        const long long row0 = i - col;
-        const int lo = max(col - p.gf_radius, 0), hi = min(col + p.gf_radius, p.W - 1);
-        float sa = 0.0f, sb = 0.0f;
-        for (int k = lo; k <= hi; ++k) {
-            sa = __fadd_rn(sa, ab_rows[row0 + k]);
-            sb = __fadd_rn(sb, ab_rows[total + row0 + k]);
-        }
-        const float cnt = __fmul_rn(static_cast<float>(win_count(row, p.H, p.gf_radius)),
-                                    static_cast<float>(win_count(col, p.W, p.gf_radius)));
-        const float mean_a = __fdiv_rn(sa, cnt), mean_b = __fdiv_rn(sb, cnt);
-        t = clip01(__fadd_rn(__fmul_rn(mean_a, g[i]), mean_b));
-    } else {
-        t = t_raw[i];
-    }
+    const float t = refined_t(i, t_raw, g, ab_rows, p);
     const float tt = fmaxf(t, p.t0);
     const float* A = a_seq + 3 * (i / P);
     for (int c = 0; c < 3; ++c) {
@@ -344,6 +292,17 @@ __global__ void recover_kernel(const void* __restrict__ img, const float* __rest
     store_px(t_out, i, p.out_dtype, t);
 }
 
+// The fused transmission stage's last pass: the refined t in the output
+// dtype, and nothing else.
+__global__ void tmap_kernel(const float* __restrict__ t_raw, const float* __restrict__ g,
+                            const float* __restrict__ ab_rows, void* __restrict__ t_out,
+                            DehazeParams p) {
+    const long long total = static_cast<long long>(p.H) * p.W * p.L * p.B;
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= total) return;
+    store_px(t_out, i, p.out_dtype, refined_t(i, t_raw, g, ab_rows, p));
+}
+
 inline dim3 pixel_grid(const DehazeParams& p) {
     const long long total = static_cast<long long>(p.H) * p.W * p.L * p.B;
     return dim3(static_cast<unsigned>((total + kThreads - 1) / kThreads));
@@ -353,7 +312,8 @@ inline dim3 pixel_grid(const DehazeParams& p) {
 
 extern "C" {
 
-int fd_tile_pixels() { return kTile; }
+int fd_tile_pixels() { return kTopkTile; }
+int fd_max_tiles() { return kTopkMaxLists; }
 
 int fd_premap(const void* img, const float* carry_f, float* pre, float* g,
               const DehazeParams* p, void* stream) {
@@ -373,21 +333,27 @@ int fd_min_cols_tmap(const float* x, float* t, const DehazeParams* p, void* stre
     return static_cast<int>(cudaGetLastError());
 }
 
+// t_raw (N, H, W) float32 -> keys (N, n_tiles, min(topk, kTopkTile)).
 int fd_topk_block(const float* t, unsigned long long* keys, const DehazeParams* p,
                   void* stream) {
     const long long P = static_cast<long long>(p->H) * p->W;
-    const dim3 grid(static_cast<unsigned>((P + kTile - 1) / kTile),
+    const dim3 grid(static_cast<unsigned>((P + kTopkTile - 1) / kTopkTile),
                     static_cast<unsigned>(p->L * p->B));
-    topk_block_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(t, keys, *p);
+    topk_block_kernel<<<grid, kTopkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        t, 0, keys, P, tile_keep(p->topk));
     return static_cast<int>(cudaGetLastError());
 }
 
-int fd_topk_merge(const unsigned long long* keys, const void* img, float* cand,
-                  const DehazeParams* p, void* stream) {
+// keys -> cand (N, 3) in cand_dt (0 float32, 1 bfloat16), and t_min (N,)
+// float32 unless null.
+int fd_topk_merge(const unsigned long long* keys, const void* img, void* cand,
+                  int cand_dt, float* t_min, const DehazeParams* p, void* stream) {
     const long long P = static_cast<long long>(p->H) * p->W;
-    const int n_lists = static_cast<int>((P + kTile - 1) / kTile);
-    topk_merge_kernel<<<p->L * p->B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        keys, img, cand, n_lists, *p);
+    const int n_lists = static_cast<int>((P + kTopkTile - 1) / kTopkTile);
+    if (n_lists > kTopkMaxLists) return static_cast<int>(cudaErrorInvalidValue);
+    topk_merge_kernel<<<p->L * p->B, kTopkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        keys, n_lists, tile_keep(p->topk), p->topk, img, p->in_dtype, p->u8_scale, P,
+        cand, cand_dt, t_min);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -423,6 +389,13 @@ int fd_recover(const void* img, const float* t_raw, const float* g, const float*
                void* stream) {
     recover_kernel<<<pixel_grid(*p), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         img, t_raw, g, ab_rows, a_seq, J, t_out, *p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int fd_tmap(const float* t_raw, const float* g, const float* ab_rows, void* t_out,
+            const DehazeParams* p, void* stream) {
+    tmap_kernel<<<pixel_grid(*p), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        t_raw, g, ab_rows, t_out, *p);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,16 +3,19 @@
 // (and "pallas") runs.
 //
 // Replaces the TPU kernels
-//   st_dark_channel  src/repro/kernels/dark_channel.py::dark_channel_pallas
-//   st_box_filter    src/repro/kernels/boxfilter.py::box_filter_2d_pallas
-//   st_atmolight     src/repro/kernels/atmolight.py::atmolight_pallas
-//   st_recover       src/repro/kernels/recover.py::recover_pallas
+//   st_dark_channel     src/repro/kernels/dark_channel.py::dark_channel_pallas
+//   st_min_filter       src/repro/kernels/dark_channel.py::min_filter_2d_pallas
+//   st_box_filter       src/repro/kernels/boxfilter.py::box_filter_2d_pallas
+//   st_atmolight        src/repro/kernels/atmolight.py::atmolight_pallas
+//   st_atmolight_topk   src/repro/kernels/atmolight.py::atmolight_topk_pallas
+//   st_recover          src/repro/kernels/recover.py::recover_pallas
 // Each computes what its Pallas kernel computes: it reads float32 or
 // bfloat16, computes in float32 and writes its Pallas kernel's output dtype.
 //
-// Windows (dark channel, box filter). The TPU kernels hold a whole frame in
-// VMEM; a 480x640 float32 plane is 1.2 MB against at most 227 KB of shared
-// memory a block. So a block computes a kTileY x kTileX output tile: each
+// Windows (dark channel, min filter, box filter). The TPU kernels hold a
+// whole frame in
+// VMEM; a 480x640 float32 plane is 1.2 MB against at most 227 KB of
+// shared memory a block. So a block computes a kTileY x kTileX output tile: each
 // thread of a warp owns one output column; first the horizontal window of
 // every input row the tile's vertical windows touch (kTileY + 2r rows, at
 // most H) goes into shared memory, then the vertical window is taken from
@@ -32,13 +35,24 @@
 // and the result cannot depend on the order in which threads run. Then it
 // gathers I's RGB at the winner.
 //
+// Top-k atmospheric light (k > 1). The TPU kernel folds each row tile's
+// top-k into k rows carried through its sequential grid. Here the top-k
+// kernels of dehaze_common.cuh, which the megakernel's candidate passes
+// launch too: per-tile lists of the kk = min(k, 2048) smallest keys, one
+// block a tile over all frames, then one block a frame merging the list
+// heads, k rounds for any k up to H*W; the mean of I over the k picks is a
+// compensated float32 sum in ascending (t, index) order over k, cast to
+// the frames' dtype. The caller gives the key lists' scratch (N x tiles x
+// kk keys).
+//
 // Recovery. One elementwise pass: J = clip((I - A)/max(t, t0) + A, 0, 1),
 // then powf only when gamma != 1, with A per frame.
 //
 // What bounds them on the H100: device-memory bytes (each is a few
 // operations per byte). At 32 frames of 480x640 float32 the byte bounds are
-// 0.047 ms (dark channel, 16 B/px), 0.023 ms (box filter, 8 B/px), 0.047 ms
-// (atmospheric light, 16 B/px counting all of I) and 0.082 ms (recover,
+// 0.047 ms (dark channel, 16 B/px), 0.023 ms (min and box filter, 8 B/px),
+// 0.047 ms (atmospheric light, 16 B/px counting all of I; the top-k's
+// reads only t and k pixels a frame, 0.012 ms) and 0.082 ms (recover,
 // 28 B/px). This first design does not reach them: each window tap is a
 // load (2r + 1 per output per axis, the dark channel's three channels each
 // time), and one block a frame leaves most SMs idle in the atmospheric
@@ -61,11 +75,14 @@ constexpr int kRowThreads = 8;                   // warps a window block
 constexpr int kReduceThreads = 1024;             // threads of an atmolight block
 constexpr int kMaxSmem = 232448;                 // opt-in shared memory a block
 
-// (N, H, W, 3) with kDark: channel min, then the windowed min (+inf
-// border). (N, H, W) without: the windowed mean over the clipped window.
+// What a window kernel computes: kDark, (N, H, W, 3) -> the channel min,
+// then the windowed min (+inf border); kMin, (N, H, W) -> the windowed min;
+// kMean, (N, H, W) -> the windowed mean over the clipped window.
+enum Window { kDark = 0, kMin = 1, kMean = 2 };
+
 // grid (ceil(W/kTileX), ceil(H/kTileY), N), block (kTileX, kRowThreads),
 // dynamic shared memory min(kTileY + 2r, H) * kTileX floats.
-template <bool kDark>
+template <int kMode>
 __global__ void window_kernel(const void* __restrict__ x, void* __restrict__ out,
                               int H, int W, int r, int dt) {
     extern __shared__ float hwin[];              // [row - ylo][tx]
@@ -78,16 +95,18 @@ __global__ void window_kernel(const void* __restrict__ x, void* __restrict__ out
 
     // Horizontal windows of every input row the tile needs.
     for (int k = ylo + ty; k <= yhi; k += kRowThreads) {
-        float h = kDark ? INFINITY : 0.0f;
+        float h = kMode == kMean ? 0.0f : INFINITY;
         if (col < W) {
             const long long row = plane + static_cast<long long>(k) * W;
             for (int c = clo; c <= chi; ++c) {
-                if (kDark) {
+                if (kMode == kDark) {
                     const long long p = 3 * (row + c);
                     const float m = fminf(fminf(load_px(x, p, dt, 1.0f),
                                                 load_px(x, p + 1, dt, 1.0f)),
                                           load_px(x, p + 2, dt, 1.0f));
                     h = fminf(h, m);
+                } else if (kMode == kMin) {
+                    h = fminf(h, load_px(x, row + c, dt, 1.0f));
                 } else {
                     h = __fadd_rn(h, load_px(x, row + c, dt, 1.0f));
                 }
@@ -103,12 +122,12 @@ __global__ void window_kernel(const void* __restrict__ x, void* __restrict__ out
     const int yend = min(y0 + kTileY, H);
     for (int y = y0 + ty; y < yend; y += kRowThreads) {
         const int lo = max(y - r, 0), hi = min(y + r, H - 1);
-        float acc = kDark ? INFINITY : 0.0f;
+        float acc = kMode == kMean ? 0.0f : INFINITY;
         for (int k = lo; k <= hi; ++k) {
             const float v = hwin[(k - ylo) * kTileX + tx];
-            acc = kDark ? fminf(acc, v) : __fadd_rn(acc, v);
+            acc = kMode == kMean ? __fadd_rn(acc, v) : fminf(acc, v);
         }
-        if (!kDark)
+        if (kMode == kMean)
             acc = __fdiv_rn(acc, __fmul_rn(static_cast<float>(hi - lo + 1), cnt_x));
         store_px(out, plane + static_cast<long long>(y) * W + col, dt, acc);
     }
@@ -167,7 +186,7 @@ __global__ void recover_kernel(const void* __restrict__ img, const void* __restr
     }
 }
 
-template <bool kDark>
+template <int kMode>
 int launch_window(const void* x, void* out, int N, int H, int W, int r, int dt,
                   void* stream) {
     const int rows = min(kTileY + 2 * r, H);
@@ -175,12 +194,12 @@ int launch_window(const void* x, void* out, int N, int H, int W, int r, int dt,
     if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            window_kernel<kDark>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            window_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     const dim3 grid((W + kTileX - 1) / kTileX, (H + kTileY - 1) / kTileY, N);
-    window_kernel<kDark><<<grid, dim3(kTileX, kRowThreads), smem,
+    window_kernel<kMode><<<grid, dim3(kTileX, kRowThreads), smem,
                            static_cast<cudaStream_t>(stream)>>>(x, out, H, W, r, dt);
     return static_cast<int>(cudaGetLastError());
 }
@@ -192,17 +211,25 @@ extern "C" {
 int st_tile_x() { return kTileX; }
 int st_tile_y() { return kTileY; }
 int st_max_smem() { return kMaxSmem; }
+int st_topk_tile() { return kTopkTile; }
+int st_topk_max_tiles() { return kTopkMaxLists; }
 
 // (N, H, W, 3) -> (N, H, W), both in dt (0 float32, 1 bfloat16).
 int st_dark_channel(const void* img, void* out, int N, int H, int W, int radius,
                     int dt, void* stream) {
-    return launch_window<true>(img, out, N, H, W, radius, dt, stream);
+    return launch_window<kDark>(img, out, N, H, W, radius, dt, stream);
+}
+
+// (N, H, W) -> (N, H, W), both in dt.
+int st_min_filter(const void* x, void* out, int N, int H, int W, int radius, int dt,
+                  void* stream) {
+    return launch_window<kMin>(x, out, N, H, W, radius, dt, stream);
 }
 
 // (N, H, W) -> (N, H, W), both in dt.
 int st_box_filter(const void* x, void* out, int N, int H, int W, int radius, int dt,
                   void* stream) {
-    return launch_window<false>(x, out, N, H, W, radius, dt, stream);
+    return launch_window<kMean>(x, out, N, H, W, radius, dt, stream);
 }
 
 // (N, H, W, 3) img_dt, (N, H, W) t_dt -> (N, 3) img_dt.
@@ -210,6 +237,27 @@ int st_atmolight(const void* img, const void* t, void* out, int N, int H, int W,
                  int img_dt, int t_dt, void* stream) {
     atmolight_kernel<<<N, kReduceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         img, t, out, static_cast<long long>(H) * W, img_dt, t_dt);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// (N, H, W, 3) img_dt, (N, H, W) t_dt -> (N, 3) img_dt, the mean of I over
+// the k smallest (t, flat index) keys of each frame, 1 <= k <= H*W; keys is
+// scratch for N x ceil(H*W / st_topk_tile()) x min(k, st_topk_tile()) keys.
+int st_atmolight_topk(const void* img, const void* t, unsigned long long* keys,
+                      void* out, int N, int H, int W, int k, int img_dt, int t_dt,
+                      void* stream) {
+    const long long P = static_cast<long long>(H) * W;
+    const long long n_tiles = (P + kTopkTile - 1) / kTopkTile;
+    if (k < 1 || k > P || n_tiles > kTopkMaxLists)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    topk_block_kernel<<<dim3(static_cast<unsigned>(n_tiles), N), kTopkThreads, 0, s>>>(
+        t, t_dt, keys, P, tile_keep(k));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    topk_merge_kernel<<<N, kTopkThreads, 0, s>>>(
+        keys, static_cast<int>(n_tiles), tile_keep(k), k, img, img_dt, 1.0f, P, out,
+        img_dt, nullptr);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,37 +16,60 @@ card runs, and ``chip_smoke.py`` holds every pass against its plain
 counterpart on the card. :data:`launches` counts kernel launches per pass,
 each where its kernel launches; every run of the whole sequence launches
 ``premap`` exactly once, so its count is also the count of whole runs.
+
+The fused transmission stage of the data-parallel sharded step,
+``fused_transmission_lanes`` (the port of ``fused_transmission_lanes_pallas``)
+and its L=1 view ``fused_transmission`` (``fused_transmission_pallas``),
+is the same passes up to the guided filter, then two of its own: the
+candidate merge (the megakernel's merge kernel, also writing t_min and the
+candidate in the output dtype) and ``tmap`` (the refined t, no J); no EMA,
+no recovery. Its passes are :data:`TRANSMISSION_PASSES`, run by
+:func:`run_transmission_passes` and counted apart from the megakernel's in
+:data:`transmission_launches`.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.staged import window_counts, window_sum
+from repro_torch.kernels.staged import (KEY_LAST, TOPK_MAX_TILES, TOPK_TILE,
+                                        flip_key_order, key_index, key_t,
+                                        topk_keys_signed, topk_mean,
+                                        window_counts, window_sum)
 
 SOURCE = "fused_dehaze.cu"
 
-#: Pixels per top-k block: ``kTile`` in the CUDA source (checked at load).
-TILE_PIXELS = 2048
+#: Pixels per top-k tile: ``kTopkTile`` in ``csrc/dehaze_common.cuh``
+#: (checked at load).
+TILE_PIXELS = TOPK_TILE
 
 PASSES = ("premap", "min_rows", "min_cols_tmap", "topk_block", "topk_merge",
           "ema", "box_rows4", "box_cols_ab", "box_rows2", "recover")
 
-#: Kernel launches since the last :func:`reset_launches`, by pass name.
+TRANSMISSION_PASSES = ("premap", "min_rows", "min_cols_tmap", "topk_block",
+                       "candidate", "box_rows4", "box_cols_ab", "box_rows2",
+                       "tmap")
+
+#: Kernel launches since the last :func:`reset_launches`, by pass name: of
+#: the megakernel, and of the fused transmission stage.
 launches: Dict[str, int] = {name: 0 for name in PASSES}
+transmission_launches: Dict[str, int] = {name: 0
+                                         for name in TRANSMISSION_PASSES}
 
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, transmission_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 class _Params(ctypes.Structure):
@@ -123,6 +146,9 @@ def make_static(img: torch.Tensor, *, algorithm: str = "dcp", radius: int,
     L, B, H, W, _ = img.shape
     if not 1 <= topk <= H * W:
         raise ValueError(f"topk={topk} outside [1, H*W={H * W}]")
+    if -(-(H * W) // TILE_PIXELS) > TOPK_MAX_TILES:
+        raise ValueError(f"H*W={H * W} needs more than {TOPK_MAX_TILES} "
+                         f"top-k tiles of {TILE_PIXELS} pixels")
     if radius < 0 or gf_radius < 0:
         raise ValueError("window radii must be >= 0")
     return Static(L=L, B=B, H=H, W=W, in_dtype=img.dtype,
@@ -152,22 +178,25 @@ def _lib() -> ctypes.CDLL:
             "fd_min_rows": [vp, vp, pp, vp],
             "fd_min_cols_tmap": [vp, vp, pp, vp],
             "fd_topk_block": [vp, vp, pp, vp],
-            "fd_topk_merge": [vp, vp, vp, pp, vp],
+            "fd_topk_merge": [vp, vp, vp, ctypes.c_int, vp, pp, vp],
             "fd_ema": [vp, vp, vp, vp, vp, vp, vp, pp, vp],
             "fd_box_rows4": [vp, vp, vp, pp, vp],
             "fd_box_cols_ab": [vp, vp, pp, vp],
             "fd_box_rows2": [vp, vp, pp, vp],
             "fd_recover": [vp, vp, vp, vp, vp, vp, vp, pp, vp],
+            "fd_tmap": [vp, vp, vp, vp, pp, vp],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
-        lib.fd_tile_pixels.argtypes = []
-        lib.fd_tile_pixels.restype = ctypes.c_int
-        if lib.fd_tile_pixels() != TILE_PIXELS:
-            raise RuntimeError(f"{SOURCE} tiles {lib.fd_tile_pixels()} "
-                               f"pixels per top-k block, expected {TILE_PIXELS}")
+        for name in ("fd_tile_pixels", "fd_max_tiles"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        got = (lib.fd_tile_pixels(), lib.fd_max_tiles())
+        if got != (TILE_PIXELS, TOPK_MAX_TILES):
+            raise RuntimeError(f"{SOURCE} top-k tiles {got}, expected "
+                               f"{(TILE_PIXELS, TOPK_MAX_TILES)}")
         _lib_handle = lib
     return _lib_handle
 
@@ -176,14 +205,15 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, *args) -> None:
-    """Call ``fd_<name>`` on the current stream; count it; raise on a
-    non-zero cudaError_t."""
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(_lib(), f"fd_{name}")(*args, stream)
+def _launch(name: str, counts: Dict[str, int], *args,
+            kernel: Optional[str] = None) -> None:
+    """Call ``fd_<kernel or name>`` on the current stream; count it as
+    ``counts[name]``; raise on a non-zero cudaError_t."""
+    fn = f"fd_{kernel or name}"
+    rc = getattr(_lib(), fn)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel fd_{name} failed: cudaError_t {rc}")
-    launches[name] += 1
+        raise RuntimeError(f"CUDA kernel {fn} failed: cudaError_t {rc}")
+    counts[name] += 1
 
 
 def _check_cuda(*tensors: torch.Tensor) -> None:
@@ -199,99 +229,129 @@ def _plane(s: Static, n: int = 0, dtype=torch.float32, device=None):
     return torch.empty(shape, dtype=dtype, device=device)
 
 
-def cuda_premap(img, carry_f, s: Static):
+def cuda_premap(img, carry_f, s: Static, counts=launches):
     _check_cuda(img, carry_f)
     pre = _plane(s, device=img.device)
     g = _plane(s, device=img.device) if s.refine else None
     p = s.params()
-    _launch("premap", img.data_ptr(), carry_f.data_ptr(), pre.data_ptr(),
+    _launch("premap", counts, img.data_ptr(), carry_f.data_ptr(), pre.data_ptr(),
             _ptr(g), ctypes.byref(p))
     return pre, g
 
 
-def cuda_min_rows(pre, s: Static):
+def cuda_min_rows(pre, s: Static, counts=launches):
     _check_cuda(pre)
     out = torch.empty_like(pre)
     p = s.params()
-    _launch("min_rows", pre.data_ptr(), out.data_ptr(), ctypes.byref(p))
+    _launch("min_rows", counts, pre.data_ptr(), out.data_ptr(), ctypes.byref(p))
     return out
 
 
-def cuda_min_cols_tmap(rows, s: Static):
+def cuda_min_cols_tmap(rows, s: Static, counts=launches):
     _check_cuda(rows)
     t_raw = torch.empty_like(rows)
     p = s.params()
-    _launch("min_cols_tmap", rows.data_ptr(), t_raw.data_ptr(), ctypes.byref(p))
+    _launch("min_cols_tmap", counts, rows.data_ptr(), t_raw.data_ptr(), ctypes.byref(p))
     return t_raw
 
 
-def cuda_topk_block(t_raw, s: Static):
-    """(N, H, W) t_raw -> (N, n_tiles, k) int64 keys (unsigned bits)."""
+def _tile_keep(s: Static) -> int:
+    """Keys a top-k tile keeps (a tile has TILE_PIXELS pixels)."""
+    return min(s.topk, TILE_PIXELS)
+
+
+def cuda_topk_block(t_raw, s: Static, counts=launches):
+    """(N, H, W) t_raw -> (N, n_tiles, min(k, TILE_PIXELS)) int64 keys
+    (unsigned bits)."""
     _check_cuda(t_raw)
     n_tiles = -(-(s.H * s.W) // TILE_PIXELS)
-    keys = torch.empty((s.n_frames, n_tiles, s.topk), dtype=torch.int64,
-                       device=t_raw.device)
+    keys = torch.empty((s.n_frames, n_tiles, _tile_keep(s)),
+                       dtype=torch.int64, device=t_raw.device)
     p = s.params()
-    _launch("topk_block", t_raw.data_ptr(), keys.data_ptr(), ctypes.byref(p))
+    _launch("topk_block", counts, t_raw.data_ptr(), keys.data_ptr(), ctypes.byref(p))
     return keys
 
 
-def cuda_topk_merge(keys, img, s: Static):
+def cuda_topk_merge(keys, img, s: Static, counts=launches):
     _check_cuda(keys, img)
     cand = torch.empty((s.n_frames, 3), dtype=torch.float32, device=img.device)
     p = s.params()
-    _launch("topk_merge", keys.data_ptr(), img.data_ptr(), cand.data_ptr(),
-            ctypes.byref(p))
+    _launch("topk_merge", counts, keys.data_ptr(), img.data_ptr(),
+            cand.data_ptr(), _OUT_CODES[torch.float32], None, ctypes.byref(p))
     return cand
 
 
-def cuda_ema(cand, ids, carry_f, carry_i, s: Static):
+def cuda_candidate(keys, img, s: Static, counts=transmission_launches):
+    """The merge kernel for the transmission stage: ``(t_min (N,) float32,
+    cand (N, 3) in the output dtype)``."""
+    _check_cuda(keys, img)
+    t_min = torch.empty((s.n_frames,), dtype=torch.float32, device=img.device)
+    cand = torch.empty((s.n_frames, 3), dtype=s.out_dtype, device=img.device)
+    p = s.params()
+    _launch("candidate", counts, keys.data_ptr(), img.data_ptr(),
+            cand.data_ptr(), _OUT_CODES[s.out_dtype], t_min.data_ptr(),
+            ctypes.byref(p), kernel="topk_merge")
+    return t_min, cand
+
+
+def cuda_ema(cand, ids, carry_f, carry_i, s: Static, counts=launches):
     _check_cuda(cand, ids, carry_f, carry_i)
     dev = cand.device
     a_seq = torch.empty((s.L, s.B, 3), dtype=torch.float32, device=dev)
     cf = torch.empty((s.L, 3), dtype=torch.float32, device=dev)
     ci = torch.empty((s.L, 2), dtype=torch.int32, device=dev)
     p = s.params()
-    _launch("ema", cand.data_ptr(), ids.data_ptr(), carry_f.data_ptr(),
+    _launch("ema", counts, cand.data_ptr(), ids.data_ptr(), carry_f.data_ptr(),
             carry_i.data_ptr(), a_seq.data_ptr(), cf.data_ptr(), ci.data_ptr(),
             ctypes.byref(p))
     return a_seq, cf, ci
 
 
-def cuda_box_rows4(g, t_raw, s: Static):
+def cuda_box_rows4(g, t_raw, s: Static, counts=launches):
     _check_cuda(g, t_raw)
     out = _plane(s, 4, device=g.device)
     p = s.params()
-    _launch("box_rows4", g.data_ptr(), t_raw.data_ptr(), out.data_ptr(),
+    _launch("box_rows4", counts, g.data_ptr(), t_raw.data_ptr(), out.data_ptr(),
             ctypes.byref(p))
     return out
 
 
-def cuda_box_cols_ab(rows4, s: Static):
+def cuda_box_cols_ab(rows4, s: Static, counts=launches):
     _check_cuda(rows4)
     ab = _plane(s, 2, device=rows4.device)
     p = s.params()
-    _launch("box_cols_ab", rows4.data_ptr(), ab.data_ptr(), ctypes.byref(p))
+    _launch("box_cols_ab", counts, rows4.data_ptr(), ab.data_ptr(), ctypes.byref(p))
     return ab
 
 
-def cuda_box_rows2(ab, s: Static):
+def cuda_box_rows2(ab, s: Static, counts=launches):
     _check_cuda(ab)
     out = torch.empty_like(ab)
     p = s.params()
-    _launch("box_rows2", ab.data_ptr(), out.data_ptr(), ctypes.byref(p))
+    _launch("box_rows2", counts, ab.data_ptr(), out.data_ptr(), ctypes.byref(p))
     return out
 
 
-def cuda_recover(img, t_raw, g, rows2, a_seq, s: Static):
+def cuda_recover(img, t_raw, g, rows2, a_seq, s: Static, counts=launches):
     _check_cuda(img, t_raw, a_seq)
     dev = img.device
     J = torch.empty((s.L, s.B, s.H, s.W, 3), dtype=s.out_dtype, device=dev)
     t = torch.empty((s.L, s.B, s.H, s.W), dtype=s.out_dtype, device=dev)
     p = s.params()
-    _launch("recover", img.data_ptr(), t_raw.data_ptr(), _ptr(g), _ptr(rows2),
+    _launch("recover", counts, img.data_ptr(), t_raw.data_ptr(), _ptr(g), _ptr(rows2),
             a_seq.data_ptr(), J.data_ptr(), t.data_ptr(), ctypes.byref(p))
     return J, t
+
+
+def cuda_tmap(t_raw, g, rows2, s: Static, counts=transmission_launches):
+    """The refined t (t_raw without refine) in the output dtype, no J."""
+    _check_cuda(t_raw)
+    t = torch.empty((s.L, s.B, s.H, s.W), dtype=s.out_dtype,
+                    device=t_raw.device)
+    p = s.params()
+    _launch("tmap", counts, t_raw.data_ptr(), _ptr(g), _ptr(rows2),
+            t.data_ptr(), ctypes.byref(p))
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -323,48 +383,36 @@ def plain_min_cols_tmap(rows, s: Static):
     return ref.tmap_from_dark(dark, s.algorithm, s.omega, s.beta)
 
 
-_LOW32 = 0xFFFFFFFF
-_I64_MIN = torch.iinfo(torch.int64).min
-_I64_MAX = torch.iinfo(torch.int64).max
-
-
-def topk_keys_signed(t_raw: torch.Tensor) -> torch.Tensor:
-    """(N, H, W) t -> (N, H*W) int64 keys in *signed* order: the kernel's
-    unsigned key ``(ordered bits of t) << 32 | flat index`` with its top
-    bit flipped, so int64 comparison is the kernel's unsigned comparison
-    (smallest t first, ties to the lowest index)."""
-    n = t_raw.shape[0]
-    flat = t_raw.reshape(n, -1)
-    flat = torch.where(flat == 0, torch.zeros_like(flat), flat)   # -0 == +0
-    u = flat.contiguous().view(torch.int32).to(torch.int64) & _LOW32
-    ordered = torch.where(u >= 2 ** 31, _LOW32 - u, u + 2 ** 31)
-    idx = torch.arange(flat.shape[1], device=flat.device)
-    return (ordered - 2 ** 31) * 2 ** 32 + idx
-
-
 def plain_topk_block(t_raw, s: Static):
     """Per tile of :data:`TILE_PIXELS` pixels, its k smallest keys in
     ascending order, all-ones where the tile has fewer than k pixels:
     bit for bit what :func:`cuda_topk_block` writes."""
     n, P = s.n_frames, s.H * s.W
     n_tiles = -(-P // TILE_PIXELS)
-    padded = torch.full((n, n_tiles * TILE_PIXELS), _I64_MAX,
+    padded = torch.full((n, n_tiles * TILE_PIXELS), KEY_LAST,
                         dtype=torch.int64, device=t_raw.device)
     padded[:, :P] = topk_keys_signed(t_raw)
     best = torch.sort(padded.reshape(n, n_tiles, TILE_PIXELS), dim=-1
-                      ).values[..., :s.topk]
-    return best ^ _I64_MIN
+                      ).values[..., :_tile_keep(s)]
+    return flip_key_order(best)
+
+
+def _merge(keys, img, s: Static):
+    """Merge the tile key lists (unsigned 64-bit keys held in int64):
+    ``(the k smallest in signed order, the mean of I over them)``."""
+    x = _frames(img, s).reshape(s.n_frames, -1, 3)
+    flat = flip_key_order(keys.reshape(s.n_frames, -1))
+    best = torch.sort(flat, dim=-1).values[:, :s.topk]
+    return best, topk_mean(x, key_index(best))
 
 
 def plain_topk_merge(keys, img, s: Static):
-    """Merge the block key lists (unsigned 64-bit keys held in int64) and
-    average I over the k smallest."""
-    x = _frames(img, s).reshape(s.n_frames, -1, 3)
-    flat = keys.reshape(s.n_frames, -1)
-    best = torch.sort(flat ^ _I64_MIN, dim=-1).values[:, :s.topk]
-    idx = (best ^ _I64_MIN) & _LOW32
-    picked = torch.gather(x, 1, idx[..., None].expand(*idx.shape, 3))
-    return picked.mean(1)
+    return _merge(keys, img, s)[1]
+
+
+def plain_candidate(keys, img, s: Static):
+    best, cand = _merge(keys, img, s)
+    return key_t(best[:, 0]), cand.to(s.out_dtype)
 
 
 def plain_ema(cand, ids, carry_f, carry_i, s: Static):
@@ -402,15 +450,20 @@ def plain_box_rows2(ab, s: Static):
     return torch.stack([window_sum(v, s.gf_radius, -2) for v in ab])
 
 
+def _refined_t(t_raw, g, rows2, s: Static):
+    """clip(mean_a * g + mean_b, 0, 1) from the a/b row sums; t_raw
+    without refine."""
+    if not s.refine:
+        return t_raw
+    cnt = window_counts(s.H, s.W, s.gf_radius, t_raw.device)
+    mean_a = window_sum(rows2[0], s.gf_radius, -1) / cnt
+    mean_b = window_sum(rows2[1], s.gf_radius, -1) / cnt
+    return torch.clamp(mean_a * g + mean_b, 0.0, 1.0)
+
+
 def plain_recover(img, t_raw, g, rows2, a_seq, s: Static):
     x = _frames(img, s)
-    if s.refine:
-        cnt = window_counts(s.H, s.W, s.gf_radius, x.device)
-        mean_a = window_sum(rows2[0], s.gf_radius, -1) / cnt
-        mean_b = window_sum(rows2[1], s.gf_radius, -1) / cnt
-        t = torch.clamp(mean_a * g + mean_b, 0.0, 1.0)
-    else:
-        t = t_raw
+    t = _refined_t(t_raw, g, rows2, s)
     tt = torch.clamp_min(t, s.t0)[..., None]
     A = a_seq.reshape(s.n_frames, 3)[:, None, None, :]
     J = torch.clamp((x - A) / tt + A, 0.0, 1.0)
@@ -421,10 +474,24 @@ def plain_recover(img, t_raw, g, rows2, a_seq, s: Static):
             t.reshape(shape).to(s.out_dtype))
 
 
+def plain_tmap(t_raw, g, rows2, s: Static):
+    return _refined_t(t_raw, g, rows2, s).reshape(
+        s.L, s.B, s.H, s.W).to(s.out_dtype)
+
+
 Passes = Dict[str, Callable]
 
 CUDA_PASSES: Passes = {name: globals()[f"cuda_{name}"] for name in PASSES}
 PLAIN_PASSES: Passes = {name: globals()[f"plain_{name}"] for name in PASSES}
+
+#: The transmission stage's passes, every CUDA one counted in
+#: :data:`transmission_launches`.
+TRANSMISSION_CUDA_PASSES: Passes = {
+    name: functools.partial(globals()[f"cuda_{name}"],
+                            counts=transmission_launches)
+    for name in TRANSMISSION_PASSES}
+TRANSMISSION_PLAIN_PASSES: Passes = {
+    name: globals()[f"plain_{name}"] for name in TRANSMISSION_PASSES}
 
 
 def run_passes(img, frame_ids, carry_f, carry_i, s: Static,
@@ -441,6 +508,22 @@ def run_passes(img, frame_ids, carry_f, carry_i, s: Static,
         rows2 = passes["box_rows2"](ab, s)
     J, t = passes["recover"](img, t_raw, g, rows2, a_seq, s)
     return J, t, a_seq, cf, ci
+
+
+def run_transmission_passes(img, a_saved, s: Static,
+                            passes: Passes = TRANSMISSION_CUDA_PASSES):
+    """The fused transmission stage's pass sequence, through ``passes``:
+    (L, B, H, W, 3) frames and per-lane saved A (L, 3) -> ``(t (L, B, H, W)
+    and cand (L, B, 3) in the output dtype, t_min (L, B) float32)``."""
+    pre, g = passes["premap"](img, a_saved, s)
+    t_raw = passes["min_cols_tmap"](passes["min_rows"](pre, s), s)
+    t_min, cand = passes["candidate"](passes["topk_block"](t_raw, s), img, s)
+    rows2 = None
+    if s.refine:
+        ab = passes["box_cols_ab"](passes["box_rows4"](g, t_raw, s), s)
+        rows2 = passes["box_rows2"](ab, s)
+    t = passes["tmap"](t_raw, g, rows2, s)
+    return t, t_min.reshape(s.L, s.B), cand.reshape(s.L, s.B, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -497,3 +580,42 @@ def fused_dehaze(img: torch.Tensor, frame_ids: torch.Tensor,
     J, t, a_seq, cf, ci = fused_dehaze_lanes(
         img[None], frame_ids.reshape(1, -1), carry_f, carry_i, **kw)
     return J[0], t[0], a_seq[0], cf[0], ci[0, 0]
+
+
+def fused_transmission_lanes(img: torch.Tensor, A_saved: torch.Tensor, *,
+                             algorithm: str = "dcp", radius: int,
+                             omega: float = 0.95, beta: float = 1.0,
+                             cap_w: Sequence[float] = ref.CAP_COEFFS,
+                             refine: bool, gf_radius: int, gf_eps: float,
+                             topk: int = 1, out_dtype: Optional[str] = None):
+    """The fused transmission stage of L lanes: (L, B, H, W, 3) wire frames
+    and per-lane saved A (L, 3) -> ``(t (L, B, H, W), t_min (L, B) float32,
+    cand (L, B, 3))``, t and cand in ``ref.resolve_out_dtype(img.dtype,
+    out_dtype)``; frame row i of the flat L*B batch reads lane i // B's A.
+
+    CPU tensors run the plain version; CUDA tensors run the kernels (built
+    at first use) or raise."""
+    kw = dict(algorithm=algorithm, radius=radius, omega=omega, beta=beta,
+              cap_w=cap_w, refine=refine, gf_radius=gf_radius, gf_eps=gf_eps,
+              topk=topk, out_dtype=out_dtype)
+    # The EMA and recovery constants do not reach the stage's passes.
+    s = make_static(img, t0=0.1, gamma=1.0, period=1, lam=0.0, **kw)
+    if tuple(A_saved.shape) != (s.L, 3):
+        raise ValueError(f"A_saved {tuple(A_saved.shape)} != (L, 3) = "
+                         f"{(s.L, 3)}")
+    if img.device.type == "cpu":
+        return ref.fused_transmission_lanes(img, A_saved, **kw)
+    if img.device.type != "cuda":
+        raise ValueError(f"unsupported device {img.device}")
+    _check_cuda(img)
+    a = A_saved.to(device=img.device, dtype=torch.float32).contiguous()
+    return run_transmission_passes(img, a, s)
+
+
+def fused_transmission(img: torch.Tensor, A_saved: torch.Tensor, **kw):
+    """One stream, the L=1 view of :func:`fused_transmission_lanes`:
+    (B, H, W, 3) frames, saved A (3,) -> ``(t (B, H, W), t_min (B,),
+    cand (B, 3))``."""
+    t, t_min, cand = fused_transmission_lanes(img[None], A_saved.reshape(1, 3),
+                                              **kw)
+    return t[0], t_min[0], cand[0]

@@ -17,12 +17,14 @@
                    raises ``ValueError``.
 
 ``REPRO_KERNEL_MODE=ref`` also sends ``"fused"`` to the plain chain, as on
-the reference. Two staged kernels are not ported yet and raise
-``NotImplementedError`` on a CUDA tensor: the windowed min of staged CAP
-(ROADMAP.md queue B, row B3b) and the top-k atmospheric light for
-``k > 1`` (row B6b); on CPU tensors they run the plain chain. The TPU
-tiling knobs (``frames_per_block``, ``lane_major``, ``buffer_depth``, the
-tuning table) have no counterpart.
+the reference. Every staged op of the reference has its kernel: the dark
+channel, the windowed min of staged CAP, the box filter, the argmin and
+the top-k (``k > 1``) atmospheric light, and recovery. The fused
+transmission stage of the data-parallel sharded step
+(:func:`fused_transmission`, :func:`fused_transmission_lanes`) runs the
+megakernel's passes under any mode but ``"ref"``. The TPU tiling knobs
+(``frames_per_block``, ``lane_major``, ``buffer_depth``, the tuning
+table) have no counterpart.
 """
 from __future__ import annotations
 
@@ -39,9 +41,6 @@ from repro_torch.kernels.ref import CAP_COEFFS
 Mode = Literal["auto", "ref", "pallas", "interpret", "fused"]
 
 MODES = _env.KERNEL_MODES
-
-_NOT_PORTED = ("{what} on a CUDA tensor is not ported yet (ROADMAP.md queue "
-               "B, row {row}); use kernel_mode='fused' or 'ref'")
 
 
 def resolve_mode(mode: Mode = "auto") -> str:
@@ -79,10 +78,10 @@ def dark_channel(img, radius: int, mode: Mode = "auto"):
 
 def min_filter_2d(x, radius: int, mode: Mode = "auto"):
     """(..., H, W) -> (..., H, W)."""
-    if resolve_mode(mode) != "ref" and x.device.type != "cpu":
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="the staged windowed min (CAP)", row="B3b"))
-    return _ref.min_filter_2d(x, radius)
+    if resolve_mode(mode) == "ref":
+        return _ref.min_filter_2d(x, radius)
+    flat, _ = _batched(x, 2)
+    return _staged.min_filter_op(flat, radius).reshape(x.shape)
 
 
 def box_filter_2d(x, radius: int, mode: Mode = "auto"):
@@ -116,15 +115,13 @@ def guided_filter(guide, src, radius: int, eps: float, mode: Mode = "auto"):
 def atmospheric_light(img, t_raw, k: int = 1, mode: Mode = "auto"):
     """(..., H, W, 3), (..., H, W) -> (..., 3): I at the argmin of t
     (``k == 1``), or the mean of I over the k smallest t."""
-    m = resolve_mode(mode)
-    if m == "ref" or (k > 1 and img.device.type == "cpu"):
+    if resolve_mode(mode) == "ref":
         return _ref.atmospheric_light(img, t_raw, k)
-    if k > 1:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what=f"the staged top-k atmospheric light (k={k})", row="B6b"))
     flat_i, lead = _batched(img, 3)
     flat_t, _ = _batched(t_raw, 2)
-    return _staged.atmolight_op(flat_i, flat_t).reshape(lead + (3,))
+    out = (_staged.atmolight_topk_op(flat_i, flat_t, k) if k > 1
+           else _staged.atmolight_op(flat_i, flat_t))
+    return out.reshape(lead + (3,))
 
 
 def per_frame(A: torch.Tensor, lead: Tuple[int, ...]) -> torch.Tensor:
@@ -212,7 +209,52 @@ def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
     return fn(img, frame_ids, carry_f, carry_i, **kw)
 
 
+def fused_transmission(img: torch.Tensor, A_saved: torch.Tensor, *,
+                       algorithm: str = "dcp", radius: int,
+                       omega: float = 0.95, beta: float = 1.0,
+                       cap_w: Sequence[float] = CAP_COEFFS, refine: bool,
+                       gf_radius: int, gf_eps: float, topk: int = 1,
+                       out_dtype: Optional[str] = "auto",
+                       mode: Mode = "auto") -> Tuple[torch.Tensor, ...]:
+    """Fused t-map + A candidates (the data-parallel sharded step's stage):
+    (..., H, W, 3) + saved A (3,) -> (t, t_min (...,), cand_rgb (..., 3)).
+    The candidate is the argmin-t pixel for ``topk == 1``, the mean of the
+    ``topk`` smallest-t pixels otherwise; t and the candidate are cast to
+    the resolved output dtype, t_min is float32."""
+    flat, lead = _batched(img, 3)
+    fn = (_ref.fused_transmission if resolve_mode(mode) == "ref"
+          else _fused.fused_transmission)
+    t, t_min, cand = fn(flat, A_saved, algorithm=algorithm, radius=radius,
+                        omega=omega, beta=beta, cap_w=tuple(cap_w),
+                        refine=refine, gf_radius=gf_radius, gf_eps=gf_eps,
+                        topk=topk, out_dtype=out_dtype)
+    return (t.reshape(lead + tuple(t.shape[1:])), t_min.reshape(lead),
+            cand.reshape(lead + (3,)))
+
+
+def fused_transmission_lanes(img: torch.Tensor, A_saved: torch.Tensor, *,
+                             algorithm: str = "dcp", radius: int,
+                             omega: float = 0.95, beta: float = 1.0,
+                             cap_w: Sequence[float] = CAP_COEFFS,
+                             refine: bool, gf_radius: int, gf_eps: float,
+                             topk: int = 1, out_dtype: Optional[str] = "auto",
+                             mode: Mode = "auto") -> Tuple[torch.Tensor, ...]:
+    """Lane form of :func:`fused_transmission`: (L, B, H, W, 3) + per-lane
+    saved A (L, 3) -> (t (L, B, H, W), t_min (L, B), cand_rgb (L, B, 3));
+    each lane's DCP pre-map divides by its own A, all lanes in one pass
+    sequence."""
+    if img.dim() != 5:
+        raise ValueError(f"expected (L, B, H, W, 3) frames, got {tuple(img.shape)}")
+    fn = (_ref.fused_transmission_lanes if resolve_mode(mode) == "ref"
+          else _fused.fused_transmission_lanes)
+    return fn(img, A_saved, algorithm=algorithm, radius=radius, omega=omega,
+              beta=beta, cap_w=tuple(cap_w), refine=refine,
+              gf_radius=gf_radius, gf_eps=gf_eps, topk=topk,
+              out_dtype=out_dtype)
+
+
 __all__ = ["MODES", "resolve_mode", "dark_channel", "min_filter_2d",
            "box_filter_2d", "guided_filter", "atmospheric_light",
            "per_frame", "recover",
-           "cap_depth", "fused_dehaze", "fused_dehaze_lanes"]
+           "cap_depth", "fused_dehaze", "fused_dehaze_lanes",
+           "fused_transmission", "fused_transmission_lanes"]

@@ -233,6 +233,16 @@ def fused_transmission(img: torch.Tensor, A_saved: torch.Tensor, *,
     return t.to(odt), t_min, cand.to(odt)
 
 
+def fused_transmission_lanes(img: torch.Tensor, A_saved: torch.Tensor,
+                             **kw):
+    """Lane form of :func:`fused_transmission`: (L, B, H, W, 3) frames and
+    per-lane saved A (L, 3) -> ``(t (L, B, H, W), t_min (L, B), cand_rgb
+    (L, B, 3))``, each lane on its own."""
+    outs = [fused_transmission(img[lane], A_saved[lane], **kw)
+            for lane in range(img.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 # ---------------------------------------------------------------------------
 # The Eq. 9 EMA step and the megakernel's plain version
 # ---------------------------------------------------------------------------

@@ -6,8 +6,10 @@ guided filter composed from box filters in ``kernels.ops``. One section per
 JAX module, each porting one Pallas kernel to ``csrc/staged.cu``:
 
   dark channel      ``kernels/dark_channel.py::dark_channel_pallas``
+  min filter        ``kernels/dark_channel.py::min_filter_2d_pallas`` (CAP)
   box filter        ``kernels/boxfilter.py::box_filter_2d_pallas``
   atmospheric light ``kernels/atmolight.py::atmolight_pallas`` (top-1)
+  top-k light       ``kernels/atmolight.py::atmolight_topk_pallas`` (k > 1)
   recover           ``kernels/recover.py::recover_pallas``
 
 For each, ``cuda_<name>`` launches the hand-written kernel on CUDA tensors
@@ -28,7 +30,8 @@ import torch.nn.functional as F
 
 SOURCE = "staged.cu"
 
-KERNELS = ("dark_channel", "box_filter", "atmolight", "recover")
+KERNELS = ("dark_channel", "min_filter", "box_filter", "atmolight",
+           "atmolight_topk", "recover")
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -36,6 +39,11 @@ launches: Dict[str, int] = {name: 0 for name in KERNELS}
 #: Output tile of a window block and the shared memory a block may use
 #: (``kTileX``/``kTileY``/``kMaxSmem`` in the CUDA source, checked at load).
 TILE_X, TILE_Y, MAX_SMEM = 32, 64, 232448
+
+#: Pixels a top-k tile and tiles a frame the top-k merge takes
+#: (``kTopkTile``/``kTopkMaxLists`` in ``csrc/dehaze_common.cuh``, checked
+#: at load by this module and by ``kernels.fused``).
+TOPK_TILE, TOPK_MAX_TILES = 2048, 8192
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,21 +69,25 @@ def _lib() -> ctypes.CDLL:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sigs = {
             "st_dark_channel": [vp, vp, i, i, i, i, i, vp],
+            "st_min_filter": [vp, vp, i, i, i, i, i, vp],
             "st_box_filter": [vp, vp, i, i, i, i, i, vp],
             "st_atmolight": [vp, vp, vp, i, i, i, i, i, vp],
+            "st_atmolight_topk": [vp, vp, vp, vp, i, i, i, i, i, i, vp],
             "st_recover": [vp, vp, vp, vp, i, i, i, f, f, i, i, i, vp],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
-        for name in ("st_tile_x", "st_tile_y", "st_max_smem"):
+        consts = ("st_tile_x", "st_tile_y", "st_max_smem", "st_topk_tile",
+                  "st_topk_max_tiles")
+        for name in consts:
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
-        got = (lib.st_tile_x(), lib.st_tile_y(), lib.st_max_smem())
-        if got != (TILE_X, TILE_Y, MAX_SMEM):
-            raise RuntimeError(f"{SOURCE} tiles {got}, expected "
-                               f"{(TILE_X, TILE_Y, MAX_SMEM)}")
+        got = tuple(getattr(lib, name)() for name in consts)
+        want = (TILE_X, TILE_Y, MAX_SMEM, TOPK_TILE, TOPK_MAX_TILES)
+        if got != want:
+            raise RuntimeError(f"{SOURCE} constants {got}, expected {want}")
         _lib_handle = lib
     return _lib_handle
 
@@ -152,6 +164,70 @@ def window_counts(h: int, w: int, r: int, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Order-preserving (t, flat index) keys (the plain side of make_key in
+# csrc/dehaze_common.cuh; also the megakernel's plain top-k passes)
+# ---------------------------------------------------------------------------
+
+_LOW32 = 0xFFFFFFFF
+_I64_MIN = torch.iinfo(torch.int64).min
+
+# The signed-order key after every pixel's key: the kernel's all-ones
+# unsigned key, which pads a tile's list past its pixels.
+KEY_LAST = torch.iinfo(torch.int64).max
+
+
+def topk_keys_signed(t_raw: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) t -> (N, H*W) int64 keys in *signed* order: the kernel's
+    unsigned key ``(ordered bits of t) << 32 | flat index`` with its top
+    bit flipped, so int64 comparison is the kernel's unsigned comparison
+    (smallest t first, ties to the lowest index)."""
+    n = t_raw.shape[0]
+    flat = t_raw.reshape(n, -1).to(torch.float32)
+    flat = torch.where(flat == 0, torch.zeros_like(flat), flat)   # -0 == +0
+    u = flat.contiguous().view(torch.int32).to(torch.int64) & _LOW32
+    ordered = torch.where(u >= 2 ** 31, _LOW32 - u, u + 2 ** 31)
+    idx = torch.arange(flat.shape[1], device=flat.device)
+    return (ordered - 2 ** 31) * 2 ** 32 + idx
+
+
+def flip_key_order(keys: torch.Tensor) -> torch.Tensor:
+    """Signed-order keys <-> the kernel's unsigned keys held in int64 (the
+    top bit flipped; its own inverse)."""
+    return keys ^ _I64_MIN
+
+
+def key_index(keys: torch.Tensor) -> torch.Tensor:
+    """Flat pixel index of signed-order keys."""
+    return keys & _LOW32
+
+
+def key_t(keys: torch.Tensor) -> torch.Tensor:
+    """float32 t of signed-order keys (``key_to_t`` of the CUDA header:
+    -0.0 comes back as +0.0)."""
+    ordered = (keys >> 32) + 2 ** 31
+    u = torch.where(ordered >= 2 ** 31, ordered - 2 ** 31, _LOW32 - ordered)
+    u = torch.where(u >= 2 ** 31, u - 2 ** 32, u)
+    return u.to(torch.int32).view(torch.float32)
+
+
+def topk_select(t_raw: torch.Tensor, k: int) -> torch.Tensor:
+    """(N, H, W) t -> (N, k) signed-order keys of the k smallest (t, flat
+    index), ascending: the selection of ``atmolight.topk_select`` and
+    ``lax.top_k(-t, k)``."""
+    return torch.sort(topk_keys_signed(t_raw), dim=-1).values[:, :k]
+
+
+def topk_mean(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(N, P, 3) pixels, (N, k) picks -> (N, 3) float32: the mean over the
+    picks, summed in float64 and rounded once, so it is within half a
+    float32 step of the exact mean for any k (the kernels' compensated
+    float32 sum stays within a few steps of it)."""
+    n, k = idx.shape
+    picked = torch.gather(x, 1, idx[..., None].expand(n, k, 3))
+    return picked.to(torch.float64).mean(1).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
 # Dark channel (dark_channel.py::dark_channel_pallas)
 # ---------------------------------------------------------------------------
 
@@ -181,14 +257,44 @@ def dark_channel_op(img: torch.Tensor, radius: int) -> torch.Tensor:
             else plain_dark_channel)(img, radius)
 
 
-# ---------------------------------------------------------------------------
-# Box filter (boxfilter.py::box_filter_2d_pallas)
-# ---------------------------------------------------------------------------
-
 def _check_plane(x: torch.Tensor) -> None:
     if x.dim() != 3:
         raise ValueError(f"expected (N, H, W) planes, got {tuple(x.shape)}")
     _check_sizes(*x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Min filter (dark_channel.py::min_filter_2d_pallas), staged CAP
+# ---------------------------------------------------------------------------
+
+def cuda_min_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
+    _check_plane(x)
+    _check_cuda(x)
+    dt = _dtype_code(x)
+    n, h, w = x.shape
+    _check_window(h, radius)
+    out = torch.empty_like(x)
+    _launch("min_filter", x.data_ptr(), out.data_ptr(), n, h, w, radius, dt)
+    return out
+
+
+def plain_min_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """The (2r+1)² windowed min with +inf border, in float32, cast back."""
+    _check_plane(x)
+    _dtype_code(x)
+    k = 2 * radius + 1
+    v = x.to(torch.float32)[:, None]
+    return (-F.max_pool2d(-v, k, stride=1, padding=radius))[:, 0].to(x.dtype)
+
+
+def min_filter_op(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """(N, H, W) -> (N, H, W) windowed min in the input dtype."""
+    return (cuda_min_filter if _on_kernel(x) else plain_min_filter)(x, radius)
+
+
+# ---------------------------------------------------------------------------
+# Box filter (boxfilter.py::box_filter_2d_pallas)
+# ---------------------------------------------------------------------------
 
 
 def cuda_box_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
@@ -256,6 +362,52 @@ def atmolight_op(img: torch.Tensor, t_raw: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Atmospheric light, top-k (atmolight.py::atmolight_topk_pallas)
+# ---------------------------------------------------------------------------
+
+def _check_topk(img: torch.Tensor, t: torch.Tensor, k: int) -> None:
+    _check_pair(img, t)
+    p = img.shape[1] * img.shape[2]
+    if not 1 <= k <= p:
+        raise ValueError(f"k={k} outside [1, H*W={p}]")
+    if -(-p // TOPK_TILE) > TOPK_MAX_TILES:
+        raise ValueError(f"H*W={p} needs more than {TOPK_MAX_TILES} top-k "
+                         f"tiles of {TOPK_TILE} pixels")
+
+
+def cuda_atmolight_topk(img: torch.Tensor, t_raw: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    _check_topk(img, t_raw, k)
+    _check_cuda(img, t_raw)
+    n, h, w, _ = img.shape
+    keys = torch.empty((n, -(-(h * w) // TOPK_TILE), min(k, TOPK_TILE)),
+                       dtype=torch.int64, device=img.device)
+    out = torch.empty((n, 3), dtype=img.dtype, device=img.device)
+    _launch("atmolight_topk", img.data_ptr(), t_raw.data_ptr(),
+            keys.data_ptr(), out.data_ptr(), n, h, w, k, _dtype_code(img),
+            _dtype_code(t_raw))
+    return out
+
+
+def plain_atmolight_topk(img: torch.Tensor, t_raw: torch.Tensor,
+                         k: int) -> torch.Tensor:
+    """The mean of I over the k smallest (t, flat index) of each frame
+    (-0.0 == +0.0; :func:`topk_mean`), cast to the frames' dtype."""
+    _check_topk(img, t_raw, k)
+    n = img.shape[0]
+    idx = key_index(topk_select(t_raw, k))
+    x = img.to(torch.float32).reshape(n, -1, 3)
+    return topk_mean(x, idx).to(img.dtype)
+
+
+def atmolight_topk_op(img: torch.Tensor, t_raw: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """(N, H, W, 3), (N, H, W) -> (N, 3) in the frames' dtype."""
+    return (cuda_atmolight_topk if _on_kernel(img)
+            else plain_atmolight_topk)(img, t_raw, k)
+
+
+# ---------------------------------------------------------------------------
 # Recover (recover.py::recover_pallas)
 # ---------------------------------------------------------------------------
 
@@ -303,16 +455,15 @@ def recover_op(img: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
 
 #: Kernel name -> (CUDA wrapper, plain version): what ``chip_smoke.py``
 #: holds against each other.
-PAIRS = {
-    "dark_channel": (cuda_dark_channel, plain_dark_channel),
-    "box_filter": (cuda_box_filter, plain_box_filter),
-    "atmolight": (cuda_atmolight, plain_atmolight),
-    "recover": (cuda_recover, plain_recover),
-}
+PAIRS = {name: (globals()[f"cuda_{name}"], globals()[f"plain_{name}"])
+         for name in KERNELS}
 
 __all__ = ["SOURCE", "KERNELS", "launches", "reset_launches", "PAIRS",
-           "window_sum", "window_counts",
+           "window_sum", "window_counts", "KEY_LAST", "topk_keys_signed",
+           "flip_key_order", "key_index", "key_t", "topk_select", "topk_mean",
            "cuda_dark_channel", "plain_dark_channel", "dark_channel_op",
+           "cuda_min_filter", "plain_min_filter", "min_filter_op",
            "cuda_box_filter", "plain_box_filter", "box_filter_op",
            "cuda_atmolight", "plain_atmolight", "atmolight_op",
+           "cuda_atmolight_topk", "plain_atmolight_topk", "atmolight_topk_op",
            "cuda_recover", "plain_recover", "recover_op"]

@@ -161,7 +161,11 @@ class ElasticServer:
         _no_overlap(tick_overlap)
         if placement is None:
             placement = PlacementSpec(lanes=True, n_hosts=n_hosts)
-        placement.validate()                 # mesh axes / n_hosts > 1 raise
+        placement.validate()                 # n_hosts > 1 raises
+        if placement.sharded:
+            raise ValueError(
+                "serve_many drives local lane batches; mesh-sharded "
+                "placements go through core.make_step(cfg, placement, mesh)")
         if not placement.lanes:
             raise ValueError("serve_many needs a lane placement; use "
                              "PlacementSpec.lane_batched()")

@@ -8,7 +8,10 @@ against that plain version on the card (``chip_smoke.py``, and the
 the pass decomposition the card runs (``fused.run_passes`` through the
 plain passes) against the reference, at the reference's own tolerances
 (``tests/test_fused.py``): J/t 1e-4 with refine and 1e-5 without, a_seq
-and the final A 1e-5, last_update/initialized exact, bfloat16 2e-2.
+and the final A 1e-5, last_update/initialized exact, bfloat16 2e-2. The
+fused transmission stage of the sharded step (its pass sequence through
+the plain passes) is held to the Pallas kernels in interpret mode: t 1e-4,
+t_min and the candidates 1e-5.
 """
 import numpy as np
 import pytest
@@ -18,7 +21,9 @@ import jax
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops
-from repro_torch.kernels import _build, fused
+from repro.kernels.fused import (fused_transmission_lanes_pallas,
+                                 fused_transmission_pallas)
+from repro_torch.kernels import _build, fused, staged
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -119,8 +124,9 @@ def test_topk_keys_select_reference_pixels(topk, a_saved):
         assert float(t_raw.min()) < 0.0
     keys = fused.plain_topk_block(t_raw, s)
     assert keys.shape[1] == -(-(40 * 60) // fused.TILE_PIXELS)
-    best = torch.sort(keys.reshape(B, -1) ^ fused._I64_MIN).values[:, :topk]
-    picked = (best ^ fused._I64_MIN) & 0xFFFFFFFF
+    best = torch.sort(staged.flip_key_order(keys.reshape(B, -1))
+                      ).values[:, :topk]
+    picked = staged.key_index(best)
     _, want = jax.lax.top_k(-jnp.asarray(as_np(t_raw)).reshape(B, -1), topk)
     np.testing.assert_array_equal(as_np(picked), np.asarray(want))
 
@@ -156,6 +162,74 @@ def test_single_stream_is_the_l1_view():
         np.testing.assert_allclose(as_np(g), as_np(w), atol=1e-4)
 
 
+# --- the fused transmission stage (the sharded step's) ------------------------
+
+TKW = dict(radius=2, omega=0.95, beta=1.2, gf_radius=3, gf_eps=1e-3)
+
+
+def _compare_transmission(got, want):
+    """(t, t_min, cand): t 1e-4, t_min and the candidates 1e-5."""
+    for g, w, tol in zip(got, want, (1e-4, 1e-5, 1e-5)):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(as_np(g), as_np(w), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("topk", [1, 4])
+@pytest.mark.parametrize("algorithm", ["dcp", "cap"])
+def test_transmission_passes_match_pallas(algorithm, topk, dtype):
+    """The lane form (per-lane A: frame row i reads lane i // B's) through
+    the plain passes against ``fused_transmission_lanes_pallas``, and its
+    L=1 view through ``ops`` against ``fused_transmission_pallas``."""
+    x = ramp_frames(19, 2, 3, h=12, w=16)
+    a = np.array([[0.9, 0.8, 0.85], [0.6, 0.7, 0.65]], np.float32)
+    jx, tx = wire(x, dtype)
+    kw = dict(TKW, algorithm=algorithm, topk=topk, refine=True)
+    s = fused.make_static(tx, t0=0.1, gamma=1.0, period=1, lam=0.0, **kw)
+    got = fused.run_transmission_passes(tx, torch.from_numpy(a), s,
+                                        fused.TRANSMISSION_PLAIN_PASSES)
+    want = fused_transmission_lanes_pallas(jx, jnp.asarray(a),
+                                           interpret=True, **kw)
+    _compare_transmission(got, want)
+    got = tops.fused_transmission(tx[1], torch.from_numpy(a[1]),
+                                  mode="fused", **kw)
+    want = fused_transmission_pallas(jx[1], jnp.asarray(a[1]),
+                                     interpret=True, **kw)
+    _compare_transmission(got, want)
+
+
+@pytest.mark.parametrize("refine", [False, True])
+def test_transmission_stage_is_the_megakernel_up_to_the_ema(refine):
+    """t of the stage is the megakernel's t, its candidates the
+    megakernel's merge of the same keys (cast to the output dtype), and
+    t_min the smallest t_raw: pass for pass on the plain passes."""
+    x = torch.from_numpy(ramp_frames(20, L, B, h=H, w=W))
+    cf, ci = (torch.from_numpy(c) for c in _carry())
+    kw = dict(KW, algorithm="dcp", topk=3, refine=refine)
+    s = fused.make_static(x, **kw)
+    t, t_min, cand = fused.run_transmission_passes(
+        x, cf, s, fused.TRANSMISSION_PLAIN_PASSES)
+    _, b1_t, *_ = fused.run_passes(x, torch.from_numpy(_ids(0)), cf, ci, s,
+                                   fused.PLAIN_PASSES)
+    assert torch.equal(t, b1_t)
+    pre, _ = fused.plain_premap(x, cf, s)
+    t_raw = fused.plain_min_cols_tmap(fused.plain_min_rows(pre, s), s)
+    keys = fused.plain_topk_block(t_raw, s)
+    assert torch.equal(cand.reshape(-1, 3), fused.plain_topk_merge(keys, x, s))
+    assert torch.equal(t_min.reshape(-1), t_raw.reshape(L * B, -1).amin(-1))
+
+
+def test_cpu_transmission_wrapper_launches_no_kernel():
+    x = torch.from_numpy(ramp_frames(21, L, B, h=H, w=W))
+    fused.reset_launches()
+    fused.fused_transmission_lanes(x, torch.ones(L, 3), refine=True, **TKW)
+    assert set(fused.transmission_launches) == set(fused.TRANSMISSION_PASSES)
+    assert not any(fused.transmission_launches.values())
+    assert not any(fused.launches.values())
+    with pytest.raises(ValueError, match=r"\(L, 3\)"):
+        fused.fused_transmission_lanes(x, torch.ones(3), refine=True, **TKW)
+
+
 # --- contracts: dispatch, no fallback ----------------------------------------
 
 def test_mode_resolution(monkeypatch):
@@ -188,6 +262,8 @@ def test_cuda_passes_refuse_cpu_tensors():
     s = fused.make_static(x, **dict(KW, refine=False))
     with pytest.raises(ValueError, match="CUDA"):
         fused.cuda_premap(x, torch.ones(1, 3), s)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.cuda_tmap(x[..., 0], None, None, s)
     with pytest.raises(ValueError):
         fused.fused_dehaze_lanes(x.to("meta"), torch.zeros(1, 1, dtype=torch.int32),
                                  torch.ones(1, 3), torch.zeros(1, 2, dtype=torch.int32),
@@ -241,3 +317,11 @@ def test_cuda_kernel_matches_plain_version():
             assert float((g - w).abs().max()) <= 1e-3
         for g, w in zip(got[2:], want[2:]):
             assert torch.equal(g, w)
+        # The transmission stage: its kernels against its plain version.
+        tkw = {k: v for k, v in kw.items()
+               if k not in ("t0", "gamma", "period", "lam")}
+        got = fused.fused_transmission_lanes(x, cf, **tkw)
+        torch.cuda.synchronize()
+        want = tref.fused_transmission_lanes(x, cf, **tkw)
+        for g, w, tol in zip(got, want, (1e-3, 1e-5, 1e-5)):
+            assert float((g - w).abs().max()) <= tol

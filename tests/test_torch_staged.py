@@ -6,16 +6,18 @@ inputs.
 On the CPU each wrapper runs its plain version, which follows its Pallas
 kernel's arithmetic; the CUDA kernels (``csrc/staged.cu``) are held against
 those plain versions on the card (``chip_smoke.py``, and the ``cuda``-marked
-test below). Tolerances: selections (dark channel, atmospheric light)
-exact; box filter 1e-5 (float32; its direct sums against the Pallas
-kernel's cumsum differences); recover 1e-6 (float32); guided filter 1e-4
-as ``tests/test_kernels.py``; steps J/t 2e-4, A 1e-5, ``last_update``
-exact; bfloat16 2e-2 throughout.
+test below). Tolerances: selections (dark channel, min filter,
+atmospheric light, the top-k's picks) exact; the top-k mean 1e-6 (float32;
+the k picks summed in another order); box filter 1e-5 (float32; its direct
+sums against the Pallas kernel's cumsum differences); recover 1e-6
+(float32); guided filter 1e-4 as ``tests/test_kernels.py``; steps J/t 2e-4,
+A 1e-5, ``last_update`` exact; bfloat16 2e-2 throughout.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import DehazeConfig as JaxConfig
@@ -24,9 +26,9 @@ from repro.core import init_atmo_state_lanes as jax_init_lanes
 from repro.core import make_dehaze_step as jax_single_step
 from repro.core import make_multi_stream_step as jax_multi_step
 from repro.kernels import ops as jops
-from repro.kernels.atmolight import atmolight_pallas
+from repro.kernels.atmolight import atmolight_pallas, atmolight_topk_pallas
 from repro.kernels.boxfilter import box_filter_2d_pallas
-from repro.kernels.dark_channel import dark_channel_pallas
+from repro.kernels.dark_channel import dark_channel_pallas, min_filter_2d_pallas
 from repro.kernels.recover import recover_pallas
 from repro.stream import ElasticServer as JaxServer
 from repro.stream import StreamRequest as JaxRequest
@@ -62,6 +64,22 @@ def test_dark_channel_matches_pallas(shape, radius, dtype):
     jx, tx = wire(ramp_frames(1, shape[0], h=shape[1], w=shape[2]), dtype)
     got = staged.dark_channel_op(tx, radius)
     want = dark_channel_pallas(jx, radius, interpret=True)
+    assert got.dtype == tx.dtype
+    np.testing.assert_array_equal(as_np(got), as_np(want))
+
+
+# (shape, radius) of the min filter: radius 0, 1 and 7, and a window wider
+# than the frame.
+MIN_WINDOWS = [((2, 12, 16), 0), ((2, 24, 32), 1), ((2, 24, 32), 7),
+               ((1, 10, 12), 9)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,radius", MIN_WINDOWS)
+def test_min_filter_matches_pallas(shape, radius, dtype):
+    jx, tx = wire(_maps(11, shape) - 0.25, dtype)
+    got = staged.min_filter_op(tx, radius)
+    want = min_filter_2d_pallas(jx, radius, interpret=True)
     assert got.dtype == tx.dtype
     np.testing.assert_array_equal(as_np(got), as_np(want))
 
@@ -106,6 +124,43 @@ def test_atmolight_matches_pallas(t_map, dtype):
                                       as_np(tx.float().reshape(2, -1, 3)[
                                           torch.arange(2), [5, 9]]))
         assert not np.array_equal(flat[1, 9], flat[1, 23])
+
+
+@pytest.mark.parametrize("t_map", ["ramp", "constant"])
+@pytest.mark.parametrize("k", [2, 4, 16, "HW"])
+def test_atmolight_topk_matches_pallas(k, t_map):
+    """The plain version's picks are ``lax.top_k``'s bit for bit (ties, on
+    the constant plane, to the lowest index) and its means the Pallas
+    kernel's; k up to H*W."""
+    h, w = (4, 6) if k == "HW" else (12, 16)
+    k = h * w if k == "HW" else k
+    x = ramp_frames(12, 2, h=h, w=w)
+    t = (1.0 - 0.95 * x.min(-1) if t_map == "ramp"
+         else np.full((2, h, w), 0.375, np.float32))
+    tx, tt = torch.from_numpy(x), torch.from_numpy(t)
+    picks = staged.key_index(staged.topk_select(tt, k))
+    _, want_picks = jax.lax.top_k(-jnp.asarray(t).reshape(2, -1), k)
+    np.testing.assert_array_equal(as_np(picks), np.asarray(want_picks))
+    got = staged.atmolight_topk_op(tx, tt, k)
+    want = atmolight_topk_pallas(jnp.asarray(x), jnp.asarray(t), k,
+                                 interpret=True)
+    np.testing.assert_allclose(as_np(got), as_np(want), atol=1e-6, rtol=0)
+
+
+def test_atmolight_topk_bfloat16_and_signed_zeros():
+    """bfloat16 frames and t: the mean in float32 cast to bfloat16; DCP's
+    negative t and -0.0/+0.0 ties keep the lowest indices first."""
+    x = ramp_frames(13, 2, h=12, w=16)
+    t = _ties_t_map(12, 16)
+    (jx, tx), (jt, tt) = wire(x, "bfloat16"), wire(t.astype(np.float32),
+                                                   "bfloat16")
+    got = staged.atmolight_topk_op(tx, tt, 3)
+    want = atmolight_topk_pallas(jx, jt, 3, interpret=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(as_np(got), as_np(want))
+    picks = as_np(staged.key_index(staged.topk_select(tt, 3)))
+    np.testing.assert_array_equal(picks[0][:2], [5, 17])
+    np.testing.assert_array_equal(picks[1], [9, 23, 40])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -183,8 +238,8 @@ def test_staged_lane_step_matches_jax(mode, dtype, monkeypatch):
         assert torch.equal(got.state.A[L - 1], state.A[L - 1])
         assert not bool(got.state.initialized[L - 1])
         jstate, state = want.state, got.state
-    assert calls == {"dark_channel": 2, "box_filter": 12, "atmolight": 2,
-                     "recover": 2}
+    assert calls == {"dark_channel": 2, "min_filter": 0, "box_filter": 12,
+                     "atmolight": 2, "atmolight_topk": 0, "recover": 2}
     assert not any(staged.launches.values())     # CPU: plain versions only
     single = make_dehaze_step(cfg, device="cpu")
     one = init_atmo_state()
@@ -195,6 +250,43 @@ def test_staged_lane_step_matches_jax(mode, dtype, monkeypatch):
         one = out.state
     np.testing.assert_allclose(as_np(out.frames), as_np(got.frames[0]),
                                atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("algorithm,topk,dtype", [("cap", 1, "uint8"),
+                                                  ("cap", 4, "float32"),
+                                                  ("dcp", 4, "bfloat16")])
+def test_staged_cap_and_topk_lane_steps_match_jax(algorithm, topk, dtype,
+                                                  monkeypatch):
+    """Staged CAP (the min filter) and staged top-k: two chained batches
+    over 3 lanes (the last all padding) against the JAX interpret step; the
+    min filter replaces the dark channel, the top-k the argmin light."""
+    monkeypatch.delenv("REPRO_KERNEL_MODE", raising=False)
+    calls = dict.fromkeys(staged.KERNELS, 0)
+    for name in staged.KERNELS:
+        def counted(*a, _name=name, _op=getattr(staged, f"{name}_op")):
+            calls[_name] += 1
+            return _op(*a)
+        monkeypatch.setattr(staged, f"{name}_op", counted)
+    L, B, H, W = 3, 2, 12, 16
+    kw = dict(STEP_CFG, algorithm=algorithm, topk=topk, io_dtype=dtype)
+    x = ramp_frames(23, 2, L, B, h=H, w=W)
+    jstep = jax_multi_step(JaxConfig(kernel_mode="interpret", **kw))
+    step = make_multi_stream_step(DehazeConfig(kernel_mode="pallas", **kw),
+                                  device="cpu")
+    jstate, state = jax_init_lanes(L), init_atmo_state_lanes(L)
+    for batch in range(2):
+        jx, tx = wire(x[batch], dtype)
+        ids = np.tile(np.arange(B * batch, B * (batch + 1), dtype=np.int32),
+                      (L, 1))
+        ids[L - 1] = -1
+        want = jstep(jx, jnp.asarray(ids), jstate)
+        got = step(tx, torch.from_numpy(ids), state)
+        _compare_step(got, want, dtype)
+        jstate, state = want.state, got.state
+    cap, topk1 = algorithm == "cap", topk == 1
+    assert calls == {"dark_channel": 0 if cap else 2, "min_filter": 2 if cap else 0,
+                     "box_filter": 12, "atmolight": 2 if topk1 else 0,
+                     "atmolight_topk": 0 if topk1 else 2, "recover": 2}
 
 
 def test_staged_fallback_under_fused_matches_jax(monkeypatch):
@@ -254,13 +346,23 @@ def _meta(*shape):
 
 
 @pytest.mark.parametrize("mode", ["auto", "pallas", "fused"])
-def test_unported_staged_kernels_raise_off_the_cpu(mode, monkeypatch):
+def test_staged_min_filter_and_topk_reach_the_kernels_off_the_cpu(
+        mode, monkeypatch):
+    """Off the CPU, staged CAP's min filter and the top-k light go to their
+    CUDA wrappers (which refuse a tensor that is not on a CUDA device),
+    never to a plain version."""
     monkeypatch.delenv("REPRO_KERNEL_MODE", raising=False)
-    with pytest.raises(NotImplementedError, match="B3b"):
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran for a device tensor")
+    for name in ("min_filter", "atmolight_topk"):
+        monkeypatch.setattr(staged, f"plain_{name}", plain)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
         tops.min_filter_2d(_meta(2, 8, 8), 1, mode=mode)
-    with pytest.raises(NotImplementedError, match="B6b"):
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
         tops.atmospheric_light(_meta(2, 8, 8, 3), _meta(2, 8, 8), k=4,
                                mode=mode)
+    assert not any(staged.launches.values())
 
 
 def test_failed_staged_build_raises_instead_of_the_plain_version(
@@ -306,15 +408,24 @@ def test_cuda_kernels_match_plain_versions():
     x = torch.from_numpy(ramp_frames(30, 4, h=48, w=64)).cuda()
     t = torch.from_numpy(_maps(31, (4, 48, 64))).cuda()
     a = torch.full((4, 3), 0.8, device="cuda")
-    cases = {"dark_channel": (x, 7), "box_filter": (t, 20),
-             "atmolight": (x, t), "recover": (x, t, a)}
+    cases = {"dark_channel": (x, 7), "min_filter": (t, 7), "box_filter": (t, 20),
+             "atmolight": (x, t), "atmolight_topk": (x, t, 4),
+             "recover": (x, t, a)}
+    assert set(cases) == set(staged.KERNELS)
     for name, args in cases.items():
         kernel, plain = staged.PAIRS[name]
         got = kernel(*args)
         torch.cuda.synchronize()
         want = plain(*args)
-        tol = 1e-5 if name in ("box_filter", "recover") else 0.0
+        tol = {"box_filter": 1e-5, "recover": 1e-5,
+               "atmolight_topk": 1e-6}.get(name, 0.0)
         assert float((got - want).abs().max()) <= tol, name
+    # k above one tile's pixels, up to H*W: the merge exhausts tile lists.
+    for k in (staged.TOPK_TILE + 1, 48 * 64):
+        got = staged.cuda_atmolight_topk(x, t, k)
+        torch.cuda.synchronize()
+        want = staged.plain_atmolight_topk(x, t, k)
+        assert float((got - want).abs().max()) <= 1e-6, k
     # The staged lane step on device-resident frames never synchronises.
     step = make_multi_stream_step(DehazeConfig(), device="cuda")
     ids = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
