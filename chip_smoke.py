@@ -62,7 +62,24 @@ any error:
    no synchronising call;
 12. time the min filter, the top-k atmospheric light and both transmission
    stages as phase 8 does;
-13. print ``{"kernels": [...]}``, the card line, and last
+13. spatial sharding on one rank: 32 uint8 frames at 480x640 cut into
+   virtual n_h x n_w tilings {(2, 1), (1, 2), (2, 2)} (DCP top-1 and CAP
+   top-4, r = 7, gf_r = 20, halo 47), each tile's halo-extended (pre-map,
+   luma) planes sliced from the whole frame, zero and invalid past its
+   edge, as the exchange delivers them; per tile the step's per-shard
+   function (``spatial_shard_stage``: one halo stage, B9), then the lists
+   in rank order through the cross-shard merge (B10): every B9 pass
+   against its plain pass, the whole B9 against its plain version, the
+   stitched t against the unsharded stage's (B7a) on the same frames
+   within 2e-4, the merged candidate bit-equal to B7a's; a plateau cell
+   (quantised frames, (2, 2), top-4) and a packed bfloat16-plane cell
+   (against B9's plain version); the masked min and box filters (B8a,
+   B8b) through ``ops`` on corner tiles' planes against their plain
+   versions; one B9 a tile and one B10 a step, no synchronising call;
+   this measures no scaling;
+14. time B8a, B8b, B9 (a corner tile of the 2x2 tiling and an interior
+   tile of a 4x4 one) and B10 as phase 12 does;
+15. print ``{"kernels": [...]}``, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -112,6 +129,15 @@ CAP_PER_TICK = {"staged.min_filter": 1, "staged.box_filter": 6,
 TRANSMISSION_REPLACES = {
     "fused_transmission": "src/repro/kernels/fused.py:520",
     "fused_transmission_lanes": "src/repro/kernels/fused.py:566",
+}
+
+# The spatially sharded step's kernels (B8a, B8b, B10 in staged.cu, B9 the
+# halo form of the transmission stage): the TPU kernels they replace.
+SPATIAL_REPLACES = {
+    "staged.masked_min_filter": "src/repro/kernels/dark_channel.py:87",
+    "staged.masked_box_filter": "src/repro/kernels/boxfilter.py:106",
+    "staged.merge_topk": "src/repro/kernels/atmolight.py:213",
+    "fused_transmission_halo": "src/repro/kernels/fused.py:744",
 }
 
 # The part of the TPU kernel each pass replaces (file:line).
@@ -191,7 +217,9 @@ def pass_error(name: str, got, want, tols=PASS_TOL) -> float:
     for g, w in zip(got, want):
         if g is None:
             continue
-        d = (g.float() - w.float()).abs()
+        # Equal entries differ by 0, also where both are infinite (the
+        # masked passes' invalid pixels).
+        d = torch.where(g.float() == w.float(), 0.0, (g.float() - w.float()).abs())
         if tols[name][1]:
             d = d / w.float().abs().clamp_min(1.0)
         err = max(err, float(d.max()))
@@ -294,8 +322,10 @@ def reset_launches() -> None:
 def all_launches() -> dict:
     """Every launch counter since the last reset: the megakernel's passes
     (and ``fused_dehaze_lanes``, its whole runs: its first pass's count),
-    ``staged.<kernel>``, and ``fused_transmission.<pass>`` (and
-    ``fused_transmission``, the stage's whole runs)."""
+    ``staged.<kernel>``, ``fused_transmission.<pass>`` (and
+    ``fused_transmission``, the stage's whole runs), and
+    ``fused_transmission_halo.<pass>`` (and ``fused_transmission_halo``,
+    the halo stage's whole runs)."""
     from repro_torch.kernels import fused as fk, staged as sk
     counts = dict(fk.launches)
     counts["fused_dehaze_lanes"] = counts["premap"]
@@ -303,6 +333,9 @@ def all_launches() -> dict:
     counts.update({f"fused_transmission.{k}": n
                    for k, n in fk.transmission_launches.items()})
     counts["fused_transmission"] = fk.transmission_launches["premap"]
+    counts.update({f"fused_transmission_halo.{k}": n
+                   for k, n in fk.halo_launches.items()})
+    counts["fused_transmission_halo"] = fk.halo_launches["min_rows"]
     return counts
 
 
@@ -328,8 +361,8 @@ def path_launches(path: str, ticks: int, per_tick: dict) -> dict:
               f"kernel {name} never launched on the {path} path")
         check(n == want, f"kernel {name}: {n} launches on the {path} "
               f"path of {ticks} steps, expected {want}")
-    print(f"launches on {path} ({ticks} steps): " + json.dumps(counts),
-          flush=True)
+    print(f"launches on {path} ({ticks} steps; every other counter 0): "
+          + json.dumps({k: n for k, n in counts.items() if n}), flush=True)
     return counts
 
 
@@ -1011,6 +1044,306 @@ def phase_slice3_times():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: spatial sharding on one rank (virtual tilings)
+# ---------------------------------------------------------------------------
+
+HALO_TOL = dict(TRANSMISSION_TOL, topk_list=TRANSMISSION_TOL["candidate"])
+SPATIAL_TILINGS = ((2, 1), (1, 2), (2, 2))
+
+
+def halo_tile(plane, halo_h: int, halo_w: int, n_h: int, n_w: int, i: int,
+              j: int):
+    """Tile (i, j) of an n_h x n_w tiling of (N, H, W) planes, extended by
+    the halos, zero past the frame's edge, with its row and column
+    validity: what the halo exchange delivers to that rank."""
+    n, hh, ww = plane.shape
+    h, w = hh // n_h, ww // n_w
+    padded = F.pad(plane, (halo_w, halo_w, halo_h, halo_h))
+    ext = padded[:, i * h:(i + 1) * h + 2 * halo_h,
+                 j * w:(j + 1) * w + 2 * halo_w].contiguous()
+    rows = torch.arange(i * h - halo_h, (i + 1) * h + halo_h, device=plane.device)
+    cols = torch.arange(j * w - halo_w, (j + 1) * w + halo_w, device=plane.device)
+    return ext, (rows >= 0) & (rows < hh), (cols >= 0) & (cols < ww)
+
+
+def spatial_tiles(frames, x, pre, guide, halo: int, tiling):
+    """Every tile's arguments of the per-shard function after the exchange,
+    in rank order: ``(core frames, core compute view, pre_ext, guide_ext,
+    row validity, column validity or None, row0, col0)``."""
+    n_h, n_w = tiling
+    hh, hw = (halo if n_h > 1 else 0), (halo if n_w > 1 else 0)
+    h, w = H // n_h, W // n_w
+    tiles = []
+    for i in range(n_h):
+        for j in range(n_w):
+            pre_ext, vr, vc = halo_tile(pre, hh, hw, n_h, n_w, i, j)
+            guide_ext, _, _ = halo_tile(guide, hh, hw, n_h, n_w, i, j)
+            core = (slice(None), slice(i * h, (i + 1) * h), slice(j * w, (j + 1) * w))
+            tiles.append((frames[core].contiguous(), x[core].contiguous(),
+                          pre_ext, guide_ext, vr, vc if n_w > 1 else None,
+                          i * h, j * w))
+    return tiles
+
+
+def check_halo_tile(tile, kw, errs, label):
+    """B9 on one tile: every pass against its plain pass, the pass chain
+    against the wrapper, the whole against its plain version (t 1e-3,
+    lists 1e-5, indices exact)."""
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import staged as sk
+    img, _, pre, guide, vr, vc = tile[:6]
+    s = fk.make_halo_static(img, pre, guide, **kw)
+    vh = sk.validity_bytes(vr, s.h_ext, img.device)
+    vw = sk.validity_bytes(vc, s.w_ext, img.device)
+    C, P = fk.HALO_CUDA_PASSES, fk.HALO_PLAIN_PASSES
+
+    def both(name, *args):
+        got = C[name](*args, s)
+        want = P[name](*args, s)
+        err = pass_error(name, got, want, HALO_TOL)
+        tol = HALO_TOL[name][0]
+        check(err <= tol, f"halo pass {name} ({label}): error {err} > {tol}")
+        errs[name] = max(errs.get(name, 0.0), err)
+        return got
+
+    t_ext, t_core = both("min_cols_tmap", both("min_rows", pre, vh, vw))
+    lists = both("topk_list", both("topk_block", t_core), img)
+    rows2 = both("box_rows2", both("box_cols_ab",
+                                   both("box_rows4", guide, t_ext, vh, vw), vh, vw),
+                 vh, vw)
+    chain = (both("tmap", t_core, guide, rows2, vh, vw),) + lists
+    whole = fk.fused_transmission_halo(img, pre, guide, vr, vc, **kw)
+    for g1, g2 in zip(chain, whole):
+        check(torch.equal(g1, g2), f"{label}: halo pass chain != wrapper")
+    torch.cuda.synchronize()
+    want = ref.fused_transmission_halo(img, pre, guide, vr, vc, **kw)
+    e = [max_err(g1, g2) for g1, g2 in zip(whole[:3], want[:3])]
+    check(e[0] <= 1e-3 and max(e[1:]) <= 1e-5 and torch.equal(whole[3], want[3]),
+          f"{label}: B9 vs plain version t/tk_t/tk_rgb {e}, indices "
+          f"{'equal' if torch.equal(whole[3], want[3]) else 'differ'}")
+    errs["whole"] = max(errs.get("whole", 0.0), *e)
+
+
+def spatial_step(cfg, tiles):
+    """What the spatially sharded step computes after the exchange, for
+    every tile in rank order: the per-shard function, then the lists
+    gathered in rank order through the merge. Returns the tiles' t, the
+    per-frame candidates and the gathered lists ``(tk_t, gidx, tk_rgb)``;
+    fails on a synchronising call."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.pipeline import spatial_shard_stage
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [spatial_shard_stage(cfg, *tile, W, fused=True) for tile in tiles]
+        tk_t, tk_rgb, gidx = (torch.cat([o[q] for o in outs], dim=1)
+                              for q in (1, 2, 3))
+        cand = alg.merge_topk_candidates(tk_t, gidx, tk_rgb, cfg)
+    except RuntimeError as e:
+        fail(f"spatial step: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [o[0] for o in outs], cand, (tk_t, gidx, tk_rgb)
+
+
+def stitch(parts, tiling):
+    n_h, n_w = tiling
+    return torch.cat([torch.cat(parts[i * n_w:(i + 1) * n_w], dim=2)
+                      for i in range(n_h)], dim=1)
+
+
+def plateau_frames(n: int) -> np.ndarray:
+    """Quantised frames (``tests/test_parity_matrix.py``): equal-t plateaus
+    across the tile boundaries, per-pixel rgb still varying inside them."""
+    q = np.round(np.random.default_rng(8).random((n, H, W, 3)) * 4) / 4
+    return (q * 0.8 + 0.1).astype(np.float32)
+
+
+def phase_spatial():
+    """Spatial sharding on one rank over virtual tilings (see the module
+    docstring, phase 13)."""
+    from repro_torch.core import DehazeConfig
+    from repro_torch.core import algorithms as alg
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import staged as sk
+    n = L * B
+    a_saved = torch.tensor([0.9, 0.85, 0.8], device="cuda")
+    ramp_u8 = to_wire(ramps(7, n).reshape(-1, 3), torch.uint8).reshape(
+        n, H, W, 3).cuda()
+    plateau = to_wire(plateau_frames(n).reshape(-1, 3), torch.uint8).reshape(
+        n, H, W, 3).cuda()
+    # (label, algorithm, topk, frames, tiling, plane dtype, against B7a?)
+    cells = [(f"{alg_}-{k}-{n_h}x{n_w}", alg_, k, ramp_u8, (n_h, n_w),
+              torch.float32, True)
+             for alg_, k in (("dcp", 1), ("cap", 4))
+             for n_h, n_w in SPATIAL_TILINGS]
+    cells += [("plateau-dcp-4-2x2", "dcp", 4, plateau, (2, 2), torch.float32, True),
+              ("packed-bf16-dcp-4-2x2", "dcp", 4, ramp_u8, (2, 2), torch.bfloat16,
+               False)]
+    errs, vs_b7 = {}, {"t": 0.0}
+    launches = {"fused_transmission_halo": 0, "staged.merge_topk": 0}
+    corner_tiles = None
+    for label, alg_, k, frames, tiling, plane_dt, against_b7 in cells:
+        cfg = DehazeConfig(algorithm=alg_, topk=k, kernel_mode="fused",
+                           io_dtype="uint8")
+        halo = cfg.patch_radius + 2 * cfg.gf_radius
+        kw = dict(algorithm=alg_, radius=cfg.patch_radius, omega=cfg.omega,
+                  beta=cfg.beta, refine=cfg.refine, gf_radius=cfg.gf_radius,
+                  gf_eps=cfg.gf_eps, topk=k, out_dtype=cfg.out_dtype)
+        x = ref.upcast_frames(frames)
+        pre = alg.premap(x, a_saved, cfg).to(plane_dt)
+        guide = alg.luminance(x).to(plane_dt)
+        tiles = spatial_tiles(frames, x, pre, guide, halo, tiling)
+        for r, tile in enumerate(tiles):
+            check_halo_tile(tile, kw, errs, f"{label} tile {r}")
+        reset_launches()
+        t_parts, cand, lists = spatial_step(cfg, tiles)
+        per_step = {f"fused_transmission_halo.{p}": len(tiles)
+                    for p in fk.HALO_PASSES}
+        per_step |= {"fused_transmission_halo": len(tiles), "staged.merge_topk": 1}
+        counts = path_launches(f"spatial {label}", 1, per_step)
+        for name in launches:
+            launches[name] += counts[name]
+        torch.cuda.synchronize()
+        e_merge = max_err(cand, sk.plain_merge_topk(*lists, k))
+        check(e_merge <= 1e-6, f"{label}: B10 vs plain version {e_merge} > 1e-6")
+        errs["merge_topk"] = max(errs.get("merge_topk", 0.0), e_merge)
+        if against_b7:
+            t7, _, cand7 = fk.fused_transmission(frames, a_saved, **kw)
+            torch.cuda.synchronize()
+            e_t = max_err(stitch(t_parts, tiling), t7)
+            same = torch.equal(cand, cand7.float())
+            check(e_t <= 2e-4, f"{label}: stitched t vs B7a {e_t} > 2e-4")
+            check(same, f"{label}: merged candidate differs from B7a's by "
+                  f"{max_err(cand, cand7)}")
+            vs_b7["t"] = max(vs_b7["t"], e_t)
+        print(f"spatial {label}: ok", flush=True)
+        if label == "dcp-1-2x2":
+            corner_tiles = (tiles[0], tiles[3])
+    # B8a and B8b through ops on the corner tiles' planes (the first tile's
+    # rows and columns invalid at the top and left, the last's at the
+    # bottom and right).
+    reset_launches()
+    b8 = []
+    for _, _, pre_ext, guide_ext, vr, vc, _, _ in corner_tiles:
+        b8.append(("masked_min_filter", (pre_ext, vr, 7, vc),
+                   ops.masked_min_filter_2d(pre_ext, vr, 7, vc, mode="fused")))
+        b8.append(("masked_box_filter", (guide_ext, vr, 20, vc),
+                   ops.masked_box_filter_2d(guide_ext, vr, 20, vc, mode="fused")))
+    counts = path_launches("spatial B8a/B8b (ops)", 1,
+                           {"staged.masked_min_filter": 2,
+                            "staged.masked_box_filter": 2})
+    for name in ("staged.masked_min_filter", "staged.masked_box_filter"):
+        launches[name] = counts[name]
+    torch.cuda.synchronize()
+    for name, args, got in b8:
+        want = sk.PAIRS[name][1](*args)
+        err = float(torch.where(got == want, 0.0, (got - want).abs()
+                                / want.abs().clamp_min(1.0)).max())
+        tol = 0.0 if name == "masked_min_filter" else 1e-5
+        check(err <= tol, f"{name} on a corner tile: error {err} > {tol}")
+        errs[name] = max(errs.get(name, 0.0), err)
+    print("spatial passes " + json.dumps(errs) + " vs B7a " + json.dumps(vs_b7)
+          + " launches " + json.dumps(launches), flush=True)
+    return errs, vs_b7, launches, len(cells)
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the spatial kernels timed
+# ---------------------------------------------------------------------------
+
+def phase_spatial_times():
+    """B9 on a corner tile of the 2x2 tiling and on an interior tile of a
+    4x4 one (DCP top-4, 32 uint8 frames of 480x640, float32 planes), B8a on
+    the corner tile's pre-map plane (r = 7) and B8b on its luma plane
+    (r = 20), B10 on the four 2x2 tiles' lists (M = 16, k = 4). Bounds
+    count each input read once and each output written once."""
+    from repro_torch.core import DehazeConfig
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.pipeline import spatial_shard_stage
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import staged as sk
+    n, k = L * B, 4
+    cfg = DehazeConfig(topk=k, kernel_mode="fused", io_dtype="uint8")
+    halo = cfg.patch_radius + 2 * cfg.gf_radius
+    frames = to_wire(ramps(9, n).reshape(-1, 3), torch.uint8).reshape(
+        n, H, W, 3).cuda()
+    x = ref.upcast_frames(frames)
+    a_saved = torch.tensor([0.9, 0.85, 0.8], device="cuda")
+    pre, guide = alg.premap(x, a_saved, cfg), alg.luminance(x)
+    tiles = spatial_tiles(frames, x, pre, guide, halo, (2, 2))
+    interior = spatial_tiles(frames, x, pre, guide, halo, (4, 4))[5]
+    kw = dict(algorithm="dcp", radius=7, omega=0.95, beta=1.0, refine=True,
+              gf_radius=20, gf_eps=1e-3, topk=k, out_dtype=None)
+    outs = [spatial_shard_stage(cfg, *tile, W, fused=True) for tile in tiles]
+    tk_t, tk_rgb, gidx = (torch.cat([o[q] for o in outs], dim=1) for q in (1, 2, 3))
+    cand = sk.cuda_merge_topk(tk_t, gidx, tk_rgb, k)
+
+    def merge_library():
+        by_idx = torch.sort(gidx, dim=1, stable=True).indices
+        by_t = torch.sort(torch.gather(tk_t, 1, by_idx), dim=1, stable=True).indices
+        pick = torch.gather(by_idx, 1, by_t)[:, :k]
+        return torch.gather(tk_rgb, 1, pick[..., None].expand(-1, -1, 3)).mean(1)
+
+    work = {}
+    for name, tile in (("fused_transmission_halo", tiles[0]),
+                       ("fused_transmission_halo.interior", interior)):
+        args = tile[:1] + tile[2:6]         # less the compute view
+        out = fk.fused_transmission_halo(*args, **kw)
+        ext_px = args[1].numel()
+        # The transmission stage's passes after the pre-map (phase 12's
+        # counts) on the extended plane; the refined t on the core.
+        work[name] = (
+            lambda a=args: fk.fused_transmission_halo(*a, **kw),
+            lambda a=args: ref.fused_transmission_halo(*a, **kw),
+            None, nbytes(*args, *out),
+            (3 + 5 + 10 + 20 + 4) * ext_px + (4 + 8) * args[0].numel() // 3)
+    _, _, pre_ext, guide_ext, vr, vc = tiles[0][:6]
+    mask = (vr[:, None] & vc[None, :])
+    # The masks as the kernels' bytes, so the wrapper converts nothing.
+    vr, vc = vr.to(torch.uint8), vc.to(torch.uint8)
+    mins = sk.cuda_masked_min_filter(pre_ext, vr, 7, vc)
+    means = sk.cuda_masked_box_filter(guide_ext, vr, 20, vc)
+    mask_f = mask.float()[None, None]
+    work["staged.masked_min_filter"] = (
+        lambda: sk.cuda_masked_min_filter(pre_ext, vr, 7, vc),
+        lambda: sk.plain_masked_min_filter(pre_ext, vr, 7, vc),
+        lambda: -F.max_pool2d(-torch.where(mask, pre_ext, torch.inf)[:, None],
+                              15, 1, 7),
+        nbytes(pre_ext, mins, vr, vc), 2 * pre_ext.numel())
+    work["staged.masked_box_filter"] = (
+        lambda: sk.cuda_masked_box_filter(guide_ext, vr, 20, vc),
+        lambda: sk.plain_masked_box_filter(guide_ext, vr, 20, vc),
+        lambda: (F.avg_pool2d(torch.where(mask, guide_ext, 0.0)[:, None], 41, 1, 20)
+                 / F.avg_pool2d(mask_f, 41, 1, 20).clamp_min(1.0 / 41 ** 2)),
+        nbytes(guide_ext, means, vr, vc), 5 * guide_ext.numel())
+    work["staged.merge_topk"] = (
+        lambda: sk.cuda_merge_topk(tk_t, gidx, tk_rgb, k),
+        lambda: sk.plain_merge_topk(tk_t, gidx, tk_rgb, k),
+        merge_library, nbytes(tk_t, gidx, tk_rgb, cand), tk_t.numel() * k)
+    out = {}
+    for name, (kernel, plain, lib, nb, ops) in work.items():
+        t_bytes = nb / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+        heavy = name.startswith("fused_transmission_halo")
+        out[name] = dict(
+            ms=time_ms(kernel),
+            plain_ms=time_ms(plain, reps=3 if heavy else 5, warmup=1),
+            library_ms=time_ms(lib) if lib else None,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            # The kernels' own time a call: where it is well below ms,
+            # the host's launch rate sets ms.
+            device_busy_ms=device_busy_ms(kernel))
+    print("spatial kernel times " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1058,6 +1391,8 @@ def main() -> int:
         cfg_cap, vids, CAP_PER_TICK, "staged CAP top-4 ")
     t_errs, t_whole, t_launches = phase_sharded()
     c_times = phase_slice3_times()
+    sp_errs, sp_vs_b7, sp_launches, sp_steps = phase_spatial()
+    sp_times = phase_spatial_times()
 
     kernels = []
 
@@ -1095,6 +1430,19 @@ def main() -> int:
         entry(name, SOURCE, TRANSMISSION_REPLACES[name], c_times[name],
               max(t_errs[name]["whole"], *t_whole[name].values()),
               {name: t_launches[name]["fused_transmission"]}, None, 2)
+    # Phase 13's path: its spatial steps (B9 one launch a tile, B10 one a
+    # step); B8a/B8b: one ops call on each of two corner tiles.
+    sp_err = {"staged.masked_min_filter": sp_errs["masked_min_filter"],
+              "staged.masked_box_filter": sp_errs["masked_box_filter"],
+              "staged.merge_topk": sp_errs["merge_topk"],
+              "fused_transmission_halo": max(
+                  sp_errs["whole"], sp_vs_b7["t"],
+                  *(v for kk, v in sp_errs.items() if kk in fk.HALO_PASSES))}
+    for name in SPATIAL_REPLACES:
+        source = SOURCE if name == "fused_transmission_halo" else STAGED_SOURCE
+        entry(name, source, SPATIAL_REPLACES[name], sp_times[name],
+              sp_err[name], sp_launches, None,
+              2 if name.startswith("staged.masked") else sp_steps)
     print(f"serve_many aggregate fps: fused {rep.fps} ({rep.frames} frames, "
           f"{rep.wall_s} s), staged {s_rep.fps} ({s_rep.frames} frames, "
           f"{s_rep.wall_s} s); total {time.perf_counter() - t_start:.1f} s",

@@ -183,9 +183,32 @@ def fused_transmission_lanes(frames: torch.Tensor, a_saved: torch.Tensor,
                                         **_transmission_kw(cfg))
 
 
+def merge_topk_candidates(tk_t: torch.Tensor, tk_gidx: torch.Tensor,
+                          tk_rgb: torch.Tensor, cfg: DehazeConfig):
+    """The spatial step's cross-shard candidate merge: gathered (B, M)
+    lists -> (B, 3), the mean rgb of the k smallest (t, global index) rows
+    (``ops.merge_topk_candidates``)."""
+    return ops.merge_topk_candidates(tk_t, tk_gidx, tk_rgb, cfg.topk,
+                                     mode=cfg.kernel_mode)
+
+
+def fused_transmission_halo(frames: torch.Tensor, pre_ext: torch.Tensor,
+                            guide_ext: torch.Tensor, valid: torch.Tensor,
+                            valid_w, cfg: DehazeConfig):
+    """Fused transmission stage of one spatial shard: the halo-extended
+    (pre-map, luma) planes from the exchange and their row/column validity
+    (``valid_w=None``: no width sharding) -> ``(t, tk_t, tk_rgb, tk_idx)``,
+    the shard-local top-k lists (``ops.fused_transmission_halo``)."""
+    kw = _transmission_kw(cfg)
+    del kw["cap_w"]                      # the pre-map is an input here
+    return ops.fused_transmission_halo(frames, pre_ext, guide_ext, valid,
+                                       valid_w, **kw)
+
+
 __all__ = ["luminance", "transmission_dcp", "transmission_cap",
            "register_algorithm", "get_transmission_estimator",
            "estimate_atmospheric_light", "refine_transmission",
            "generate_haze_free", "supports_fused", "premap", "fused_dehaze",
            "fused_dehaze_lanes", "fused_transmission",
-           "fused_transmission_lanes"]
+           "fused_transmission_lanes", "merge_topk_candidates",
+           "fused_transmission_halo"]

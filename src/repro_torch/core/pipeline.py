@@ -15,18 +15,24 @@ Every step runs on one device, fixed when it is built: ``device=None``
 means CUDA (and raises without a card), ``device="cpu"`` the CPU. The step
 moves its inputs there.
 
-The data-parallel sharded placements (``frame_sharded``, ``lane_sharded``)
-build an SPMD step over a ``torch.distributed`` device mesh
-(``launch.mesh.make_host_mesh``): every rank calls it with its own block
-and the replicated state. Frame-sharded, each rank computes t and its
-frames' A candidates (fused: the megakernel's transmission passes, one
-sequence; staged: the masked filters of ``core.spatial`` and a stable
-top-k), the candidates and ids are all-gathered in rank order over the
-mesh's ``data`` group, and every rank scans the §3.3 EMA over the whole
-batch and keeps its slice. Lane-sharded, every rank serves whole lanes and
-scans them locally. Recovery runs the plain chain, as in the reference. A
-height or width mesh axis must have size 1: the halo exchange is not
-ported. Buffer donation is not ported.
+The sharded placements (``frame_sharded``, ``lane_sharded``) build an
+SPMD step over a ``torch.distributed`` device mesh
+(``launch.mesh.make_host_mesh``, or any mesh with the placement's axes):
+every rank calls it with its own block and the replicated state.
+Frame-sharded, each rank computes t and its frames' A candidates (fused:
+the megakernel's transmission passes, one sequence; staged: the masked
+filters of ``core.spatial`` and a stable top-k), the candidates and ids
+are all-gathered in rank order over the mesh's ``data`` group, and every
+rank scans the §3.3 EMA over the whole batch and keeps its slice.
+Lane-sharded, every rank serves whole lanes and scans them locally.
+
+A height or width axis of size > 1 splits each frame into tiles: the
+(pre-map, luma) planes (or the RGB block) are halo-exchanged over the
+axis's group, :func:`spatial_shard_stage` computes the tile's t and its k
+best candidates with global indices (fused: the halo stage's kernels;
+staged: the masked filters), and the lists are all-gathered over the
+spatial groups and merged on every rank of the tile's frames. Recovery runs
+the plain chain, as in the reference. Buffer donation is not ported.
 """
 from __future__ import annotations
 
@@ -276,20 +282,60 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _local_topk_mean(t_raw: torch.Tensor, x: torch.Tensor,
-                     k: int) -> torch.Tensor:
-    """Per-frame candidate (N, 3) float32: the mean of I over the k
-    smallest t, ties to the lowest flat index (the reference's
-    ``lax.top_k`` of -t)."""
-    return kref.atmospheric_light(x.to(torch.float32),
-                                  t_raw.to(torch.float32), k)
+def _all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Rank-ordered concatenation of every rank's ``x`` along axis 1."""
+    stacked = _all_gather(x[None], group)            # (n, B, M, ...)
+    return stacked.movedim(0, 1).reshape(
+        (x.shape[0], -1) + tuple(x.shape[2:]))
+
+
+def spatial_shard_stage(cfg: DehazeConfig, frames: torch.Tensor,
+                        x: torch.Tensor, pre_ext: torch.Tensor,
+                        guide_ext: torch.Tensor, valid_h: torch.Tensor,
+                        valid_w: Optional[torch.Tensor], row0: int, col0: int,
+                        width: int, fused: bool):
+    """What one spatial shard computes after the halo exchange.
+
+    ``frames`` (N, h, w, 3) is the shard's core block in the wire dtype
+    and ``x`` its compute view; ``pre_ext``/``guide_ext`` (N, h_ext, w_ext)
+    the exchanged (pre-map, luma) planes with their (h_ext,) row and
+    (w_ext,) column validity (None: every column); ``(row0, col0)`` the
+    core's origin in the frame and ``width`` the frame's width. ``fused``
+    runs the halo stage's kernels (``alg.fused_transmission_halo``), else
+    the staged chain on the masked filters of ``core.spatial``. Returns
+    ``(t (N, h, w), tk_t (N, k), tk_rgb (N, k, 3) float32, tk_gidx (N, k)
+    int32)``: the refined t and the shard's k smallest (t_raw, index) rows,
+    ascending, each index the pixel's flat index in the whole frame."""
+    h_loc, w_loc = frames.shape[1], frames.shape[2]
+    if fused:
+        t, tk_t, tk_rgb, tk_idx = alg.fused_transmission_halo(
+            frames, pre_ext, guide_ext, valid_h, valid_w, cfg)
+    else:
+        hh = (pre_ext.shape[1] - h_loc) // 2
+        hw = (pre_ext.shape[2] - w_loc) // 2
+        t_raw_ext = kref.tmap_from_dark(
+            spatial.masked_min_filter_2d(pre_ext, valid_h, cfg.patch_radius,
+                                         valid_w),
+            cfg.algorithm, cfg.omega, cfg.beta).to(x.dtype)
+        t_raw = t_raw_ext[:, hh:hh + h_loc, hw:hw + w_loc]
+        tk_t, tk_rgb, tk_idx = kref.topk_candidates(t_raw, x, cfg.topk)
+        if cfg.refine:
+            t_ext = spatial.masked_guided_filter(
+                guide_ext, t_raw_ext, valid_h, cfg.gf_radius, cfg.gf_eps,
+                valid_w)
+            t = torch.clamp(t_ext[:, hh:hh + h_loc, hw:hw + w_loc], 0.0, 1.0)
+        else:
+            t = t_raw
+    tk_idx = tk_idx.to(torch.int32)
+    gidx = (tk_idx // w_loc + row0) * width + (tk_idx % w_loc + col0)
+    return t, tk_t, tk_rgb.to(torch.float32), gidx.to(torch.int32)
 
 
 def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
                        associative: bool = True,
                        lane_native: Optional[bool] = None):
-    """The SPMD step of a data-parallel placement (see the module
-    docstring and ``make_step``)."""
+    """The SPMD step of a sharded placement (see the module docstring and
+    ``make_step``)."""
     lanes = placement.lanes
     if not lanes and not placement.batch_axes:
         raise ValueError("a sharded non-lane placement needs batch_axes (the "
@@ -297,35 +343,85 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
                          f"{placement}")
     for ax in placement.mesh_axes:
         _mesh_axis_size(mesh, ax)                    # names a mesh axis
-    for ax in (placement.height_axis, placement.width_axis):
-        if ax is not None and _mesh_axis_size(mesh, ax) > 1:
-            raise NotImplementedError(
-                f"mesh axis {ax!r} of size {_mesh_axis_size(mesh, ax)} splits "
-                "the frame: spatial (H/W halo) sharding is not ported yet "
-                "(ROADMAP.md queue B, rows B8-B10)")
     if len(placement.batch_axes) > 1:
         raise NotImplementedError(
             f"frames over several mesh axes {placement.batch_axes} are not "
             "ported; shard them over one ('data')")
+    height_axis, width_axis = placement.height_axis, placement.width_axis
+    n_h = _mesh_axis_size(mesh, height_axis) if height_axis else 1
+    n_w = _mesh_axis_size(mesh, width_axis) if width_axis else 1
+    shard_h, shard_w = n_h > 1, n_w > 1
+    # The mesh axes that split a frame: the exchange and the merge run on
+    # these only.
+    spatial_axes = tuple(ax for ax, on in ((height_axis, shard_h),
+                                           (width_axis, shard_w)) if on)
+    halo = cfg.patch_radius + (2 * cfg.gf_radius if cfg.refine else 0)
     use_fused = _fused_covers(cfg)
     if lanes and lane_native is None:
-        lane_native = resolve_lane_native(cfg)
+        # The lane-native megakernel has no halo form.
+        lane_native = resolve_lane_native(cfg) and not spatial_axes
     ref_cfg = dataclasses.replace(cfg, kernel_mode="ref")
+    halo_dtype = kref.as_torch_dtype(cfg.halo_dtype)
+
+    def halo_premap_and_guide(x, a_saved, keep_halo_dtype: bool):
+        """The halo-extended (pre-map, luma) planes and the row and column
+        validity: exchange the stacked two-channel plane (``halo_packed``)
+        or the RGB block and map it after; in ``halo_dtype`` on the wire,
+        kept so into the halo kernels when ``keep_halo_dtype`` (they upcast
+        on load), else cast back to ``x``'s dtype."""
+        def exchange(p):
+            p = p.to(halo_dtype)
+            valid_w = None
+            if shard_h:
+                p, valid_h = spatial.halo_exchange_height(p, halo, mesh,
+                                                          height_axis)
+            else:
+                valid_h = torch.ones(p.shape[1], dtype=torch.bool,
+                                     device=p.device)
+            if shard_w:
+                p, valid_w = spatial.halo_exchange_width(p, halo, mesh,
+                                                         width_axis)
+            return p, valid_h, valid_w
+
+        if cfg.halo_packed:
+            packed = torch.stack([alg.premap(x, a_saved, cfg),
+                                  alg.luminance(x)], dim=-1)
+            p_ext, valid_h, valid_w = exchange(packed)
+            if not keep_halo_dtype:
+                p_ext = p_ext.to(x.dtype)
+            return (p_ext[..., 0].contiguous(), p_ext[..., 1].contiguous(),
+                    valid_h, valid_w)
+        x_ext, valid_h, valid_w = exchange(x)
+        x_ext = x_ext.to(x.dtype)
+        return (alg.premap(x_ext, a_saved, cfg), alg.luminance(x_ext),
+                valid_h, valid_w)
+
+    def spatial_t_and_candidates(frames, x, a_saved):
+        """Exchange, the shard's stage, then the cross-shard merge: (t,
+        per-frame candidates (N, 3) float32)."""
+        pre_ext, guide_ext, valid_h, valid_w = halo_premap_and_guide(
+            x, a_saved, keep_halo_dtype=use_fused and cfg.halo_packed)
+        h_loc, w_loc = frames.shape[1], frames.shape[2]
+        row0 = mesh.get_local_rank(height_axis) * h_loc if shard_h else 0
+        col0 = mesh.get_local_rank(width_axis) * w_loc if shard_w else 0
+        t, tk_t, tk_rgb, tk_gidx = spatial_shard_stage(
+            cfg, frames, x, pre_ext, guide_ext, valid_h, valid_w, row0, col0,
+            w_loc * n_w, use_fused)
+        for ax in spatial_axes:
+            group = mesh.get_group(ax)
+            tk_t, tk_rgb, tk_gidx = (_all_gather_rows(v, group)
+                                     for v in (tk_t, tk_rgb, tk_gidx))
+        return t, alg.merge_topk_candidates(tk_t, tk_gidx, tk_rgb, cfg)
 
     def staged_t_and_candidates(x, a_saved):
-        """The staged chain on whole frames: masked filters with every row
-        valid -> (refined t, per-frame candidates (N, 3) float32)."""
-        valid = torch.ones(x.shape[-3], dtype=torch.bool, device=x.device)
-        pre = alg.premap(x, a_saved, cfg)
-        t_raw = kref.tmap_from_dark(
-            spatial.masked_min_filter_2d(pre, valid, cfg.patch_radius),
-            cfg.algorithm, cfg.omega, cfg.beta).to(x.dtype)
-        rgb = _local_topk_mean(t_raw, x, cfg.topk)
-        if not cfg.refine:
-            return t_raw, rgb
-        t = spatial.masked_guided_filter(alg.luminance(x), t_raw, valid,
-                                         cfg.gf_radius, cfg.gf_eps)
-        return torch.clamp(t, 0.0, 1.0), rgb
+        """The staged chain on whole frames (every row valid, no exchange)
+        -> (refined t, per-frame candidates (N, 3) float32, the mean of
+        the k picks)."""
+        valid = torch.ones(x.shape[1], dtype=torch.bool, device=x.device)
+        t, _, tk_rgb, _ = spatial_shard_stage(
+            cfg, x, x, alg.premap(x, a_saved, cfg), alg.luminance(x), valid,
+            None, 0, 0, x.shape[2], fused=False)
+        return t, tk_rgb.mean(1)
 
     def finish(x, t, a_seq, new_state, odt) -> DehazeOutput:
         a_seq = a_seq.to(x.dtype)
@@ -340,7 +436,9 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
         def local_step(frames, frame_ids, state: AtmoState) -> DehazeOutput:
             b_loc = frames.shape[0]
             x, odt = _ingest(frames, cfg)
-            if use_fused:
+            if spatial_axes:
+                t, rgb = spatial_t_and_candidates(frames, x, state.A)
+            elif use_fused:
                 t, _, rgb = alg.fused_transmission(frames, state.A, cfg)
             else:
                 t, rgb = staged_t_and_candidates(x, state.A)
@@ -356,17 +454,24 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
     def lane_local_step(frames, frame_ids, state: AtmoState) -> DehazeOutput:
         # Whole lanes live on this rank: the EMA scans are rank-local.
         l_loc, b = frames.shape[:2]
-        if use_fused and lane_native:
+        if use_fused and lane_native and not spatial_axes:
             out, t, a_seq, new_state = alg.fused_dehaze_lanes(
                 frames, frame_ids, state, cfg)
             return DehazeOutput(out, t, a_seq.to(out.dtype), new_state)
         x, odt = _ingest(frames, cfg)
-        if use_fused:
+        if use_fused and not spatial_axes:
             t, _, rgb = alg.fused_transmission_lanes(frames, state.A, cfg)
         else:
+            # Lanes flattened onto the frame axis, each frame with its
+            # lane's saved A.
             flat_x = x.reshape((l_loc * b,) + tuple(x.shape[2:]))
             a_pf = state.A.to(torch.float32).repeat_interleave(b, 0)
-            t, rgb = staged_t_and_candidates(flat_x, a_pf[:, None, None, :])
+            a_pf = a_pf[:, None, None, :]
+            if spatial_axes:
+                flat = frames.reshape((l_loc * b,) + tuple(frames.shape[2:]))
+                t, rgb = spatial_t_and_candidates(flat, flat_x, a_pf)
+            else:
+                t, rgb = staged_t_and_candidates(flat_x, a_pf)
             t = t.reshape((l_loc, b) + tuple(t.shape[1:]))
             rgb = rgb.reshape(l_loc, b, 3)
         a_seq, new_state = ema_scan_lanes(rgb, frame_ids, state,
@@ -392,4 +497,5 @@ def make_sharded_dehaze_step(cfg: DehazeConfig, mesh,
 
 __all__ = ["DehazeOutput", "PlacementSpec", "resolve_device", "make_step",
            "make_dehaze_step", "make_multi_stream_step",
-           "make_sharded_dehaze_step", "resolve_lane_native"]
+           "make_sharded_dehaze_step", "resolve_lane_native",
+           "spatial_shard_stage"]

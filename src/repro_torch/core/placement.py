@@ -13,12 +13,13 @@ axes, and ``core.pipeline.make_step(cfg, placement, mesh)`` realizes it:
                       replicated
 
 The port realizes the placements without a mesh (``single()``,
-``lane_batched()``) and the data-parallel ones (``frame_sharded()``,
+``lane_batched()``) and the sharded ones (``frame_sharded()``,
 ``lane_sharded()``) over a ``torch.distributed`` device mesh
-(``launch.mesh.make_host_mesh``). A height or width axis is accepted where
-its mesh axis has size 1; the step raises ``NotImplementedError`` when one
-splits the frame (the halo exchange is not ported). ``validate()`` raises
-``NotImplementedError`` for more than one host (the fleet tier).
+(``launch.mesh.make_host_mesh``, or any mesh with the named axes). A height
+or width axis of size > 1 splits each frame into tiles whose halos are
+exchanged over that axis's process group (``core.spatial``); of size 1 it
+changes nothing. ``validate()`` raises ``NotImplementedError`` for more than
+one host (the fleet tier).
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Masked separable filters of the spatially sharded step, PyTorch port.
+"""Halo exchange and masked separable filters of the spatially sharded
+step, PyTorch port.
 
 The reference (``repro/core/spatial.py``) shards image height and width
 over mesh axes, exchanges halos with ``lax.ppermute`` and runs the windowed
@@ -7,18 +8,29 @@ edge keeps the global border semantics (clipped windows): the min filter
 treats invalid rows/columns as +inf, the box filter leaves them out of
 both the sum and the count.
 
-Ported here: the three masked filters. The reference computes them with
-XLA ``reduce_window``, not with a Pallas kernel, so their port is plain
-PyTorch on any device, the card included; this is their implementation,
-not a fallback for a missing kernel. The staged data-parallel sharded step
-(``core.pipeline``) runs them with all-valid masks. The halo exchange and
-the masked Pallas kernels (ROADMAP.md queue B, rows B8-B10) are not ported.
+The masked filters: the reference computes them with XLA ``reduce_window``,
+not with a Pallas kernel, so their port is plain PyTorch on any device,
+the card included; this is their implementation, not a fallback for a
+missing kernel. The staged sharded step (``core.pipeline``) runs them; the
+Pallas kernels of the same functions are ``ops.masked_min_filter_2d`` /
+``ops.masked_box_filter_2d``.
+
+The halo exchange (:func:`halo_exchange_along` and its height and width
+views) moves ``halo`` slices from each side over ``torch.distributed``
+point-to-point operations on the process group of one mesh axis: a halo
+wider than a shard comes as ``ceil(halo / size)`` transfers a side, the one
+from ``s`` shards away carrying only the slices needed, all posted in one
+``batch_isend_irecv`` so no two ranks wait on each other. A missing
+neighbour gives zeros, as ``ppermute`` does, and its slices are marked
+invalid.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.staged import window_sum
@@ -84,5 +96,71 @@ def masked_guided_filter(guide: torch.Tensor, src: torch.Tensor,
     return (bf(a) * g + bf(b)).to(src.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Halo exchange along a mesh axis that shards image height or width
+# ---------------------------------------------------------------------------
+
+def halo_exchange_along(x: torch.Tensor, halo: int, mesh, axis_name: str,
+                        dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Extend this rank's block with ``halo`` slices of context from each
+    side along ``dim`` (1 = image height, 2 = image width).
+
+    ``x``'s ``dim`` is sharded over the mesh axis ``axis_name`` (the
+    axis's rank 0 holds the leading slices). Returns ``(x_ext, valid)``:
+    ``x_ext`` grows ``dim`` by ``2 * halo`` and ``valid`` (size + 2 halo,)
+    marks the slices that exist in the global image. Every rank of the
+    axis must call it with the same shapes."""
+    size = x.shape[dim]
+    if halo == 0:
+        return x, torch.ones(size, dtype=torch.bool, device=x.device)
+    group = mesh.get_group(axis_name)
+    peers = dist.get_process_group_ranks(group)       # global, in axis order
+    n, idx = len(peers), mesh.get_local_rank(axis_name)
+    ops, lead, trail = [], [], []
+    for s in range(math.ceil(halo / size), 0, -1):
+        # Slices from the shard s before us: its last c_s ones.
+        c_s = min(size, halo - (s - 1) * size)
+        shape = list(x.shape)
+        shape[dim] = c_s
+        from_before = x.new_zeros(shape)
+        from_after = x.new_zeros(shape)
+        if idx + s < n:
+            ops += [dist.P2POp(dist.isend,
+                               x.narrow(dim, size - c_s, c_s).contiguous(),
+                               peers[idx + s], group),
+                    dist.P2POp(dist.irecv, from_after, peers[idx + s], group)]
+        if idx - s >= 0:
+            ops += [dist.P2POp(dist.isend, x.narrow(dim, 0, c_s).contiguous(),
+                               peers[idx - s], group),
+                    dist.P2POp(dist.irecv, from_before, peers[idx - s], group)]
+        lead.append((from_before, idx >= s, c_s))
+        trail.append((from_after, idx < n - s, c_s))
+    for req in (dist.batch_isend_irecv(ops) if ops else ()):
+        req.wait()
+    parts = lead + [(x, True, size)] + trail[::-1]
+    x_ext = torch.cat([p for p, _, _ in parts], dim=dim)
+    valid = torch.cat([torch.full((c,), ok, dtype=torch.bool, device=x.device)
+                       for _, ok, c in parts])
+    return x_ext, valid
+
+
+def halo_exchange_height(x: torch.Tensor, halo: int, mesh,
+                         axis_name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, h, W, C) block, height sharded over ``axis_name`` -> the
+    height-extended block and its (h + 2 halo,) row validity."""
+    return halo_exchange_along(x, halo, mesh, axis_name, dim=1)
+
+
+def halo_exchange_width(x: torch.Tensor, halo: int, mesh,
+                        axis_name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, w, C) block, width sharded over ``axis_name`` -> the
+    width-extended block and its (w + 2 halo,) column validity. Run after
+    the height exchange when both are sharded: the height-extended block
+    rides this exchange, so the corner halos need no transfer of their
+    own."""
+    return halo_exchange_along(x, halo, mesh, axis_name, dim=2)
+
+
 __all__ = ["masked_min_filter_2d", "masked_box_filter_2d",
-           "masked_guided_filter"]
+           "masked_guided_filter", "halo_exchange_along",
+           "halo_exchange_height", "halo_exchange_width"]

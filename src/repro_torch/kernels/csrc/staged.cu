@@ -9,6 +9,10 @@
 //   st_atmolight        src/repro/kernels/atmolight.py::atmolight_pallas
 //   st_atmolight_topk   src/repro/kernels/atmolight.py::atmolight_topk_pallas
 //   st_recover          src/repro/kernels/recover.py::recover_pallas
+// and the spatially sharded step's
+//   st_masked_min_filter  src/repro/kernels/dark_channel.py::masked_min_filter_2d_pallas
+//   st_masked_box_filter  src/repro/kernels/boxfilter.py::masked_box_filter_2d_pallas
+//   st_merge_topk         src/repro/kernels/atmolight.py::merge_topk_pallas
 // Each computes what its Pallas kernel computes: it reads float32 or
 // bfloat16, computes in float32 and writes its Pallas kernel's output dtype.
 //
@@ -45,6 +49,29 @@
 // the frames' dtype. The caller gives the key lists' scratch (N x tiles x
 // kk keys).
 //
+// Masked windows (the halo-extended planes of a spatial shard). The window
+// kernel's two masked forms take an (H,) row and a (W,) column validity
+// vector (bytes, 0 = invalid): the min reads an invalid pixel as +inf; the
+// mean leaves it out of the sum (a select, not a multiply: an upstream
+// +-inf must not become NaN) and divides by max(rowcnt(y) * colcnt(x), 1),
+// each count the windowed sum of its axis's mask. The reference's XLA
+// filter divides by the windowed sum of the 2-D mask; the masks are outer
+// products, so the two are the same integer, and the product is cheaper.
+//
+// Cross-shard candidate merge (st_merge_topk). After the all-gather each
+// frame has M = shards x k candidate rows (t, global flat index, rgb) in
+// no promised order. The TPU kernel folds k-row segments through its
+// sequential grid. The head merge of dehaze_common.cuh cannot take these
+// rows: it finds a key's list as index / kTopkTile and gathers I at the
+// pixel index, and a gathered row has neither. So one block a frame ranks
+// its rows by the 64-bit key of dehaze_common.cuh built from the given
+// global index (sign bit flipped, so negative indices keep their order),
+// ties in both to the lower row, as the reference's stable two-key sort;
+// the rows of rank < k go to their slot of a k-entry scratch list, and one
+// thread sums their rgb in ascending order with the compensated sum of the
+// top-k merge. Ranking costs M^2 compares a frame: nothing for M = shards
+// x k (16 at four shards and k = 4), and the merge moves 20 bytes a row.
+//
 // Recovery. One elementwise pass: J = clip((I - A)/max(t, t0) + A, 0, 1),
 // then powf only when gamma != 1, with A per frame.
 //
@@ -53,7 +80,9 @@
 // 0.047 ms (dark channel, 16 B/px), 0.023 ms (min and box filter, 8 B/px),
 // 0.047 ms (atmospheric light, 16 B/px counting all of I; the top-k's
 // reads only t and k pixels a frame, 0.012 ms) and 0.082 ms (recover,
-// 28 B/px). This first design does not reach them: each window tap is a
+// 28 B/px); the masked filters are bound as the min and box filter (8 B/px
+// of the plane they filter), the merge by its 20 bytes a row. This first
+// design does not reach them: each window tap is a
 // load (2r + 1 per output per axis, the dark channel's three channels each
 // time), and one block a frame leaves most SMs idle in the atmospheric
 // light at small batches.
@@ -77,14 +106,22 @@ constexpr int kMaxSmem = 232448;                 // opt-in shared memory a block
 
 // What a window kernel computes: kDark, (N, H, W, 3) -> the channel min,
 // then the windowed min (+inf border); kMin, (N, H, W) -> the windowed min;
-// kMean, (N, H, W) -> the windowed mean over the clipped window.
-enum Window { kDark = 0, kMin = 1, kMean = 2 };
+// kMean, (N, H, W) -> the windowed mean over the clipped window; kMaskedMin
+// and kMaskedMean, (N, H, W) and the (H,) / (W,) validity bytes vh / vw ->
+// the windowed min (invalid pixels +inf) and the windowed mean over the
+// valid pixels only (divisor max(rowcnt * colcnt, 1)).
+enum Window { kDark = 0, kMin = 1, kMean = 2, kMaskedMin = 3, kMaskedMean = 4 };
 
 // grid (ceil(W/kTileX), ceil(H/kTileY), N), block (kTileX, kRowThreads),
-// dynamic shared memory min(kTileY + 2r, H) * kTileX floats.
+// dynamic shared memory min(kTileY + 2r, H) * kTileX floats. vh and vw are
+// read by the masked forms only.
 template <int kMode>
 __global__ void window_kernel(const void* __restrict__ x, void* __restrict__ out,
-                              int H, int W, int r, int dt) {
+                              int H, int W, int r, int dt,
+                              const uint8_t* __restrict__ vh,
+                              const uint8_t* __restrict__ vw) {
+    constexpr bool kMasked = kMode == kMaskedMin || kMode == kMaskedMean;
+    constexpr bool kSum = kMode == kMean || kMode == kMaskedMean;
     extern __shared__ float hwin[];              // [row - ylo][tx]
     const int tx = threadIdx.x, ty = threadIdx.y;
     const int col = blockIdx.x * kTileX + tx;
@@ -95,8 +132,8 @@ __global__ void window_kernel(const void* __restrict__ x, void* __restrict__ out
 
     // Horizontal windows of every input row the tile needs.
     for (int k = ylo + ty; k <= yhi; k += kRowThreads) {
-        float h = kMode == kMean ? 0.0f : INFINITY;
-        if (col < W) {
+        float h = kSum ? 0.0f : INFINITY;
+        if (col < W && (!kMasked || vh[k])) {
             const long long row = plane + static_cast<long long>(k) * W;
             for (int c = clo; c <= chi; ++c) {
                 if (kMode == kDark) {
@@ -105,10 +142,12 @@ __global__ void window_kernel(const void* __restrict__ x, void* __restrict__ out
                                                 load_px(x, p + 1, dt, 1.0f)),
                                           load_px(x, p + 2, dt, 1.0f));
                     h = fminf(h, m);
-                } else if (kMode == kMin) {
-                    h = fminf(h, load_px(x, row + c, dt, 1.0f));
-                } else {
+                } else if (kMasked && !vw[c]) {
+                    continue;                    // +inf for the min, 0 for the sum
+                } else if (kSum) {
                     h = __fadd_rn(h, load_px(x, row + c, dt, 1.0f));
+                } else {
+                    h = fminf(h, load_px(x, row + c, dt, 1.0f));
                 }
             }
         }
@@ -118,17 +157,27 @@ __global__ void window_kernel(const void* __restrict__ x, void* __restrict__ out
     if (col >= W) return;
 
     // Vertical windows over them.
-    const float cnt_x = static_cast<float>(chi - clo + 1);
+    float cnt_x = static_cast<float>(chi - clo + 1);
+    if (kMode == kMaskedMean) {
+        int n = 0;
+        for (int c = clo; c <= chi; ++c) n += vw[c] ? 1 : 0;
+        cnt_x = static_cast<float>(n);
+    }
     const int yend = min(y0 + kTileY, H);
     for (int y = y0 + ty; y < yend; y += kRowThreads) {
         const int lo = max(y - r, 0), hi = min(y + r, H - 1);
-        float acc = kMode == kMean ? 0.0f : INFINITY;
+        float acc = kSum ? 0.0f : INFINITY;
         for (int k = lo; k <= hi; ++k) {
             const float v = hwin[(k - ylo) * kTileX + tx];
-            acc = kMode == kMean ? __fadd_rn(acc, v) : fminf(acc, v);
+            acc = kSum ? __fadd_rn(acc, v) : fminf(acc, v);
         }
         if (kMode == kMean)
             acc = __fdiv_rn(acc, __fmul_rn(static_cast<float>(hi - lo + 1), cnt_x));
+        if (kMode == kMaskedMean) {
+            int n = 0;
+            for (int k = lo; k <= hi; ++k) n += vh[k] ? 1 : 0;
+            acc = __fdiv_rn(acc, fmaxf(__fmul_rn(static_cast<float>(n), cnt_x), 1.0f));
+        }
         store_px(out, plane + static_cast<long long>(y) * W + col, dt, acc);
     }
 }
@@ -186,9 +235,48 @@ __global__ void recover_kernel(const void* __restrict__ img, const void* __restr
     }
 }
 
+// grid (N,), block kReduceThreads: out[n] (3 float32) = the mean rgb of the
+// k rows of frame n with the smallest (t, gidx) keys, ties to the lower row;
+// sel (N, k) int32 is scratch for the picked rows in ascending order.
+__global__ void merge_topk_kernel(const float* __restrict__ t,
+                                  const int* __restrict__ gidx,
+                                  const float* __restrict__ rgb, int* __restrict__ sel,
+                                  float* __restrict__ out, int M, int k) {
+    const long long n = blockIdx.x;
+    const float* tn = t + n * M;
+    const int* gn = gidx + n * M;
+    int* sn = sel + n * k;
+    for (int i = threadIdx.x; i < M; i += kReduceThreads) {
+        const unsigned long long key =
+            make_key(tn[i], static_cast<unsigned>(gn[i]) ^ 0x80000000u);
+        int rank = 0;
+        for (int j = 0; j < M && rank < k; ++j) {
+            const unsigned long long other =
+                make_key(tn[j], static_cast<unsigned>(gn[j]) ^ 0x80000000u);
+            rank += (other < key || (other == key && j < i)) ? 1 : 0;
+        }
+        if (rank < k) sn[rank] = i;              // ranks are distinct
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        float sr = 0.0f, sg = 0.0f, sb = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
+        for (int s = 0; s < k; ++s) {
+            const float* p = rgb + 3 * (n * M + sn[s]);
+            comp_add(sr, cr, p[0]);
+            comp_add(sg, cg, p[1]);
+            comp_add(sb, cb, p[2]);
+        }
+        const float kf = static_cast<float>(k);
+        out[3 * n] = __fdiv_rn(__fadd_rn(sr, cr), kf);
+        out[3 * n + 1] = __fdiv_rn(__fadd_rn(sg, cg), kf);
+        out[3 * n + 2] = __fdiv_rn(__fadd_rn(sb, cb), kf);
+    }
+}
+
 template <int kMode>
 int launch_window(const void* x, void* out, int N, int H, int W, int r, int dt,
-                  void* stream) {
+                  void* stream, const uint8_t* vh = nullptr,
+                  const uint8_t* vw = nullptr) {
     const int rows = min(kTileY + 2 * r, H);
     const size_t smem = static_cast<size_t>(rows) * kTileX * sizeof(float);
     if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
@@ -200,7 +288,8 @@ int launch_window(const void* x, void* out, int N, int H, int W, int r, int dt,
     }
     const dim3 grid((W + kTileX - 1) / kTileX, (H + kTileY - 1) / kTileY, N);
     window_kernel<kMode><<<grid, dim3(kTileX, kRowThreads), smem,
-                           static_cast<cudaStream_t>(stream)>>>(x, out, H, W, r, dt);
+                           static_cast<cudaStream_t>(stream)>>>(x, out, H, W, r, dt,
+                                                                vh, vw);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -230,6 +319,33 @@ int st_min_filter(const void* x, void* out, int N, int H, int W, int radius, int
 int st_box_filter(const void* x, void* out, int N, int H, int W, int radius, int dt,
                   void* stream) {
     return launch_window<kMean>(x, out, N, H, W, radius, dt, stream);
+}
+
+// (N, H, W) in dt, (H,) and (W,) validity bytes -> (N, H, W) in dt, the
+// windowed min with invalid pixels +inf.
+int st_masked_min_filter(const void* x, const uint8_t* vh, const uint8_t* vw,
+                         void* out, int N, int H, int W, int radius, int dt,
+                         void* stream) {
+    return launch_window<kMaskedMin>(x, out, N, H, W, radius, dt, stream, vh, vw);
+}
+
+// (N, H, W) in dt, (H,) and (W,) validity bytes -> (N, H, W) in dt, the
+// windowed mean over the valid pixels (0 where a window has none).
+int st_masked_box_filter(const void* x, const uint8_t* vh, const uint8_t* vw,
+                         void* out, int N, int H, int W, int radius, int dt,
+                         void* stream) {
+    return launch_window<kMaskedMean>(x, out, N, H, W, radius, dt, stream, vh, vw);
+}
+
+// (N, M) float32 t, (N, M) int32 global index, (N, M, 3) float32 rgb ->
+// (N, 3) float32, the mean rgb of the k smallest (t, index) rows, 1 <= k <= M;
+// sel is scratch for N x k int32.
+int st_merge_topk(const float* t, const int* gidx, const float* rgb, int* sel,
+                  float* out, int N, int M, int k, void* stream) {
+    if (k < 1 || k > M) return static_cast<int>(cudaErrorInvalidValue);
+    merge_topk_kernel<<<N, kReduceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        t, gidx, rgb, sel, out, M, k);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // (N, H, W, 3) img_dt, (N, H, W) t_dt -> (N, 3) img_dt.

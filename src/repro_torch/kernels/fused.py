@@ -26,6 +26,14 @@ candidate in the output dtype) and ``tmap`` (the refined t, no J); no EMA,
 no recovery. Its passes are :data:`TRANSMISSION_PASSES`, run by
 :func:`run_transmission_passes` and counted apart from the megakernel's in
 :data:`transmission_launches`.
+
+The spatially sharded step's stage, :func:`fused_transmission_halo` (the
+port of ``fused_transmission_halo_pallas``), takes one shard's core frames
+and its halo-extended (pre-map, luma) planes with their validity vectors:
+the masked forms of those passes (no pre-map pass, the pre-map is an
+input), a merge writing the k ascending (t, rgb, local index) rows, and
+the core's t. Its passes are :data:`HALO_PASSES`, run by
+:func:`run_halo_passes` and counted in :data:`halo_launches`.
 """
 from __future__ import annotations
 
@@ -41,7 +49,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.staged import (KEY_LAST, TOPK_MAX_TILES, TOPK_TILE,
                                         flip_key_order, key_index, key_t,
                                         topk_keys_signed, topk_mean,
-                                        window_counts, window_sum)
+                                        validity_bytes, window_counts,
+                                        window_sum)
 
 SOURCE = "fused_dehaze.cu"
 
@@ -56,18 +65,22 @@ TRANSMISSION_PASSES = ("premap", "min_rows", "min_cols_tmap", "topk_block",
                        "candidate", "box_rows4", "box_cols_ab", "box_rows2",
                        "tmap")
 
+HALO_PASSES = ("min_rows", "min_cols_tmap", "topk_block", "topk_list",
+               "box_rows4", "box_cols_ab", "box_rows2", "tmap")
+
 #: Kernel launches since the last :func:`reset_launches`, by pass name: of
-#: the megakernel, and of the fused transmission stage.
+#: the megakernel, of the fused transmission stage and of its halo form.
 launches: Dict[str, int] = {name: 0 for name in PASSES}
 transmission_launches: Dict[str, int] = {name: 0
                                          for name in TRANSMISSION_PASSES}
+halo_launches: Dict[str, int] = {name: 0 for name in HALO_PASSES}
 
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    for counts in (launches, transmission_launches):
+    for counts in (launches, transmission_launches, halo_launches):
         for k in counts:
             counts[k] = 0
 
@@ -173,6 +186,7 @@ def _lib() -> ctypes.CDLL:
         from repro_torch.kernels import _build
         lib = _build.load(SOURCE)
         vp, pp = ctypes.c_void_p, ctypes.POINTER(_Params)
+        hp = ctypes.POINTER(_HaloParams)
         sigs = {
             "fd_premap": [vp, vp, vp, vp, pp, vp],
             "fd_min_rows": [vp, vp, pp, vp],
@@ -185,6 +199,14 @@ def _lib() -> ctypes.CDLL:
             "fd_box_rows2": [vp, vp, pp, vp],
             "fd_recover": [vp, vp, vp, vp, vp, vp, vp, pp, vp],
             "fd_tmap": [vp, vp, vp, vp, pp, vp],
+            "fd_halo_min_rows": [vp, vp, vp, vp, hp, vp],
+            "fd_halo_min_cols_tmap": [vp, vp, vp, hp, vp],
+            "fd_halo_topk_block": [vp, vp, hp, vp],
+            "fd_halo_topk_list": [vp, vp, vp, vp, vp, hp, vp],
+            "fd_halo_box_rows4": [vp, vp, vp, vp, vp, hp, vp],
+            "fd_halo_box_cols_ab": [vp, vp, vp, vp, hp, vp],
+            "fd_halo_box_rows2": [vp, vp, vp, vp, hp, vp],
+            "fd_halo_tmap": [vp, vp, vp, vp, vp, vp, hp, vp],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -383,18 +405,23 @@ def plain_min_cols_tmap(rows, s: Static):
     return ref.tmap_from_dark(dark, s.algorithm, s.omega, s.beta)
 
 
-def plain_topk_block(t_raw, s: Static):
-    """Per tile of :data:`TILE_PIXELS` pixels, its k smallest keys in
-    ascending order, all-ones where the tile has fewer than k pixels:
-    bit for bit what :func:`cuda_topk_block` writes."""
-    n, P = s.n_frames, s.H * s.W
+def tile_keys(t_raw: torch.Tensor, k: int) -> torch.Tensor:
+    """(N, H, W) t -> per tile of :data:`TILE_PIXELS` pixels, its min(k,
+    TILE_PIXELS) smallest keys in ascending order, all-ones where the tile
+    has fewer pixels: bit for bit what the top-k tile kernel writes."""
+    n = t_raw.shape[0]
+    P = t_raw.shape[1] * t_raw.shape[2]
     n_tiles = -(-P // TILE_PIXELS)
     padded = torch.full((n, n_tiles * TILE_PIXELS), KEY_LAST,
                         dtype=torch.int64, device=t_raw.device)
     padded[:, :P] = topk_keys_signed(t_raw)
     best = torch.sort(padded.reshape(n, n_tiles, TILE_PIXELS), dim=-1
-                      ).values[..., :_tile_keep(s)]
+                      ).values[..., :min(k, TILE_PIXELS)]
     return flip_key_order(best)
+
+
+def plain_topk_block(t_raw, s: Static):
+    return tile_keys(t_raw, s.topk)
 
 
 def _merge(keys, img, s: Static):
@@ -527,6 +554,311 @@ def run_transmission_passes(img, a_saved, s: Static,
 
 
 # ---------------------------------------------------------------------------
+# The halo form (B9): one spatial shard's transmission stage
+# ---------------------------------------------------------------------------
+
+class _HaloParams(ctypes.Structure):
+    """Mirror of ``HaloParams`` in ``csrc/fused_dehaze.cu``."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "N", "h", "w", "halo_h", "halo_w", "in_dtype", "pre_dtype",
+        "guide_dtype", "out_dtype", "algorithm", "radius", "refine",
+        "gf_radius", "topk")]
+        + [(n, ctypes.c_float) for n in (
+            "omega", "neg_beta", "gf_eps", "u8_scale")])
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloStatic:
+    """Every static argument of one halo-stage call: N frames of an h x w
+    core, planes extended by ``halo_h`` rows and ``halo_w`` columns a side."""
+    N: int
+    h: int
+    w: int
+    halo_h: int
+    halo_w: int
+    in_dtype: torch.dtype
+    pre_dtype: torch.dtype
+    guide_dtype: torch.dtype
+    out_dtype: torch.dtype
+    algorithm: str
+    radius: int
+    omega: float
+    beta: float
+    refine: bool
+    gf_radius: int
+    gf_eps: float
+    topk: int
+
+    @property
+    def h_ext(self) -> int:
+        return self.h + 2 * self.halo_h
+
+    @property
+    def w_ext(self) -> int:
+        return self.w + 2 * self.halo_w
+
+    def core(self, plane: torch.Tensor) -> torch.Tensor:
+        """The core block of (..., h_ext, w_ext) planes."""
+        return plane[..., self.halo_h:self.halo_h + self.h,
+                     self.halo_w:self.halo_w + self.w]
+
+    def params(self) -> _HaloParams:
+        return _HaloParams(
+            N=self.N, h=self.h, w=self.w, halo_h=self.halo_h,
+            halo_w=self.halo_w, in_dtype=_IN_CODES[self.in_dtype],
+            pre_dtype=_OUT_CODES[self.pre_dtype],
+            guide_dtype=_OUT_CODES[self.guide_dtype],
+            out_dtype=_OUT_CODES[self.out_dtype],
+            algorithm=0 if self.algorithm == "dcp" else 1, radius=self.radius,
+            refine=int(self.refine), gf_radius=self.gf_radius, topk=self.topk,
+            omega=self.omega, neg_beta=-self.beta, gf_eps=self.gf_eps,
+            u8_scale=1.0 / ref.U8_SCALE)
+
+
+def make_halo_static(img: torch.Tensor, pre_ext: torch.Tensor,
+                     guide_ext: torch.Tensor, *, algorithm: str = "dcp",
+                     radius: int, omega: float = 0.95, beta: float = 1.0,
+                     refine: bool, gf_radius: int, gf_eps: float,
+                     topk: int = 1, out_dtype: Optional[str] = None
+                     ) -> HaloStatic:
+    """Validate (N, h, w, 3) core frames, (N, h_ext, w_ext) planes and the
+    static arguments; raise ``ValueError`` on anything the kernels do not
+    take."""
+    if img.dim() != 4 or img.shape[-1] != 3:
+        raise ValueError(f"expected (N, h, w, 3) frames, got {tuple(img.shape)}")
+    if img.dtype not in _IN_CODES:
+        raise ValueError(f"unsupported frame dtype {img.dtype}")
+    n, h, w, _ = img.shape
+    if pre_ext.dim() != 3 or tuple(guide_ext.shape) != tuple(pre_ext.shape) \
+            or pre_ext.shape[0] != n:
+        raise ValueError(f"planes {tuple(pre_ext.shape)}, "
+                         f"{tuple(guide_ext.shape)} are not (N, h_ext, w_ext) "
+                         f"with N = {n}")
+    halo_h, halo_w = (pre_ext.shape[1] - h) // 2, (pre_ext.shape[2] - w) // 2
+    if (pre_ext.shape[1], pre_ext.shape[2]) != (h + 2 * halo_h, w + 2 * halo_w) \
+            or min(halo_h, halo_w) < 0:
+        raise ValueError(f"planes {tuple(pre_ext.shape[1:])} do not extend "
+                         f"the core {(h, w)} evenly")
+    for t in (pre_ext, guide_ext):
+        if t.dtype not in _OUT_CODES:
+            raise ValueError(f"unsupported plane dtype {t.dtype}")
+    if algorithm not in ("dcp", "cap"):
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    if not 1 <= topk <= h * w:
+        raise ValueError(f"topk={topk} outside [1, h*w={h * w}]")
+    if -(-(h * w) // TILE_PIXELS) > TOPK_MAX_TILES:
+        raise ValueError(f"h*w={h * w} needs more than {TOPK_MAX_TILES} "
+                         f"top-k tiles of {TILE_PIXELS} pixels")
+    if radius < 0 or gf_radius < 0:
+        raise ValueError("window radii must be >= 0")
+    return HaloStatic(N=n, h=h, w=w, halo_h=halo_h, halo_w=halo_w,
+                      in_dtype=img.dtype, pre_dtype=pre_ext.dtype,
+                      guide_dtype=guide_ext.dtype,
+                      out_dtype=ref.resolve_out_dtype(img.dtype, out_dtype),
+                      algorithm=algorithm, radius=radius, omega=omega,
+                      beta=beta, refine=bool(refine), gf_radius=gf_radius,
+                      gf_eps=gf_eps, topk=topk)
+
+
+def _halo_launch(name: str, *args) -> None:
+    _launch(name, halo_launches, *args, kernel=f"halo_{name}")
+
+
+def _ext_planes(s: HaloStatic, n: int, device) -> torch.Tensor:
+    return torch.empty((n, s.N, s.h_ext, s.w_ext), dtype=torch.float32,
+                       device=device)
+
+
+def cuda_halo_min_rows(pre_ext, vh, vw, s: HaloStatic):
+    _check_cuda(pre_ext, vh, vw)
+    out = _ext_planes(s, 1, pre_ext.device)[0]
+    p = s.params()
+    _halo_launch("min_rows", pre_ext.data_ptr(), vh.data_ptr(), vw.data_ptr(),
+                 out.data_ptr(), ctypes.byref(p))
+    return out
+
+
+def cuda_halo_min_cols_tmap(rows, s: HaloStatic):
+    """-> ``(t_raw on the extended plane, its core (N, h, w))``."""
+    _check_cuda(rows)
+    t_ext = torch.empty_like(rows)
+    t_core = torch.empty((s.N, s.h, s.w), dtype=torch.float32,
+                         device=rows.device)
+    p = s.params()
+    _halo_launch("min_cols_tmap", rows.data_ptr(), t_ext.data_ptr(),
+                 t_core.data_ptr(), ctypes.byref(p))
+    return t_ext, t_core
+
+
+def cuda_halo_topk_block(t_core, s: HaloStatic):
+    _check_cuda(t_core)
+    keys = torch.empty((s.N, -(-(s.h * s.w) // TILE_PIXELS),
+                        min(s.topk, TILE_PIXELS)), dtype=torch.int64,
+                       device=t_core.device)
+    p = s.params()
+    _halo_launch("topk_block", t_core.data_ptr(), keys.data_ptr(),
+                 ctypes.byref(p))
+    return keys
+
+
+def cuda_halo_topk_list(keys, img, s: HaloStatic):
+    """-> ``(tk_t (N, k) float32, tk_rgb (N, k, 3) in the output dtype,
+    tk_idx (N, k) int32)``, ascending in (t, local flat index)."""
+    _check_cuda(keys, img)
+    dev = img.device
+    tk_t = torch.empty((s.N, s.topk), dtype=torch.float32, device=dev)
+    tk_rgb = torch.empty((s.N, s.topk, 3), dtype=s.out_dtype, device=dev)
+    tk_idx = torch.empty((s.N, s.topk), dtype=torch.int32, device=dev)
+    p = s.params()
+    _halo_launch("topk_list", keys.data_ptr(), img.data_ptr(), tk_t.data_ptr(),
+                 tk_rgb.data_ptr(), tk_idx.data_ptr(), ctypes.byref(p))
+    return tk_t, tk_rgb, tk_idx
+
+
+def cuda_halo_box_rows4(guide_ext, t_ext, vh, vw, s: HaloStatic):
+    _check_cuda(guide_ext, t_ext, vh, vw)
+    out = _ext_planes(s, 4, t_ext.device)
+    p = s.params()
+    _halo_launch("box_rows4", guide_ext.data_ptr(), t_ext.data_ptr(),
+                 vh.data_ptr(), vw.data_ptr(), out.data_ptr(), ctypes.byref(p))
+    return out
+
+
+def cuda_halo_box_cols_ab(rows4, vh, vw, s: HaloStatic):
+    _check_cuda(rows4, vh, vw)
+    ab = _ext_planes(s, 2, rows4.device)
+    p = s.params()
+    _halo_launch("box_cols_ab", rows4.data_ptr(), vh.data_ptr(), vw.data_ptr(),
+                 ab.data_ptr(), ctypes.byref(p))
+    return ab
+
+
+def cuda_halo_box_rows2(ab, vh, vw, s: HaloStatic):
+    _check_cuda(ab, vh, vw)
+    out = torch.empty_like(ab)
+    p = s.params()
+    _halo_launch("box_rows2", ab.data_ptr(), vh.data_ptr(), vw.data_ptr(),
+                 out.data_ptr(), ctypes.byref(p))
+    return out
+
+
+def cuda_halo_tmap(t_core, guide_ext, rows2, vh, vw, s: HaloStatic):
+    """The core's refined t (t_raw without refine) in the output dtype."""
+    _check_cuda(t_core, guide_ext, vh, vw)
+    t = torch.empty((s.N, s.h, s.w), dtype=s.out_dtype, device=t_core.device)
+    p = s.params()
+    _halo_launch("tmap", t_core.data_ptr(), guide_ext.data_ptr(), _ptr(rows2),
+                 vh.data_ptr(), vw.data_ptr(), t.data_ptr(), ctypes.byref(p))
+    return t
+
+
+def _valid_2d(vh, vw) -> torch.Tensor:
+    return (vh != 0)[:, None] & (vw != 0)[None, :]
+
+
+def _valid_count(v, r: int) -> torch.Tensor:
+    """Windowed count of the valid entries of a validity vector."""
+    return window_sum((v != 0).to(torch.float32)[None], r, -1)[0]
+
+
+def _masked_count(vh, vw, s: HaloStatic) -> torch.Tensor:
+    """(h_ext, w_ext) divisor max(rowcnt * colcnt, 1)."""
+    r = s.gf_radius
+    return torch.clamp_min(_valid_count(vh, r)[:, None]
+                           * _valid_count(vw, r)[None, :], 1.0)
+
+
+def plain_halo_min_rows(pre_ext, vh, vw, s: HaloStatic):
+    k = 2 * s.radius + 1
+    masked = torch.where(_valid_2d(vh, vw), pre_ext.to(torch.float32),
+                         torch.full((), torch.inf, device=pre_ext.device))
+    return -F.max_pool2d(-masked[:, None], (k, 1), stride=1,
+                         padding=(s.radius, 0))[:, 0]
+
+
+def plain_halo_min_cols_tmap(rows, s: HaloStatic):
+    k = 2 * s.radius + 1
+    dark = -F.max_pool2d(-rows[:, None], (1, k), stride=1,
+                         padding=(0, s.radius))[:, 0]
+    t_ext = ref.tmap_from_dark(dark, s.algorithm, s.omega, s.beta)
+    return t_ext, s.core(t_ext).contiguous()
+
+
+def plain_halo_topk_block(t_core, s: HaloStatic):
+    return tile_keys(t_core, s.topk)
+
+
+def plain_halo_topk_list(keys, img, s: HaloStatic):
+    best = torch.sort(flip_key_order(keys.reshape(s.N, -1)), dim=-1
+                      ).values[:, :s.topk]
+    idx = key_index(best)
+    x = ref.upcast_frames(img).reshape(s.N, -1, 3)
+    rgb = torch.gather(x, 1, idx[..., None].expand(s.N, s.topk, 3))
+    return key_t(best), rgb.to(s.out_dtype), idx.to(torch.int32)
+
+
+def plain_halo_box_rows4(guide_ext, t_ext, vh, vw, s: HaloStatic):
+    mask = _valid_2d(vh, vw)
+    g = guide_ext.to(torch.float32)
+    zero = torch.zeros((), device=g.device)
+    # `where`, not multiply: t_raw is +-inf where a window has no valid pixel.
+    return torch.stack([window_sum(torch.where(mask, v, zero), s.gf_radius, -2)
+                        for v in (g, t_ext, g * t_ext, g * g)])
+
+
+def plain_halo_box_cols_ab(rows4, vh, vw, s: HaloStatic):
+    cnt = _masked_count(vh, vw, s)
+    mean_g, mean_p, corr_gp, corr_gg = (window_sum(v, s.gf_radius, -1) / cnt
+                                        for v in rows4)
+    var_g = corr_gg - mean_g * mean_g
+    cov_gp = corr_gp - mean_g * mean_p
+    a = cov_gp / (var_g + s.gf_eps)
+    return torch.stack([a, mean_p - a * mean_g])
+
+
+def plain_halo_box_rows2(ab, vh, vw, s: HaloStatic):
+    mask = _valid_2d(vh, vw)
+    zero = torch.zeros((), device=ab.device)
+    return torch.stack([window_sum(torch.where(mask, v, zero), s.gf_radius, -2)
+                        for v in ab])
+
+
+def plain_halo_tmap(t_core, guide_ext, rows2, vh, vw, s: HaloStatic):
+    if not s.refine:
+        return t_core.to(s.out_dtype)
+    cnt = _masked_count(vh, vw, s)
+    mean_a = window_sum(rows2[0], s.gf_radius, -1) / cnt
+    mean_b = window_sum(rows2[1], s.gf_radius, -1) / cnt
+    t = torch.clamp(mean_a * guide_ext.to(torch.float32) + mean_b, 0.0, 1.0)
+    return s.core(t).to(s.out_dtype)
+
+
+HALO_CUDA_PASSES: Passes = {name: globals()[f"cuda_halo_{name}"]
+                            for name in HALO_PASSES}
+HALO_PLAIN_PASSES: Passes = {name: globals()[f"plain_halo_{name}"]
+                             for name in HALO_PASSES}
+
+
+def run_halo_passes(img, pre_ext, guide_ext, vh, vw, s: HaloStatic,
+                    passes: Passes = HALO_CUDA_PASSES):
+    """The halo stage's pass sequence, through ``passes``: core frames
+    (N, h, w, 3), extended planes (N, h_ext, w_ext) and validity bytes
+    (h_ext,), (w_ext,) -> ``(t (N, h, w), tk_t (N, k), tk_rgb (N, k, 3),
+    tk_idx (N, k))``."""
+    rows = passes["min_rows"](pre_ext, vh, vw, s)
+    t_ext, t_core = passes["min_cols_tmap"](rows, s)
+    tk_t, tk_rgb, tk_idx = passes["topk_list"](
+        passes["topk_block"](t_core, s), img, s)
+    rows2 = None
+    if s.refine:
+        rows4 = passes["box_rows4"](guide_ext, t_ext, vh, vw, s)
+        ab = passes["box_cols_ab"](rows4, vh, vw, s)
+        rows2 = passes["box_rows2"](ab, vh, vw, s)
+    t = passes["tmap"](t_core, guide_ext, rows2, vh, vw, s)
+    return t, tk_t, tk_rgb, tk_idx
+
+
+# ---------------------------------------------------------------------------
 # The wrappers
 # ---------------------------------------------------------------------------
 
@@ -619,3 +951,35 @@ def fused_transmission(img: torch.Tensor, A_saved: torch.Tensor, **kw):
     t, t_min, cand = fused_transmission_lanes(img[None], A_saved.reshape(1, 3),
                                               **kw)
     return t[0], t_min[0], cand[0]
+
+
+def fused_transmission_halo(img: torch.Tensor, pre_ext: torch.Tensor,
+                            guide_ext: torch.Tensor, valid: torch.Tensor,
+                            valid_w: Optional[torch.Tensor] = None, *,
+                            algorithm: str = "dcp", radius: int,
+                            omega: float = 0.95, beta: float = 1.0,
+                            refine: bool, gf_radius: int, gf_eps: float,
+                            topk: int = 1, out_dtype: Optional[str] = None):
+    """One spatial shard's transmission stage: (N, h, w, 3) core frames in
+    any wire dtype, (N, h_ext, w_ext) pre-map and luma planes (float32 or
+    bfloat16), (h_ext,) row validity and (w_ext,) column validity (None:
+    all valid) -> ``(t (N, h, w), tk_t (N, k) float32, tk_rgb (N, k, 3),
+    tk_idx (N, k) int32)``, the k smallest (t_raw, local flat index) of the
+    core, ascending; t and tk_rgb in ``ref.resolve_out_dtype(img.dtype,
+    out_dtype)``.
+
+    CPU tensors run the plain version (``kernels.ref``); CUDA tensors run
+    the kernels (built at first use) or raise."""
+    kw = dict(algorithm=algorithm, radius=radius, omega=omega, beta=beta,
+              refine=refine, gf_radius=gf_radius, gf_eps=gf_eps, topk=topk,
+              out_dtype=out_dtype)
+    s = make_halo_static(img, pre_ext, guide_ext, **kw)
+    if img.device.type == "cpu":
+        return ref.fused_transmission_halo(img, pre_ext, guide_ext, valid,
+                                           valid_w, **kw)
+    if img.device.type != "cuda":
+        raise ValueError(f"unsupported device {img.device}")
+    _check_cuda(img, pre_ext, guide_ext)
+    vh = validity_bytes(valid, s.h_ext, img.device)
+    vw = validity_bytes(valid_w, s.w_ext, img.device)
+    return run_halo_passes(img, pre_ext, guide_ext, vh, vw, s)

@@ -21,8 +21,12 @@ the reference. Every staged op of the reference has its kernel: the dark
 channel, the windowed min of staged CAP, the box filter, the argmin and
 the top-k (``k > 1``) atmospheric light, and recovery. The fused
 transmission stage of the data-parallel sharded step
-(:func:`fused_transmission`, :func:`fused_transmission_lanes`) runs the
-megakernel's passes under any mode but ``"ref"``. The TPU tiling knobs
+(:func:`fused_transmission`, :func:`fused_transmission_lanes`) and its
+halo form for a spatial shard (:func:`fused_transmission_halo`) run the
+megakernel's passes under any mode but ``"ref"``; so do the spatial step's
+masked filters (:func:`masked_min_filter_2d`, :func:`masked_box_filter_2d`)
+and cross-shard merge (:func:`merge_topk_candidates`) their kernels of
+``kernels.staged``. The TPU tiling knobs
 (``frames_per_block``, ``lane_major``, ``buffer_depth``, the tuning
 table) have no counterpart.
 """
@@ -92,6 +96,31 @@ def box_filter_2d(x, radius: int, mode: Mode = "auto"):
     return _staged.box_filter_op(flat, radius).reshape(x.shape)
 
 
+def masked_min_filter_2d(x, valid, radius: int, valid_w=None,
+                         mode: Mode = "auto"):
+    """(..., H, W) with (H,) row validity and optional (W,) column validity
+    -> the windowed min with invalid pixels +inf (the halo-extended plane
+    of a spatial shard)."""
+    if resolve_mode(mode) == "ref":
+        from repro_torch.core import spatial
+        return spatial.masked_min_filter_2d(x, valid, radius, valid_w)
+    flat, _ = _batched(x, 2)
+    return _staged.masked_min_filter_op(flat, valid, radius,
+                                        valid_w).reshape(x.shape)
+
+
+def masked_box_filter_2d(x, valid, radius: int, valid_w=None,
+                         mode: Mode = "auto"):
+    """(..., H, W) with row [and column] validity -> the windowed mean over
+    the valid pixels only."""
+    if resolve_mode(mode) == "ref":
+        from repro_torch.core import spatial
+        return spatial.masked_box_filter_2d(x, valid, radius, valid_w)
+    flat, _ = _batched(x, 2)
+    return _staged.masked_box_filter_op(flat, valid, radius,
+                                        valid_w).reshape(x.shape)
+
+
 def guided_filter(guide, src, radius: int, eps: float, mode: Mode = "auto"):
     """Gray-guide guided filter: six box filters and pointwise algebra."""
     if resolve_mode(mode) == "ref":
@@ -122,6 +151,19 @@ def atmospheric_light(img, t_raw, k: int = 1, mode: Mode = "auto"):
     out = (_staged.atmolight_topk_op(flat_i, flat_t, k) if k > 1
            else _staged.atmolight_op(flat_i, flat_t))
     return out.reshape(lead + (3,))
+
+
+def merge_topk_candidates(tk_t, tk_idx, tk_rgb, k: int,
+                          mode: Mode = "auto"):
+    """(B, M) t and global flat indices, (B, M, 3) rgb -> (B, 3) float32:
+    the mean rgb of the k smallest (t, index) rows, the spatial step's
+    cross-shard candidate merge (M = shards x k after the all-gather)."""
+    tk_t = tk_t.to(torch.float32).contiguous()
+    tk_rgb = tk_rgb.to(torch.float32).contiguous()
+    if resolve_mode(mode) == "ref":
+        return _ref.merge_topk_candidates(tk_t, tk_idx, tk_rgb, k)
+    return _staged.merge_topk_op(tk_t, tk_idx.to(torch.int32).contiguous(),
+                                 tk_rgb, k)
 
 
 def per_frame(A: torch.Tensor, lead: Tuple[int, ...]) -> torch.Tensor:
@@ -253,8 +295,36 @@ def fused_transmission_lanes(img: torch.Tensor, A_saved: torch.Tensor, *,
               out_dtype=out_dtype)
 
 
+def fused_transmission_halo(img: torch.Tensor, pre_ext: torch.Tensor,
+                            guide_ext: torch.Tensor, valid: torch.Tensor,
+                            valid_w: Optional[torch.Tensor] = None, *,
+                            algorithm: str = "dcp", radius: int,
+                            omega: float = 0.95, beta: float = 1.0,
+                            refine: bool, gf_radius: int, gf_eps: float,
+                            topk: int = 1, out_dtype: Optional[str] = "auto",
+                            mode: Mode = "auto") -> Tuple[torch.Tensor, ...]:
+    """One spatial shard's fused transmission stage: (..., h, w, 3) core
+    frames, (..., h_ext, w_ext) halo-extended pre-map and luma planes,
+    (h_ext,) row and optional (w_ext,) column validity -> ``(t, tk_t
+    (..., k), tk_rgb (..., k, 3), tk_idx (..., k))``, the shard's k
+    smallest (t_raw, local flat index), ascending."""
+    flat, lead = _batched(img, 3)
+    flat_pre, _ = _batched(pre_ext, 2)
+    flat_guide, _ = _batched(guide_ext, 2)
+    fn = (_ref.fused_transmission_halo if resolve_mode(mode) == "ref"
+          else _fused.fused_transmission_halo)
+    t, tk_t, tk_rgb, tk_idx = fn(
+        flat, flat_pre, flat_guide, valid, valid_w, algorithm=algorithm,
+        radius=radius, omega=omega, beta=beta, refine=refine,
+        gf_radius=gf_radius, gf_eps=gf_eps, topk=topk, out_dtype=out_dtype)
+    return (t.reshape(lead + tuple(t.shape[1:])), tk_t.reshape(lead + (topk,)),
+            tk_rgb.reshape(lead + (topk, 3)), tk_idx.reshape(lead + (topk,)))
+
+
 __all__ = ["MODES", "resolve_mode", "dark_channel", "min_filter_2d",
-           "box_filter_2d", "guided_filter", "atmospheric_light",
+           "box_filter_2d", "masked_min_filter_2d", "masked_box_filter_2d",
+           "guided_filter", "atmospheric_light", "merge_topk_candidates",
            "per_frame", "recover",
            "cap_depth", "fused_dehaze", "fused_dehaze_lanes",
-           "fused_transmission", "fused_transmission_lanes"]
+           "fused_transmission", "fused_transmission_lanes",
+           "fused_transmission_halo"]

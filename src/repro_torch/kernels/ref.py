@@ -244,6 +244,89 @@ def fused_transmission_lanes(img: torch.Tensor, A_saved: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The spatially sharded step: one shard's transmission stage on its
+# halo-extended planes, and the cross-shard candidate merge
+# ---------------------------------------------------------------------------
+
+def topk_positions(flat_t: torch.Tensor, key2: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """(N, M) t and a second int key -> (N, k) positions of the k smallest
+    (t, key2), ties in both to the lower position: a stable two-key sort
+    (-0.0 ties with +0.0, as ``lax.sort`` canonicalises it)."""
+    flat_t = torch.where(flat_t == 0, torch.zeros_like(flat_t), flat_t)
+    by_key2 = torch.sort(key2, dim=-1, stable=True).indices
+    t2 = torch.gather(flat_t, -1, by_key2)
+    by_t = torch.sort(t2, dim=-1, stable=True).indices
+    return torch.gather(by_key2, -1, by_t)[:, :k]
+
+
+def topk_candidates(t_raw: torch.Tensor, x: torch.Tensor, k: int):
+    """(N, h, w) t and (N, h, w, 3) pixels -> the k smallest (t, flat
+    index) of each frame, ascending (ties to the lowest index, as
+    ``lax.top_k`` of -t): ``(tk_t (N, k) float32, tk_rgb (N, k, 3)
+    float32, tk_idx (N, k) int32)``."""
+    n = t_raw.shape[0]
+    flat_t = t_raw.reshape(n, -1).to(torch.float32)
+    idx = torch.sort(flat_t, dim=-1, stable=True).indices[:, :k]
+    tk_rgb = torch.gather(x.to(torch.float32).reshape(n, -1, 3), 1,
+                          idx[..., None].expand(n, k, 3))
+    return torch.gather(flat_t, -1, idx), tk_rgb, idx.to(torch.int32)
+
+
+def fused_transmission_halo(img: torch.Tensor, pre_ext: torch.Tensor,
+                            guide_ext: torch.Tensor, valid: torch.Tensor,
+                            valid_w: Optional[torch.Tensor] = None, *,
+                            algorithm: str = "dcp", radius: int,
+                            omega: float = 0.95, beta: float = 1.0,
+                            refine: bool, gf_radius: int, gf_eps: float,
+                            topk: int = 1, out_dtype: Optional[str] = None):
+    """One shard's transmission stage on its halo-extended planes.
+
+    ``img`` (B, h, w, 3) is the shard's core block in any wire dtype;
+    ``pre_ext``/``guide_ext`` (B, h + 2*halo_h, w + 2*halo_w) the exchanged
+    pre-map and luma planes (float32 or bfloat16); ``valid`` the (h_ext,)
+    row validity and ``valid_w`` the (w_ext,) column validity (None: every
+    column valid, no width sharding). The masked min filter of
+    ``core.spatial``, ``tmap_from_dark``, the masked guided filter, the
+    core slice, the clip. Returns ``(t (B, h, w), tk_t (B, k) float32,
+    tk_rgb (B, k, 3), tk_idx (B, k) int32)``: the k smallest (t_raw, local
+    flat index) of the core, ascending, the index in the core's row stride
+    w; t and tk_rgb in :func:`resolve_out_dtype`."""
+    from repro_torch.core import spatial          # spatial imports this module
+    odt = resolve_out_dtype(img.dtype, out_dtype)
+    b, h_loc, w_loc = img.shape[0], img.shape[1], img.shape[2]
+    halo_h = (pre_ext.shape[1] - h_loc) // 2
+    halo_w = (pre_ext.shape[2] - w_loc) // 2
+    dark = spatial.masked_min_filter_2d(pre_ext.to(torch.float32), valid,
+                                        radius, valid_w)
+    t_raw_ext = tmap_from_dark(dark, algorithm, omega, beta)
+    core = (slice(None), slice(halo_h, halo_h + h_loc),
+            slice(halo_w, halo_w + w_loc))
+    t_raw = t_raw_ext[core]
+    if refine:
+        t_ext = spatial.masked_guided_filter(guide_ext.to(torch.float32),
+                                             t_raw_ext, valid, gf_radius,
+                                             gf_eps, valid_w)
+        t = torch.clamp(t_ext[core], 0.0, 1.0)
+    else:
+        t = t_raw
+    tk_t, tk_rgb, idx = topk_candidates(t_raw, upcast_frames(img), topk)
+    return t.to(odt), tk_t, tk_rgb.to(odt), idx
+
+
+def merge_topk_candidates(tk_t: torch.Tensor, tk_idx: torch.Tensor,
+                          tk_rgb: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, M) t and global flat indices, (B, M, 3) rgb -> (B, 3) float32:
+    the mean rgb of the k smallest (t, index) rows (a stable two-key sort,
+    as the reference's ``lax.sort`` with two keys), in any order of the
+    rows."""
+    rgb = tk_rgb.to(torch.float32)
+    pick = topk_positions(tk_t.to(torch.float32), tk_idx.to(torch.int64), k)
+    top = torch.gather(rgb, 1, pick[..., None].expand(-1, -1, 3))
+    return top.mean(1)
+
+
+# ---------------------------------------------------------------------------
 # The Eq. 9 EMA step and the megakernel's plain version
 # ---------------------------------------------------------------------------
 

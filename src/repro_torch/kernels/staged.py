@@ -12,6 +12,12 @@ JAX module, each porting one Pallas kernel to ``csrc/staged.cu``:
   top-k light       ``kernels/atmolight.py::atmolight_topk_pallas`` (k > 1)
   recover           ``kernels/recover.py::recover_pallas``
 
+and the spatially sharded step's kernels:
+
+  masked min filter ``kernels/dark_channel.py::masked_min_filter_2d_pallas``
+  masked box filter ``kernels/boxfilter.py::masked_box_filter_2d_pallas``
+  top-k merge       ``kernels/atmolight.py::merge_topk_pallas``
+
 For each, ``cuda_<name>`` launches the hand-written kernel on CUDA tensors
 (built at first use; a failed build or launch raises) and adds one to
 :data:`launches`; ``plain_<name>`` is a plain PyTorch version that follows
@@ -30,11 +36,13 @@ import torch.nn.functional as F
 
 SOURCE = "staged.cu"
 
+#: The staged chain's kernels, and the spatially sharded step's.
 KERNELS = ("dark_channel", "min_filter", "box_filter", "atmolight",
            "atmolight_topk", "recover")
+SPATIAL_KERNELS = ("masked_min_filter", "masked_box_filter", "merge_topk")
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
-launches: Dict[str, int] = {name: 0 for name in KERNELS}
+launches: Dict[str, int] = {name: 0 for name in KERNELS + SPATIAL_KERNELS}
 
 #: Output tile of a window block and the shared memory a block may use
 #: (``kTileX``/``kTileY``/``kMaxSmem`` in the CUDA source, checked at load).
@@ -74,6 +82,9 @@ def _lib() -> ctypes.CDLL:
             "st_atmolight": [vp, vp, vp, i, i, i, i, i, vp],
             "st_atmolight_topk": [vp, vp, vp, vp, i, i, i, i, i, i, vp],
             "st_recover": [vp, vp, vp, vp, i, i, i, f, f, i, i, i, vp],
+            "st_masked_min_filter": [vp, vp, vp, vp, i, i, i, i, i, vp],
+            "st_masked_box_filter": [vp, vp, vp, vp, i, i, i, i, i, vp],
+            "st_merge_topk": [vp, vp, vp, vp, vp, i, i, i, vp],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -453,17 +464,170 @@ def recover_op(img: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
         img, t, A, t0, gamma)
 
 
+# ---------------------------------------------------------------------------
+# Masked min and box filters (dark_channel.py::masked_min_filter_2d_pallas,
+# boxfilter.py::masked_box_filter_2d_pallas), the halo-extended planes of a
+# spatial shard
+# ---------------------------------------------------------------------------
+
+def _check_masks(x: torch.Tensor, valid: torch.Tensor,
+                 valid_w: Optional[torch.Tensor]) -> None:
+    _check_plane(x)
+    _dtype_code(x)
+    if tuple(valid.shape) != (x.shape[1],):
+        raise ValueError(f"row validity {tuple(valid.shape)} != (H,) = "
+                         f"{(x.shape[1],)}")
+    if valid_w is not None and tuple(valid_w.shape) != (x.shape[2],):
+        raise ValueError(f"column validity {tuple(valid_w.shape)} != (W,) = "
+                         f"{(x.shape[2],)}")
+
+
+def validity_bytes(valid: Optional[torch.Tensor], n: int,
+                   device) -> torch.Tensor:
+    """A validity vector as the kernels' bytes (non-zero valid); None is
+    all valid. A contiguous uint8 vector on ``device`` passes as it is."""
+    if valid is None:
+        return torch.ones(n, dtype=torch.uint8, device=device)
+    if tuple(valid.shape) != (n,):
+        raise ValueError(f"validity {tuple(valid.shape)} != ({n},)")
+    if valid.dtype == torch.uint8 and valid.device == torch.device(device) \
+            and valid.is_contiguous():
+        return valid
+    return (valid.to(device) != 0).to(torch.uint8).contiguous()
+
+
+def _masked_window(name: str, x, valid, radius, valid_w):
+    _check_masks(x, valid, valid_w)
+    _check_cuda(x)
+    dt = _dtype_code(x)
+    n, h, w = x.shape
+    _check_window(h, radius)
+    vh = validity_bytes(valid, h, x.device)
+    vw = validity_bytes(valid_w, w, x.device)
+    out = torch.empty_like(x)
+    _launch(name, x.data_ptr(), vh.data_ptr(), vw.data_ptr(), out.data_ptr(),
+            n, h, w, radius, dt)
+    return out
+
+
+def cuda_masked_min_filter(x: torch.Tensor, valid: torch.Tensor, radius: int,
+                           valid_w: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    return _masked_window("masked_min_filter", x, valid, radius, valid_w)
+
+
+def plain_masked_min_filter(x: torch.Tensor, valid: torch.Tensor,
+                            radius: int,
+                            valid_w: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """``core.spatial.masked_min_filter_2d``: invalid pixels +inf, in
+    float32, cast back."""
+    from repro_torch.core import spatial        # spatial imports this module
+    _check_masks(x, valid, valid_w)
+    return spatial.masked_min_filter_2d(x, valid, radius, valid_w)
+
+
+def masked_min_filter_op(x: torch.Tensor, valid: torch.Tensor, radius: int,
+                         valid_w: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """(N, H, W), (H,) [, (W,)] validity -> (N, H, W) in the input dtype."""
+    return (cuda_masked_min_filter if _on_kernel(x)
+            else plain_masked_min_filter)(x, valid, radius, valid_w)
+
+
+def cuda_masked_box_filter(x: torch.Tensor, valid: torch.Tensor, radius: int,
+                           valid_w: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    return _masked_window("masked_box_filter", x, valid, radius, valid_w)
+
+
+def plain_masked_box_filter(x: torch.Tensor, valid: torch.Tensor,
+                            radius: int,
+                            valid_w: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """``core.spatial.masked_box_filter_2d``: the windowed sum of the valid
+    pixels over the windowed count of the 2-D mask (at least 1)."""
+    from repro_torch.core import spatial        # spatial imports this module
+    _check_masks(x, valid, valid_w)
+    return spatial.masked_box_filter_2d(x, valid, radius, valid_w)
+
+
+def masked_box_filter_op(x: torch.Tensor, valid: torch.Tensor, radius: int,
+                         valid_w: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """(N, H, W), (H,) [, (W,)] validity -> (N, H, W) in the input dtype."""
+    return (cuda_masked_box_filter if _on_kernel(x)
+            else plain_masked_box_filter)(x, valid, radius, valid_w)
+
+
+# ---------------------------------------------------------------------------
+# Cross-shard top-k merge (atmolight.py::merge_topk_pallas)
+# ---------------------------------------------------------------------------
+
+def _check_merge(tk_t: torch.Tensor, tk_idx: torch.Tensor,
+                 tk_rgb: torch.Tensor, k: int) -> None:
+    if tk_t.dim() != 2:
+        raise ValueError(f"expected (N, M) t lists, got {tuple(tk_t.shape)}")
+    n, m = tk_t.shape
+    if tuple(tk_idx.shape) != (n, m) or tuple(tk_rgb.shape) != (n, m, 3):
+        raise ValueError(f"lists {tuple(tk_t.shape)}, {tuple(tk_idx.shape)}, "
+                         f"{tuple(tk_rgb.shape)} are not (N, M), (N, M), "
+                         "(N, M, 3)")
+    if (tk_t.dtype, tk_idx.dtype, tk_rgb.dtype) != (
+            torch.float32, torch.int32, torch.float32):
+        raise ValueError("the merge takes float32 t, int32 indices and "
+                         "float32 rgb")
+    if not 1 <= k <= m or n < 1:
+        raise ValueError(f"k={k} outside [1, M={m}], or N={n} < 1")
+
+
+def cuda_merge_topk(tk_t: torch.Tensor, tk_idx: torch.Tensor,
+                    tk_rgb: torch.Tensor, k: int) -> torch.Tensor:
+    _check_merge(tk_t, tk_idx, tk_rgb, k)
+    _check_cuda(tk_t, tk_idx, tk_rgb)
+    n, m = tk_t.shape
+    sel = torch.empty((n, k), dtype=torch.int32, device=tk_t.device)
+    out = torch.empty((n, 3), dtype=torch.float32, device=tk_t.device)
+    _launch("merge_topk", tk_t.data_ptr(), tk_idx.data_ptr(),
+            tk_rgb.data_ptr(), sel.data_ptr(), out.data_ptr(), n, m, k)
+    return out
+
+
+def plain_merge_topk(tk_t: torch.Tensor, tk_idx: torch.Tensor,
+                     tk_rgb: torch.Tensor, k: int) -> torch.Tensor:
+    """The k smallest (t, index) rows by a stable two-key sort
+    (``kernels.ref.topk_positions``), their rgb mean through
+    :func:`topk_mean`."""
+    from repro_torch.kernels import ref
+    _check_merge(tk_t, tk_idx, tk_rgb, k)
+    pick = ref.topk_positions(tk_t, tk_idx.to(torch.int64), k)
+    return topk_mean(tk_rgb, pick)
+
+
+def merge_topk_op(tk_t: torch.Tensor, tk_idx: torch.Tensor,
+                  tk_rgb: torch.Tensor, k: int) -> torch.Tensor:
+    """(N, M) float32 t, (N, M) int32 global index, (N, M, 3) float32 rgb
+    -> (N, 3) float32."""
+    return (cuda_merge_topk if _on_kernel(tk_t) else plain_merge_topk)(
+        tk_t, tk_idx, tk_rgb, k)
+
+
 #: Kernel name -> (CUDA wrapper, plain version): what ``chip_smoke.py``
 #: holds against each other.
 PAIRS = {name: (globals()[f"cuda_{name}"], globals()[f"plain_{name}"])
-         for name in KERNELS}
+         for name in KERNELS + SPATIAL_KERNELS}
 
-__all__ = ["SOURCE", "KERNELS", "launches", "reset_launches", "PAIRS",
-           "window_sum", "window_counts", "KEY_LAST", "topk_keys_signed",
+__all__ = ["SOURCE", "KERNELS", "SPATIAL_KERNELS", "launches",
+           "reset_launches", "PAIRS", "window_sum", "window_counts",
+           "validity_bytes", "KEY_LAST", "topk_keys_signed",
            "flip_key_order", "key_index", "key_t", "topk_select", "topk_mean",
            "cuda_dark_channel", "plain_dark_channel", "dark_channel_op",
            "cuda_min_filter", "plain_min_filter", "min_filter_op",
            "cuda_box_filter", "plain_box_filter", "box_filter_op",
            "cuda_atmolight", "plain_atmolight", "atmolight_op",
            "cuda_atmolight_topk", "plain_atmolight_topk", "atmolight_topk_op",
-           "cuda_recover", "plain_recover", "recover_op"]
+           "cuda_recover", "plain_recover", "recover_op",
+           "cuda_masked_min_filter", "plain_masked_min_filter",
+           "masked_min_filter_op", "cuda_masked_box_filter",
+           "plain_masked_box_filter", "masked_box_filter_op",
+           "cuda_merge_topk", "plain_merge_topk", "merge_topk_op"]

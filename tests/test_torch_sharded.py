@@ -177,13 +177,18 @@ _RANK = textwrap.dedent("""
                            ("a", o.atmo_light), ("A", o.state.A),
                            ("k", o.state.last_update)):
                 res[f"{algo}_{mode}_{key}"] = v.numpy()
-    # A model axis of size 2 would split the frame: not ported.
+    # A model axis of size 2 splits each frame into row halves.
     spatial = make_host_mesh(1, 2, device="cpu")
-    try:
-        make_step(DehazeConfig(), PlacementSpec.frame_sharded(), spatial)
-        res["spatial_raised"] = np.asarray("")
-    except NotImplementedError as e:
-        res["spatial_raised"] = np.asarray(str(e))
+    h_loc = data["frames"].shape[1] // 2
+    rows = slice(rank * h_loc, (rank + 1) * h_loc)
+    for mode in ("fused", "auto"):
+        cfg = DehazeConfig(kernel_mode=mode, gf_radius=8)
+        o = make_step(cfg, PlacementSpec.frame_sharded(), spatial)(
+            torch.from_numpy(np.ascontiguousarray(data["frames"][:, rows])),
+            torch.from_numpy(data["ids"]), init_atmo_state())
+        for key, v in (("frames", o.frames), ("t", o.transmission),
+                       ("a", o.atmo_light)):
+            res[f"spatial_{mode}_{key}"] = v.numpy()
     np.savez(out, **res)
     dist.destroy_process_group()
 """)
@@ -191,8 +196,8 @@ _RANK = textwrap.dedent("""
 
 def test_two_rank_frame_sharded_step_matches_single_device(tmp_path):
     """Two gloo ranks, two frames each: the concatenated blocks equal the
-    JAX single-device step on all four frames; a model axis of size 2
-    raises ``NotImplementedError``."""
+    JAX single-device step on all four frames; so do the row halves of a
+    model axis of size 2 (halo 23 over 16-row shards: two hops)."""
     rng = np.random.default_rng(2)
     B, H, W = 4, 32, 24
     frames = rng.random((B, H, W, 3)).astype(np.float32) * 0.8 + 0.1
@@ -228,19 +233,36 @@ def test_two_rank_frame_sharded_step_matches_single_device(tmp_path):
                 np.testing.assert_allclose(o[f"{key}_A"], as_np(want.state.A),
                                            atol=1e-5)
                 assert int(o[f"{key}_k"]) == int(want.state.last_update)
-    for o in outs:
-        assert "B8-B10" in str(o["spatial_raised"])
+    want = jax.jit(jax_single_step(JaxConfig(kernel_mode="ref",
+                                             gf_radius=8)))(
+        jnp.asarray(frames), jnp.asarray(ids), jax_init())
+    for mode in ("fused", "auto"):
+        got = {k: np.concatenate([o[f"spatial_{mode}_{k}"] for o in outs],
+                                 axis=0 if k == "a" else 1)[:B]
+               for k in ("frames", "t", "a")}
+        np.testing.assert_allclose(got["frames"], as_np(want.frames), atol=2e-5)
+        np.testing.assert_allclose(got["t"], as_np(want.transmission),
+                                   atol=2e-5)
+        np.testing.assert_allclose(got["a"], as_np(want.atmo_light), atol=1e-5)
 
 
 # --- contracts ---------------------------------------------------------------
 
 class _Mesh:
-    """A stand-in (data, model) mesh of the given sizes."""
+    """A stand-in (data, model) mesh of the given sizes; building a step
+    asks it for the data group and this rank's place, and communicates
+    nothing."""
     mesh_dim_names = ("data", "model")
     device_type = "cpu"
 
     def __init__(self, data, model):
         self.shape = (data, model)
+
+    def get_group(self, axis):
+        return None
+
+    def get_local_rank(self, axis):
+        return 0
 
 
 @pytest.mark.parametrize("placement", [
@@ -248,8 +270,10 @@ class _Mesh:
     PlacementSpec.frame_sharded(height_axis=None, width_axis="model"),
     PlacementSpec.lane_sharded(height_axis="model")])
 def test_spatial_axis_of_size_two_raises(placement):
-    with pytest.raises(NotImplementedError, match="B8-B10"):
-        make_step(DehazeConfig(), placement, _Mesh(1, 2))
+    """A spatial axis of size 2 once raised ``NotImplementedError``; the
+    halo exchange is ported, so the same placements now build a step on a
+    2-rank mesh (``tests/test_torch_spatial.py`` runs them)."""
+    assert callable(make_step(DehazeConfig(), placement, _Mesh(1, 2)))
 
 
 def test_placement_contracts(mesh):
