@@ -9,22 +9,35 @@ any error:
 
 1. the card's name and power limit, and the CUDA version;
 2. build every kernel source (one ``nvcc`` per source, all at once), then
-   hold every pass of the fused megakernel, and the whole, against its
-   plain PyTorch version on the card at the serving shape (4 lanes x 8
-   frames x 480x640) over {dcp, cap} x {topk 1, 4} x {f32, uint8, bf16}
-   with refine, and two cells without refine (one with gamma != 1); every
-   cell has an all-padding lane and chains a warm second batch on the
-   first batch's carries;
+   at the serving shape (4 lanes x 8 frames x 480x640) over {dcp, cap} x
+   {topk 1, 4} x {f32, uint8, bf16} with refine, two cells without refine
+   (one with gamma != 1) and two plateau cells (quantised uint8 frames
+   whose t ties across the 2-D tiles, top-1 and top-4), each cell with an
+   all-padding lane and a warm second batch chained on the first batch's
+   carries: run the megakernel's tiled passes and the ten passes they
+   replaced, every pass held against its plain PyTorch version on the
+   card; the tiled sequence against the ten passes with max error 0 in J,
+   t, a_seq and both carries; the whole against its plain version; then
+   the same on seven small cells that take the tiled passes' other code
+   paths (narrow and wide windows, 4-byte copies, tail tiles, gf_r >= 33,
+   frames off a 16-byte boundary); and four cells at the tiles' limit of
+   shared memory (He et al.'s gf_r = 60 on 480x640 frames, r = 37 and
+   gf_r = 46 just over it, r = 36 with gf_r = 45 just within): the
+   wrapper must run the ten passes where a halo does not fit a block and
+   the tiled passes where it does;
 3. serve 4 streams x 48 uint8 frames at 480x640 on 4 lanes through
    ``ElasticServer.serve_many`` with the fused config, then one stream
    through ``serve``, with the launch counters zeroed just before each path
-   and read just after it; every pass must have launched once per tick on
-   each path, and no staged kernel;
+   and read just after it; every tiled pass must have launched once per
+   tick on each path, and no pass of the ten and no staged kernel;
 4. aggregate fps of that ``serve_many`` over a longer window (4 streams x
    192 frames) whose sink only records the order, so phase 3's per-frame
    checks stay out of its wall;
-5. time every pass and the whole with CUDA events at the serving shape,
-   beside its bound, its plain version and the matching PyTorch call;
+5. time every pass of both sequences with CUDA events at the serving
+   shape, beside its bound, its direct-sum floor, its plain version and
+   the matching PyTorch call, the tiled passes also by device busy time;
+   then the whole tiled megakernel and the ten passes in turns in this
+   run, with their device busy time; print the tiled passes' blocks an SM;
 6. the staged chain (the default ``kernel_mode="auto"``) at the serving
    shape, DCP, top-1, refine, over uint8, float32 and bfloat16 ingest and
    one uint8 cell with gamma != 1, each with an all-padding lane and two
@@ -32,12 +45,18 @@ any error:
    its plain version on the same inputs; the whole step against the staged
    plain chain on the card; and, at float32 output, against the fused step
    (B1) on the same frames; neither step may make a synchronising CUDA
-   call;
+   call; then the atmospheric light (B6a) alone against its plain version
+   with error 0 on ramp and plateau frames, 32 and 1 frames of 480x640 and
+   32 of 481x643, float32 and bfloat16, each called twice in a row;
 7. phases 3 and 4 again with the default config (staged): per tick one
    dark channel, six box filters, one atmospheric light and one recover,
    and no megakernel pass; the aggregate fps over 4 streams x 192 frames;
-8. time the four staged kernels as phase 5 does, and the whole staged and
-   fused lane steps back to back;
+8. time the four staged kernels as phase 5 does, with their device busy
+   time and that of the PyTorch call, B6a and ``argmin`` + gather also a
+   call in a replayed CUDA graph (their event time is the host's launch
+   rate) and their device time with L2 flushed before each call
+   (repeated calls find t in L2; the flush reads 512 MB), and the whole
+   staged and fused lane steps back to back;
 9. staged CAP and staged top-k at the serving shape: cells {cap, dcp} x
    {topk 1, 4} x {uint8, bfloat16}, held as phase 6 holds its cells (every
    staged kernel call against its plain version, the step against the
@@ -79,8 +98,10 @@ any error:
    this measures no scaling;
 14. time B8a, B8b, B9 (a corner tile of the 2x2 tiling and an interior
    tile of a 4x4 one) and B10 as phase 12 does;
-15. print ``{"kernels": [...]}``, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+15. print ``{"kernels": [...]}`` (each kernel's launches on the path it
+   names: the tiled passes on the fused serving path, the ten passes on
+   the sharded steps where the fused transmission stage runs them), the
+   card line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -101,6 +122,7 @@ import torch.nn.functional as F  # noqa: E402
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+PEAK_F32_NONFMA_PER_S = 33.5e12  # the same, one add (not a fused multiply-add) a lane
 L, B, H, W = 4, 8, 480, 640
 SOURCE = "src/repro_torch/kernels/csrc/fused_dehaze.cu"
 CFG_KW = dict(radius=7, omega=0.95, beta=1.0, gf_radius=20, gf_eps=1e-3,
@@ -140,9 +162,15 @@ SPATIAL_REPLACES = {
     "fused_transmission_halo": "src/repro/kernels/fused.py:744",
 }
 
-# The part of the TPU kernel each pass replaces (file:line).
+# The part of the TPU kernel each pass replaces (file:line): the tiled
+# passes of the megakernel, then the ten passes they replaced (the fused
+# transmission stage's, and the tiled passes' comparator).
 REPLACES = {
     "fused_dehaze_lanes": "src/repro/kernels/fused.py:353",
+    "tmap_tile": "src/repro/kernels/fused.py:163",
+    "select_ema": "src/repro/kernels/fused.py:180",
+    "guided_ab": "src/repro/kernels/fused.py:126",
+    "refine_recover": "src/repro/kernels/fused.py:243",
     "premap": "src/repro/kernels/fused.py:163",
     "min_rows": "src/repro/kernels/fused.py:164",
     "min_cols_tmap": "src/repro/kernels/fused.py:165",
@@ -172,12 +200,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ramps(seed: int, n: int) -> np.ndarray:
-    """n frames, each its own permutation ramp over its H*W pixels (a ramp
+def ramps(seed: int, n: int, h: int = H, w: int = W) -> np.ndarray:
+    """n frames, each its own permutation ramp over its h*w pixels (a ramp
     over all frames at once would space levels near the float32 ulp), with
     channel scales (1.0, 0.9, 0.8)."""
     r = np.random.default_rng(seed)
-    g = np.stack([(r.permutation(H * W).reshape(H, W) + 1.0) / (H * W + 1.0)
+    g = np.stack([(r.permutation(h * w).reshape(h, w) + 1.0) / (h * w + 1.0)
                   for _ in range(n)])
     return np.stack([g, 0.9 * g, 0.8 * g], axis=-1).astype(np.float32)
 
@@ -203,19 +231,25 @@ PASS_TOL = {                      # pass -> (tolerance, relative to magnitude?)
     "topk_merge": (1e-6, False), "ema": (1e-6, False),
     "box_rows4": (1e-5, True), "box_cols_ab": (1e-3, False),
     "box_rows2": (1e-5, True), "recover": (1e-3, False),
+    # The tiled passes: t_raw, g and the tile keys exact; the candidate and
+    # the EMA as topk_merge and ema; a/b and J/t as box_cols_ab and recover.
+    "tmap_tile": (0.0, False), "select_ema": (1e-6, False),
+    "guided_ab": (1e-3, False), "refine_recover": (1e-3, False),
 }
 
 
 def pass_error(name: str, got, want, tols=PASS_TOL) -> float:
     """Max error of one pass's outputs (relative to max(1, |want|) for the
-    window sums, whose magnitude grows with the window)."""
-    if name == "topk_block":
-        return 0.0 if torch.equal(got, want) else float("inf")
+    window sums, whose magnitude grows with the window); integer outputs
+    (keys) must be equal."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = 0.0
     for g, w in zip(got, want):
         if g is None:
+            continue
+        if not g.dtype.is_floating_point:
+            err = max(err, 0.0 if torch.equal(g, w) else float("inf"))
             continue
         # Equal entries differ by 0, also where both are infinite (the
         # masked passes' invalid pixels).
@@ -226,52 +260,56 @@ def pass_error(name: str, got, want, tols=PASS_TOL) -> float:
     return err
 
 
-def run_checked(img, ids, cf, ci, s, errs):
-    """The CUDA pass sequence with each pass held against its plain pass
-    on the same inputs; returns the CUDA outputs."""
+def checked_passes(s, errs):
+    """Every pass of the megakernel's two sequences, each call running the
+    CUDA pass and its plain pass on the same inputs, held to PASS_TOL; the
+    CUDA outputs go on."""
     from repro_torch.kernels import fused as fk
 
-    def both(name, *args):
-        got = fk.CUDA_PASSES[name](*args, s)
-        want = fk.PLAIN_PASSES[name](*args, s)
-        err = pass_error(name, got, want)
-        tol = PASS_TOL[name][0]
-        if name == "recover" and s.out_dtype == torch.bfloat16:
-            tol = 2e-2                   # J/t stored in bfloat16
-        check(err <= tol, f"pass {name} ({s.algorithm} k={s.topk} "
-              f"{s.in_dtype} refine={s.refine}): error {err} > {tol}")
-        errs[name] = max(errs.get(name, 0.0), err)
-        return got
-
-    pre, g = both("premap", img, cf)
-    t_raw = both("min_cols_tmap", both("min_rows", pre))
-    cand = both("topk_merge", both("topk_block", t_raw), img)
-    a_seq, cf2, ci2 = both("ema", cand, ids, cf, ci)
-    rows2 = None
-    if s.refine:
-        rows2 = both("box_rows2", both("box_cols_ab", both("box_rows4", g, t_raw)))
-    J, t = both("recover", img, t_raw, g, rows2, a_seq)
-    return J, t, a_seq, cf2, ci2
+    def checked(name):
+        def run(*args):
+            got = fk.CUDA_PASSES[name](*args)
+            want = fk.PLAIN_PASSES[name](*args)
+            err = pass_error(name, got, want)
+            tol = PASS_TOL[name][0]
+            if name in ("recover", "refine_recover") and s.out_dtype == torch.bfloat16:
+                tol = 2e-2               # J/t stored in bfloat16
+            check(err <= tol, f"pass {name} ({s.algorithm} k={s.topk} "
+                  f"{s.in_dtype} refine={s.refine}): error {err} > {tol}")
+            errs[name] = max(errs.get(name, 0.0), err)
+            return got
+        return run
+    return {name: checked(name) for name in fk.CUDA_PASSES}
 
 
 def phase_parity():
+    """Every phase-2 cell: the tiled sequence and the ten-pass sequence,
+    each pass held against its plain pass; the tiled sequence against the
+    ten passes (max error 0 in J, t, a_seq and both carries), against the
+    wrapper and against the plain version of the whole."""
     from repro_torch.kernels import fused as fk
     from repro_torch.kernels import ref
-    cells = [(alg, k, dt, True, 1.0)
+    cells = [(alg, k, dt, True, 1.0, False)
              for alg in ("dcp", "cap") for k in (1, 4)
              for dt in (torch.float32, torch.uint8, torch.bfloat16)]
     # gamma != 1 without refine: the tone curve's slope near black turns a
     # refine-order difference of 1e-5 in J into 1e-2, while without refine
     # J is exact before the curve.
-    cells += [("dcp", 1, torch.float32, False, 1.0),
-              ("cap", 1, torch.uint8, False, 1.0 / 2.2)]
-    frames = ramps(0, 2 * L * B).reshape(2, L, B, H, W, 3)
-    pass_errs, whole_errs = {}, {"J_t": 0.0, "a_seq_carry": 0.0}
-    for alg, k, dt, refine, gamma in cells:
+    cells += [("dcp", 1, torch.float32, False, 1.0, False),
+              ("cap", 1, torch.uint8, False, 1.0 / 2.2, False)]
+    # Plateaus: quantised frames whose t ties across the 2-D tiles, so the
+    # top-1 merge must compare whole (t, index) keys, not tile numbers.
+    cells += [("dcp", k, torch.uint8, True, 1.0, True) for k in (1, 4)]
+    ramp = ramps(0, 2 * L * B).reshape(2, L, B, H, W, 3)
+    plateau = plateau_frames(2 * L * B).reshape(2, L, B, H, W, 3)
+    pass_errs = {}
+    whole_errs = {"J_t": 0.0, "a_seq_carry": 0.0, "tiled_vs_ten_pass": 0.0}
+    for alg, k, dt, refine, gamma, flat in cells:
         kw = dict(CFG_KW, algorithm=alg, topk=k, refine=refine, gamma=gamma)
         cf_k = cf_p = torch.ones(L, 3, device="cuda")
         ci_k = ci_p = torch.tensor([[-(2 ** 30), 0]] * L, dtype=torch.int32,
                                    device="cuda")
+        frames = plateau if flat else ramp
         for batch in range(2):
             img = to_wire(frames[batch].reshape(-1, 3), dt).reshape(
                 L, B, H, W, 3).cuda()
@@ -279,13 +317,20 @@ def phase_parity():
             ids[L - 1] = -1                                   # padding lane
             ids = ids.cuda()
             s = fk.make_static(img, **kw)
-            got = run_checked(img, ids, cf_k, ci_k, s, pass_errs)
+            passes = checked_passes(s, pass_errs)
+            got = fk.run_tiled_passes(img, ids, cf_k, ci_k, s, passes)
+            ten = fk.run_passes(img, ids, cf_k, ci_k, s, passes)
             whole = fk.fused_dehaze_lanes(img, ids, cf_k, ci_k, **kw)
             torch.cuda.synchronize()
             want = ref.fused_dehaze_lanes(img, ids, cf_p, ci_p, **kw)
+            cell = (f"{alg} k={k} {dt} refine={refine} gamma={gamma:.3f}"
+                    f"{' plateau' if flat else ''} b{batch}")
+            e_ten = max(max_err(g1, g2) for g1, g2 in zip(got, ten))
+            check(e_ten == 0.0 and all(torch.equal(g1, g2)
+                                       for g1, g2 in zip(got, ten)),
+                  f"{cell}: tiled passes vs ten passes max error {e_ten}")
             for g1, g2 in zip(got, whole):                    # same kernels
                 check(torch.equal(g1, g2), "pass chain != wrapper")
-            cell = f"{alg} k={k} {dt} refine={refine} gamma={gamma:.3f} b{batch}"
             e_jt = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
             e_a = max(max_err(got[2], want[2]), max_err(got[3], want[3]))
             tol = 2e-2 if dt == torch.bfloat16 else 1e-3
@@ -301,12 +346,124 @@ def phase_parity():
                       f"{cell}: t differs without refine")
             whole_errs["J_t"] = max(whole_errs["J_t"], e_jt)
             whole_errs["a_seq_carry"] = max(whole_errs["a_seq_carry"], e_a)
+            whole_errs["tiled_vs_ten_pass"] = max(
+                whole_errs["tiled_vs_ten_pass"], e_ten)
             cf_k, ci_k, cf_p, ci_p = got[3], got[4], want[3], want[4]
         print(f"parity {alg} k={k} {str(dt):15s} refine={refine} "
-              f"gamma={gamma:.3f}: ok", flush=True)
+              f"gamma={gamma:.3f}{' plateau' if flat else ''}: ok", flush=True)
+    check_tiled_shapes(pass_errs, whole_errs)
+    check_wide_windows(pass_errs, whole_errs)
     print("parity max errors: passes " + json.dumps(pass_errs)
           + " whole " + json.dumps(whole_errs), flush=True)
     return pass_errs, whole_errs
+
+
+def check_tiled_shapes(pass_errs, whole_errs) -> None:
+    """The tiled passes' other code paths, on 2 lanes x 2 frames: windows
+    narrower than a register run (r = 0, 3; gf_r = 0, 4), 4-byte copies
+    (frame widths off 4-float boundaries), tail tiles, windows wider than
+    the frame, vertical sums that cannot overwrite their inputs (gf_r 33,
+    40), and frames that do not start on a 16-byte boundary; each pass
+    against its plain pass, the sequence against the ten passes (max
+    error 0)."""
+    from repro_torch.kernels import fused as fk
+    # (algorithm, topk, dtype, r, gf_r, H, W, misaligned frames)
+    cells = [("dcp", 1, torch.float32, 3, 4, 50, 70, False),
+             ("cap", 4, torch.uint8, 0, 0, 50, 70, False),
+             ("dcp", 1, torch.float32, 12, 25, 20, 30, False),
+             ("dcp", 1, torch.uint8, 7, 40, 50, 70, False),
+             ("dcp", 4, torch.bfloat16, 5, 33, 37, 131, False),
+             ("dcp", 1, torch.uint8, 7, 20, 50, 70, True),
+             ("cap", 1, torch.float32, 7, 20, 50, 70, True)]
+    for alg, k, dt, r, gr, h, w, shifted in cells:
+        x = to_wire(ramps(11, 4, h, w).reshape(-1, 3), dt).reshape(-1).cuda()
+        if shifted:                  # one element past a 16-byte boundary
+            buf = torch.empty(x.numel() + 1, dtype=dt, device="cuda")
+            buf[1:] = x
+            x = buf[1:]
+        img = x.view(2, 2, h, w, 3)
+        kw = dict(CFG_KW, radius=r, gf_radius=gr, algorithm=alg, topk=k,
+                  refine=True)
+        s = fk.make_static(img, **kw)
+        ids = torch.arange(2, dtype=torch.int32, device="cuda").repeat(2, 1)
+        cf = torch.ones(2, 3, device="cuda")
+        ci = torch.tensor([[-(2 ** 30), 0]] * 2, dtype=torch.int32, device="cuda")
+        passes = checked_passes(s, pass_errs)
+        got = fk.run_tiled_passes(img, ids, cf, ci, s, passes)
+        ten = fk.run_passes(img, ids, cf, ci, s, passes)
+        torch.cuda.synchronize()
+        e = max(max_err(g1, g2) for g1, g2 in zip(got, ten))
+        check(e == 0.0 and all(torch.equal(g1, g2) for g1, g2 in zip(got, ten)),
+              f"tiled vs ten passes, {alg} k={k} {dt} r={r} gf_r={gr} {h}x{w}"
+              f"{' misaligned' if shifted else ''}: max error {e}")
+        whole_errs["tiled_vs_ten_pass"] = max(whole_errs["tiled_vs_ten_pass"], e)
+    print(f"tiled passes on {len(cells)} small cells (narrow and wide windows, "
+          "4-byte copies, tails, no overwrite, misaligned frames): equal to "
+          "the ten passes", flush=True)
+
+
+def check_wide_windows(pass_errs, whole_errs) -> None:
+    """Windows whose halo does not fit a tiled pass's block: the wrapper
+    must run the ten passes (chosen from the shape, before any launch) and
+    a tiled pass called alone must raise; at the widest windows that fit it
+    runs the tiled passes. He et al.'s guided filter (gf_r = 60) on 2 x 2
+    frames of 480x640, the first radius and gf_radius over the limit on
+    small frames, and the largest that fit; every pass against its plain
+    pass, the wrapper against the ten passes (max error 0) and against the
+    plain version of the whole."""
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import ref
+    # (algorithm, topk, dtype, r, gf_r, H, W, the tiled passes fit)
+    cells = [("dcp", 1, torch.uint8, 7, 60, H, W, False),
+             ("cap", 4, torch.float32, 37, 20, 50, 70, False),
+             ("dcp", 1, torch.bfloat16, 3, 46, 50, 70, False),
+             ("dcp", 1, torch.float32, 36, 45, 50, 70, True)]
+    for alg, k, dt, r, gr, h, w, fits in cells:
+        img = to_wire(ramps(12, 4, h, w).reshape(-1, 3), dt).reshape(
+            2, 2, h, w, 3).cuda()
+        kw = dict(CFG_KW, radius=r, gf_radius=gr, algorithm=alg, topk=k,
+                  refine=True)
+        s = fk.make_static(img, **kw)
+        cell = f"{alg} k={k} {dt} r={r} gf_r={gr} {h}x{w}"
+        check(fk.tiled_fits(s) == fits, f"{cell}: tiled_fits != {fits}")
+        ids = torch.arange(2, dtype=torch.int32, device="cuda").repeat(2, 1)
+        cf = torch.ones(2, 3, device="cuda")
+        ci = torch.tensor([[-(2 ** 30), 0]] * 2, dtype=torch.int32, device="cuda")
+        fk.reset_launches()
+        got = fk.fused_dehaze_lanes(img, ids, cf, ci, **kw)
+        torch.cuda.synchronize()
+        ran = {n: c for n, c in fk.launches.items() if c}
+        want_ran = (dict.fromkeys(fk.TILED_PASSES, 1) if fits else
+                    dict.fromkeys(fk.PASSES, 1))
+        if fits and k > 1:
+            want_ran["topk_block"] = 1
+        check(ran == want_ran, f"{cell}: launches {ran}, expected {want_ran}")
+        ten = fk.run_passes(img, ids, cf, ci, s, checked_passes(s, pass_errs))
+        torch.cuda.synchronize()
+        e = max(max_err(g1, g2) for g1, g2 in zip(got, ten))
+        check(e == 0.0 and all(torch.equal(g1, g2) for g1, g2 in zip(got, ten)),
+              f"{cell}: wrapper vs ten passes max error {e}")
+        want = ref.fused_dehaze_lanes(img, ids, cf, ci, **kw)
+        e_jt = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        e_a = max(max_err(got[2], want[2]), max_err(got[3], want[3]))
+        tol = 2e-2 if dt == torch.bfloat16 else 1e-3
+        check(e_jt <= tol and e_a <= 1e-5 and torch.equal(got[4], want[4]),
+              f"{cell}: against the plain version J/t {e_jt}, a_seq {e_a}")
+        if not fits:
+            try:
+                t_raw, g, keys = fk.cuda_tmap_tile(img, cf, s)
+                fk.cuda_guided_ab(g, t_raw, s)
+            except RuntimeError:
+                pass
+            else:
+                fail(f"{cell}: a tiled pass launched a halo that does not fit")
+        whole_errs["J_t"] = max(whole_errs["J_t"], e_jt)
+        whole_errs["a_seq_carry"] = max(whole_errs["a_seq_carry"], e_a)
+    fk.reset_launches()
+    print(f"wide windows on {len(cells)} cells (gf_r 60 at 480x640; r 37, "
+          "gf_r 46 over the tiles' limit, r 36 + gf_r 45 within it): the "
+          "wrapper ran the ten passes where the tiles do not fit, the tiled "
+          "passes where they do, equal to the ten passes", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +485,7 @@ def all_launches() -> dict:
     the halo stage's whole runs)."""
     from repro_torch.kernels import fused as fk, staged as sk
     counts = dict(fk.launches)
-    counts["fused_dehaze_lanes"] = counts["premap"]
+    counts["fused_dehaze_lanes"] = counts["tmap_tile"]
     counts.update({f"staged.{k}": n for k, n in sk.launches.items()})
     counts.update({f"fused_transmission.{k}": n
                    for k, n in fk.transmission_launches.items()})
@@ -340,8 +497,10 @@ def all_launches() -> dict:
 
 
 def fused_per_tick() -> dict:
+    """The serving config (top-1, refine): each tiled pass once a tick, and
+    none of the ten passes."""
     from repro_torch.kernels import fused as fk
-    return {name: 1 for name in ("fused_dehaze_lanes",) + fk.PASSES}
+    return {name: 1 for name in ("fused_dehaze_lanes",) + fk.TILED_PASSES}
 
 
 def transmission_per_tick() -> dict:
@@ -501,15 +660,71 @@ def device_busy_ms(fn, reps: int = 5):
     return us / reps / 1e3 if us else None
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of ``fn`` a call without the host: ``reps`` calls
+    captured in one CUDA graph, the graph replayed between CUDA events
+    (the gaps between its kernels included)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, reps=5, warmup=1) / reps
+
+
+def flushed_busy_ms(fn, reps: int = 10):
+    """Device time of ``fn``'s own kernels a call with its inputs out of
+    L2: each call follows a read of a 512 MB buffer (ten times the H100's
+    L2; a sum, which leaves L2 full of clean lines, none of them ``fn``'s
+    and none dirty to write back while ``fn`` runs). From a
+    ``torch.profiler`` trace, leaving out the kernels that a trace of the
+    sum alone shows; None where the trace shows nothing or fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    junk = torch.zeros(128 << 20, dtype=torch.float32, device="cuda")
+
+    def kernels(run):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return [(e.name, e.device_time_total) for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+
+    def calls():
+        for _ in range(reps):
+            junk.sum()
+            fn()
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        flush = {name for name, _ in kernels(junk.sum)}
+        us = sum(t for name, t in kernels(calls) if name not in flush)
+    except Exception as e:       # a measurement only: report, go on
+        print(f"device time not measured: {e!r}", flush=True)
+        return None
+    return us / reps / 1e3 if us else None
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def phase_times():
-    """Every pass of the serving config (DCP, top-1, refine, uint8 in,
-    float32 out). The bound counts each input read once and each output
-    written once, and the float32 operations of a sliding-window
-    algorithm (O(1) per pixel per window pass)."""
+    """Every pass of both sequences at the serving config (DCP, top-1,
+    refine, uint8 in, float32 out), then the whole tiled megakernel and the
+    ten-pass sequence in turns (ten, tiled, tiled, ten), with their device
+    busy time. ``bound_ms`` counts each input read once and each output
+    written once, and the float32 operations of a sliding-window algorithm
+    (O(1) per pixel per window pass) at the card's peak; ``floor_ms`` is
+    the operations of the direct window sums the kernels keep (2r+1 terms
+    an output a direction) over the non-FMA float32 rate."""
     from repro_torch.kernels import fused as fk
     from repro_torch.kernels import ref
     kw = dict(CFG_KW, algorithm="dcp", topk=1, refine=True)
@@ -530,6 +745,10 @@ def phase_times():
     ab = C["box_cols_ab"](rows4, s)
     rows2 = C["box_rows2"](ab, s)
     J, t = C["recover"](img, t_raw, g, rows2, a_seq, s)
+    tt_raw, tg, tkeys = C["tmap_tile"](img, cf, s)
+    ta_seq, tcf, tci = C["select_ema"](tkeys, img, ids, cf, ci, s)
+    tab = C["guided_ab"](tg, tt_raw, s)
+    tJ, tt = C["refine_recover"](img, tt_raw, tg, tab, ta_seq, s)
     npx = L * B * H * W
     k, kg = 2 * s.radius + 1, 2 * s.gf_radius + 1
     neg = (-pre)[:, None].contiguous()
@@ -547,45 +766,86 @@ def phase_times():
                                             count_include_pad=False),
         "box_rows2": lambda: F.avg_pool2d(planes2, (kg, 1), 1, (s.gf_radius, 0),
                                           count_include_pad=False),
-        "fused_dehaze_lanes": None,
     }
-    # name -> (args, bytes moved, float32 operations)
+    frames = 3 * L * B
+    # name -> (args, bytes moved, sliding-window operations, direct-sum
+    # operations)
     work = {
-        "premap": ((img, cf), nbytes(img, pre, g), 10 * npx),
-        "min_rows": ((pre,), nbytes(pre, rows), 3 * npx),
-        "min_cols_tmap": ((rows,), nbytes(rows, t_raw), 5 * npx),
-        "topk_block": ((t_raw,), nbytes(t_raw, keys), 4 * npx),
+        "premap": ((img, cf), nbytes(img, pre, g), 10 * npx, 10 * npx),
+        "min_rows": ((pre,), nbytes(pre, rows), 3 * npx, k * npx),
+        "min_cols_tmap": ((rows,), nbytes(rows, t_raw), 5 * npx, (k + 2) * npx),
+        "topk_block": ((t_raw,), nbytes(t_raw, keys), 4 * npx, 4 * npx),
         "topk_merge": ((keys, img), nbytes(keys, cand) + 3 * L * B * s.topk,
-                       keys.numel()),
+                       keys.numel(), keys.numel()),
         "ema": ((cand, ids, cf, ci), nbytes(cand, ids, cf, ci, a_seq, cf2, ci2),
-                10 * 3 * L * B),
-        "box_rows4": ((g, t_raw), nbytes(g, t_raw, rows4), 10 * npx),
-        "box_cols_ab": ((rows4,), nbytes(rows4, ab), 20 * npx),
-        "box_rows2": ((ab,), nbytes(ab, rows2), 4 * npx),
+                10 * frames, 10 * frames),
+        "box_rows4": ((g, t_raw), nbytes(g, t_raw, rows4), 10 * npx,
+                      (2 + 4 * kg) * npx),
+        "box_cols_ab": ((rows4,), nbytes(rows4, ab), 20 * npx, (4 * kg + 12) * npx),
+        "box_rows2": ((ab,), nbytes(ab, rows2), 4 * npx, 2 * kg * npx),
         "recover": ((img, t_raw, g, rows2, a_seq),
-                    nbytes(img, g, rows2, a_seq, J, t), 24 * npx),
+                    nbytes(img, g, rows2, a_seq, J, t), 24 * npx,
+                    (2 * kg + 19) * npx),
+        "tmap_tile": ((img, cf), nbytes(img, cf, tt_raw, tg, tkeys), 22 * npx,
+                      (2 * k + 16) * npx),
+        "select_ema": ((tkeys, img, ids, cf, ci),
+                       nbytes(tkeys, ids, cf, ci, ta_seq, tcf, tci) + 3 * L * B * s.topk,
+                       tkeys.numel() + 10 * frames, tkeys.numel() + 10 * frames),
+        "guided_ab": ((tg, tt_raw), nbytes(tg, tt_raw, tab), 30 * npx,
+                      (8 * kg + 14) * npx),
+        "refine_recover": ((img, tt_raw, tg, tab, ta_seq),
+                           nbytes(img, tg, tab, ta_seq, tJ, tt), 28 * npx,
+                           (4 * kg + 19) * npx),
     }
     rows_out = {}
-    for name, (args, nb, ops) in work.items():
+    for name, (args, nb, ops, direct) in work.items():
         ms = time_ms(lambda: C[name](*args, s))
         plain_ms = time_ms(lambda: P[name](*args, s), reps=5, warmup=1)
         lib = yard.get(name)
         rows_out[name] = dict(ms=ms, plain_ms=plain_ms,
                               library_ms=time_ms(lib) if lib else None,
-                              bytes=nb, ops=ops)
+                              device_busy_ms=(device_busy_ms(lambda: C[name](*args, s))
+                                              if name in fk.TILED_PASSES else None),
+                              bytes=nb, ops=ops, direct_ops=direct)
     whole_args = (img, ids, cf, ci)
     nb = nbytes(img, ids, cf, ci, J, t, a_seq, cf2, ci2)
+    tiled = lambda: fk.fused_dehaze_lanes(*whole_args, **kw)   # noqa: E731
+    ten = lambda: fk.run_passes(*whole_args, s)                # noqa: E731
+    turns = [(name, time_ms(fn)) for name, fn in
+             (("ten_pass", ten), ("tiled", tiled), ("tiled", tiled), ("ten_pass", ten))]
+    mean = {n: sum(v for m, v in turns if m == n) / 2 for n in ("tiled", "ten_pass")}
+    busy = {"tiled": device_busy_ms(tiled), "ten_pass": device_busy_ms(ten)}
     rows_out["fused_dehaze_lanes"] = dict(
-        ms=time_ms(lambda: fk.fused_dehaze_lanes(*whole_args, **kw)),
+        ms=mean["tiled"], device_busy_ms=busy["tiled"],
         plain_ms=time_ms(lambda: ref.fused_dehaze_lanes(*whole_args, **kw),
                          reps=3, warmup=1),
         library_ms=None, bytes=nb,
-        ops=sum(v[2] for v in work.values()))
+        ops=sum(work[n][2] for n in fk.TILED_PASSES),
+        direct_ops=sum(work[n][3] for n in fk.TILED_PASSES),
+        ten_pass_ms=mean["ten_pass"], ten_pass_busy_ms=busy["ten_pass"],
+        turns_ms=[v for _, v in turns])
     for r in rows_out.values():
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_F32_OPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        r["floor_ms"] = r["direct_ops"] / PEAK_F32_NONFMA_PER_S * 1e3
+    print("tiled passes, blocks an SM (tmap_tile, guided_ab, refine_recover): "
+          f"{list(fk.tiled_occupancy(s))}", flush=True)
+    print("megakernel passes at the serving shape (ms, device busy ms, bound "
+          "ms, direct-sum floor ms):", flush=True)
+    for name, r in rows_out.items():
+        print(f"  {name:20s} {r['ms']:9.4f}  "
+              f"{'-' if r['device_busy_ms'] is None else '%.4f' % r['device_busy_ms']:>8s}  "
+              f"{r['bound_ms']:8.4f}  {r['floor_ms']:8.4f}", flush=True)
+    whole = rows_out["fused_dehaze_lanes"]
+    print(f"whole megakernel, turns (ten, tiled, tiled, ten) {whole['turns_ms']} "
+          f"ms: tiled {whole['ms']} ms (device busy {whole['device_busy_ms']}), "
+          f"ten passes {whole['ten_pass_ms']} ms (device busy "
+          f"{whole['ten_pass_busy_ms']})", flush=True)
+    check(whole["ms"] <= whole["ten_pass_ms"],
+          f"tiled megakernel {whole['ms']} ms slower than the ten passes "
+          f"{whole['ten_pass_ms']} ms")
     return rows_out
 
 
@@ -756,6 +1016,33 @@ def check_large_topk(errs) -> None:
           f"{errs['atmolight_topk']}", flush=True)
 
 
+def check_atmolight(errs) -> None:
+    """B6a alone against its plain version, error 0: ramp and plateau
+    frames (uint8-quantised, upcast, t from the dark channel), 32 and 1
+    frames of 480x640 and 32 of 481x643 (P not a multiple of the tile),
+    float32 and bfloat16, each called twice in a row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import staged as sk
+    for n, h, w in ((L * B, H, W), (1, H, W), (L * B, 481, 643)):
+        for label, x_np in (("ramp", ramps(10, n, h, w)),
+                            ("plateau", plateau_frames(n, h, w))):
+            x = ref.upcast_frames(to_wire(x_np.reshape(-1, 3), torch.uint8)).reshape(
+                n, h, w, 3).cuda()
+            t = 1.0 - 0.95 * sk.cuda_dark_channel(x, 7)
+            for dt in (torch.float32, torch.bfloat16):
+                xd, td = x.to(dt), t.to(dt)
+                first, second = sk.cuda_atmolight(xd, td), sk.cuda_atmolight(xd, td)
+                torch.cuda.synchronize()
+                want = sk.plain_atmolight(xd, td)
+                err = max(max_err(first, want), max_err(second, want))
+                check(err == 0.0 and torch.equal(first, want) and torch.equal(second, want),
+                      f"staged atmolight {n}x{h}x{w} {label} {dt}: error {err}")
+                errs["atmolight"] = max(errs.get("atmolight", 0.0), err)
+    print("staged atmolight (B6a) alone, 32 and 1 frames of 480x640 and 32 "
+          "of 481x643, ramp and plateau, float32 and bfloat16, twice each: "
+          "error 0", flush=True)
+
+
 def check_no_sync(step, frames, ids, state, label: str) -> None:
     """One step on device-resident inputs must make no synchronising CUDA
     call: a sync would also wait for the D2H copies of earlier ticks that
@@ -835,7 +1122,30 @@ def phase_staged_times():
             plain_ms=time_ms(lambda: plain(*args), reps=5, warmup=1),
             library_ms=time_ms(lib) if lib else None,
             bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            # The kernels' own time a call, and the library call's: where
+            # ms is well above it, the host's launch rate sets ms.
+            device_busy_ms=device_busy_ms(lambda: kernel(*args)),
+            library_busy_ms=device_busy_ms(lib) if lib else None)
+    # B6a's two launches, and argmin + gather, are bound by the host's
+    # launch rate in ms: their device time, from a CUDA graph's replay.
+    a = out["atmolight"]
+    args, lib = work["atmolight"][0], work["atmolight"][3]
+    a["graph_ms"] = graph_ms(lambda: sk.cuda_atmolight(*args))
+    a["library_graph_ms"] = graph_ms(lib)
+    # Repeated calls find t in L2 (39.3 MB of a 50 MB L2), so their device
+    # time can beat the HBM bound: also with L2 flushed before each call.
+    a["flushed_busy_ms"] = flushed_busy_ms(lambda: sk.cuda_atmolight(*args))
+    a["library_flushed_busy_ms"] = flushed_busy_ms(lib)
+    share = (a["bound_ms"] / a["flushed_busy_ms"]
+             if a["flushed_busy_ms"] else None)
+    print(f"staged atmolight (B6a): {a['ms']} ms, in a CUDA graph "
+          f"{a['graph_ms']} ms a call, device busy {a['device_busy_ms']} ms, "
+          f"L2 flushed {a['flushed_busy_ms']} ms (bound share {share}); "
+          f"argmin + gather {a['library_ms']} ms, in a CUDA graph "
+          f"{a['library_graph_ms']} ms, device busy {a['library_busy_ms']} ms, "
+          f"L2 flushed {a['library_flushed_busy_ms']} ms; bound "
+          f"{a['bound_ms']} ms", flush=True)
     return out
 
 
@@ -1154,10 +1464,10 @@ def stitch(parts, tiling):
                       for i in range(n_h)], dim=1)
 
 
-def plateau_frames(n: int) -> np.ndarray:
+def plateau_frames(n: int, h: int = H, w: int = W) -> np.ndarray:
     """Quantised frames (``tests/test_parity_matrix.py``): equal-t plateaus
     across the tile boundaries, per-pixel rgb still varying inside them."""
-    q = np.round(np.random.default_rng(8).random((n, H, W, 3)) * 4) / 4
+    q = np.round(np.random.default_rng(8).random((n, h, w, 3)) * 4) / 4
     return (q * 0.8 + 0.1).astype(np.float32)
 
 
@@ -1378,6 +1688,7 @@ def main() -> int:
     times = phase_times()
 
     staged_errs, _ = phase_staged_parity(STAGED_CELLS)
+    check_atmolight(staged_errs)
     cfg_staged = DehazeConfig(io_dtype="uint8")            # kernel_mode "auto"
     s_launches, s_launches_serve, s_ticks = phase_serve(
         cfg_staged, vids, STAGED_PER_TICK, "staged ")
@@ -1396,40 +1707,65 @@ def main() -> int:
 
     kernels = []
 
-    def entry(name, source, replaces, r, err, many, serve, ticks_):
+    def entry(name, source, replaces, r, err, many, serve, ticks_, path):
+        """One kernel's record; ``many`` and ``serve`` hold the launch
+        counts of the run of ``path`` (``ticks_`` steps) named."""
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": many[name],
+            "replaces": replaces, "path": path, "launches": many[name],
             "launches_serve": serve[name] if serve else None,
             "launches_per_tick": many[name] / ticks_,
             "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("floor_ms", "device_busy_ms", "library_busy_ms",
+                                 "graph_ms", "library_graph_ms", "flushed_busy_ms",
+                                 "library_flushed_busy_ms", "ten_pass_ms",
+                                 "ten_pass_busy_ms") if r.get(k) is not None}})
         print(f"{name:36s} {r['ms']:9.4f} ms  bound {r['bound_ms']:8.4f} ms "
               f"({r['bound_by']})  plain {r['plain_ms']:9.3f} ms  library "
               f"{'-' if r['library_ms'] is None else '%.4f ms' % r['library_ms']}"
-              f"  launches {many[name]} ({many[name] / ticks_:g}/step)"
+              f"  launches {many[name]} ({many[name] / ticks_:g}/step on {path})"
               + ("" if serve is None else f", {serve[name]} on serve"),
               flush=True)
 
-    for name in ("fused_dehaze_lanes",) + fk.PASSES:
+    # The megakernel: the tiled passes on the fused serving path (phase 3).
+    for name in ("fused_dehaze_lanes",) + fk.TILED_PASSES:
         err = (max(whole_errs.values()) if name == "fused_dehaze_lanes"
                else pass_errs[name])
         full = name if name == "fused_dehaze_lanes" else f"fused_dehaze_lanes.{name}"
         entry(full, SOURCE, REPLACES[name], times[name], err,
-              {full: launches[name]}, {full: launches_serve[name]}, ticks)
+              {full: launches[name]}, {full: launches_serve[name]}, ticks,
+              "fused serve_many / serve")
+    # The ten passes: the fused transmission stage's (phase 11's steps, both
+    # paths; its merge is topk_merge's kernel) where it runs them; the rest
+    # run only in phase 2 (the megakernel's windows too wide for the tiles,
+    # and the tiled passes' comparator).
+    b7 = {name: sum(t_launches[path].get(f"fused_transmission.{name}", 0)
+                    for path in t_launches) for name in fk.TRANSMISSION_PASSES}
+    b7["topk_merge"] = b7["candidate"]
+    b7_steps = sum(t_launches[path]["fused_transmission"] for path in t_launches)
+    for name in fk.PASSES:
+        full = f"fused_dehaze_lanes.{name}"
+        entry(full, SOURCE, REPLACES[name], times[name], pass_errs[name],
+              {full: b7.get(name, 0)}, None, b7_steps,
+              "sharded steps (B7a, B7b)" if name in b7
+              else "none at the serving shape: the megakernel's windows too "
+                   "wide for the tiles, and the tiled passes' comparator "
+                   "(phase 2)")
     for name in ("dark_channel", "box_filter", "atmolight", "recover"):
         entry(f"staged.{name}", STAGED_SOURCE, STAGED_REPLACES[name],
               s_times[name], staged_errs[name], s_launches, s_launches_serve,
-              s_ticks)
+              s_ticks, "staged serve_many / serve")
     for name in ("min_filter", "atmolight_topk"):
         entry(f"staged.{name}", STAGED_SOURCE, STAGED_REPLACES[name],
               c_times[f"staged.{name}"], cap_errs[name], c_launches,
-              c_launches_serve, c_ticks)
+              c_launches_serve, c_ticks, "staged CAP top-4 serve_many / serve")
     for name in TRANSMISSION_REPLACES:
         entry(name, SOURCE, TRANSMISSION_REPLACES[name], c_times[name],
               max(t_errs[name]["whole"], *t_whole[name].values()),
-              {name: t_launches[name]["fused_transmission"]}, None, 2)
+              {name: t_launches[name]["fused_transmission"]}, None, 2,
+              f"sharded step ({name})")
     # Phase 13's path: its spatial steps (B9 one launch a tile, B10 one a
     # step); B8a/B8b: one ops call on each of two corner tiles.
     sp_err = {"staged.masked_min_filter": sp_errs["masked_min_filter"],
@@ -1442,7 +1778,9 @@ def main() -> int:
         source = SOURCE if name == "fused_transmission_halo" else STAGED_SOURCE
         entry(name, source, SPATIAL_REPLACES[name], sp_times[name],
               sp_err[name], sp_launches, None,
-              2 if name.startswith("staged.masked") else sp_steps)
+              2 if name.startswith("staged.masked") else sp_steps,
+              "ops on corner tiles" if name.startswith("staged.masked")
+              else "spatial steps (virtual tilings)")
     print(f"serve_many aggregate fps: fused {rep.fps} ({rep.frames} frames, "
           f"{rep.wall_s} s), staged {s_rep.fps} ({s_rep.frames} frames, "
           f"{s_rep.wall_s} s); total {time.perf_counter() - t_start:.1f} s",

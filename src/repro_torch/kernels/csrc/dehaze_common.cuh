@@ -1,11 +1,14 @@
 // Device helpers shared by the port's CUDA sources (fused_dehaze.cu,
 // staged.cu): wire-dtype loads and stores, the clipped-window count, the
-// order-preserving (t, flat index) key with its warp and block minima, and
-// the two top-k kernels built on it (per-tile key lists, then a per-frame
-// merge), which the megakernel's candidate passes (B1, B7) and the staged
-// top-k atmospheric light (B6b) all launch. Each source is built into a
-// library of its own, so every helper lives in this header's own namespace
-// and is compiled once per library.
+// order-preserving (t, flat index) key with its warp and block minima, the
+// top-1 tile-key helpers (a tile's smallest key, a frame's smallest tile
+// key), which the staged atmospheric light (B6a) and the megakernel's
+// tiled top-1 path (B1) share, and the two top-k kernels built on the key
+// (per-tile key lists, then a per-frame merge), which the megakernel's
+// candidate passes (B1, B7) and the staged top-k atmospheric light (B6b)
+// all launch. Each source is built into a library of its own, so every
+// helper lives in this header's own namespace and is compiled once per
+// library.
 
 #pragma once
 
@@ -87,6 +90,28 @@ __device__ unsigned long long block_min_u64(unsigned long long v,
 }
 
 // ---------------------------------------------------------------------------
+// Top-1 tile keys. A frame is cut into tiles (contiguous runs of pixels for
+// B6a, 2-D tiles for B1); each tile's block writes its smallest key with
+// block_min_u64, and a second launch takes each frame's smallest tile key
+// with warp_min_keys. The key holds the flat index, so the minimum over the
+// tile keys is the frame's smallest (t, index) key whatever the tiles'
+// shape or order: ties across tiles go to the lowest index, not to the
+// first tile.
+// ---------------------------------------------------------------------------
+
+// The smallest of keys[0..n) (kNoKey for n = 0), in every lane of the
+// calling warp, which must be whole.
+__device__ __forceinline__ unsigned long long warp_min_keys(
+        const unsigned long long* __restrict__ keys, int n) {
+    unsigned long long best = kNoKey;
+    for (int j = threadIdx.x & 31; j < n; j += 32) {
+        const unsigned long long v = keys[j];
+        best = v < best ? v : best;
+    }
+    return __shfl_sync(0xffffffffu, warp_min_u64(best), 0);
+}
+
+// ---------------------------------------------------------------------------
 // The k smallest keys of a frame: per-tile lists, then a merge.
 //
 // The TPU kernels fold row tiles through their sequential grid
@@ -155,6 +180,59 @@ __global__ void topk_block_kernel(const void* __restrict__ t, int t_dt,
     }
 }
 
+// The rgb of picked pixels summed with Neumaier compensation, in the order
+// added; mean() is the sum over k picks.
+struct RgbSum {
+    float s[3] = {0.0f, 0.0f, 0.0f};
+    float c[3] = {0.0f, 0.0f, 0.0f};
+
+    // img (img_dt, uint8 times u8_scale) at element px3 = 3 * pixel.
+    __device__ __forceinline__ void add(const void* __restrict__ img, long long px3,
+                                        int img_dt, float u8_scale) {
+        for (int q = 0; q < 3; ++q) comp_add(s[q], c[q], load_px(img, px3 + q, img_dt, u8_scale));
+    }
+
+    __device__ __forceinline__ float mean(int q, int k) const {
+        return __fdiv_rn(__fadd_rn(s[q], c[q]), static_cast<float>(k));
+    }
+};
+
+// Block-wide merge of one frame's n_lists ascending lists of kk keys into
+// its k smallest keys (1 <= k <= P), k rounds of a block-wide minimum over
+// the list heads. On thread 0: sum holds the rgb of img (frame_px = the
+// frame's first pixel) over the picks in ascending order, first the
+// smallest key. head holds n_lists ints. At k = 1 the lists may be the
+// single keys of any tiling (the one round needs no list number).
+template <int kThreads>
+__device__ void merge_heads(const unsigned long long* __restrict__ lists, int n_lists,
+                            int kk, int k, const void* __restrict__ img, int img_dt,
+                            float u8_scale, long long frame_px, int* head,
+                            unsigned long long* red, RgbSum& sum,
+                            unsigned long long& first) {
+    for (int j = threadIdx.x; j < n_lists; j += kThreads) head[j] = 0;
+    __syncthreads();
+    for (int s = 0; s < k; ++s) {
+        unsigned long long best = kNoKey;
+        for (int j = threadIdx.x; j < n_lists; j += kThreads) {
+            const int h = head[j];
+            if (h < kk) {
+                const unsigned long long v = lists[static_cast<long long>(j) * kk + h];
+                best = v < best ? v : best;
+            }
+        }
+        const unsigned long long m = block_min_u64<kThreads>(best, red);
+        if (threadIdx.x == 0) {
+            // Every list holds its tile's smallest keys, so the k smallest
+            // of the frame are all there and m is a real key.
+            const unsigned idx = static_cast<unsigned>(m & 0xffffffffULL);
+            if (s + 1 < k) ++head[idx / kTopkTile];   // list j is tile j
+            sum.add(img, 3 * (frame_px + static_cast<long long>(idx)), img_dt, u8_scale);
+            if (s == 0) first = m;
+        }
+        __syncthreads();                         // head[] read after the update
+    }
+}
+
 // grid (N,): merge frame n's n_lists ascending lists of kk keys into its k
 // smallest keys (1 <= k <= P). out[n] (3 values, out_dt) = the mean of img
 // (img_dt, uint8 times u8_scale) over those pixels; t_min[n], where given,
@@ -168,38 +246,13 @@ __global__ void topk_merge_kernel(const unsigned long long* __restrict__ keys,
     __shared__ unsigned long long red[kTopkThreads / 32 + 1];
     __shared__ int head[kTopkMaxLists];          // next unread key of each list
     const long long n = blockIdx.x;
-    const unsigned long long* lists = keys + n * static_cast<long long>(n_lists) * kk;
-    for (int j = threadIdx.x; j < n_lists; j += kTopkThreads) head[j] = 0;
-    __syncthreads();
-    float sr = 0.0f, sg = 0.0f, sb = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
-    for (int s = 0; s < k; ++s) {
-        unsigned long long best = kNoKey;
-        for (int j = threadIdx.x; j < n_lists; j += kTopkThreads) {
-            const int h = head[j];
-            if (h < kk) {
-                const unsigned long long v = lists[static_cast<long long>(j) * kk + h];
-                best = v < best ? v : best;
-            }
-        }
-        const unsigned long long m = block_min_u64<kTopkThreads>(best, red);
-        if (threadIdx.x == 0) {
-            // Every list holds its tile's smallest keys, so the k smallest
-            // of the frame are all there and m is a real key.
-            const unsigned idx = static_cast<unsigned>(m & 0xffffffffULL);
-            ++head[idx / kTopkTile];             // list j is tile j
-            const long long px = 3 * (n * P + static_cast<long long>(idx));
-            comp_add(sr, cr, load_px(img, px, img_dt, u8_scale));
-            comp_add(sg, cg, load_px(img, px + 1, img_dt, u8_scale));
-            comp_add(sb, cb, load_px(img, px + 2, img_dt, u8_scale));
-            if (s == 0 && t_min != nullptr) t_min[n] = key_to_t(m);
-        }
-        __syncthreads();                         // head[] read after the update
-    }
+    RgbSum sum;
+    unsigned long long first = kNoKey;
+    merge_heads<kTopkThreads>(keys + n * static_cast<long long>(n_lists) * kk, n_lists,
+                              kk, k, img, img_dt, u8_scale, n * P, head, red, sum, first);
     if (threadIdx.x == 0) {
-        const float kf = static_cast<float>(k);
-        store_px(out, 3 * n, out_dt, __fdiv_rn(__fadd_rn(sr, cr), kf));
-        store_px(out, 3 * n + 1, out_dt, __fdiv_rn(__fadd_rn(sg, cg), kf));
-        store_px(out, 3 * n + 2, out_dt, __fdiv_rn(__fadd_rn(sb, cb), kf));
+        for (int q = 0; q < 3; ++q) store_px(out, 3 * n + q, out_dt, sum.mean(q, k));
+        if (t_min != nullptr) t_min[n] = key_to_t(first);
     }
 }
 

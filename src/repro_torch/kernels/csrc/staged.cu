@@ -33,11 +33,20 @@
 // mean_g^2 over var_g + eps.
 //
 // Atmospheric light (argmin t). The TPU kernel folds row tiles through its
-// sequential grid; CUDA blocks run in no order, so one 1024-thread block
-// reduces a whole frame to the minimum of a 64-bit key (order-preserving
-// bits of t, flat index): ties go to the lowest index, -0.0 ties with +0.0,
-// and the result cannot depend on the order in which threads run. Then it
-// gathers I's RGB at the winner.
+// sequential grid; CUDA blocks run in no order, so the argmin is the
+// minimum of a 64-bit key (order-preserving bits of t, flat index): ties go
+// to the lowest index, -0.0 ties with +0.0, and the result cannot depend on
+// the order in which threads or blocks run. What bounds it is reading t
+// once (at 32 frames of 480x640 float32, 39.3 MB: 0.0117 ms at 3.35 TB/s;
+// the gather reads 3 values a frame). One block a frame left 100 of the
+// H100's 132 SMs idle at 32 frames, so it is two launches from one entry
+// point: a grid of (tiles, N) blocks, each reducing a tile of kTop1Tile
+// contiguous pixels (16-byte loads, four in flight a thread, where t is
+// float32 and the tile whole and aligned; 8-byte loads for bfloat16) to
+// its smallest key with block_min_u64 (2400 blocks at 32 frames of
+// 480x640, every SM busy), then one warp a frame taking the smallest of its
+// tile keys (warp_min_keys, the helper the megakernel's top-1 merge uses)
+// and gathering I's RGB there. The caller gives the tile keys' scratch.
 //
 // Top-k atmospheric light (k > 1). The TPU kernel folds each row tile's
 // top-k into k rows carried through its sequential grid. Here the top-k
@@ -81,11 +90,9 @@
 // 0.047 ms (atmospheric light, 16 B/px counting all of I; the top-k's
 // reads only t and k pixels a frame, 0.012 ms) and 0.082 ms (recover,
 // 28 B/px); the masked filters are bound as the min and box filter (8 B/px
-// of the plane they filter), the merge by its 20 bytes a row. This first
-// design does not reach them: each window tap is a
-// load (2r + 1 per output per axis, the dark channel's three channels each
-// time), and one block a frame leaves most SMs idle in the atmospheric
-// light at small batches.
+// of the plane they filter), the merge by its 20 bytes a row. The window
+// kernels do not reach them: each window tap is a load (2r + 1 per output
+// per axis, the dark channel's three channels each time).
 //
 // Rounding: IEEE division and powf (no fast math, --fmad=false), float32
 // constants rounded on the Python side exactly as PyTorch rounds a scalar
@@ -101,8 +108,12 @@ using namespace dehaze;
 constexpr int kTileX = 32;                       // output columns a block (one warp)
 constexpr int kTileY = 64;                       // output rows a block
 constexpr int kRowThreads = 8;                   // warps a window block
-constexpr int kReduceThreads = 1024;             // threads of an atmolight block
+constexpr int kReduceThreads = 1024;             // threads of a merge_topk block
 constexpr int kMaxSmem = 232448;                 // opt-in shared memory a block
+constexpr int kTop1Threads = 256;                // threads of an atmolight tile block
+constexpr int kTop1Items = 16;                   // pixels a thread
+constexpr int kTop1Tile = kTop1Threads * kTop1Items;   // pixels a tile
+static_assert(kTop1Items % 4 == 0, "whole 4-pixel vector loads");
 
 // What a window kernel computes: kDark, (N, H, W, 3) -> the channel min,
 // then the windowed min (+inf border); kMin, (N, H, W) -> the windowed min;
@@ -182,37 +193,70 @@ __global__ void window_kernel(const void* __restrict__ x, void* __restrict__ out
     }
 }
 
-// grid (N,), block kReduceThreads: out[n] = I[n] at the smallest key of t[n].
-__global__ void atmolight_kernel(const void* __restrict__ img, const void* __restrict__ t,
-                                 void* __restrict__ out, long long P, int img_dt,
-                                 int t_dt) {
-    __shared__ unsigned long long red[kReduceThreads / 32 + 1];
-    const long long base = static_cast<long long>(blockIdx.x) * P;
-    constexpr int kUnroll = 4;                   // independent loads in flight
+// grid (tiles, N), block kTop1Threads: keys[n * tiles + j] = the smallest
+// key of pixels [j * kTop1Tile, (j + 1) * kTop1Tile) of frame n of t
+// (P pixels a frame, t_dt).
+__global__ void __launch_bounds__(kTop1Threads)
+top1_tile_kernel(const void* __restrict__ t, int t_dt, unsigned long long* __restrict__ keys,
+                 long long P) {
+    __shared__ unsigned long long red[kTop1Threads / 32 + 1];
+    const long long n = blockIdx.y;
+    const long long start = static_cast<long long>(blockIdx.x) * kTop1Tile;
+    const long long count = min(static_cast<long long>(kTop1Tile), P - start);
+    const long long base = n * P + start;        // element of the tile's first pixel
+    const char* first = static_cast<const char*>(t) + base * (t_dt == 0 ? 4 : 2);
+    const unsigned vec = t_dt == 0 ? 16u : 8u;   // bytes of 4 pixels
     unsigned long long best = kNoKey;
-    long long i = threadIdx.x;
-    for (; i + (kUnroll - 1) * kReduceThreads < P; i += kUnroll * kReduceThreads) {
-        float v[kUnroll];
+    if (count == kTop1Tile && reinterpret_cast<uintptr_t>(first) % vec == 0) {
+        constexpr int kLoads = kTop1Items / 4;
+        float v[kLoads][4];
 #pragma unroll
-        for (int j = 0; j < kUnroll; ++j)
-            v[j] = load_px(t, base + i + j * kReduceThreads, t_dt, 1.0f);
+        for (int j = 0; j < kLoads; ++j) {       // every load in flight first
+            const int q = j * kTop1Threads + threadIdx.x;
+            if (t_dt == 0) {
+                const float4 f = reinterpret_cast<const float4*>(first)[q];
+                v[j][0] = f.x;
+                v[j][1] = f.y;
+                v[j][2] = f.z;
+                v[j][3] = f.w;
+            } else {                             // bfloat16 widens by a shift
+                const uint2 u = reinterpret_cast<const uint2*>(first)[q];
+                v[j][0] = __uint_as_float(u.x << 16);
+                v[j][1] = __uint_as_float(u.x & 0xffff0000u);
+                v[j][2] = __uint_as_float(u.y << 16);
+                v[j][3] = __uint_as_float(u.y & 0xffff0000u);
+            }
+        }
 #pragma unroll
-        for (int j = 0; j < kUnroll; ++j) {
+        for (int j = 0; j < kLoads; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const long long i = start + 4LL * (j * kTop1Threads + threadIdx.x) + c;
+                const unsigned long long key = make_key(v[j][c], static_cast<unsigned>(i));
+                best = key < best ? key : best;
+            }
+    } else {
+        for (long long i = threadIdx.x; i < count; i += kTop1Threads) {
             const unsigned long long key =
-                make_key(v[j], static_cast<unsigned>(i + j * kReduceThreads));
+                make_key(load_px(t, base + i, t_dt, 1.0f), static_cast<unsigned>(start + i));
             best = key < best ? key : best;
         }
     }
-    for (; i < P; i += kReduceThreads) {
-        const unsigned long long key =
-            make_key(load_px(t, base + i, t_dt, 1.0f), static_cast<unsigned>(i));
-        best = key < best ? key : best;
-    }
-    best = block_min_u64<kReduceThreads>(best, red);
+    best = block_min_u64<kTop1Threads>(best, red);
+    if (threadIdx.x == 0) keys[n * gridDim.x + blockIdx.x] = best;
+}
+
+// grid (N,), one warp a block: out[n] = img[n] at the smallest of frame n's
+// tile keys.
+__global__ void top1_gather_kernel(const unsigned long long* __restrict__ keys, int tiles,
+                                   const void* __restrict__ img, void* __restrict__ out,
+                                   long long P, int img_dt) {
+    const long long n = blockIdx.x;
+    const unsigned long long m = warp_min_keys(keys + n * tiles, tiles);
     if (threadIdx.x < 3) {
-        const long long px = base + static_cast<long long>(best & 0xffffffffULL);
-        const float v = load_px(img, 3 * px + threadIdx.x, img_dt, 1.0f);
-        store_px(out, 3LL * blockIdx.x + threadIdx.x, img_dt, v);
+        const long long px = n * P + static_cast<long long>(m & 0xffffffffULL);
+        store_px(out, 3 * n + threadIdx.x, img_dt,
+                 load_px(img, 3 * px + threadIdx.x, img_dt, 1.0f));
     }
 }
 
@@ -302,6 +346,7 @@ int st_tile_y() { return kTileY; }
 int st_max_smem() { return kMaxSmem; }
 int st_topk_tile() { return kTopkTile; }
 int st_topk_max_tiles() { return kTopkMaxLists; }
+int st_top1_tile() { return kTop1Tile; }
 
 // (N, H, W, 3) -> (N, H, W), both in dt (0 float32, 1 bfloat16).
 int st_dark_channel(const void* img, void* out, int N, int H, int W, int radius,
@@ -348,11 +393,18 @@ int st_merge_topk(const float* t, const int* gidx, const float* rgb, int* sel,
     return static_cast<int>(cudaGetLastError());
 }
 
-// (N, H, W, 3) img_dt, (N, H, W) t_dt -> (N, 3) img_dt.
-int st_atmolight(const void* img, const void* t, void* out, int N, int H, int W,
-                 int img_dt, int t_dt, void* stream) {
-    atmolight_kernel<<<N, kReduceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        img, t, out, static_cast<long long>(H) * W, img_dt, t_dt);
+// (N, H, W, 3) img_dt, (N, H, W) t_dt -> (N, 3) img_dt, I at the smallest
+// (t, flat index) key of each frame; keys is scratch for N x
+// ceil(H*W / st_top1_tile()) keys.
+int st_atmolight(const void* img, const void* t, unsigned long long* keys, void* out,
+                 int N, int H, int W, int img_dt, int t_dt, void* stream) {
+    const long long P = static_cast<long long>(H) * W;
+    const int tiles = static_cast<int>((P + kTop1Tile - 1) / kTop1Tile);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    top1_tile_kernel<<<dim3(tiles, N), kTop1Threads, 0, s>>>(t, t_dt, keys, P);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    top1_gather_kernel<<<N, 32, 0, s>>>(keys, tiles, img, out, P, img_dt);
     return static_cast<int>(cudaGetLastError());
 }
 

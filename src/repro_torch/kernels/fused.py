@@ -8,14 +8,25 @@ the top of that file) and raises if a build or a launch fails; on a CPU
 tensor it runs the plain version, ``kernels.ref.fused_dehaze_lanes``.
 Nothing falls back from one to the other.
 
-The megakernel is a sequence of passes over all L*B frames. Each pass has
-a CUDA wrapper in :data:`CUDA_PASSES` and a plain PyTorch counterpart with
-the same signature in :data:`PLAIN_PASSES`; :func:`run_passes` is the one
-orchestration both run through, so the CPU tests check the wiring the
-card runs, and ``chip_smoke.py`` holds every pass against its plain
-counterpart on the card. :data:`launches` counts kernel launches per pass,
-each where its kernel launches; every run of the whole sequence launches
-``premap`` exactly once, so its count is also the count of whole runs.
+The megakernel is a short sequence of tiled passes over all L*B frames,
+:data:`TILED_PASSES`, run by :func:`run_tiled_passes`: ``tmap_tile``
+(pre-map, windowed min, t_raw and, at top-1, each tile's smallest key),
+``topk_block`` at k > 1, ``select_ema`` (the candidates and the EMA),
+``guided_ab`` (the guided filter's a and b; refine only) and
+``refine_recover`` (the refined t and J). Each block holds a tile of one
+frame and its window halo in shared memory. The ten passes it replaced,
+:data:`PASSES` run by :func:`run_passes`, stay: the megakernel runs them
+for windows whose halo does not fit a block (:func:`tiled_fits`, decided
+from the static shape before anything launches), the fused transmission
+stages below run them, and on the card they are the tiled sequence's
+comparator (bit-equal outputs). Each pass has a CUDA wrapper in
+:data:`CUDA_PASSES` and a plain PyTorch counterpart with the same
+signature in :data:`PLAIN_PASSES`; a sequence runs through either, so the
+CPU tests check the wiring the card runs, and ``chip_smoke.py`` holds
+every pass against its plain counterpart on the card. :data:`launches`
+counts kernel launches per pass, each where its kernel launches; every run
+of the tiled sequence launches ``tmap_tile`` exactly once (of the ten
+passes, ``premap``), so its count is also the count of whole tiled runs.
 
 The fused transmission stage of the data-parallel sharded step,
 ``fused_transmission_lanes`` (the port of ``fused_transmission_lanes_pallas``)
@@ -58,8 +69,20 @@ SOURCE = "fused_dehaze.cu"
 #: (checked at load).
 TILE_PIXELS = TOPK_TILE
 
+#: Output tile of a tiled pass's block, rows x columns (``kTileH`` x
+#: ``kTileW`` in ``csrc/fused_dehaze.cu``, checked at load). A tiled pass
+#: whose halo needs more shared memory than a block has refuses to launch
+#: and its wrapper raises: with refine from gf_radius 46, and from radius
+#: 37 with float32 frames (53 bfloat16, 67 uint8). :func:`tiled_fits`
+#: says so beforehand, and :func:`fused_dehaze_lanes` then runs the ten
+#: passes, which take any radius.
+TILE_H, TILE_W = 32, 64
+
+#: The ten passes (the fused transmission stages' and the tiled sequence's
+#: comparator) and the tiled passes (the megakernel).
 PASSES = ("premap", "min_rows", "min_cols_tmap", "topk_block", "topk_merge",
           "ema", "box_rows4", "box_cols_ab", "box_rows2", "recover")
+TILED_PASSES = ("tmap_tile", "select_ema", "guided_ab", "refine_recover")
 
 TRANSMISSION_PASSES = ("premap", "min_rows", "min_cols_tmap", "topk_block",
                        "candidate", "box_rows4", "box_cols_ab", "box_rows2",
@@ -70,7 +93,7 @@ HALO_PASSES = ("min_rows", "min_cols_tmap", "topk_block", "topk_list",
 
 #: Kernel launches since the last :func:`reset_launches`, by pass name: of
 #: the megakernel, of the fused transmission stage and of its halo form.
-launches: Dict[str, int] = {name: 0 for name in PASSES}
+launches: Dict[str, int] = {name: 0 for name in PASSES + TILED_PASSES}
 transmission_launches: Dict[str, int] = {name: 0
                                          for name in TRANSMISSION_PASSES}
 halo_launches: Dict[str, int] = {name: 0 for name in HALO_PASSES}
@@ -184,43 +207,57 @@ def _lib() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is None:
         from repro_torch.kernels import _build
-        lib = _build.load(SOURCE)
-        vp, pp = ctypes.c_void_p, ctypes.POINTER(_Params)
-        hp = ctypes.POINTER(_HaloParams)
-        sigs = {
-            "fd_premap": [vp, vp, vp, vp, pp, vp],
-            "fd_min_rows": [vp, vp, pp, vp],
-            "fd_min_cols_tmap": [vp, vp, pp, vp],
-            "fd_topk_block": [vp, vp, pp, vp],
-            "fd_topk_merge": [vp, vp, vp, ctypes.c_int, vp, pp, vp],
-            "fd_ema": [vp, vp, vp, vp, vp, vp, vp, pp, vp],
-            "fd_box_rows4": [vp, vp, vp, pp, vp],
-            "fd_box_cols_ab": [vp, vp, pp, vp],
-            "fd_box_rows2": [vp, vp, pp, vp],
-            "fd_recover": [vp, vp, vp, vp, vp, vp, vp, pp, vp],
-            "fd_tmap": [vp, vp, vp, vp, pp, vp],
-            "fd_halo_min_rows": [vp, vp, vp, vp, hp, vp],
-            "fd_halo_min_cols_tmap": [vp, vp, vp, hp, vp],
-            "fd_halo_topk_block": [vp, vp, hp, vp],
-            "fd_halo_topk_list": [vp, vp, vp, vp, vp, hp, vp],
-            "fd_halo_box_rows4": [vp, vp, vp, vp, vp, hp, vp],
-            "fd_halo_box_cols_ab": [vp, vp, vp, vp, hp, vp],
-            "fd_halo_box_rows2": [vp, vp, vp, vp, hp, vp],
-            "fd_halo_tmap": [vp, vp, vp, vp, vp, vp, hp, vp],
-        }
-        for name, args in sigs.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        for name in ("fd_tile_pixels", "fd_max_tiles"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
-        got = (lib.fd_tile_pixels(), lib.fd_max_tiles())
-        if got != (TILE_PIXELS, TOPK_MAX_TILES):
-            raise RuntimeError(f"{SOURCE} top-k tiles {got}, expected "
-                               f"{(TILE_PIXELS, TOPK_MAX_TILES)}")
-        _lib_handle = lib
+        _lib_handle = bind(_build.load(SOURCE))
     return _lib_handle
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry points of a build of ``csrc/fused_dehaze.cu`` and
+    check its tile constants against this module's; returns ``lib``."""
+    vp, pp = ctypes.c_void_p, ctypes.POINTER(_Params)
+    hp = ctypes.POINTER(_HaloParams)
+    sigs = {
+        "fd_premap": [vp, vp, vp, vp, pp, vp],
+        "fd_min_rows": [vp, vp, pp, vp],
+        "fd_min_cols_tmap": [vp, vp, pp, vp],
+        "fd_topk_block": [vp, vp, pp, vp],
+        "fd_topk_merge": [vp, vp, vp, ctypes.c_int, vp, pp, vp],
+        "fd_ema": [vp, vp, vp, vp, vp, vp, vp, pp, vp],
+        "fd_box_rows4": [vp, vp, vp, pp, vp],
+        "fd_box_cols_ab": [vp, vp, pp, vp],
+        "fd_box_rows2": [vp, vp, pp, vp],
+        "fd_recover": [vp, vp, vp, vp, vp, vp, vp, pp, vp],
+        "fd_tmap": [vp, vp, vp, vp, pp, vp],
+        "fd_tmap_tile": [vp, vp, vp, vp, vp, pp, vp],
+        "fd_select_ema": [vp, vp, vp, vp, vp, vp, vp, vp, pp, vp],
+        "fd_guided_ab": [vp, vp, vp, pp, vp],
+        "fd_refine_recover": [vp, vp, vp, vp, vp, vp, vp, pp, vp],
+        "fd_halo_min_rows": [vp, vp, vp, vp, hp, vp],
+        "fd_halo_min_cols_tmap": [vp, vp, vp, hp, vp],
+        "fd_halo_topk_block": [vp, vp, hp, vp],
+        "fd_halo_topk_list": [vp, vp, vp, vp, vp, hp, vp],
+        "fd_halo_box_rows4": [vp, vp, vp, vp, vp, hp, vp],
+        "fd_halo_box_cols_ab": [vp, vp, vp, vp, hp, vp],
+        "fd_halo_box_rows2": [vp, vp, vp, vp, hp, vp],
+        "fd_halo_tmap": [vp, vp, vp, vp, vp, vp, hp, vp],
+    }
+    for name, args in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.fd_tiled_occupancy.argtypes = [pp, ctypes.POINTER(ctypes.c_int)]
+    lib.fd_tiled_occupancy.restype = ctypes.c_int
+    lib.fd_tiled_fits.argtypes = [pp]
+    lib.fd_tiled_fits.restype = ctypes.c_int
+    consts = ("fd_tile_pixels", "fd_max_tiles", "fd_tile_h", "fd_tile_w")
+    for name in consts:
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    got = tuple(getattr(lib, name)() for name in consts)
+    want = (TILE_PIXELS, TOPK_MAX_TILES, TILE_H, TILE_W)
+    if got != want:
+        raise RuntimeError(f"{SOURCE} tiles {got}, expected {want}")
+    return lib
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -376,6 +413,80 @@ def cuda_tmap(t_raw, g, rows2, s: Static, counts=transmission_launches):
     return t
 
 
+def tiled_fits(s: Static) -> bool:
+    """Whether every tiled pass that ``s`` runs fits a block's shared
+    memory (``fd_tiled_fits``; launches nothing). Where it does not,
+    :func:`fused_dehaze_lanes` runs the ten passes."""
+    return bool(_lib().fd_tiled_fits(ctypes.byref(s.params())))
+
+
+def tiled_occupancy(s: Static) -> Tuple[int, int, int]:
+    """Blocks an SM of ``tmap_tile``, ``guided_ab`` and ``refine_recover``
+    for ``s``, from the card's occupancy calculator (launches nothing)."""
+    blocks = (ctypes.c_int * 3)()
+    rc = _lib().fd_tiled_occupancy(ctypes.byref(s.params()), blocks)
+    if rc != 0:
+        raise RuntimeError(f"fd_tiled_occupancy failed: cudaError_t {rc}")
+    return tuple(blocks)
+
+
+def cuda_tmap_tile(img, carry_f, s: Static, counts=launches):
+    """-> ``(t_raw, g (refine; else None), keys)``: (N, H, W) float32
+    planes and, at top-1, each tile's smallest key, (N, tiles) int64
+    (unsigned bits), tiles in row-major order; None at k > 1."""
+    _check_cuda(img, carry_f)
+    t_raw = _plane(s, device=img.device)
+    g = _plane(s, device=img.device) if s.refine else None
+    keys = None
+    if s.topk == 1:
+        tiles = -(-s.H // TILE_H) * -(-s.W // TILE_W)
+        keys = torch.empty((s.n_frames, tiles), dtype=torch.int64,
+                           device=img.device)
+    p = s.params()
+    _launch("tmap_tile", counts, img.data_ptr(), carry_f.data_ptr(),
+            t_raw.data_ptr(), _ptr(g), _ptr(keys), ctypes.byref(p))
+    return t_raw, g, keys
+
+
+def cuda_select_ema(keys, img, ids, carry_f, carry_i, s: Static,
+                    counts=launches):
+    """Tile keys (``tmap_tile``'s at top-1, ``topk_block``'s lists above)
+    -> ``(a_seq (L, B, 3), carry_f' (L, 3), carry_i' (L, 2))``."""
+    _check_cuda(keys, img, ids, carry_f, carry_i)
+    dev = img.device
+    a_seq = torch.empty((s.L, s.B, 3), dtype=torch.float32, device=dev)
+    cf = torch.empty((s.L, 3), dtype=torch.float32, device=dev)
+    ci = torch.empty((s.L, 2), dtype=torch.int32, device=dev)
+    p = s.params()
+    _launch("select_ema", counts, keys.data_ptr(), img.data_ptr(),
+            ids.data_ptr(), carry_f.data_ptr(), carry_i.data_ptr(),
+            a_seq.data_ptr(), cf.data_ptr(), ci.data_ptr(), ctypes.byref(p))
+    return a_seq, cf, ci
+
+
+def cuda_guided_ab(g, t_raw, s: Static, counts=launches):
+    """-> the guided filter's a and b, (2, N, H, W) float32."""
+    _check_cuda(g, t_raw)
+    ab = _plane(s, 2, device=g.device)
+    p = s.params()
+    _launch("guided_ab", counts, g.data_ptr(), t_raw.data_ptr(), ab.data_ptr(),
+            ctypes.byref(p))
+    return ab
+
+
+def cuda_refine_recover(img, t_raw, g, ab, a_seq, s: Static, counts=launches):
+    """-> ``(J, t)`` in the output dtype; t is t_raw without refine."""
+    _check_cuda(img, t_raw, a_seq)
+    dev = img.device
+    J = torch.empty((s.L, s.B, s.H, s.W, 3), dtype=s.out_dtype, device=dev)
+    t = torch.empty((s.L, s.B, s.H, s.W), dtype=s.out_dtype, device=dev)
+    p = s.params()
+    _launch("refine_recover", counts, img.data_ptr(), t_raw.data_ptr(), _ptr(g),
+            _ptr(ab), a_seq.data_ptr(), J.data_ptr(), t.data_ptr(),
+            ctypes.byref(p))
+    return J, t
+
+
 # ---------------------------------------------------------------------------
 # The plain passes (same signatures, any device)
 # ---------------------------------------------------------------------------
@@ -506,10 +617,45 @@ def plain_tmap(t_raw, g, rows2, s: Static):
         s.L, s.B, s.H, s.W).to(s.out_dtype)
 
 
+def tile2d_keys(t_raw: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) t -> each :data:`TILE_H` x :data:`TILE_W` tile's smallest
+    key, (N, tiles) in row-major tile order: bit for bit what
+    ``tmap_tile`` writes at top-1."""
+    n, h, w = t_raw.shape
+    ty, tx = -(-h // TILE_H), -(-w // TILE_W)
+    keys = torch.full((n, ty * TILE_H, tx * TILE_W), KEY_LAST,
+                      dtype=torch.int64, device=t_raw.device)
+    keys[:, :h, :w] = topk_keys_signed(t_raw).reshape(n, h, w)
+    best = keys.reshape(n, ty, TILE_H, tx, TILE_W).amin(dim=(2, 4))
+    return flip_key_order(best.reshape(n, ty * tx))
+
+
+def plain_tmap_tile(img, carry_f, s: Static):
+    pre, g = plain_premap(img, carry_f, s)
+    t_raw = plain_min_cols_tmap(plain_min_rows(pre, s), s)
+    return t_raw, g, (tile2d_keys(t_raw) if s.topk == 1 else None)
+
+
+def plain_select_ema(keys, img, ids, carry_f, carry_i, s: Static):
+    return plain_ema(plain_topk_merge(keys, img, s), ids, carry_f, carry_i, s)
+
+
+def plain_guided_ab(g, t_raw, s: Static):
+    return plain_box_cols_ab(plain_box_rows4(g, t_raw, s), s)
+
+
+def plain_refine_recover(img, t_raw, g, ab, a_seq, s: Static):
+    rows2 = plain_box_rows2(ab, s) if s.refine else None
+    return plain_recover(img, t_raw, g, rows2, a_seq, s)
+
+
 Passes = Dict[str, Callable]
 
-CUDA_PASSES: Passes = {name: globals()[f"cuda_{name}"] for name in PASSES}
-PLAIN_PASSES: Passes = {name: globals()[f"plain_{name}"] for name in PASSES}
+#: Every pass of both sequences, by name.
+CUDA_PASSES: Passes = {name: globals()[f"cuda_{name}"]
+                       for name in PASSES + TILED_PASSES}
+PLAIN_PASSES: Passes = {name: globals()[f"plain_{name}"]
+                        for name in PASSES + TILED_PASSES}
 
 #: The transmission stage's passes, every CUDA one counted in
 #: :data:`transmission_launches`.
@@ -521,10 +667,24 @@ TRANSMISSION_PLAIN_PASSES: Passes = {
     name: globals()[f"plain_{name}"] for name in TRANSMISSION_PASSES}
 
 
-def run_passes(img, frame_ids, carry_f, carry_i, s: Static,
-               passes: Passes = CUDA_PASSES):
+def run_tiled_passes(img, frame_ids, carry_f, carry_i, s: Static,
+                     passes: Passes = CUDA_PASSES):
     """The megakernel's pass sequence, through ``passes``. Returns
     ``(J, t, a_seq, carry_f', carry_i')``."""
+    t_raw, g, keys = passes["tmap_tile"](img, carry_f, s)
+    if s.topk > 1:
+        keys = passes["topk_block"](t_raw, s)
+    a_seq, cf, ci = passes["select_ema"](keys, img, frame_ids, carry_f,
+                                         carry_i, s)
+    ab = passes["guided_ab"](g, t_raw, s) if s.refine else None
+    J, t = passes["refine_recover"](img, t_raw, g, ab, a_seq, s)
+    return J, t, a_seq, cf, ci
+
+
+def run_passes(img, frame_ids, carry_f, carry_i, s: Static,
+               passes: Passes = CUDA_PASSES):
+    """The ten-pass sequence the tiled passes replaced, through ``passes``:
+    the same outputs as :func:`run_tiled_passes`, bit for bit."""
     pre, g = passes["premap"](img, carry_f, s)
     t_raw = passes["min_cols_tmap"](passes["min_rows"](pre, s), s)
     cand = passes["topk_merge"](passes["topk_block"](t_raw, s), img, s)
@@ -876,7 +1036,8 @@ def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
     with J/t in ``ref.resolve_out_dtype(img.dtype, out_dtype)``.
 
     CPU tensors run the plain version; CUDA tensors run the kernels (built
-    at first use) or raise."""
+    at first use) or raise: the tiled passes, or the ten passes where a
+    window's halo does not fit a block (:func:`tiled_fits`)."""
     kw = dict(algorithm=algorithm, radius=radius, omega=omega, beta=beta,
               cap_w=cap_w, refine=refine, gf_radius=gf_radius, gf_eps=gf_eps,
               t0=t0, gamma=gamma, period=period, lam=lam, topk=topk,
@@ -896,7 +1057,8 @@ def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
     ids = frame_ids.to(device=dev, dtype=torch.int32).contiguous()
     cf = carry_f.to(device=dev, dtype=torch.float32).contiguous()
     ci = carry_i.to(device=dev, dtype=torch.int32).contiguous()
-    return run_passes(img, ids, cf, ci, s)
+    run = run_tiled_passes if tiled_fits(s) else run_passes
+    return run(img, ids, cf, ci, s)
 
 
 def fused_dehaze(img: torch.Tensor, frame_ids: torch.Tensor,

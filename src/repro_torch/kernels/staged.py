@@ -53,6 +53,10 @@ TILE_X, TILE_Y, MAX_SMEM = 32, 64, 232448
 #: at load by this module and by ``kernels.fused``).
 TOPK_TILE, TOPK_MAX_TILES = 2048, 8192
 
+#: Contiguous pixels a tile of the top-1 atmospheric light reduces to one
+#: key (``kTop1Tile`` in the CUDA source, checked at load).
+TOP1_TILE = 4096
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -79,7 +83,7 @@ def _lib() -> ctypes.CDLL:
             "st_dark_channel": [vp, vp, i, i, i, i, i, vp],
             "st_min_filter": [vp, vp, i, i, i, i, i, vp],
             "st_box_filter": [vp, vp, i, i, i, i, i, vp],
-            "st_atmolight": [vp, vp, vp, i, i, i, i, i, vp],
+            "st_atmolight": [vp, vp, vp, vp, i, i, i, i, i, vp],
             "st_atmolight_topk": [vp, vp, vp, vp, i, i, i, i, i, i, vp],
             "st_recover": [vp, vp, vp, vp, i, i, i, f, f, i, i, i, vp],
             "st_masked_min_filter": [vp, vp, vp, vp, i, i, i, i, i, vp],
@@ -91,12 +95,12 @@ def _lib() -> ctypes.CDLL:
             fn.argtypes = args
             fn.restype = ctypes.c_int
         consts = ("st_tile_x", "st_tile_y", "st_max_smem", "st_topk_tile",
-                  "st_topk_max_tiles")
+                  "st_topk_max_tiles", "st_top1_tile")
         for name in consts:
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         got = tuple(getattr(lib, name)() for name in consts)
-        want = (TILE_X, TILE_Y, MAX_SMEM, TOPK_TILE, TOPK_MAX_TILES)
+        want = (TILE_X, TILE_Y, MAX_SMEM, TOPK_TILE, TOPK_MAX_TILES, TOP1_TILE)
         if got != want:
             raise RuntimeError(f"{SOURCE} constants {got}, expected {want}")
         _lib_handle = lib
@@ -352,9 +356,11 @@ def cuda_atmolight(img: torch.Tensor, t_raw: torch.Tensor) -> torch.Tensor:
     _check_pair(img, t_raw)
     _check_cuda(img, t_raw)
     n, h, w, _ = img.shape
+    keys = torch.empty((n, -(-(h * w) // TOP1_TILE)), dtype=torch.int64,
+                       device=img.device)
     out = torch.empty((n, 3), dtype=img.dtype, device=img.device)
-    _launch("atmolight", img.data_ptr(), t_raw.data_ptr(), out.data_ptr(),
-            n, h, w, _dtype_code(img), _dtype_code(t_raw))
+    _launch("atmolight", img.data_ptr(), t_raw.data_ptr(), keys.data_ptr(),
+            out.data_ptr(), n, h, w, _dtype_code(img), _dtype_code(t_raw))
     return out
 
 

@@ -5,8 +5,9 @@ numpy inputs.
 On the CPU the wrapper runs its plain version; the CUDA kernels are held
 against that plain version on the card (``chip_smoke.py``, and the
 ``cuda``-marked test below). Here the cells check the plain version and
-the pass decomposition the card runs (``fused.run_passes`` through the
-plain passes) against the reference, at the reference's own tolerances
+the pass decompositions the card runs (``fused.run_tiled_passes``, the
+megakernel, and ``fused.run_passes``, the ten passes it replaced, through
+the plain passes) against the reference, at the reference's own tolerances
 (``tests/test_fused.py``): J/t 1e-4 with refine and 1e-5 without, a_seq
 and the final A 1e-5, last_update/initialized exact, bfloat16 2e-2. The
 fused transmission stage of the sharded step (its pass sequence through
@@ -105,6 +106,104 @@ def test_pass_decomposition_matches_plain_version(algorithm, topk, dtype,
     tol = 1e-5
     for g, w in zip(got, want):
         np.testing.assert_allclose(as_np(g), as_np(w), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("algorithm,topk,dtype,refine",
+                         [("dcp", 1, "float32", True),
+                          ("cap", 4, "uint8", True),
+                          ("dcp", 4, "bfloat16", False)])
+def test_tiled_passes_match_ten_passes_and_reference(algorithm, topk, dtype,
+                                                     refine):
+    """The megakernel's tiled pass sequence, run through the plain passes,
+    equals the ten-pass sequence exactly, the plain version of the whole
+    within 1e-5, and the JAX reference at its own tolerances."""
+    x = ramp_frames(12, L, B, h=H, w=W)
+    jx, tx = wire(x, dtype)
+    kw = dict(KW, algorithm=algorithm, topk=topk, refine=refine)
+    cf, ci = _carry()
+    ids = _ids(0)
+    s = fused.make_static(tx, **kw)
+    targs = (tx, torch.from_numpy(ids), torch.from_numpy(cf),
+             torch.from_numpy(ci))
+    got = fused.run_tiled_passes(*targs, s, fused.PLAIN_PASSES)
+    ten = fused.run_passes(*targs, s, fused.PLAIN_PASSES)
+    for g, t in zip(got, ten):
+        assert torch.equal(g, t)
+    for g, w in zip(got, tref.fused_dehaze_lanes(*targs, **kw)):
+        np.testing.assert_allclose(as_np(g), as_np(w), atol=1e-5, rtol=0)
+    want = jops.fused_dehaze_lanes(jx, jnp.asarray(ids), jnp.asarray(cf),
+                                   jnp.asarray(ci), mode="ref", **kw)
+    _compare(got, want, refine, dtype)
+
+
+@pytest.mark.parametrize("dtype,radius,gf_radius",
+                         [("uint8", 7, 60), ("float32", 37, 4),
+                          ("bfloat16", 3, 46)])
+def test_wide_windows_match_reference(dtype, radius, gf_radius):
+    """Windows whose halo does not fit a tiled pass's block (He et al.'s
+    gf_r = 60 among them), which the card runs through the ten passes:
+    their plain sequence matches the plain version of the whole and the JAX
+    reference at the reference's tolerances."""
+    x = ramp_frames(19, L, B, h=H, w=W)
+    jx, tx = wire(x, dtype)
+    kw = dict(KW, radius=radius, gf_radius=gf_radius, refine=True)
+    cf, ci = _carry()
+    ids = _ids(0)
+    s = fused.make_static(tx, **kw)
+    targs = (tx, torch.from_numpy(ids), torch.from_numpy(cf),
+             torch.from_numpy(ci))
+    got = fused.run_passes(*targs, s, fused.PLAIN_PASSES)
+    _compare(got, tref.fused_dehaze_lanes(*targs, **kw), True, dtype)
+    want = jops.fused_dehaze_lanes(jx, jnp.asarray(ids), jnp.asarray(cf),
+                                   jnp.asarray(ci), mode="ref", **kw)
+    _compare(got, want, True, dtype)
+
+
+def _first_tile_with_min(keys: torch.Tensor) -> torch.Tensor:
+    """The merge a tile order would give: the smallest t, ties to the
+    first tile holding it (what comparing whole keys must not do)."""
+    t = staged.key_t(staged.flip_key_order(keys))
+    first = (t == t.amin(-1, keepdim=True)).to(torch.int8).argmax(-1)
+    return staged.key_index(staged.flip_key_order(
+        keys[torch.arange(keys.shape[0]), first]))
+
+
+def test_tile2d_top1_keys_pick_reference_pixel_on_plateau():
+    """``tmap_tile``'s 2-D tile keys (``fused.tile2d_keys``) and their
+    merge pick ``lax.top_k``'s pixel where the smallest t ties across tiles
+    (t_raw of quantised frames, and a plane whose lowest tied index is in
+    the second tile, while the first tile also holds the minimum); the
+    candidate is the reference's."""
+    h, w = fused.TILE_H + 8, fused.TILE_W + 6            # 2 x 2 tiles, tails
+    q = np.round(np.random.default_rng(22).random((2, 1, h, w, 3)) * 4) / 4
+    x = torch.from_numpy((q * 0.8 + 0.1).astype(np.float32))
+    kw = dict(KW, algorithm="dcp", topk=1, refine=False)
+    s = fused.make_static(x, **kw)
+    t_raw, _, keys = fused.plain_tmap_tile(x, torch.ones(2, 3), s)
+    assert keys.shape == (2, 4)
+    tied = []
+    for n in range(2):
+        ys, xs = np.nonzero(as_np(t_raw[n]) == float(t_raw[n].min()))
+        tied.append(len({(y // fused.TILE_H, c // fused.TILE_W)
+                         for y, c in zip(ys, xs)}))
+    assert min(tied) >= 2                        # the ties span tiles
+    plane = np.full((1, h, w), 0.5, np.float32)
+    plane[0, 5, 3] = plane[0, 0, fused.TILE_W] = 0.25   # tile 0, then tile 1
+    for t in (t_raw, torch.from_numpy(plane)):
+        k2d = fused.tile2d_keys(t)
+        picked = staged.key_index(torch.sort(staged.flip_key_order(k2d),
+                                             dim=-1).values[:, 0])
+        _, want = jax.lax.top_k(-jnp.asarray(as_np(t)).reshape(len(t), -1), 1)
+        np.testing.assert_array_equal(as_np(picked), np.asarray(want)[:, 0])
+    assert int(picked[0]) == fused.TILE_W                # not (5, 3)
+    assert int(_first_tile_with_min(k2d)[0]) == 5 * w + 3
+    cand = fused.plain_topk_merge(keys, x, s)
+    want = jops.fused_dehaze_lanes(            # two lanes of one frame: a_seq
+        jnp.asarray(as_np(x)), jnp.zeros((2, 1), jnp.int32),   # bootstraps to
+        jnp.ones((2, 3)), jnp.asarray([[-(2 ** 30), 0]] * 2, jnp.int32),
+        mode="ref", **kw)[2]                                   # the candidate
+    np.testing.assert_allclose(as_np(cand), np.asarray(want).reshape(2, 3),
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("a_saved", [1.0, 0.01])
@@ -297,7 +396,7 @@ def test_cpu_wrapper_launches_no_kernel():
     fused.reset_launches()
     fused.fused_dehaze_lanes(x, torch.from_numpy(_ids(0)), cf, ci,
                              refine=True, **KW)
-    assert set(fused.launches) == set(fused.PASSES)
+    assert set(fused.launches) == set(fused.PASSES + fused.TILED_PASSES)
     assert not any(fused.launches.values())
 
 
@@ -317,6 +416,25 @@ def test_cuda_kernel_matches_plain_version():
             assert float((g - w).abs().max()) <= 1e-3
         for g, w in zip(got[2:], want[2:]):
             assert torch.equal(g, w)
+        # The tiled passes: each against its plain pass, the sequence
+        # against the ten passes bit for bit.
+        s = fused.make_static(x, **kw)
+        ten = fused.run_passes(x, ids, cf, ci, s)
+        for g, t in zip(got, ten):
+            assert torch.equal(g, t)
+        t_raw, g, keys = fused.cuda_tmap_tile(x, cf, s)
+        for a, b in zip((t_raw, g, keys), fused.plain_tmap_tile(x, cf, s)):
+            assert torch.equal(a, b)
+        keys = keys if topk == 1 else fused.cuda_topk_block(t_raw, s)
+        a_seq, *carry = fused.cuda_select_ema(keys, x, ids, cf, ci, s)
+        for a, b in zip([a_seq, *carry],
+                        fused.plain_select_ema(keys, x, ids, cf, ci, s)):
+            assert float((a.float() - b.float()).abs().max()) <= 1e-6
+        ab = fused.cuda_guided_ab(g, t_raw, s)
+        assert float((ab - fused.plain_guided_ab(g, t_raw, s)).abs().max()) <= 1e-3
+        for a, b in zip(fused.cuda_refine_recover(x, t_raw, g, ab, a_seq, s),
+                        fused.plain_refine_recover(x, t_raw, g, ab, a_seq, s)):
+            assert float((a - b).abs().max()) <= 1e-3
         # The transmission stage: its kernels against its plain version.
         tkw = {k: v for k, v in kw.items()
                if k not in ("t0", "gamma", "period", "lam")}
@@ -325,3 +443,41 @@ def test_cuda_kernel_matches_plain_version():
         want = tref.fused_transmission_lanes(x, cf, **tkw)
         for g, w, tol in zip(got, want, (1e-3, 1e-5, 1e-5)):
             assert float((g - w).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,radius,gf_radius",
+                         [("uint8", 7, 60), ("float32", 37, 4),
+                          ("bfloat16", 3, 46), ("float32", 36, 45)])
+def test_cuda_wide_windows_pick_the_pass_sequence(dtype, radius, gf_radius):
+    """Where a window's halo does not fit a tiled pass's block, the wrapper
+    runs the ten passes (chosen before anything launches) and a tiled pass
+    called alone raises; at the widest windows that fit it runs the tiled
+    passes. Either way the result matches the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _, x = wire(ramp_frames(20, L, B, h=48, w=64), dtype)
+    x = x.cuda()
+    cf, ci = (torch.from_numpy(a).cuda() for a in _carry())
+    ids = torch.from_numpy(_ids(0)).cuda()
+    kw = dict(KW, radius=radius, gf_radius=gf_radius, refine=True)
+    s = fused.make_static(x, **kw)
+    fits = (radius, gf_radius) == (36, 45)
+    assert fused.tiled_fits(s) == fits
+    fused.reset_launches()
+    got = fused.fused_dehaze_lanes(x, ids, cf, ci, **kw)
+    torch.cuda.synchronize()
+    assert fused.launches["tmap_tile"] == int(fits)
+    assert fused.launches["premap"] == int(not fits)
+    want = tref.fused_dehaze_lanes(x, ids, cf, ci, **kw)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-3
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g.float() - w.float()).abs().max()) <= tol
+    for g, w in zip(got[2:], want[2:]):
+        assert float((g.float() - w.float()).abs().max()) <= 1e-5
+    for g, t in zip(got, fused.run_passes(x, ids, cf, ci, s)):
+        assert torch.equal(g, t)
+    if not fits:
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            t_raw, g, keys = fused.cuda_tmap_tile(x, cf, s)
+            fused.cuda_guided_ab(g, t_raw, s)

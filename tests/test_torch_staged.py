@@ -126,6 +126,48 @@ def test_atmolight_matches_pallas(t_map, dtype):
         assert not np.array_equal(flat[1, 9], flat[1, 23])
 
 
+def _top1_tile_pick(t: torch.Tensor) -> torch.Tensor:
+    """B6a's two launches, emulated: each run of ``staged.TOP1_TILE``
+    contiguous pixels reduced to its smallest (t, flat index) key (a tail
+    run padded with the all-ones key), then each frame's smallest tile key;
+    returns its flat index."""
+    n = t.shape[0]
+    keys = staged.topk_keys_signed(t)
+    tiles = -(-keys.shape[1] // staged.TOP1_TILE)
+    padded = torch.full((n, tiles * staged.TOP1_TILE), staged.KEY_LAST,
+                        dtype=torch.int64)
+    padded[:, :keys.shape[1]] = keys
+    tile_keys = padded.reshape(n, tiles, staged.TOP1_TILE).amin(-1)
+    return staged.key_index(tile_keys.amin(-1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8", "bfloat16"])
+@pytest.mark.parametrize("t_map", ["ramp", "ties"])
+def test_atmolight_tile_keys_match_plain_and_pallas(t_map, dtype):
+    """B6a's tile keys and merge (two tiles a frame, the second a tail)
+    pick the pixel of the plain version and of the Pallas kernel: a ramp
+    and an all-ties t; float32 and bfloat16 frames, and uint8 frames upcast
+    to float32 as the staged chain feeds them."""
+    h, w = 70, 61                      # 4270 pixels: one whole tile and a tail
+    assert staged.TOP1_TILE < h * w < 2 * staged.TOP1_TILE
+    x = ramp_frames(14, 2, h=h, w=w)
+    if dtype == "uint8":
+        x = (np.round(x * np.float32(255.0)) * np.float32(1 / 255.0)).astype(
+            np.float32)
+    t = (1.0 - 0.95 * x.min(-1) if t_map == "ramp"
+         else np.full((2, h, w), 0.375, np.float32))
+    wire_dt = "bfloat16" if dtype == "bfloat16" else "float32"
+    (jx, tx), (jt, tt) = wire(x, wire_dt), wire(t.astype(np.float32), wire_dt)
+    pick = _top1_tile_pick(tt)
+    if t_map == "ties":
+        assert not pick.any()
+    got = tx.reshape(2, -1, 3)[torch.arange(2), pick]
+    want_plain = staged.plain_atmolight(tx, tt)
+    want_pallas = atmolight_pallas(jx, jt, interpret=True)
+    np.testing.assert_array_equal(as_np(got), as_np(want_plain))
+    np.testing.assert_array_equal(as_np(got), as_np(want_pallas))
+
+
 @pytest.mark.parametrize("t_map", ["ramp", "constant"])
 @pytest.mark.parametrize("k", [2, 4, 16, "HW"])
 def test_atmolight_topk_matches_pallas(k, t_map):
@@ -420,6 +462,17 @@ def test_cuda_kernels_match_plain_versions():
         tol = {"box_filter": 1e-5, "recover": 1e-5,
                "atmolight_topk": 1e-6}.get(name, 0.0)
         assert float((got - want).abs().max()) <= tol, name
+    # B6a: whole tiles and a tail, twice in a row, bit-equal.
+    for shape in ((4, 48, 64), (2, 70, 61), (1, 7, 5)):
+        xs = torch.from_numpy(ramp_frames(32, shape[0], h=shape[1],
+                                          w=shape[2])).cuda()
+        ts = torch.from_numpy(_maps(33, shape)).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            first = staged.cuda_atmolight(xs.to(dt), ts.to(dt))
+            second = staged.cuda_atmolight(xs.to(dt), ts.to(dt))
+            torch.cuda.synchronize()
+            want = staged.plain_atmolight(xs.to(dt), ts.to(dt))
+            assert torch.equal(first, want) and torch.equal(second, want), shape
     # k above one tile's pixels, up to H*W: the merge exhausts tile lists.
     for k in (staged.TOPK_TILE + 1, 48 * 64):
         got = staged.cuda_atmolight_topk(x, t, k)
