@@ -47,12 +47,20 @@ any error:
    (B1) on the same frames; neither step may make a synchronising CUDA
    call; then the atmospheric light (B6a) alone against its plain version
    with error 0 on ramp and plateau frames, 32 and 1 frames of 480x640 and
-   32 of 481x643, float32 and bfloat16, each called twice in a row;
+   32 of 481x643, float32 and bfloat16, each called twice in a row; then
+   the window strips of the dark channel and box filter (B3a, B4) alone
+   against their plain versions with max error 0 on the serving shape,
+   481x643, r = 0, windows wider than the frame, frames off a 16-byte
+   boundary, float32 and bfloat16, He et al.'s gf_r = 60 and r = 875
+   through ``ops.box_filter_2d``, and both sides of the strips' radius
+   limit, the launch counters showing the strips or the row window;
 7. phases 3 and 4 again with the default config (staged): per tick one
    dark channel, six box filters, one atmospheric light and one recover,
    and no megakernel pass; the aggregate fps over 4 streams x 192 frames;
 8. time the four staged kernels as phase 5 does, with their device busy
-   time and that of the PyTorch call, B6a and ``argmin`` + gather also a
+   time and that of the PyTorch call (B3a and B4 also a call in a replayed
+   CUDA graph, with their blocks an SM, B4 with its direct-sum floor), B6a
+   and ``argmin`` + gather also a
    call in a replayed CUDA graph (their event time is the host's launch
    rate) and their device time with L2 flushed before each call
    (repeated calls find t in L2; the flush reads 512 MB), and the whole
@@ -479,7 +487,8 @@ def reset_launches() -> None:
 def all_launches() -> dict:
     """Every launch counter since the last reset: the megakernel's passes
     (and ``fused_dehaze_lanes``, its whole runs: its first pass's count),
-    ``staged.<kernel>``, ``fused_transmission.<pass>`` (and
+    ``staged.<kernel>`` (and ``staged.wide.<kernel>``, the dark channel's
+    and box filter's launches of the row window), ``fused_transmission.<pass>`` (and
     ``fused_transmission``, the stage's whole runs), and
     ``fused_transmission_halo.<pass>`` (and ``fused_transmission_halo``,
     the halo stage's whole runs)."""
@@ -487,6 +496,7 @@ def all_launches() -> dict:
     counts = dict(fk.launches)
     counts["fused_dehaze_lanes"] = counts["tmap_tile"]
     counts.update({f"staged.{k}": n for k, n in sk.launches.items()})
+    counts.update({f"staged.wide.{k}": n for k, n in sk.wide_launches.items()})
     counts.update({f"fused_transmission.{k}": n
                    for k, n in fk.transmission_launches.items()})
     counts["fused_transmission"] = fk.transmission_launches["premap"]
@@ -858,28 +868,20 @@ BF16_STEP = 2.0 ** -8             # one bfloat16 step for values in [0.5, 1)
 
 
 def staged_tolerance(name: str, args) -> float:
-    """Kernel against plain version: selections bit-equal; window means
-    1e-5 relative to the mean's magnitude; the top-k mean 1e-6 in float32
-    for any k (the kernel's compensated float32 sum and the plain float64
-    mean are each within a few float32 steps of the exact mean), one
-    bfloat16 step in bfloat16; recover 1e-6 in float32 at gamma 1 (1e-5 through
-    powf), one bfloat16 step in bfloat16."""
-    if name in ("dark_channel", "min_filter", "atmolight"):
+    """Kernel against plain version: selections bit-equal; the box
+    filter's means bit-equal too (the plain version adds the kernel's terms
+    in the kernel's order); the top-k mean 1e-6 in float32 for any k (the
+    kernel's compensated float32 sum and the plain float64 mean are each
+    within a few float32 steps of the exact mean), one bfloat16 step in
+    bfloat16; recover 1e-6 in float32 at gamma 1 (1e-5 through powf), one
+    bfloat16 step in bfloat16."""
+    if name in ("dark_channel", "min_filter", "box_filter", "atmolight"):
         return 0.0
-    if name == "box_filter":
-        return 1e-5
     if args[0].dtype == torch.bfloat16:
         return BF16_STEP
     if name == "atmolight_topk":
         return 1e-6
     return 1e-6 if args[4] == 1.0 else 1e-5
-
-
-def staged_error(name: str, got, want) -> float:
-    d = (got.float() - want.float()).abs()
-    if name == "box_filter":
-        d = d / want.float().abs().clamp_min(1.0)
-    return float(d.max()) if d.numel() else 0.0
 
 
 def run_staged(step, frames, ids, state, ops: str, errs=None, cell=""):
@@ -896,7 +898,7 @@ def run_staged(step, frames, ids, state, ops: str, errs=None, cell=""):
         def op(*args):
             got = kernel(*args)
             want = plain(*args)
-            err, tol = staged_error(name, got, want), staged_tolerance(name, args)
+            err, tol = max_err(got, want), staged_tolerance(name, args)
             check(err <= tol, f"staged {name} ({cell}): error {err} > {tol}")
             errs[name] = max(errs.get(name, 0.0), err)
             return got
@@ -1007,7 +1009,7 @@ def check_large_topk(errs) -> None:
         got = sk.cuda_atmolight_topk(*args)
         torch.cuda.synchronize()
         want = sk.plain_atmolight_topk(*args)
-        err = staged_error("atmolight_topk", got, want)
+        err = max_err(got, want)
         tol = staged_tolerance("atmolight_topk", args)
         check(err <= tol, f"staged atmolight_topk k={args[2]} "
               f"{args[0].dtype}: error {err} > {tol}")
@@ -1041,6 +1043,78 @@ def check_atmolight(errs) -> None:
     print("staged atmolight (B6a) alone, 32 and 1 frames of 480x640 and 32 "
           "of 481x643, ramp and plateau, float32 and bfloat16, twice each: "
           "error 0", flush=True)
+
+
+def check_strips(errs) -> None:
+    """The window strips of the dark channel and the box filter (B3a, B4)
+    alone against their plain versions with max error 0, float32 and
+    bfloat16: the serving shape (32 frames of 480x640, r = 7 and gf_r =
+    20), 481x643 (tail strips and bands), r = 0, windows wider than a 17x13
+    frame, frames off a 16-byte boundary (a batch sliced from its second
+    frame), He et al.'s gf_r = 60 on 480x640 and the largest radius the
+    row window takes (875 on 1816 rows) through ``ops.box_filter_2d``, and
+    both sides of the strips' radius limit. The launch counters, zeroed
+    before each call, show which kernel ran: the strips where
+    ``strips_fit``, the row window (``wide_launches``) past it; the C
+    library's ``st_strips_fit`` agrees with ``strips_fit`` at each limit."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import staged as sk
+    rng = np.random.default_rng(12)
+
+    def plane(shape, dt):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dt).cuda()
+
+    def frames(shape, dt):
+        n, h, w = shape
+        return torch.from_numpy(ramps(13, n, h, w)).to(dt).cuda()
+
+    # (dark?, input, radius, via ops?, label)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).replace("torch.", "")
+        for shape, label in (((L * B, H, W), "serving"), ((4, 481, 643), "481x643")):
+            cases += [(False, plane(shape, dt), 20, False, f"{label} {tag}"),
+                      (True, frames(shape, dt), 7, False, f"{label} {tag}")]
+        cases += [(False, plane((4, 481, 643), dt), 0, False, f"r=0 {tag}"),
+                  (True, frames((4, 481, 643), dt), 0, False, f"r=0 {tag}"),
+                  (False, plane((3, 17, 13), dt), 12, False, f"wider than 17x13 {tag}"),
+                  (True, frames((3, 17, 13), dt), 12, False, f"wider than 17x13 {tag}"),
+                  (False, plane((5, 17, 13), dt)[1:], 3, False, f"off 16 B 17x13 {tag}"),
+                  (True, frames((5, 17, 13), dt)[1:], 3, False, f"off 16 B 17x13 {tag}"),
+                  (False, plane((5, 481, 643), dt)[1:], 20, False, f"off 16 B 481x643 {tag}"),
+                  (True, frames((5, 481, 643), dt)[1:], 7, False, f"off 16 B 481x643 {tag}"),
+                  (False, plane((L * B, H, W), dt), 60, True, f"gf_r=60 ops {tag}")]
+    cases.append((False, plane((1, 1816, 64), torch.float32), 875, True,
+                  "r=875 on 1816 rows ops float32"))
+    for dark, dt in itertools.product((False, True), (torch.float32, torch.bfloat16)):
+        tag = str(dt).replace("torch.", "")
+        limit = max(r for r in range(1000) if sk.strips_fit(dark, r, dt))
+        for r in (limit, limit + 1):
+            check(bool(sk._lib().st_strips_fit(int(dark), r, sk._DTYPES[dt]))
+                  == sk.strips_fit(dark, r, dt) == (r == limit),
+                  f"strips_fit({dark}, {r}, {tag}) disagrees with st_strips_fit")
+            x = frames((1, 100, 80), dt) if dark else plane((2, 400, 300), dt)
+            cases.append((dark, x, r, False, f"limit {r} {tag}"))
+    for dark, x, r, via_ops, label in cases:
+        name = "dark_channel" if dark else "box_filter"
+        check(x.is_contiguous(), f"{label}: input not contiguous")
+        reset_launches()
+        if via_ops:
+            got = (ops.dark_channel if dark else ops.box_filter_2d)(x, r, mode="auto")
+        else:
+            got = sk.PAIRS[name][0](x, r)
+        torch.cuda.synchronize()
+        wide = not sk.strips_fit(dark, r, x.dtype)
+        check(sk.launches[name] == 1 and sk.wide_launches[name] == int(wide)
+              and sum(sk.launches.values()) == 1,
+              f"staged {name} {label} r={r}: launches {sk.launches[name]}, "
+              f"row window {sk.wide_launches[name]}, expected 1 and {int(wide)}")
+        err = max_err(got, sk.PAIRS[name][1](x, r))
+        check(err == 0.0, f"staged {name} {label} r={r}: error {err}")
+        errs[name] = max(errs.get(name, 0.0), err)
+        print(f"staged {name} {label} r={r}: "
+              f"{'row window' if wide else 'strips'}, error 0", flush=True)
+    reset_launches()
 
 
 def check_no_sync(step, frames, ids, state, label: str) -> None:
@@ -1127,6 +1201,26 @@ def phase_staged_times():
             # ms is well above it, the host's launch rate sets ms.
             device_busy_ms=device_busy_ms(lambda: kernel(*args)),
             library_busy_ms=device_busy_ms(lib) if lib else None)
+    # The window strips (B3a, B4): blocks an SM, and B4's direct-sum floor
+    # (2 (2r + 1) float32 adds an output, none recomputed, at the card's
+    # rate of adds).
+    for name, dark, r in (("dark_channel", True, 7), ("box_filter", False, 20)):
+        out[name]["blocks_per_sm"] = sk.strips_occupancy(dark, r, torch.float32, H)
+        # The device's time a call, without the host: a profiler trace of
+        # five calls has lost one kernel's record now and then.
+        out[name]["graph_ms"] = graph_ms(lambda: sk.PAIRS[name][0](*work[name][0]))
+    out["box_filter"]["floor_ms"] = 2 * 41 * npx / PEAK_F32_NONFMA_PER_S * 1e3
+    card = card_line()
+    for name in ("dark_channel", "box_filter"):
+        k = out[name]
+        print(f"staged {name} (strips, {npx} px float32): {k['ms']} ms, in a CUDA "
+              f"graph {k['graph_ms']} ms a call, device busy {k['device_busy_ms']} ms, "
+              f"bound {k['bound_ms']} ms "
+              f"({k['bound_by']})" + (f", direct-sum floor {k['floor_ms']} ms"
+                                      if "floor_ms" in k else "")
+              + f", PyTorch call {k['library_ms']} ms (device busy "
+              f"{k['library_busy_ms']} ms), {k['blocks_per_sm']} blocks an SM; "
+              f"{card}", flush=True)
     # B6a's two launches, and argmin + gather, are bound by the host's
     # launch rate in ms: their device time, from a CUDA graph's replay.
     a = out["atmolight"]
@@ -1689,6 +1783,7 @@ def main() -> int:
 
     staged_errs, _ = phase_staged_parity(STAGED_CELLS)
     check_atmolight(staged_errs)
+    check_strips(staged_errs)
     cfg_staged = DehazeConfig(io_dtype="uint8")            # kernel_mode "auto"
     s_launches, s_launches_serve, s_ticks = phase_serve(
         cfg_staged, vids, STAGED_PER_TICK, "staged ")
@@ -1721,7 +1816,8 @@ def main() -> int:
             **{k: r[k] for k in ("floor_ms", "device_busy_ms", "library_busy_ms",
                                  "graph_ms", "library_graph_ms", "flushed_busy_ms",
                                  "library_flushed_busy_ms", "ten_pass_ms",
-                                 "ten_pass_busy_ms") if r.get(k) is not None}})
+                                 "ten_pass_busy_ms", "blocks_per_sm")
+               if r.get(k) is not None}})
         print(f"{name:36s} {r['ms']:9.4f} ms  bound {r['bound_ms']:8.4f} ms "
               f"({r['bound_by']})  plain {r['plain_ms']:9.3f} ms  library "
               f"{'-' if r['library_ms'] is None else '%.4f ms' % r['library_ms']}"

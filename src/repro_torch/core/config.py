@@ -47,8 +47,9 @@ class DehazeConfig:
     #   plain version runs. "interpret" has no counterpart (kernels.ops).
     dtype: str = "float32"
 
-    # Perf levers for the sharded pipeline (not ported yet; kept so the two
-    # packages share one configuration).
+    # The spatially sharded step's halo wire (core/pipeline.py): exchange
+    # the (pre-map, luma) planes stacked as one two-channel plane instead of
+    # the RGB block, and the dtype the exchanged planes travel in.
     halo_packed: bool = False
     halo_dtype: str = "float32"
 

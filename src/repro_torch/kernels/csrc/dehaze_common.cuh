@@ -3,12 +3,14 @@
 // order-preserving (t, flat index) key with its warp and block minima, the
 // top-1 tile-key helpers (a tile's smallest key, a frame's smallest tile
 // key), which the staged atmospheric light (B6a) and the megakernel's
-// tiled top-1 path (B1) share, and the two top-k kernels built on the key
-// (per-tile key lists, then a per-frame merge), which the megakernel's
-// candidate passes (B1, B7) and the staged top-k atmospheric light (B6b)
-// all launch. Each source is built into a library of its own, so every
-// helper lives in this header's own namespace and is compiled once per
-// library.
+// tiled top-1 path (B1) share, the tiled window passes' helpers (cp.async
+// copies and register-blocked window runs), which B1's tiled passes and the
+// staged dark channel and box filter (B3a, B4) share, and the two top-k
+// kernels built on the key (per-tile key lists, then a per-frame merge),
+// which the megakernel's candidate passes (B1, B7) and the staged top-k
+// atmospheric light (B6b) all launch. Each source is built into a library
+// of its own, so every helper lives in this header's own namespace and is
+// compiled once per library.
 
 #pragma once
 
@@ -87,6 +89,102 @@ __device__ unsigned long long block_min_u64(unsigned long long v,
     }
     __syncthreads();
     return red[kThreads / 32];
+}
+
+// ---------------------------------------------------------------------------
+// Tiled window passes: the helpers that the megakernel's tiled passes (B1)
+// and the staged window strips (B3a, B4) share. A block copies its inputs
+// with their window halo into shared memory with cp.async, then takes the
+// windows from there in register-blocked runs.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxSmem = 232448;                 // opt-in shared memory a block
+
+// Register-blocked window run: acc[q][j] (planes q < NP, outputs j < R) =
+// op over i = 0 .. w of v_q(j + i), taken in ascending i, where fetch(k, v)
+// loads v_q(k) of every plane. Each input is fetched once for R outputs
+// (R + w loads, not R * (w + 1)). op is __fadd_rn from +0 (kSum) or fminf
+// from +inf; w = 2r >= 0 is a runtime value. Where w >= R - 1 the run is a
+// ramp up, a loop in which every output takes the input, and a ramp down,
+// all without a test; narrower windows take the tested loop.
+template <int NP, int R, bool kSum, class Fetch>
+__device__ __forceinline__ void window_run(const Fetch& fetch, int w, float (&acc)[NP][R]) {
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+#pragma unroll
+        for (int j = 0; j < R; ++j) acc[q][j] = kSum ? 0.0f : INFINITY;
+    float v[NP];
+    if (w >= R - 1) {
+#pragma unroll
+        for (int k = 0; k < R - 1; ++k) {        // outputs j <= k
+            fetch(k, v);
+#pragma unroll
+            for (int j = 0; j <= k; ++j)
+#pragma unroll
+                for (int q = 0; q < NP; ++q)
+                    acc[q][j] = kSum ? __fadd_rn(acc[q][j], v[q]) : fminf(acc[q][j], v[q]);
+        }
+        for (int k = R - 1; k <= w; ++k) {       // every output
+            fetch(k, v);
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+#pragma unroll
+                for (int q = 0; q < NP; ++q)
+                    acc[q][j] = kSum ? __fadd_rn(acc[q][j], v[q]) : fminf(acc[q][j], v[q]);
+        }
+#pragma unroll
+        for (int t = 1; t < R; ++t) {            // outputs j >= t
+            fetch(w + t, v);
+#pragma unroll
+            for (int j = t; j < R; ++j)
+#pragma unroll
+                for (int q = 0; q < NP; ++q)
+                    acc[q][j] = kSum ? __fadd_rn(acc[q][j], v[q]) : fminf(acc[q][j], v[q]);
+        }
+    } else {
+        for (int k = 0; k < R + w; ++k) {
+            fetch(k, v);
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+                if (static_cast<unsigned>(k - j) <= static_cast<unsigned>(w)) {
+#pragma unroll
+                    for (int q = 0; q < NP; ++q)
+                        acc[q][j] = kSum ? __fadd_rn(acc[q][j], v[q])
+                                         : fminf(acc[q][j], v[q]);
+                }
+        }
+    }
+}
+
+// Asynchronous copies global -> shared (cp.async): each thread keeps many
+// in flight, without registers; src_bytes < the copy's size zero-fills the
+// rest (0 reads nothing). cp_async_wait waits for the calling thread's.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copies in groups: cp_async_commit closes the calling thread's group of
+// copies started since the last; cp_async_wait_group<n> waits until at
+// most its n newest groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int n>
+__device__ __forceinline__ void cp_async_wait_group() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // ---------------------------------------------------------------------------

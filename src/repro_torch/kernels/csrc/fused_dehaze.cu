@@ -679,86 +679,10 @@ constexpr int kTileThreads = 256;
 constexpr int kRunV = 16;                        // vertical window outputs a thread
 constexpr int kRunVMin = 8;                      // the same for tmap_tile's narrower window
 constexpr int kRunH = 8;                         // horizontal window outputs a thread
-constexpr int kMaxSmem = 232448;                 // opt-in shared memory a block
 static_assert(kTileH % kRunV == 0 && kTileH % kRunVMin == 0 && kTileW % kRunH == 0,
               "whole runs a tile");
 static_assert(kTileH * (kTileW / kRunH) == kTileThreads, "one horizontal run a thread");
 static_assert(kTileH % 32 == 0, "a warp's lanes are 32 rows of a tile in the horizontal runs");
-
-// Register-blocked window run: acc[q][j] (planes q < NP, outputs j < R) =
-// op over i = 0 .. w of v_q(j + i), taken in ascending i, where fetch(k, v)
-// loads v_q(k) of every plane. Each input is fetched once for R outputs
-// (R + w loads, not R * (w + 1)). op is __fadd_rn from +0 (kSum) or fminf
-// from +inf; w = 2r >= 0 is a runtime value. Where w >= R - 1 the run is a
-// ramp up, a loop in which every output takes the input, and a ramp down,
-// all without a test; narrower windows take the tested loop.
-template <int NP, int R, bool kSum, class Fetch>
-__device__ __forceinline__ void window_run(const Fetch& fetch, int w, float (&acc)[NP][R]) {
-#pragma unroll
-    for (int q = 0; q < NP; ++q)
-#pragma unroll
-        for (int j = 0; j < R; ++j) acc[q][j] = kSum ? 0.0f : INFINITY;
-    float v[NP];
-    if (w >= R - 1) {
-#pragma unroll
-        for (int k = 0; k < R - 1; ++k) {        // outputs j <= k
-            fetch(k, v);
-#pragma unroll
-            for (int j = 0; j <= k; ++j)
-#pragma unroll
-                for (int q = 0; q < NP; ++q)
-                    acc[q][j] = kSum ? __fadd_rn(acc[q][j], v[q]) : fminf(acc[q][j], v[q]);
-        }
-        for (int k = R - 1; k <= w; ++k) {       // every output
-            fetch(k, v);
-#pragma unroll
-            for (int j = 0; j < R; ++j)
-#pragma unroll
-                for (int q = 0; q < NP; ++q)
-                    acc[q][j] = kSum ? __fadd_rn(acc[q][j], v[q]) : fminf(acc[q][j], v[q]);
-        }
-#pragma unroll
-        for (int t = 1; t < R; ++t) {            // outputs j >= t
-            fetch(w + t, v);
-#pragma unroll
-            for (int j = t; j < R; ++j)
-#pragma unroll
-                for (int q = 0; q < NP; ++q)
-                    acc[q][j] = kSum ? __fadd_rn(acc[q][j], v[q]) : fminf(acc[q][j], v[q]);
-        }
-    } else {
-        for (int k = 0; k < R + w; ++k) {
-            fetch(k, v);
-#pragma unroll
-            for (int j = 0; j < R; ++j)
-                if (static_cast<unsigned>(k - j) <= static_cast<unsigned>(w)) {
-#pragma unroll
-                    for (int q = 0; q < NP; ++q)
-                        acc[q][j] = kSum ? __fadd_rn(acc[q][j], v[q])
-                                         : fminf(acc[q][j], v[q]);
-                }
-        }
-    }
-}
-
-// Asynchronous copies global -> shared (cp.async): each thread keeps many
-// in flight, without registers; src_bytes < the copy's size zero-fills the
-// rest (0 reads nothing). cp_async_wait waits for the calling thread's.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-                 "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-                 "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Shared memory of the tiled passes. A tile's inputs span (kTileH + 2r) x
 // (kTileW + 2r) of its frame; regions are reused once spent.

@@ -17,20 +17,57 @@
 // bfloat16, computes in float32 and writes its Pallas kernel's output dtype.
 //
 // Windows (dark channel, min filter, box filter). The TPU kernels hold a
-// whole frame in
-// VMEM; a 480x640 float32 plane is 1.2 MB against at most 227 KB of
-// shared memory a block. So a block computes a kTileY x kTileX output tile: each
-// thread of a warp owns one output column; first the horizontal window of
-// every input row the tile's vertical windows touch (kTileY + 2r rows, at
-// most H) goes into shared memory, then the vertical window is taken from
-// there. Windows are clipped to the frame (+inf for the min, a closed-form
+// whole frame in VMEM; a 480x640 float32 plane is 1.2 MB against at most
+// 227 KB of shared memory a block. Windows are taken horizontally, then
+// vertically, each clipped to the frame (+inf for the min, a closed-form
 // count for the mean), so any radius works, also r = 0 and windows wider
-// than the frame; shared memory is min(kTileY + 2r, H) * kTileX floats. The
-// min is a pure selection and equals its plain version bit for bit. The
-// mean is a direct sum over the clipped window divided by the closed-form
-// in-bounds count, not the Pallas kernel's cumsum differences: the same
-// function, better conditioned for the guided filter's var_g = corr_gg -
-// mean_g^2 over var_g + eps.
+// than the frame. The min is a pure selection and equals its plain version
+// bit for bit. The mean is a direct sum over the clipped window, its terms
+// in ascending order from +0, divided by the closed-form in-bounds count:
+// not the Pallas kernel's cumsum differences but the same function, better
+// conditioned for the guided filter's var_g = corr_gg - mean_g^2 over var_g
+// + eps; the plain version adds the same terms in the same order, so the
+// two are equal bit for bit.
+//
+// The dark channel and the box filter (B3a, B4) run as window strips: a
+// block takes a 64-column strip of a frame over a band of at most 128
+// output rows (64 for B3a; the host evens the bands out: 4 of 120 rows, 8
+// of 60, at H = 480) and walks down its input rows 32 at a time, each
+// piece into float32 rows of shared memory (odd row stride, so a warp's
+// lanes on 32 rows hit 32 banks), the fill off the frame (+0 for the sum,
+// +inf for the min). The float32 box filter copies its plane straight into
+// those rows with cp.async, 4 bytes a copy, zero-filled off the frame, two
+// pieces in flight (16-byte copies would need rows on 16-byte boundaries,
+// a stride that puts 4 of the 32 rows on each bank). B3a, and the bfloat16
+// box filter, load the piece's pixels from device memory, a warp's lanes
+// on adjacent pixels, and store them as float32, B3a the min of each
+// pixel's three channels, taken once a pixel: staging the raw RGB rows
+// would take three times the shared memory of the float32 piece and halve
+// the blocks an SM. Then the horizontal windows of the piece's rows, a
+// warp's lanes on its 32 rows, each thread a register-blocked run of 8
+// outputs that fetches each input once (window_run, shared with the
+// megakernel's tiled passes), into the band's horizontal sums; last the
+// vertical windows of the band's outputs, 8 a thread, from those sums,
+// straight to device memory. A term off the frame is +0, which leaves a sum
+// from +0 unchanged, so the strips compute window_kernel<kMean>'s sums bit
+// for bit. A strip's input rows are recomputed (band + 2r)/band times,
+// 1.33 at r = 20, against 1.63 for window_kernel's 64-row tiles; its
+// columns (64 + 2r)/64 times. Shared memory grows with r (the band's sums
+// and a piece's halo): the strips take r up to 175 on float32 planes (243
+// bfloat16) for the box filter and up to 265 for the dark channel
+// (st_strips_fit; He et al.'s guided filter uses r = 60), and
+// st_box_filter_wide / st_dark_channel_wide launch window_kernel for wider
+// windows. The caller picks one from the shape before it launches
+// (kernels/staged.py::strips_fit); a strip entry point given a radius it
+// does not take returns cudaErrorInvalidValue and launches nothing.
+//
+// window_kernel (the min filter, the masked forms, and B3a/B4 past the
+// strips' radius): a block computes a kTileY x kTileX output tile, each
+// thread of a warp one output column: first the horizontal window of every
+// input row the tile's vertical windows touch (kTileY + 2r rows, at most H)
+// goes into shared memory, read tap by tap from device memory, then the
+// vertical window is taken from there; shared memory is min(kTileY + 2r,
+// H) * kTileX floats.
 //
 // Atmospheric light (argmin t). The TPU kernel folds row tiles through its
 // sequential grid; CUDA blocks run in no order, so the argmin is the
@@ -90,14 +127,19 @@
 // 0.047 ms (atmospheric light, 16 B/px counting all of I; the top-k's
 // reads only t and k pixels a frame, 0.012 ms) and 0.082 ms (recover,
 // 28 B/px); the masked filters are bound as the min and box filter (8 B/px
-// of the plane they filter), the merge by its 20 bytes a row. The window
-// kernels do not reach them: each window tap is a load (2r + 1 per output
-// per axis, the dark channel's three channels each time).
+// of the plane they filter), the merge by its 20 bytes a row. The box
+// filter's direct sums bound it about as much: (2r + 1) adds an output an
+// axis, 94.8 at r = 20 with the strips' recomputed rows, 0.028 ms at the
+// card's 33.5 T/s of float32 adds. window_kernel reaches neither: each
+// window tap is a load (2r + 1 per output per axis, the dark channel's
+// three channels each time).
 //
 // Rounding: IEEE division and powf (no fast math, --fmad=false), float32
 // constants rounded on the Python side exactly as PyTorch rounds a scalar
 // operand. Every entry point launches on the caller's stream, allocates
 // nothing and returns the cudaError_t of its launch (0 on success).
+
+#include <atomic>
 
 #include "dehaze_common.cuh"
 
@@ -109,7 +151,6 @@ constexpr int kTileX = 32;                       // output columns a block (one 
 constexpr int kTileY = 64;                       // output rows a block
 constexpr int kRowThreads = 8;                   // warps a window block
 constexpr int kReduceThreads = 1024;             // threads of a merge_topk block
-constexpr int kMaxSmem = 232448;                 // opt-in shared memory a block
 constexpr int kTop1Threads = 256;                // threads of an atmolight tile block
 constexpr int kTop1Items = 16;                   // pixels a thread
 constexpr int kTop1Tile = kTop1Threads * kTop1Items;   // pixels a tile
@@ -190,6 +231,201 @@ __global__ void window_kernel(const void* __restrict__ x, void* __restrict__ out
             acc = __fdiv_rn(acc, fmaxf(__fmul_rn(static_cast<float>(n), cnt_x), 1.0f));
         }
         store_px(out, plane + static_cast<long long>(y) * W + col, dt, acc);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Window strips (B3a st_dark_channel, B4 st_box_filter): one block a
+// kStripW-column strip of one frame, over a band of at most kBandRows
+// (kDarkBandRows) output rows, walking down the band in pieces of
+// kPieceRows input rows.
+// ---------------------------------------------------------------------------
+
+constexpr int kStripW = 64;                      // output columns of a strip
+constexpr int kPieceRows = 32;                   // input rows staged at a time
+constexpr int kBandRows = 128;                   // most output rows a box filter block
+constexpr int kDarkBandRows = 64;                // the same for the dark channel
+constexpr int kStripThreads = 256;
+constexpr int kRunX = 8;                         // horizontal window outputs a thread
+constexpr int kRunY = 8;                         // vertical window outputs a thread
+constexpr int kSumStride = kStripW + 1;          // a row of horizontal sums (odd)
+static_assert(kPieceRows == 32, "a warp's lanes are a piece's rows in the horizontal runs");
+static_assert((kStripW / kRunX) * kPieceRows == kStripThreads, "one horizontal run a thread");
+static_assert(kStripThreads % kStripW == 0, "whole vertical runs a round of a band");
+
+// Whether a strip block copies its pieces straight into the float32 rows
+// its horizontal runs read (the float32 box filter: cp.async, 4 bytes a
+// copy, two pieces in flight), or loads each piece's pixels from device
+// memory and stores them as float32 (bfloat16, and the dark channel's
+// channel min).
+__host__ __device__ constexpr bool strip_direct(int mode, int dt) {
+    return mode == kMean && dt == 0;
+}
+
+// Input columns of a strip: its outputs and their halo.
+__host__ __device__ __forceinline__ long long strip_cols(long long r) {
+    return kStripW + 2 * r;
+}
+
+// Shared memory of a strip block with bands of `band` rows: a piece in
+// float32 (odd row stride; strip_direct: two), and the horizontal sums of
+// every input row a band's windows touch, with room for a last vertical
+// run that passes the band's end (its outputs are not stored). 64-bit, as
+// the radius may be any int.
+__host__ __device__ __forceinline__ long long strip_smem(long long r, int mode, int dt,
+                                                         int band) {
+    const long long piece = 4LL * kPieceRows * (strip_cols(r) | 1);
+    return (strip_direct(mode, dt) ? 2 : 1) * piece +
+           4 * (band + 2 * r + kRunY - 1) * kSumStride;
+}
+
+// Most output rows of a strip block: the dark channel's pixels come from
+// device memory, and its shorter bands (less shared memory a block) put
+// more blocks, and more loads in flight, on an SM.
+__host__ __device__ constexpr int strip_band_rows(int mode) {
+    return mode == kDark ? kDarkBandRows : kBandRows;
+}
+
+// Whether a strip block of the tallest band fits a block's shared memory:
+// the strips take every such radius; st_dark_channel_wide and
+// st_box_filter_wide take the rest.
+__host__ __device__ __forceinline__ bool strips_fit(int mode, int r, int dt) {
+    return r >= 0 && strip_smem(r, mode, dt, strip_band_rows(mode)) <= kMaxSmem;
+}
+
+// grid (ceil(W / kStripW), ceil(H / band), N), block kStripThreads,
+// strip_smem(r, kMode, kDt, band) bytes. kMode kDark: (N, H, W, 3) -> the
+// channel min, then the windowed min (+inf off the frame); kMean: (N, H,
+// W) -> the windowed mean over the clipped window. kDt: 0 float32, 1
+// bfloat16, in and out. A block walks down its input rows (its band and r
+// above and below) a piece of kPieceRows rows at a time, into float32 rows
+// with the fill off the frame (see the head of this file for how each
+// form fills them); the horizontal windows of a piece's rows, a warp's
+// lanes on its 32 rows, a run of kRunX outputs a thread, go into the band's
+// horizontal sums; last the vertical windows of the band's outputs, a run
+// of kRunY a thread, straight to out. Each sum adds its terms in ascending
+// order from +0, horizontal then vertical, and the mean divides once by the
+// closed-form count: the terms, order and division of window_kernel<kMean>,
+// with +0 for each term off the frame, which leaves a sum from +0
+// unchanged bit for bit.
+template <int kMode, int kDt>
+__global__ void __launch_bounds__(kStripThreads)
+strip_window_kernel(const void* __restrict__ x, void* __restrict__ out, int H, int W, int r,
+                    int band) {
+    constexpr bool kSum = kMode == kMean;
+    constexpr bool kDirect = strip_direct(kMode, kDt);
+    constexpr int kWarps = kStripThreads / 32;
+    extern __shared__ __align__(16) uint8_t smem[];
+    const float fill = kSum ? 0.0f : INFINITY;
+    const int cols = static_cast<int>(strip_cols(r)), fstride = cols | 1;
+    const int piece_floats = kPieceRows * fstride;
+    // flt[kPieceRows][fstride] (kDirect: two), then
+    // hsum[band + 2r + kRunY - 1][kSumStride].
+    float* flt = reinterpret_cast<float*>(smem);
+    float* hsum = flt + (kDirect ? 2 : 1) * piece_floats;
+    const int x0 = blockIdx.x * kStripW, xf = x0 - r;   // first output, first input column
+    const int y0 = blockIdx.y * band, rows_out = min(band, H - y0);
+    const int need = rows_out + 2 * r;           // input rows, from y0 - r
+    const int pieces = (need + kPieceRows - 1) / kPieceRows;
+    const long long frame = static_cast<long long>(blockIdx.z) * H * W;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+    // kDirect: starts the copies of piece p's rows that lie in the frame
+    // (zeros for their columns off it) into buffer p & 1.
+    auto stage = [&](int p) {
+        if (p >= pieces) return;
+        for (int i = warp; i < kPieceRows; i += kWarps) {
+            const int rel = p * kPieceRows + i, y = y0 - r + rel;
+            if (rel >= need || y < 0 || y >= H) continue;
+            const float* src = static_cast<const float*>(x) + frame + static_cast<long long>(y) * W;
+            float* dst = flt + (p & 1) * piece_floats + i * fstride;
+            for (int j = lane; j < cols; j += 32) {
+                const int xx = xf + j;
+                const bool in = xx >= 0 && xx < W;
+                cp_async4(dst + j, in ? src + xx : src, in ? 4 : 0);
+            }
+        }
+    };
+
+    if constexpr (kDirect) {
+        stage(0);
+        cp_async_commit();
+        stage(1);
+        cp_async_commit();
+    }
+    for (int p = 0; p < pieces; ++p) {
+        if constexpr (kDirect) cp_async_wait_group<1>();   // piece p landed
+        __syncthreads();                         // and every thread's copies; flt read
+        const float* piece = flt + (kDirect ? (p & 1) * piece_floats : 0);
+        if constexpr (!kDirect) {
+            // Piece p in float32 from device memory: a warp a row, its
+            // lanes along it; the loads of a warp's rows do not wait on
+            // each other.
+#pragma unroll
+            for (int i = warp; i < kPieceRows; i += kWarps) {
+                const int rel = p * kPieceRows + i, y = y0 - r + rel;
+                if (rel >= need || y < 0 || y >= H) continue;   // rows off the frame: no runs
+                const long long row = frame + static_cast<long long>(y) * W;
+                float* dst = flt + i * fstride;
+#pragma unroll 4
+                for (int j = lane; j < cols; j += 32) {
+                    const int xx = xf + j;
+                    const bool in = xx >= 0 && xx < W;
+                    const long long e = row + (in ? xx : 0);
+                    float v;
+                    if constexpr (kMode == kDark)
+                        v = fminf(fminf(load_px(x, 3 * e, kDt, 1.0f),
+                                        load_px(x, 3 * e + 1, kDt, 1.0f)),
+                                  load_px(x, 3 * e + 2, kDt, 1.0f));
+                    else
+                        v = load_px(x, e, kDt, 1.0f);
+                    dst[j] = in ? v : fill;
+                }
+            }
+            __syncthreads();                     // piece p in flt
+        }
+        // The horizontal runs: a warp's lanes are the piece's rows.
+        const int rel = p * kPieceRows + lane, y = y0 - r + rel, c0 = warp * kRunX;
+        if (rel < need) {
+            float s[1][kRunX];
+            if (y >= 0 && y < H) {
+                const float* src = piece + lane * fstride + c0;
+                window_run<1, kRunX, kSum>([&](int k, float (&v)[1]) { v[0] = src[k]; }, 2 * r,
+                                           s);
+            } else {
+#pragma unroll
+                for (int j = 0; j < kRunX; ++j) s[0][j] = fill;
+            }
+#pragma unroll
+            for (int j = 0; j < kRunX; ++j) hsum[rel * kSumStride + c0 + j] = s[0][j];
+        }
+        if constexpr (kDirect) {
+            __syncthreads();                     // buffer p & 1 read
+            stage(p + 2);
+            cp_async_commit();
+        }
+    }
+    __syncthreads();                             // every horizontal sum written
+
+    // The vertical runs: a warp's lanes are adjacent columns; output row o's
+    // window is input rows o .. o + 2r counted from y0 - r.
+    const int c = threadIdx.x % kStripW, xo = x0 + c;
+    const float cnt_x = static_cast<float>(win_count(xo, W, r));
+    for (int o0 = (threadIdx.x / kStripW) * kRunY; o0 < rows_out;
+         o0 += kRunY * (kStripThreads / kStripW)) {
+        const float* src = hsum + o0 * kSumStride + c;
+        float s[1][kRunY];
+        window_run<1, kRunY, kSum>([&](int k, float (&v)[1]) { v[0] = src[k * kSumStride]; },
+                                   2 * r, s);
+        if (xo >= W) continue;
+#pragma unroll
+        for (int q = 0; q < kRunY; ++q) {
+            const int y = y0 + o0 + q;
+            float v = s[0][q];
+            if constexpr (kSum)
+                v = __fdiv_rn(v, __fmul_rn(static_cast<float>(win_count(y, H, r)), cnt_x));
+            if (o0 + q < rows_out) store_px(out, frame + static_cast<long long>(y) * W + xo, kDt, v);
+        }
     }
 }
 
@@ -337,6 +573,63 @@ int launch_window(const void* x, void* out, int N, int H, int W, int r, int dt,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The band's rows and the shared memory of the strips on frames of H rows
+// at radius r, and past 48 KB the kernel's opt-in to it: a host call, made
+// only when a larger size than any before is asked for, not at every
+// launch. 0 where the strips do not take r.
+template <int kMode, int kDt>
+size_t strips_opt_in(int H, int r, int& band, cudaError_t& e) {
+    e = cudaSuccess;
+    if (!strips_fit(kMode, r, kDt)) {
+        e = cudaErrorInvalidValue;
+        return 0;
+    }
+    const int bands = (H + strip_band_rows(kMode) - 1) / strip_band_rows(kMode);
+    band = (H + bands - 1) / bands;
+    const size_t smem = static_cast<size_t>(strip_smem(r, kMode, kDt, band));
+    static std::atomic<size_t> opted{48 * 1024};
+    if (smem > opted.load()) {
+        e = cudaFuncSetAttribute(strip_window_kernel<kMode, kDt>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+        if (e == cudaSuccess) opted.store(smem);
+    }
+    return smem;
+}
+
+template <int kMode, int kDt>
+int launch_strips(const void* x, void* out, int N, int H, int W, int r, void* stream) {
+    int band = 0;
+    cudaError_t e;
+    const size_t smem = strips_opt_in<kMode, kDt>(H, r, band, e);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((W + kStripW - 1) / kStripW, (H + band - 1) / band, N);
+    strip_window_kernel<kMode, kDt><<<grid, kStripThreads, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(x, out, H, W, r,
+                                                                           band);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int kMode>
+int launch_strips(const void* x, void* out, int N, int H, int W, int r, int dt,
+                  void* stream) {
+    return dt == 0 ? launch_strips<kMode, 0>(x, out, N, H, W, r, stream)
+                   : launch_strips<kMode, 1>(x, out, N, H, W, r, stream);
+}
+
+// Blocks an SM of the strips on frames of H rows at radius r, from the
+// occupancy calculator (launches nothing).
+template <int kMode, int kDt>
+int strips_occupancy(int H, int r, int* blocks) {
+    int band = 0;
+    cudaError_t e;
+    const size_t smem = strips_opt_in<kMode, kDt>(H, r, band, e);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, strip_window_kernel<kMode, kDt>,
+                                                          kStripThreads, smem);
+    return static_cast<int>(e);
+}
+
 }  // namespace
 
 extern "C" {
@@ -347,10 +640,36 @@ int st_max_smem() { return kMaxSmem; }
 int st_topk_tile() { return kTopkTile; }
 int st_topk_max_tiles() { return kTopkMaxLists; }
 int st_top1_tile() { return kTop1Tile; }
+int st_strip_w() { return kStripW; }
+int st_piece_rows() { return kPieceRows; }
+int st_band_rows() { return kBandRows; }
+int st_dark_band_rows() { return kDarkBandRows; }
 
-// (N, H, W, 3) -> (N, H, W), both in dt (0 float32, 1 bfloat16).
+// 1 where the strips take the dark channel (dark = 1) or the box filter
+// (dark = 0) at this radius and dtype, else 0.
+int st_strips_fit(int dark, int radius, int dt) {
+    return strips_fit(dark ? kDark : kMean, radius, dt) ? 1 : 0;
+}
+
+// *blocks = blocks an SM of the dark channel's (dark = 1) or the box
+// filter's strips on frames of H rows at this radius and dtype.
+int st_strips_occupancy(int dark, int radius, int dt, int H, int* blocks) {
+    if (dark) return dt == 0 ? strips_occupancy<kDark, 0>(H, radius, blocks)
+                             : strips_occupancy<kDark, 1>(H, radius, blocks);
+    return dt == 0 ? strips_occupancy<kMean, 0>(H, radius, blocks)
+                   : strips_occupancy<kMean, 1>(H, radius, blocks);
+}
+
+// (N, H, W, 3) -> (N, H, W), both in dt (0 float32, 1 bfloat16): the
+// strips, where st_strips_fit(1, radius, dt).
 int st_dark_channel(const void* img, void* out, int N, int H, int W, int radius,
                     int dt, void* stream) {
+    return launch_strips<kDark>(img, out, N, H, W, radius, dt, stream);
+}
+
+// The same by window_kernel, for radii the strips do not take.
+int st_dark_channel_wide(const void* img, void* out, int N, int H, int W, int radius,
+                         int dt, void* stream) {
     return launch_window<kDark>(img, out, N, H, W, radius, dt, stream);
 }
 
@@ -360,9 +679,16 @@ int st_min_filter(const void* x, void* out, int N, int H, int W, int radius, int
     return launch_window<kMin>(x, out, N, H, W, radius, dt, stream);
 }
 
-// (N, H, W) -> (N, H, W), both in dt.
+// (N, H, W) -> (N, H, W), both in dt: the strips, where
+// st_strips_fit(0, radius, dt).
 int st_box_filter(const void* x, void* out, int N, int H, int W, int radius, int dt,
                   void* stream) {
+    return launch_strips<kMean>(x, out, N, H, W, radius, dt, stream);
+}
+
+// The same by window_kernel, for radii the strips do not take.
+int st_box_filter_wide(const void* x, void* out, int N, int H, int W, int radius, int dt,
+                       void* stream) {
     return launch_window<kMean>(x, out, N, H, W, radius, dt, stream);
 }
 

@@ -44,9 +44,22 @@ SPATIAL_KERNELS = ("masked_min_filter", "masked_box_filter", "merge_topk")
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
 launches: Dict[str, int] = {name: 0 for name in KERNELS + SPATIAL_KERNELS}
 
-#: Output tile of a window block and the shared memory a block may use
-#: (``kTileX``/``kTileY``/``kMaxSmem`` in the CUDA source, checked at load).
+#: Of those, the dark channel's and the box filter's launches of the row
+#: window kernel, for radii the strips do not take (:func:`strips_fit`).
+wide_launches: Dict[str, int] = {"dark_channel": 0, "box_filter": 0}
+
+#: Output tile of a row-window block and the shared memory a block may use
+#: (``kTileX``/``kTileY``/``kMaxSmem`` in the CUDA sources, checked at load).
 TILE_X, TILE_Y, MAX_SMEM = 32, 64, 232448
+
+#: The window strips of the dark channel and the box filter: output columns
+#: of a strip, input rows staged at a time, most output rows of a band (the
+#: box filter's, the dark channel's), the horizontal sums' row stride and
+#: the vertical run (``kStripW``/``kPieceRows``/``kBandRows``/
+#: ``kDarkBandRows`` in the CUDA source, checked at load;
+#: ``kSumStride``/``kRunY`` enter :func:`strip_smem`).
+STRIP_W, PIECE_ROWS, BAND_ROWS, DARK_BAND_ROWS = 64, 32, 128, 64
+_SUM_STRIDE, _RUN_Y = STRIP_W + 1, 8
 
 #: Pixels a top-k tile and tiles a frame the top-k merge takes
 #: (``kTopkTile``/``kTopkMaxLists`` in ``csrc/dehaze_common.cuh``, checked
@@ -61,8 +74,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, wide_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -81,8 +95,10 @@ def _lib() -> ctypes.CDLL:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sigs = {
             "st_dark_channel": [vp, vp, i, i, i, i, i, vp],
+            "st_dark_channel_wide": [vp, vp, i, i, i, i, i, vp],
             "st_min_filter": [vp, vp, i, i, i, i, i, vp],
             "st_box_filter": [vp, vp, i, i, i, i, i, vp],
+            "st_box_filter_wide": [vp, vp, i, i, i, i, i, vp],
             "st_atmolight": [vp, vp, vp, vp, i, i, i, i, i, vp],
             "st_atmolight_topk": [vp, vp, vp, vp, i, i, i, i, i, i, vp],
             "st_recover": [vp, vp, vp, vp, i, i, i, f, f, i, i, i, vp],
@@ -94,27 +110,35 @@ def _lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        lib.st_strips_fit.argtypes = [i, i, i]
+        lib.st_strips_fit.restype = ctypes.c_int
+        lib.st_strips_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        lib.st_strips_occupancy.restype = ctypes.c_int
         consts = ("st_tile_x", "st_tile_y", "st_max_smem", "st_topk_tile",
-                  "st_topk_max_tiles", "st_top1_tile")
+                  "st_topk_max_tiles", "st_top1_tile", "st_strip_w",
+                  "st_piece_rows", "st_band_rows", "st_dark_band_rows")
         for name in consts:
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         got = tuple(getattr(lib, name)() for name in consts)
-        want = (TILE_X, TILE_Y, MAX_SMEM, TOPK_TILE, TOPK_MAX_TILES, TOP1_TILE)
+        want = (TILE_X, TILE_Y, MAX_SMEM, TOPK_TILE, TOPK_MAX_TILES, TOP1_TILE,
+                STRIP_W, PIECE_ROWS, BAND_ROWS, DARK_BAND_ROWS)
         if got != want:
             raise RuntimeError(f"{SOURCE} constants {got}, expected {want}")
         _lib_handle = lib
     return _lib_handle
 
 
-def _launch(name: str, *args) -> None:
-    """Call ``st_<name>`` on the current stream; count it; raise on a
-    non-zero cudaError_t."""
-    fn = getattr(_lib(), f"st_{name}")
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+def _launch(name: str, *args, wide: bool = False) -> None:
+    """Call ``st_<name>`` (``st_<name>_wide`` where ``wide``) on the current
+    stream; count it; raise on a non-zero cudaError_t."""
+    entry = f"st_{name}_wide" if wide else f"st_{name}"
+    rc = getattr(_lib(), entry)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel st_{name} failed: cudaError_t {rc}")
+        raise RuntimeError(f"CUDA kernel {entry} failed: cudaError_t {rc}")
     launches[name] += 1
+    if wide:
+        wide_launches[name] += 1
 
 
 def _check_cuda(*tensors: torch.Tensor) -> None:
@@ -146,11 +170,51 @@ def _check_frames(img: torch.Tensor) -> None:
 
 
 def _check_window(h: int, radius: int) -> None:
+    """The radii the window kernels take: any whose row-window tile fits a
+    block, min(TILE_Y + 2r, H) x TILE_X float32 (r up to 875 on frames of
+    1816 rows or more, any r on shorter ones). The dark channel and the box
+    filter run the strips where :func:`strips_fit`, which holds only for
+    radii the row window also takes, and the row window past them."""
     if radius < 0:
         raise ValueError("window radius must be >= 0")
     if min(TILE_Y + 2 * radius, h) * TILE_X * 4 > MAX_SMEM:
         raise ValueError(f"radius {radius} over {h} rows needs more shared "
                          f"memory than a block has ({MAX_SMEM} bytes)")
+
+
+def strip_smem(radius: int, dark: bool, dtype: torch.dtype) -> int:
+    """Shared memory of a window-strip block of the tallest band
+    (``strip_smem`` in the CUDA source): a piece in float32 at an odd row
+    stride (two for the float32 box filter, copied straight in while the
+    other is used), then the band's horizontal sums, with room for a last
+    vertical run past the band's end."""
+    band = DARK_BAND_ROWS if dark else BAND_ROWS
+    piece = 4 * PIECE_ROWS * ((STRIP_W + 2 * radius) | 1)
+    pieces = 2 if not dark and dtype == torch.float32 else 1
+    return pieces * piece + 4 * (band + 2 * radius + _RUN_Y - 1) * _SUM_STRIDE
+
+
+def strips_fit(dark: bool, radius: int, dtype: torch.dtype) -> bool:
+    """Whether the window strips take the dark channel (``dark``) or the
+    box filter at this radius on ``dtype`` planes (``st_strips_fit``): a
+    block of the tallest band fits its shared memory. From the shape
+    alone, before any launch: r <= 175 (box filter, float32), 243
+    (bfloat16), 265 (dark channel). Past it the wrappers launch the
+    row-window kernel."""
+    return radius >= 0 and strip_smem(radius, dark, dtype) <= MAX_SMEM
+
+
+def strips_occupancy(dark: bool, radius: int, dtype: torch.dtype,
+                     h: int) -> int:
+    """Blocks an SM of the dark channel's (``dark``) or the box filter's
+    strips on frames of ``h`` rows, from the card's occupancy calculator
+    (launches nothing)."""
+    blocks = ctypes.c_int()
+    rc = _lib().st_strips_occupancy(int(dark), radius, _DTYPES[dtype], h,
+                                    ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"st_strips_occupancy failed: cudaError_t {rc}")
+    return blocks.value
 
 
 def _on_kernel(x: torch.Tensor) -> bool:
@@ -253,7 +317,8 @@ def cuda_dark_channel(img: torch.Tensor, radius: int) -> torch.Tensor:
     n, h, w, _ = img.shape
     _check_window(h, radius)
     out = torch.empty((n, h, w), dtype=img.dtype, device=img.device)
-    _launch("dark_channel", img.data_ptr(), out.data_ptr(), n, h, w, radius, dt)
+    _launch("dark_channel", img.data_ptr(), out.data_ptr(), n, h, w, radius, dt,
+            wide=not strips_fit(True, radius, img.dtype))
     return out
 
 
@@ -319,17 +384,32 @@ def cuda_box_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
     n, h, w = x.shape
     _check_window(h, radius)
     out = torch.empty_like(x)
-    _launch("box_filter", x.data_ptr(), out.data_ptr(), n, h, w, radius, dt)
+    _launch("box_filter", x.data_ptr(), out.data_ptr(), n, h, w, radius, dt,
+            wide=not strips_fit(False, radius, x.dtype))
     return out
 
 
+def ascending_window_sum(v: torch.Tensor, r: int, dim: int) -> torch.Tensor:
+    """Sum over the window of radius r along dim -2 or -1, zero-padded, as
+    the kernels add it: from a +0 plane, one shifted slice at a time in
+    ascending order. A +0 term leaves a sum from +0 unchanged, so this is
+    the clipped window's ascending sum bit for bit."""
+    n = v.shape[dim]
+    p = F.pad(v, (0, 0, r, r) if dim == -2 else (r, r))
+    s = torch.zeros_like(v)
+    for k in range(2 * r + 1):
+        s = s + p.narrow(dim, k, n)
+    return s
+
+
 def plain_box_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
-    """Direct sums over the clipped window (horizontal, then vertical, as
-    the kernel) divided by the closed-form in-bounds count."""
+    """Direct sums over the clipped window in the kernel's order
+    (horizontal, then vertical, each ascending from +0) divided by the
+    closed-form in-bounds count: the kernel's result bit for bit."""
     _check_plane(x)
     _dtype_code(x)
     v = x.to(torch.float32)
-    s = window_sum(window_sum(v, radius, -1), radius, -2)
+    s = ascending_window_sum(ascending_window_sum(v, radius, -1), radius, -2)
     cnt = window_counts(x.shape[1], x.shape[2], radius, x.device)
     return (s / cnt).to(x.dtype)
 
@@ -624,7 +704,9 @@ PAIRS = {name: (globals()[f"cuda_{name}"], globals()[f"plain_{name}"])
          for name in KERNELS + SPATIAL_KERNELS}
 
 __all__ = ["SOURCE", "KERNELS", "SPATIAL_KERNELS", "launches",
-           "reset_launches", "PAIRS", "window_sum", "window_counts",
+           "wide_launches", "reset_launches", "PAIRS", "strip_smem",
+           "strips_fit", "strips_occupancy", "window_sum",
+           "ascending_window_sum", "window_counts",
            "validity_bytes", "KEY_LAST", "topk_keys_signed",
            "flip_key_order", "key_index", "key_t", "topk_select", "topk_mean",
            "cuda_dark_channel", "plain_dark_channel", "dark_channel_op",

@@ -95,6 +95,95 @@ def test_box_filter_matches_pallas(shape, radius, dtype):
                                atol=_tol(dtype, 1e-5))
 
 
+def _ascending_box_filter(v, r):
+    """The box filter as a per-pixel float32 loop: the clipped horizontal
+    window of each row the vertical window touches, then the column of
+    those sums, each added in ascending order from +0, divided by the
+    in-bounds count."""
+    f = np.float32
+    n, h, w = v.shape
+    out = np.empty_like(v)
+    for b, y, x in np.ndindex(n, h, w):
+        rows = range(max(y - r, 0), min(y + r, h - 1) + 1)
+        cols = range(max(x - r, 0), min(x + r, w - 1) + 1)
+        s = f(0.0)
+        for k in rows:
+            hs = f(0.0)
+            for c in cols:
+                hs = f(hs + v[b, k, c])
+            s = f(s + hs)
+        out[b, y, x] = s / (f(len(rows)) * f(len(cols)))
+    return out
+
+
+@pytest.mark.parametrize("radius", [0, 2, 7])
+def test_plain_box_filter_sums_in_the_kernel_order(radius):
+    """The plain box filter, which the kernel must equal bit for bit on the
+    card, is the ascending per-pixel sum bit for bit: negative values, a
+    -0.0 column and row, a -0.0 block (its r = 0 means are +0.0), and at
+    r = 7 windows wider than the 9 x 11 frame."""
+    v = _maps(6, (2, 9, 11)) - 0.5
+    v[0, :, 3] = -0.0
+    v[0, 4, :] = 0.0
+    v[1, :3, :3] = -0.0
+    got = staged.plain_box_filter(torch.from_numpy(v), radius).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  _ascending_box_filter(v, radius).view(np.uint32))
+
+
+# Largest radius the window strips take: (dark channel, dtype) -> r.
+STRIP_LIMITS = [(False, torch.float32, 175), (False, torch.bfloat16, 243),
+                (True, torch.float32, 265), (True, torch.bfloat16, 265)]
+
+
+@pytest.mark.parametrize("dark,dtype,limit", STRIP_LIMITS)
+def test_strips_fit_up_to_their_shared_memory(dark, dtype, limit):
+    """The strips take a radius while a block of the tallest band fits its
+    shared memory; past it the row window, which takes every radius the
+    strips take at any height, so the strips narrow nothing. The serving
+    radii (r = 7, gf_r = 20) and He et al.'s gf_r = 60 take the strips."""
+    assert staged.strip_smem(limit, dark, dtype) <= staged.MAX_SMEM \
+        < staged.strip_smem(limit + 1, dark, dtype)
+    assert staged.strips_fit(dark, limit, dtype)
+    assert not staged.strips_fit(dark, limit + 1, dtype)
+    assert all(staged.strips_fit(dark, r, dtype) for r in (0, 7, 20, 60))
+    for h in (1, 16, 481, 4096):
+        staged._check_window(h, limit)
+
+
+def test_window_wrappers_pick_the_strips_or_the_row_window_by_shape(
+        monkeypatch):
+    """The dark channel and box filter wrappers launch the strips where
+    :func:`staged.strips_fit` and the row window past it, chosen from the
+    shape before the launch, and count both; the row window's launches
+    also in ``wide_launches``."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args[5])) or 0
+
+    class Stream:
+        cuda_stream = 0
+    monkeypatch.setattr(staged, "_lib", lambda: Lib())
+    monkeypatch.setattr(staged, "_check_cuda", lambda *t: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
+    staged.reset_launches()
+    for r in (0, 175, 176):
+        staged.box_filter_op(_meta(2, 900, 8), r)
+    staged.box_filter_op(_meta(2, 900, 8).bfloat16(), 244)
+    for r in (265, 266):
+        staged.dark_channel_op(_meta(2, 900, 8, 3), r)
+    assert calls == [("st_box_filter", 0), ("st_box_filter", 175),
+                     ("st_box_filter_wide", 176), ("st_box_filter_wide", 244),
+                     ("st_dark_channel", 265), ("st_dark_channel_wide", 266)]
+    assert staged.launches["box_filter"] == 4
+    assert staged.launches["dark_channel"] == 2
+    assert staged.wide_launches == {"box_filter": 2, "dark_channel": 1}
+    staged.reset_launches()
+    assert not any(staged.wide_launches.values())
+
+
 def _ties_t_map(h, w):
     """Frame 0: negative values, its minimum at two indices; frame 1: all
     positive but for -0.0/+0.0 at several indices, -0.0 first."""
@@ -459,9 +548,27 @@ def test_cuda_kernels_match_plain_versions():
         got = kernel(*args)
         torch.cuda.synchronize()
         want = plain(*args)
-        tol = {"box_filter": 1e-5, "recover": 1e-5,
-               "atmolight_topk": 1e-6}.get(name, 0.0)
+        tol = {"recover": 1e-5, "atmolight_topk": 1e-6}.get(name, 0.0)
         assert float((got - want).abs().max()) <= tol, name
+    # The window strips (B3a, B4), bit-equal to their plain versions, and
+    # the row window past their radius, chosen by shape: tails, r = 0, a
+    # window wider than the frame, a batch off a 16-byte boundary, both
+    # sides of the strips' limit.
+    for dt in (torch.float32, torch.bfloat16):
+        tx = torch.from_numpy(_maps(34, (5, 70, 61)) - 0.5).to(dt).cuda()
+        fx = torch.from_numpy(ramp_frames(35, 5, h=70, w=61)).to(dt).cuda()
+        for name, v in (("box_filter", tx), ("dark_channel", fx)):
+            dark = name == "dark_channel"
+            limit = {(d, t): r for d, t, r in STRIP_LIMITS}[dark, dt]
+            for arg, r in ((v, 7), (v, 0), (v, 40), (v[1:], 3), (v, limit),
+                           (v, limit + 1)):
+                staged.reset_launches()
+                got = staged.PAIRS[name][0](arg, r)
+                torch.cuda.synchronize()
+                assert staged.wide_launches[name] == int(r > limit), (name, r)
+                want = staged.PAIRS[name][1](arg, r)
+                assert float((got.float() - want.float()).abs().max()) == 0.0, \
+                    (name, dt, r)
     # B6a: whole tiles and a tail, twice in a row, bit-equal.
     for shape in ((4, 48, 64), (2, 70, 61), (1, 7, 5)):
         xs = torch.from_numpy(ramp_frames(32, shape[0], h=shape[1],

@@ -1,0 +1,239 @@
+"""What holds the staged window strips (B3a, B4) back, on the card.
+
+    python3 tools/strip_probe.py [variant ...]
+
+Run from the root of a checkout on a machine with an sm_90a card and
+``nvcc``. It builds variants (those named, else all) of
+``src/repro_torch/kernels/csrc/staged.cu`` and its header, each a text
+patch of a copy under ``build/strip_probe/``, all at once, and times the
+box filter (B4, r = 20) and the dark channel (B3a, r = 7) of each at the
+serving shape (32 float32 planes or frames of 480x640), beside the
+row-window kernel (``st_*_wide``) of the same build: back to back with
+CUDA events, and as 20 calls in a replayed CUDA graph (``_graph``, the
+device's time a call without the host's launches):
+
+- ``base``: the sources as they are;
+- ``unroll4``: the middle loop of ``window_run`` unrolled by 4;
+- ``run16``: vertical runs of 16 outputs a thread, not 8;
+- ``no_vertical`` / ``no_horizontal``: each vertical (horizontal) run
+  takes its first input for every output, its loads and adds gone;
+  ``no_windows``: both;
+- ``no_copy``: B4 copies no piece into shared memory (it then sums what
+  the shared memory holds, which may send its divisions down their slow
+  path);
+- ``no_convert``: B3a stores no piece's pixels (their loads gone);
+- ``no_div``: the mean's IEEE division a multiplication;
+- ``no_store``: no output stored (a test on each keeps it live);
+- ``band_half``, ``band_double``: bands of at most half or twice as many
+  output rows (box filter 64 or 256, not 128; dark channel 32 or 128, not
+  64): less or more shared memory a block, more or fewer rows recomputed.
+
+A patch that no longer matches the source as often as it says fails the
+run. The variants but ``base``, ``unroll4``, ``run16`` and the bands
+compute wrong results: they are timed, never checked. The variants run in
+two rounds, the second in reverse order, and each time is the mean of
+both. It prints the opcode counts of the base float32 box filter kernel's
+SASS (``cuobjdump``), one line a variant with its kernels' blocks an SM,
+the card's name and power limit, and last a JSON object of every time
+(ms) and the blocks an SM.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+N, H, W = 32, 480, 640
+MIDDLE = "        for (int k = R - 1; k <= w; ++k) {       // every output\n"
+INCLUDE = '#include "dehaze_common.cuh"\n'
+FIRST_ONLY = INCLUDE + """
+namespace dehaze {
+template <int NP, int R, bool kSum, class Fetch>
+__device__ __forceinline__ void first_only(const Fetch& fetch, int, float (&acc)[NP][R]) {
+    float v[NP];
+    fetch(0, v);
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+#pragma unroll
+        for (int j = 0; j < R; ++j) acc[q][j] = v[q];
+}
+}  // namespace dehaze
+"""
+NO_VERTICAL = [("staged.cu", "window_run<1, kRunY, kSum>(", "first_only<1, kRunY, kSum>(", 1)]
+NO_HORIZONTAL = [("staged.cu", "window_run<1, kRunX, kSum>(", "first_only<1, kRunX, kSum>(", 1)]
+FIRST = [("staged.cu", INCLUDE, FIRST_ONLY, 1)]
+
+# variant -> [(file, text, replacement, occurrences)]
+VARIANTS = {
+    "base": [],
+    "unroll4": [("dehaze_common.cuh", MIDDLE, "#pragma unroll 4\n" + MIDDLE, 1)],
+    "run16": [("staged.cu", "constexpr int kRunY = 8;", "constexpr int kRunY = 16;", 1)],
+    "no_vertical": FIRST + NO_VERTICAL,
+    "no_horizontal": FIRST + NO_HORIZONTAL,
+    "no_windows": FIRST + NO_VERTICAL + NO_HORIZONTAL,
+    "no_copy": [("staged.cu", "cp_async4(dst + j, in ? src + xx : src, in ? 4 : 0);", "(void)in;", 1)],
+    "no_convert": [("staged.cu", "dst[j] = in ? v : fill;", "(void)v;", 1)],
+    "no_div": [("staged.cu", "v = __fdiv_rn(v, __fmul_rn(", "v = __fmul_rn(v, __fmul_rn(", 1)],
+    "no_store": [("staged.cu", "if (o0 + q < rows_out) store_px(",
+                  "if (o0 + q < rows_out && v == 1234.5f) store_px(", 1)],
+    "band_half": [("staged.cu", "constexpr int kBandRows = 128;", "constexpr int kBandRows = 64;", 1),
+                  ("staged.cu", "constexpr int kDarkBandRows = 64;", "constexpr int kDarkBandRows = 32;", 1)],
+    "band_double": [("staged.cu", "constexpr int kBandRows = 128;", "constexpr int kBandRows = 256;", 1),
+                    ("staged.cu", "constexpr int kDarkBandRows = 64;", "constexpr int kDarkBandRows = 128;", 1)],
+}
+KERNELS = ("box_filter", "dark_channel")
+
+
+def build_all(out_dir: Path) -> dict:
+    from repro_torch.kernels import _build
+    nvcc = _build.find_nvcc()
+    procs = {}
+    for name, patches in VARIANTS.items():
+        d = out_dir / name
+        d.mkdir(parents=True, exist_ok=True)
+        texts = {p.name: p.read_text() for p in _build.CSRC.glob("*.cuh")}
+        texts["staged.cu"] = (_build.CSRC / "staged.cu").read_text()
+        for fname, old, new, count in patches:
+            found = texts[fname].count(old)
+            if found != count:
+                raise SystemExit(f"{name}: patch {old[:40]!r} matches {found} "
+                                 f"times in {fname}, expected {count}")
+            texts[fname] = texts[fname].replace(old, new)
+        for fname, text in texts.items():
+            (d / fname).write_text(text)
+        lib = d / "staged.so"
+        procs[name] = (lib, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-o", str(lib), str(d / "staged.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on variant {name}:\n{out}")
+        libs[name] = lib
+    return libs
+
+
+def sass_opcodes(lib: Path) -> None:
+    """Opcode counts of the float32 box filter strip kernel's SASS."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True).stdout
+    fn = re.search(r"Function : (\S*strip_window_kernelILi2ELi0E\S*)\n(.*?)"
+                   r"(?:\n\s*Function :|\Z)", out, re.S)
+    if not fn:
+        print("sass: strip kernel not found", flush=True)
+        return
+    ops = collections.Counter(
+        m.group(1).split(".")[0] for m in
+        re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", fn.group(2)))
+    print("sass box float32 strip kernel opcodes: "
+          + json.dumps(dict(ops.most_common(25))), flush=True)
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time a call: ``reps`` calls captured in one CUDA graph, the
+    graph replayed between CUDA events (no host launch in the way)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, reps=5, warmup=1) / reps
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    if len(sys.argv) > 1:                        # the variants named, in their order here
+        for name in list(VARIANTS):
+            if name not in sys.argv[1:]:
+                del VARIANTS[name]
+    libs = build_all(ROOT / "build" / "strip_probe")
+    if "base" in libs:
+        sass_opcodes(libs["base"])
+    rng = np.random.default_rng(0)
+    plane = torch.from_numpy(rng.standard_normal((N, H, W), dtype=np.float32)).cuda()
+    frames = torch.from_numpy(rng.random((N, H, W, 3), dtype=np.float32)).cuda()
+    out = torch.empty_like(plane)
+    args = {"box_filter": (plane, 20), "dark_channel": (frames, 7)}
+    loaded = {}
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        for k in KERNELS:
+            for entry in (f"st_{k}", f"st_{k}_wide"):
+                getattr(lib, entry).argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 \
+                    + [ctypes.c_void_p]
+        lib.st_strips_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        loaded[name] = lib
+    keys = [f"{k}{s}{t}" for k in KERNELS for s in ("", "_wide") for t in ("", "_graph")]
+    times = {name: {k: 0.0 for k in keys} for name in loaded}
+    order = list(loaded)
+    for round_ in (order, order[::-1]):
+        for name in round_:
+            print(f"timing {name}", flush=True)
+            for key in keys:
+                entry = key.removesuffix("_graph")
+                x, r = args[entry.removesuffix("_wide")]
+                fn = getattr(loaded[name], f"st_{entry}")
+
+                def call():
+                    rc = fn(x.data_ptr(), out.data_ptr(), N, H, W, r, 0,
+                            torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise SystemExit(f"{name} st_{entry}: cudaError_t {rc}")
+                call()
+                timer = graph_ms if key.endswith("_graph") else time_ms
+                times[name][key] += timer(call) / 2
+    blocks = {}
+    for name, lib in loaded.items():
+        got = []
+        for dark, r in ((0, 20), (1, 7)):
+            b = ctypes.c_int()
+            lib.st_strips_occupancy(dark, r, 0, H, ctypes.byref(b))
+            got.append(b.value)
+        blocks[name] = got
+    for name in order:
+        print(f"{name:16s} blocks an SM {blocks[name]}  "
+              + "  ".join(f"{k} {times[name][k]:.4f}" for k in keys) + " ms", flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()
+    print(card[0] if card else torch.cuda.get_device_name(0))
+    print(json.dumps({"ms": times, "blocks_an_sm": blocks}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
