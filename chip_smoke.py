@@ -77,43 +77,63 @@ any error:
    default ``kernel_mode``: per tick one min filter, six box filters, one
    top-k atmospheric light, one recover, and no dark channel, argmin
    atmospheric light or megakernel pass;
-11. the data-parallel sharded step on ``make_host_mesh(1, 1)`` (one rank,
-   NCCL; the group is destroyed at the end of the phase), with the fused
-   config: the frame-sharded step over 32 uint8 frames (the fused
-   transmission stage, B7a) and the lane-sharded step with
-   ``lane_native=False`` over 4 x 8 frames (B7b), each two chained
-   batches: every transmission pass held against its plain version, t and
-   the candidates against the megakernel's on the same frames and saved A
-   (bit-equal), the step against the single-device fused step (t and J
-   2e-4, a_seq 1e-5), one transmission stage a step and no other kernel,
-   no synchronising call;
-12. time the min filter, the top-k atmospheric light and both transmission
-   stages as phase 8 does;
+11. the fused transmission stage (B7a, B7b): at 4 x 8 x 480x640 with
+   per-lane saved A, {dcp, cap} x {topk 1, 4} x {uint8, bfloat16,
+   float32} with refine, one cell without refine and a plateau cell
+   (t ties across the 2-D tiles): its tiled sequence and its ten passes,
+   every pass against its plain version, the tiled sequence against the
+   ten passes with max error 0 in t, t_min and cand, the wrapper's route
+   from the launch counters, t and the candidates bit-equal to the
+   megakernel's on the same frames and A; three wide-window cells (gf_r
+   60 at 480x640 and r 37: the ten passes; r 36 with gf_r 45: the tiles)
+   and ``transmission_tiled_fits`` against the library's at each limit;
+   then the data-parallel sharded step on ``make_host_mesh(1, 1)`` (one
+   rank, NCCL; the group is destroyed at the end of the phase), with the
+   fused config: the frame-sharded step over 32 uint8 frames (B7a) and the
+   lane-sharded step with ``lane_native=False`` over 4 x 8 frames (B7b),
+   each two chained batches, held as the cells are, the step against the
+   single-device fused step (t and J 2e-4, a_seq 1e-5), one tiled
+   transmission sequence a step (four launches) and no other kernel, no
+   synchronising call;
+12. time the min filter and the top-k atmospheric light as phase 8 does;
+   both transmission stages' tiled sequence and ten passes in turns, with
+   device busy time, bound, direct-sum floor and blocks an SM; and each
+   tiled transmission pass alone;
 13. spatial sharding on one rank: 32 uint8 frames at 480x640 cut into
    virtual n_h x n_w tilings {(2, 1), (1, 2), (2, 2)} (DCP top-1 and CAP
    top-4, r = 7, gf_r = 20, halo 47), each tile's halo-extended (pre-map,
    luma) planes sliced from the whole frame, zero and invalid past its
-   edge, as the exchange delivers them; per tile the step's per-shard
-   function (``spatial_shard_stage``: one halo stage, B9), then the lists
-   in rank order through the cross-shard merge (B10): every B9 pass
-   against its plain pass, the whole B9 against its plain version, the
-   stitched t against the unsharded stage's (B7a) on the same frames
+   edge, as the exchange delivers them; per tile the masked tiled
+   sequence and the ten masked passes (B9), every pass against its plain
+   pass, the tiled sequence against the ten with max error 0 in t, tk_t,
+   tk_rgb and tk_idx and no NaN, the wrapper's route from the launch
+   counters, the whole against its plain version; then the step's
+   per-shard function (``spatial_shard_stage``: one halo stage) on every
+   tile and the lists in rank order through the cross-shard merge (B10),
+   the stitched t against the unsharded stage's (B7a) on the same frames
    within 2e-4, the merged candidate bit-equal to B7a's; a plateau cell
    (quantised frames, (2, 2), top-4) and a packed bfloat16-plane cell
-   (against B9's plain version); the masked min and box filters (B8a,
-   B8b) through ``ops`` on corner tiles' planes against their plain
-   versions; one B9 a tile and one B10 a step, no synchronising call;
+   (against B9's plain version); corner tiles without refine and of
+   bfloat16 frames, and a halo too wide for the tiles (gf_r 46: the ten
+   masked passes), and ``halo_tiled_fits`` against the library's at each
+   limit; the masked min and box filters (B8a, B8b) through
+   ``ops`` on corner tiles' planes against their plain versions; one B9 a
+   tile (its tiled sequence) and one B10 a step, no synchronising call;
    this measures no scaling;
-14. time B8a, B8b, B9 (a corner tile of the 2x2 tiling and an interior
-   tile of a 4x4 one) and B10 as phase 12 does;
+14. time B9 on a corner tile of the 2x2 tiling and an interior tile of a
+   4x4 one, tiled sequence and ten masked passes in turns, and each tiled
+   halo pass alone; B8a, B8b and B10 as phase 12 does;
 15. print ``{"kernels": [...]}`` (each kernel's launches on the path it
-   names: the tiled passes on the fused serving path, the ten passes on
-   the sharded steps where the fused transmission stage runs them), the
-   card line, and last ``{"ok": true, "device": {...}}``.
+   names: the megakernel's tiled passes on the fused serving path, the
+   transmission stage's tiled passes on the sharded steps, the halo
+   stage's on the spatial steps, and the ten passes, which run on none of
+   them at the serving shape), the card line, and last ``{"ok": true,
+   "device": {...}}``.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import itertools
 import json
 import subprocess
@@ -168,6 +188,22 @@ SPATIAL_REPLACES = {
     "staged.masked_box_filter": "src/repro/kernels/boxfilter.py:106",
     "staged.merge_topk": "src/repro/kernels/atmolight.py:213",
     "fused_transmission_halo": "src/repro/kernels/fused.py:744",
+}
+
+# The part of the TPU kernels each tiled pass of the transmission stage and
+# of its halo form replaces (file:line).
+TILED_TRANSMISSION_REPLACES = {
+    "tmap_tile": "src/repro/kernels/fused.py:163",
+    "candidate": "src/repro/kernels/fused.py:166",
+    "guided_ab": "src/repro/kernels/fused.py:126",
+    "refine_tmap": "src/repro/kernels/fused.py:144",
+}
+TILED_HALO_REPLACES = {
+    "tmap_tile": "src/repro/kernels/fused.py:658",
+    "topk_block": "src/repro/kernels/fused.py:678",
+    "topk_list": "src/repro/kernels/fused.py:678",
+    "guided_ab": "src/repro/kernels/fused.py:618",
+    "refine_tmap": "src/repro/kernels/fused.py:634",
 }
 
 # The part of the TPU kernel each pass replaces (file:line): the tiled
@@ -268,26 +304,39 @@ def pass_error(name: str, got, want, tols=PASS_TOL) -> float:
     return err
 
 
-def checked_passes(s, errs):
-    """Every pass of the megakernel's two sequences, each call running the
-    CUDA pass and its plain pass on the same inputs, held to PASS_TOL; the
-    CUDA outputs go on."""
-    from repro_torch.kernels import fused as fk
-
+def checked_pass_dict(cuda, plain, tols, errs, label, view=None, seen=None):
+    """``cuda``'s passes, each call also running its plain pass on the same
+    inputs and holding the two to ``tols`` (t, J and the candidates stored
+    in bfloat16 to 2e-2 and one bfloat16 step); the CUDA outputs go on.
+    ``view(name, outputs)`` picks the part of them that is compared;
+    ``seen`` keeps each pass's last outputs."""
     def checked(name):
         def run(*args):
-            got = fk.CUDA_PASSES[name](*args)
-            want = fk.PLAIN_PASSES[name](*args)
-            err = pass_error(name, got, want)
-            tol = PASS_TOL[name][0]
-            if name in ("recover", "refine_recover") and s.out_dtype == torch.bfloat16:
-                tol = 2e-2               # J/t stored in bfloat16
-            check(err <= tol, f"pass {name} ({s.algorithm} k={s.topk} "
-                  f"{s.in_dtype} refine={s.refine}): error {err} > {tol}")
+            got = cuda[name](*args)
+            want = plain[name](*args)
+            a, b = (got, want) if view is None else (view(name, got), view(name, want))
+            err = pass_error(name, a, b, tols)
+            tol = tols[name][0]
+            s = args[-1]
+            if s.out_dtype == torch.bfloat16:
+                if name in ("recover", "refine_recover", "tmap", "refine_tmap"):
+                    tol = 2e-2
+                elif name in ("candidate", "topk_list"):
+                    tol = BF16_STEP
+            check(err <= tol, f"pass {name} ({label}): error {err} > {tol}")
             errs[name] = max(errs.get(name, 0.0), err)
+            if seen is not None:
+                seen[name] = got
             return got
         return run
-    return {name: checked(name) for name in fk.CUDA_PASSES}
+    return {name: checked(name) for name in cuda}
+
+
+def checked_passes(s, errs):
+    """Every pass of the megakernel's two sequences, held to PASS_TOL."""
+    from repro_torch.kernels import fused as fk
+    return checked_pass_dict(fk.CUDA_PASSES, fk.PLAIN_PASSES, PASS_TOL, errs,
+                             f"{s.algorithm} k={s.topk} {s.in_dtype} refine={s.refine}")
 
 
 def phase_parity():
@@ -499,10 +548,12 @@ def all_launches() -> dict:
     counts.update({f"staged.wide.{k}": n for k, n in sk.wide_launches.items()})
     counts.update({f"fused_transmission.{k}": n
                    for k, n in fk.transmission_launches.items()})
-    counts["fused_transmission"] = fk.transmission_launches["premap"]
+    counts["fused_transmission"] = (fk.transmission_launches["tmap_tile"]
+                                    + fk.transmission_launches["premap"])
     counts.update({f"fused_transmission_halo.{k}": n
                    for k, n in fk.halo_launches.items()})
-    counts["fused_transmission_halo"] = fk.halo_launches["min_rows"]
+    counts["fused_transmission_halo"] = (fk.halo_launches["tmap_tile"]
+                                         + fk.halo_launches["min_rows"])
     return counts
 
 
@@ -514,9 +565,12 @@ def fused_per_tick() -> dict:
 
 
 def transmission_per_tick() -> dict:
-    from repro_torch.kernels import fused as fk
-    return {f"fused_transmission.{name}": 1
-            for name in fk.TRANSMISSION_PASSES} | {"fused_transmission": 1}
+    """The sharded steps' config (top-1, refine): each pass of the tiled
+    transmission sequence but ``topk_block`` once a step, and none of the
+    ten passes."""
+    return {f"fused_transmission.{name}": 1 for name in
+            ("tmap_tile", "candidate", "guided_ab", "refine_tmap")} | {
+                "fused_transmission": 1}
 
 
 def path_launches(path: str, ticks: int, per_tick: dict) -> dict:
@@ -1244,79 +1298,152 @@ def phase_staged_times():
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: the data-parallel sharded step (the fused transmission stage)
+# Phase 11: the fused transmission stage (B7a, B7b) and the data-parallel
+# sharded steps that run it
 # ---------------------------------------------------------------------------
 
-TRANSMISSION_TOL = dict(PASS_TOL, candidate=(1e-6, False), tmap=(1e-4, False))
+TRANSMISSION_TOL = dict(PASS_TOL, candidate=(1e-6, False), tmap=(1e-4, False),
+                        refine_tmap=(1e-4, False))
 
 
-def run_checked_transmission(img, a_saved, s, errs):
-    """The transmission stage's CUDA passes, each held against its plain
-    pass on the same inputs; also the megakernel's merge pass on the same
-    keys. Returns the CUDA outputs ``(t, t_min, cand)`` and the megakernel's
-    float32 candidates."""
-    from repro_torch.kernels import fused as fk
-    C, P = fk.TRANSMISSION_CUDA_PASSES, fk.TRANSMISSION_PLAIN_PASSES
-
-    def both(name, *args):
-        got = C[name](*args, s)
-        want = P[name](*args, s)
-        err = pass_error(name, got, want, TRANSMISSION_TOL)
-        tol = TRANSMISSION_TOL[name][0]
-        check(err <= tol, f"transmission pass {name} ({s.algorithm} k={s.topk} "
-              f"L={s.L}): error {err} > {tol}")
-        errs[name] = max(errs.get(name, 0.0), err)
-        return got
-
-    pre, g = both("premap", img, a_saved)
-    t_raw = both("min_cols_tmap", both("min_rows", pre))
-    keys = both("topk_block", t_raw)
-    t_min, cand = both("candidate", keys, img)
-    b1_cand = fk.CUDA_PASSES["topk_merge"](keys, img, s)
-    rows2 = None
-    if s.refine:
-        rows2 = both("box_rows2", both("box_cols_ab", both("box_rows4", g, t_raw)))
-    t = both("tmap", t_raw, g, rows2)
-    return (t, t_min.reshape(s.L, s.B), cand.reshape(s.L, s.B, 3)), b1_cand
-
-
-def check_transmission(frames, a_saved, kw, errs, label):
-    """The stage on (L, B, H, W, 3) frames and per-lane A (L, 3): its passes
-    against the plain passes, the whole against the plain version, and t
-    and the candidates against the megakernel's (B1) on the same frames
-    and saved A, bit for bit."""
+def check_transmission(frames, a_saved, kw, errs, label, fits: bool = True):
+    """The stage on (L, B, H, W, 3) frames and per-lane A (L, 3): where the
+    tiled sequence fits (``fits``, which ``transmission_tiled_fits`` and the
+    library must both say), the tiled sequence and the ten passes, every
+    pass against its plain pass, the tiled sequence against the ten passes
+    with max error 0 in t, t_min and cand; the wrapper must run the tiled
+    sequence where it fits and the ten passes where not (the launch
+    counters show which), equal to the pass chains; the whole against the
+    plain version; t and the candidates against the megakernel's (B1) on
+    the same frames and saved A, bit for bit. Where the tiles do not fit,
+    a tiled pass called alone must raise."""
     from repro_torch.kernels import fused as fk
     from repro_torch.kernels import ref
     full = dict(kw, t0=0.1, gamma=1.0, period=1, lam=0.0)
     s = fk.make_static(frames, **full)
-    (t, t_min, cand), b1_cand = run_checked_transmission(frames, a_saved, s, errs)
+    check(fk.transmission_tiled_fits(s) == fits
+          and bool(fk._lib().fd_transmission_tiled_fits(ctypes.byref(s.params()))) == fits,
+          f"{label}: transmission_tiled_fits != {fits} (Python or library)")
+    seen = {}
+    ten = fk.run_transmission_passes(frames, a_saved, s, checked_pass_dict(
+        fk.TRANSMISSION_CUDA_PASSES, fk.TRANSMISSION_PLAIN_PASSES,
+        TRANSMISSION_TOL, errs, label, seen=seen))
+    b1_cand = fk.CUDA_PASSES["topk_merge"](seen["topk_block"], frames, s)
+    got = ten
+    if fits:
+        got = fk.run_tiled_transmission_passes(frames, a_saved, s, checked_pass_dict(
+            fk.TILED_TRANSMISSION_CUDA_PASSES, fk.TILED_TRANSMISSION_PLAIN_PASSES,
+            TRANSMISSION_TOL, errs, label))
+        torch.cuda.synchronize()
+        e_ten = max(max_err(g1, g2) for g1, g2 in zip(got, ten))
+        check(e_ten == 0.0 and all(torch.equal(g1, g2) for g1, g2 in zip(got, ten)),
+              f"{label}: tiled sequence vs ten passes max error {e_ten}")
+        errs["tiled_vs_ten_pass"] = max(errs.get("tiled_vs_ten_pass", 0.0), e_ten)
+    else:
+        try:
+            fk.cuda_tmap_tile(frames, a_saved, s, counts=fk.transmission_launches)
+            if s.refine:
+                fk.cuda_guided_ab(seen["premap"][1], seen["min_cols_tmap"], s,
+                                  counts=fk.transmission_launches)
+        except RuntimeError:
+            pass
+        else:
+            fail(f"{label}: a tiled pass launched a halo that does not fit")
+    torch.cuda.synchronize()
+    fk.reset_launches()
     whole = fk.fused_transmission_lanes(frames, a_saved, **kw)
-    for g1, g2 in zip((t, t_min, cand), whole):
+    ran = {n: c for n, c in fk.transmission_launches.items() if c}
+    route = fk.TILED_TRANSMISSION_PASSES if fits else fk.TRANSMISSION_PASSES
+    want_ran = {n: 1 for n in route
+                if not (n == "topk_block" and fits and s.topk == 1)
+                and not (n in ("guided_ab", "box_rows4", "box_cols_ab", "box_rows2")
+                         and not s.refine)}
+    check(ran == want_ran, f"{label}: launches {ran}, expected {want_ran}")
+    for g1, g2 in zip(got, whole):
         check(torch.equal(g1, g2), f"{label}: pass chain != wrapper")
     torch.cuda.synchronize()
     want = ref.fused_transmission_lanes(frames, a_saved, **kw)
     e = [max_err(g1, g2) for g1, g2 in zip(whole, want)]
-    check(e[0] <= 1e-3 and max(e[1:]) <= 1e-5,
+    bf16 = s.out_dtype == torch.bfloat16
+    check(e[0] <= (2e-2 if bf16 else 1e-3) and e[1] <= 1e-5
+          and e[2] <= (BF16_STEP if bf16 else 1e-5),
           f"{label}: t/t_min/cand vs plain version {e}")
     errs["whole"] = max(errs.get("whole", 0.0), *e)
     ci = torch.tensor([[-(2 ** 30), 0]] * s.L, dtype=torch.int32, device="cuda")
     ids = torch.arange(s.B, dtype=torch.int32, device="cuda").repeat(s.L, 1)
     _, b1_t, *_ = fk.fused_dehaze_lanes(frames, ids, a_saved, ci, **full)
-    check(torch.equal(t, b1_t), f"{label}: t differs from the megakernel's")
-    check(torch.equal(cand.reshape(-1, 3), b1_cand.to(cand.dtype)),
+    check(torch.equal(whole[0], b1_t), f"{label}: t differs from the megakernel's")
+    check(torch.equal(whole[2].reshape(-1, 3), b1_cand.to(whole[2].dtype)),
           f"{label}: candidates differ from the megakernel's")
+    fk.reset_launches()
+
+
+def transmission_kw(alg: str, k: int, refine: bool = True, r: int = 7,
+                    gf_r: int = 20) -> dict:
+    from repro_torch.kernels import ref
+    return dict(algorithm=alg, radius=r, omega=0.95, beta=1.0, cap_w=ref.CAP_COEFFS,
+                refine=refine, gf_radius=gf_r, gf_eps=1e-3, topk=k, out_dtype=None)
+
+
+def check_transmission_cells(errs) -> int:
+    """The stage's cells at 4 x 8 x 480x640, per-lane saved A: {dcp, cap} x
+    {topk 1, 4} x {uint8, bfloat16, float32} with refine, one without
+    refine, and a plateau cell whose t ties across the 2-D tiles; then
+    windows at the tiles' limit (He et al.'s gf_r = 60 at 480x640 and r =
+    37 on float32 frames: the ten passes; r = 36 with gf_r = 45: the tiled
+    sequence); then ``transmission_tiled_fits`` against the library's on
+    both sides of each limit. Returns the number of cells."""
+    from repro_torch.kernels import fused as fk
+    ramp = ramps(13, L * B).reshape(-1, 3)
+    plateau = plateau_frames(L * B).reshape(-1, 3)
+    a_lanes = torch.tensor([[0.9, 0.85, 0.8], [1.0, 1.0, 1.0], [0.7, 0.75, 0.8],
+                            [0.95, 0.9, 0.85]], device="cuda")
+    cells = [(alg, k, dt, True, False) for alg in ("dcp", "cap") for k in (1, 4)
+             for dt in (torch.uint8, torch.bfloat16, torch.float32)]
+    cells += [("dcp", 1, torch.uint8, False, False), ("dcp", 1, torch.uint8, True, True)]
+    for alg, k, dt, refine, flat in cells:
+        img = to_wire(plateau if flat else ramp, dt).reshape(L, B, H, W, 3).cuda()
+        check_transmission(img, a_lanes, transmission_kw(alg, k, refine), errs,
+                           f"B7 {alg} k={k} {dt} refine={refine}"
+                           f"{' plateau' if flat else ''}")
+    # (algorithm, topk, dtype, r, gf_r, H, W, the tiled sequence fits)
+    wide = [("dcp", 1, torch.uint8, 7, 60, H, W, False),
+            ("cap", 4, torch.float32, 37, 20, 50, 70, False),
+            ("dcp", 1, torch.float32, 36, 45, 50, 70, True)]
+    for alg, k, dt, r, gr, h, w, fits in wide:
+        img = to_wire(ramps(14, 4, h, w).reshape(-1, 3), dt).reshape(2, 2, h, w, 3).cuda()
+        check_transmission(img, a_lanes[:2], transmission_kw(alg, k, True, r, gr), errs,
+                           f"B7 wide {alg} k={k} {dt} r={r} gf_r={gr} {h}x{w}", fits)
+    # The limits: the largest radius a dtype's tmap_tile takes, gf_r 45.
+    for dt, r_max in ((torch.float32, 36), (torch.bfloat16, 52), (torch.uint8, 66)):
+        img = torch.empty((1, 1, 50, 70, 3), dtype=dt, device="cuda")
+        for r, gr in ((r_max, 20), (r_max + 1, 20), (7, 45), (7, 46)):
+            s = fk.make_static(img, t0=0.1, gamma=1.0, period=1, lam=0.0,
+                               **transmission_kw("dcp", 1, True, r, gr))
+            lib = bool(fk._lib().fd_transmission_tiled_fits(ctypes.byref(s.params())))
+            check(lib == fk.transmission_tiled_fits(s) == (r <= r_max and gr <= 45),
+                  f"transmission_tiled_fits({dt}, r={r}, gf_r={gr}) disagrees "
+                  "with the library or the limit")
+    print(f"B7 on {len(cells)} cells at {L}x{B}x{H}x{W} and {len(wide)} wide-window "
+          "cells: tiled sequence == ten passes (max error 0), wrapper routes "
+          "by shape, t and candidates == the megakernel's; passes "
+          + json.dumps(errs), flush=True)
+    return len(cells) + len(wide)
 
 
 def phase_sharded():
-    """The frame-sharded (B7a) and lane-sharded (B7b, ``lane_native=False``)
-    steps on a one-rank NCCL mesh, each two chained batches, held against
-    the single-device fused steps."""
+    """The stage's cells (:func:`check_transmission_cells`), then the
+    frame-sharded (B7a) and lane-sharded (B7b, ``lane_native=False``) steps
+    on a one-rank NCCL mesh, each two chained batches, held against the
+    single-device fused steps."""
     import torch.distributed as dist
     from repro_torch.core import (DehazeConfig, PlacementSpec, init_atmo_state,
                                   init_atmo_state_lanes, make_dehaze_step,
                                   make_multi_stream_step,
                                   make_sharded_dehaze_step, make_step)
     from repro_torch.launch.mesh import make_host_mesh
+    cell_errs = {}
+    n_cells = check_transmission_cells(cell_errs)
     cfg = DehazeConfig(kernel_mode="fused", io_dtype="uint8")
     kw = dict(algorithm=cfg.algorithm, radius=cfg.patch_radius, omega=cfg.omega,
               beta=cfg.beta, cap_w=(cfg.cap_w0, cfg.cap_w1, cfg.cap_w2),
@@ -1325,7 +1452,7 @@ def phase_sharded():
     frames = to_wire(ramps(5, 2 * L * B).reshape(-1, 3), torch.uint8).reshape(
         2, L, B, H, W, 3).cuda()
     mesh = make_host_mesh(1, 1)
-    errs, whole = {}, {}
+    errs, whole = {"cells": cell_errs}, {}
     launches = {name: {} for name in TRANSMISSION_REPLACES}
     try:
         check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
@@ -1377,19 +1504,49 @@ def phase_sharded():
                   + " vs single device " + json.dumps(e_out), flush=True)
     finally:
         dist.destroy_process_group()
-    return errs, whole, launches
+    return errs, whole, launches, n_cells
 
 
 # ---------------------------------------------------------------------------
 # Phase 12: this slice's kernels timed at the serving shape
 # ---------------------------------------------------------------------------
 
+def rates(r: dict, nb: int, ops: int, direct: int = 0) -> dict:
+    """``r`` with its bound (each input read once, each output written once,
+    and a sliding-window algorithm's float32 operations at the card's
+    peak, whichever takes longer) and, where ``direct``, the direct window
+    sums' floor (their operations at the non-FMA float32 rate)."""
+    t_bytes = nb / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    r.update(bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if direct:
+        r["floor_ms"] = direct / PEAK_F32_NONFMA_PER_S * 1e3
+    return r
+
+
+def turns(tiled, ten) -> dict:
+    """A tiled sequence and the ten passes it replaced, timed in turns (ten,
+    tiled, tiled, ten), with their device busy times and their device time
+    a call in a replayed CUDA graph (the profiler drops a record now and
+    then, section 7 of PERF.md)."""
+    order = [(n, time_ms(fn)) for n, fn in
+             (("ten", ten), ("tiled", tiled), ("tiled", tiled), ("ten", ten))]
+    mean = {n: sum(v for m, v in order if m == n) / 2 for n in ("tiled", "ten")}
+    return dict(ms=mean["tiled"], ten_pass_ms=mean["ten"],
+                device_busy_ms=device_busy_ms(tiled),
+                ten_pass_busy_ms=device_busy_ms(ten), graph_ms=graph_ms(tiled),
+                ten_pass_graph_ms=graph_ms(ten), turns_ms=[v for _, v in order])
+
+
 def phase_slice3_times():
     """The min filter on CAP's depth and the top-k atmospheric light (k = 4)
     on DCP's t_raw, 32 frames of 480x640 float32 after the uint8 upcast; the
-    transmission stage over 32 uint8 frames (B7a) and 4 x 8 (B7b). Bounds
-    count each input read once and each output written once; of the top-k's
-    frames they count the k pixels a frame this data needs."""
+    transmission stage over 32 uint8 frames (B7a) and 4 x 8 (B7b), its
+    tiled sequence and its ten passes in turns, and each tiled pass alone
+    at B7b's shape with its blocks an SM. Bounds count each input read once
+    and each output written once; of the top-k's frames they count the k
+    pixels a frame this data needs."""
     from repro_torch.kernels import fused as fk
     from repro_torch.kernels import ref
     from repro_torch.kernels import staged as sk
@@ -1407,44 +1564,79 @@ def phase_slice3_times():
         j = torch.topk(t_raw.reshape(n, -1), k, largest=False).indices
         return torch.gather(x.reshape(n, -1, 3), 1, j[..., None].expand(n, k, 3)).mean(1)
 
-    kw = dict(algorithm="dcp", radius=7, omega=0.95, beta=1.0,
-              cap_w=ref.CAP_COEFFS, refine=True, gf_radius=20, gf_eps=1e-3,
-              topk=1, out_dtype=None)
-    a_lanes = torch.tensor([[0.9, 0.85, 0.8]] * L, device="cuda")
-    flat = u8.reshape(n, H, W, 3)
-    t7, tmin7, cand7 = fk.fused_transmission(flat, a_lanes[0], **kw)
-    # The stage's float32 operations: the megakernel's passes up to the
-    # guided filter (phase 5's counts), then the refined t.
-    stage_ops = (10 + 3 + 5 + 4 + 10 + 20 + 4 + 8) * npx
-    work = {
-        "staged.min_filter": (lambda: sk.cuda_min_filter(depth, 7),
-                              lambda: sk.plain_min_filter(depth, 7),
-                              lambda: -F.max_pool2d(-depth[:, None], 15, 1, 7),
-                              nbytes(depth, mins), 2 * npx),
-        "staged.atmolight_topk": (lambda: sk.cuda_atmolight_topk(x, t_raw, k),
-                                  lambda: sk.plain_atmolight_topk(x, t_raw, k),
-                                  topk_library,
-                                  nbytes(t_raw, a) + n * k * 12, npx),
-        "fused_transmission": (
-            lambda: fk.fused_transmission(flat, a_lanes[0], **kw),
-            lambda: ref.fused_transmission(flat, a_lanes[0], **kw), None,
-            nbytes(flat, a_lanes[0], t7, tmin7, cand7), stage_ops),
-        "fused_transmission_lanes": (
-            lambda: fk.fused_transmission_lanes(u8, a_lanes, **kw),
-            lambda: ref.fused_transmission_lanes(u8, a_lanes, **kw), None,
-            nbytes(u8, a_lanes, t7, tmin7, cand7), stage_ops),
-    }
     out = {}
-    for name, (kernel, plain, lib, nb, ops) in work.items():
-        t_bytes = nb / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-        heavy = name.startswith("fused_transmission")
-        out[name] = dict(
-            ms=time_ms(kernel),
-            plain_ms=time_ms(plain, reps=3 if heavy else 5, warmup=1),
-            library_ms=time_ms(lib) if lib else None,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
+    for name, kernel, plain, lib, nb, ops in (
+            ("staged.min_filter", lambda: sk.cuda_min_filter(depth, 7),
+             lambda: sk.plain_min_filter(depth, 7),
+             lambda: -F.max_pool2d(-depth[:, None], 15, 1, 7),
+             nbytes(depth, mins), 2 * npx),
+            ("staged.atmolight_topk", lambda: sk.cuda_atmolight_topk(x, t_raw, k),
+             lambda: sk.plain_atmolight_topk(x, t_raw, k), topk_library,
+             nbytes(t_raw, a) + n * k * 12, npx)):
+        out[name] = rates(dict(ms=time_ms(kernel), plain_ms=time_ms(plain, reps=5, warmup=1),
+                               library_ms=time_ms(lib)), nb, ops)
+
+    kw = transmission_kw("dcp", 1)
+    a_lanes = torch.tensor([[0.9, 0.85, 0.8]] * L, device="cuda")
+    kg, kr = 2 * kw["gf_radius"] + 1, 2 * kw["radius"] + 1
+    # The stage's float32 operations, sliding-window and direct: tmap_tile,
+    # guided_ab and refine_tmap as phase 5 counts the megakernel's passes
+    # (refine_tmap is refine_recover less J's 15 an output).
+    ops_px = {"tmap_tile": (22, 2 * kr + 16), "guided_ab": (30, 8 * kg + 14),
+              "refine_tmap": (13, 4 * kg + 4)}
+    stage_ops = sum(v[0] for v in ops_px.values()) * npx
+    stage_direct = sum(v[1] for v in ops_px.values()) * npx
+    flat = u8.reshape(n, H, W, 3)
+    for name, img, a_in in (("fused_transmission", flat[None], a_lanes[:1]),
+                            ("fused_transmission_lanes", u8, a_lanes)):
+        s = fk.make_static(img, t0=0.1, gamma=1.0, period=1, lam=0.0, **kw)
+        t7, tmin7, cand7 = fk.fused_transmission_lanes(img, a_in, **kw)
+        check(fk.transmission_tiled_fits(s), f"{name}: the serving shape must fit")
+        r = turns(lambda: fk.fused_transmission_lanes(img, a_in, **kw),
+                  lambda: fk.run_transmission_passes(img, a_in, s))
+        r.update(plain_ms=time_ms(lambda: ref.fused_transmission_lanes(img, a_in, **kw),
+                                  reps=3, warmup=1),
+                 library_ms=None, blocks_per_sm=list(fk.transmission_occupancy(s)))
+        out[name] = rates(r, nbytes(img, a_in, t7, tmin7, cand7), stage_ops, stage_direct)
+    # Each tiled pass alone at B7b's shape.
+    s = fk.make_static(u8, t0=0.1, gamma=1.0, period=1, lam=0.0, **kw)
+    C, P = fk.TILED_TRANSMISSION_CUDA_PASSES, fk.TILED_TRANSMISSION_PLAIN_PASSES
+    t_raw7, g7, keys7 = C["tmap_tile"](u8, a_lanes, s)
+    tmin7, cand7 = C["candidate"](keys7, u8, s)
+    ab7 = C["guided_ab"](g7, t_raw7, s)
+    t7 = C["refine_tmap"](t_raw7, g7, ab7, s)
+    blocks = dict(zip(("tmap_tile", "guided_ab", "refine_tmap"), fk.transmission_occupancy(s)))
+    work = {"tmap_tile": ((u8, a_lanes), nbytes(u8, a_lanes, t_raw7, g7, keys7)),
+            "candidate": ((keys7, u8), nbytes(keys7, tmin7, cand7) + 3 * n),
+            "guided_ab": ((g7, t_raw7), nbytes(g7, t_raw7, ab7)),
+            "refine_tmap": ((t_raw7, g7, ab7), nbytes(g7, ab7, t7))}
+    for name, (args, nb) in work.items():
+        fn = lambda a_=args, c=C[name]: c(*a_, s)          # noqa: E731
+        ops, direct = ((v * npx for v in ops_px[name]) if name in ops_px
+                       else (keys7.numel(), 0))
+        r = dict(ms=time_ms(fn), plain_ms=time_ms(lambda a_=args, p=P[name]: p(*a_, s),
+                                                  reps=5, warmup=1),
+                 library_ms=None, device_busy_ms=device_busy_ms(fn),
+                 graph_ms=graph_ms(fn), blocks_per_sm=blocks.get(name))
+        out[f"fused_transmission.{name}"] = rates(r, nb, ops, direct)
+    card = card_line()
+    for name in ("fused_transmission", "fused_transmission_lanes"):
+        r = out[name]
+        print(f"{name} ({'32' if name == 'fused_transmission' else '4 x 8'} x "
+              f"{H}x{W} uint8, turns ten/tiled/tiled/ten {r['turns_ms']} ms): tiled "
+              f"{r['ms']} ms (device busy {r['device_busy_ms']}, CUDA graph "
+              f"{r['graph_ms']}), ten passes {r['ten_pass_ms']} ms (device busy "
+              f"{r['ten_pass_busy_ms']}, CUDA graph {r['ten_pass_graph_ms']}), bound "
+              f"{r['bound_ms']} ms ({r['bound_by']}), direct-sum floor "
+              f"{r['floor_ms']} ms, blocks an SM {r['blocks_per_sm']}; {card}",
+              flush=True)
+    for name in ("tmap_tile", "candidate", "guided_ab", "refine_tmap"):
+        r = out[f"fused_transmission.{name}"]
+        print(f"  tiled pass {name:12s} {r['ms']:.4f} ms, device busy "
+              f"{r['device_busy_ms']}, CUDA graph {r['graph_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms, floor "
+              f"{r.get('floor_ms', 0.0):.4f} ms, blocks an SM {r['blocks_per_sm']}",
+              flush=True)
     return out
 
 
@@ -1490,41 +1682,68 @@ def spatial_tiles(frames, x, pre, guide, halo: int, tiling):
     return tiles
 
 
-def check_halo_tile(tile, kw, errs, label):
-    """B9 on one tile: every pass against its plain pass, the pass chain
-    against the wrapper, the whole against its plain version (t 1e-3,
-    lists 1e-5, indices exact)."""
+def check_halo_tile(tile, kw, errs, label, fits: bool = True):
+    """B9 on one tile: where the masked tiled sequence fits (``fits``, which
+    ``halo_tiled_fits`` and the library must both say), it and the ten
+    masked passes, every pass against its plain pass (a tiled pass's
+    extended planes on the region it writes), the tiled sequence against
+    the ten passes with max error 0 in t, tk_t, tk_rgb and tk_idx, and no
+    NaN; the wrapper must run the tiled sequence where it fits and the ten
+    passes where not (the launch counters show which), equal to the pass
+    chains; the whole against its plain version (t 1e-3, lists 1e-5,
+    indices exact; bfloat16 t 2e-2 and rows one bfloat16 step)."""
     from repro_torch.kernels import fused as fk
     from repro_torch.kernels import ref
     from repro_torch.kernels import staged as sk
     img, _, pre, guide, vr, vc = tile[:6]
     s = fk.make_halo_static(img, pre, guide, **kw)
+    check(fk.halo_tiled_fits(s) == fits
+          and bool(fk._lib().fd_halo_tiled_fits(ctypes.byref(s.params()))) == fits,
+          f"{label}: halo_tiled_fits != {fits} (Python or library)")
     vh = sk.validity_bytes(vr, s.h_ext, img.device)
     vw = sk.validity_bytes(vc, s.w_ext, img.device)
-    C, P = fk.HALO_CUDA_PASSES, fk.HALO_PLAIN_PASSES
 
-    def both(name, *args):
-        got = C[name](*args, s)
-        want = P[name](*args, s)
-        err = pass_error(name, got, want, HALO_TOL)
-        tol = HALO_TOL[name][0]
-        check(err <= tol, f"halo pass {name} ({label}): error {err} > {tol}")
-        errs[name] = max(errs.get(name, 0.0), err)
-        return got
+    def region(name, out):
+        if name not in ("tmap_tile", "guided_ab"):
+            return out
+        ys, xs = s.region(name)
+        planes = out if name == "guided_ab" else out[0]
+        planes = planes[..., ys, xs]
+        return planes if name == "guided_ab" else (planes,) + tuple(out[1:])
 
-    t_ext, t_core = both("min_cols_tmap", both("min_rows", pre, vh, vw))
-    lists = both("topk_list", both("topk_block", t_core), img)
-    rows2 = both("box_rows2", both("box_cols_ab",
-                                   both("box_rows4", guide, t_ext, vh, vw), vh, vw),
-                 vh, vw)
-    chain = (both("tmap", t_core, guide, rows2, vh, vw),) + lists
+    args = (img, pre, guide, vh, vw, s)
+    got = ten = fk.run_halo_passes(*args, checked_pass_dict(
+        fk.HALO_CUDA_PASSES, fk.HALO_PLAIN_PASSES, HALO_TOL, errs, label))
+    if fits:
+        got = fk.run_tiled_halo_passes(*args, checked_pass_dict(
+            fk.TILED_HALO_CUDA_PASSES, fk.TILED_HALO_PLAIN_PASSES, HALO_TOL, errs,
+            label, view=region))
+        torch.cuda.synchronize()
+        e_ten = max(max_err(g1, g2) for g1, g2 in zip(got, ten))
+        check(e_ten == 0.0 and all(torch.equal(g1, g2) for g1, g2 in zip(got, ten)),
+              f"{label}: tiled halo sequence vs ten masked passes max error {e_ten}")
+        check(not any(bool(torch.isnan(v.float()).any()) for v in got),
+              f"{label}: NaN in the tiled halo sequence's outputs")
+        errs["tiled_vs_ten_pass"] = max(errs.get("tiled_vs_ten_pass", 0.0), e_ten)
+    torch.cuda.synchronize()
+    fk.reset_launches()
     whole = fk.fused_transmission_halo(img, pre, guide, vr, vc, **kw)
-    for g1, g2 in zip(chain, whole):
+    ran = {n: c for n, c in fk.halo_launches.items() if c}
+    route = fk.TILED_HALO_PASSES if fits else fk.HALO_PASSES
+    want_ran = {n: 1 for n in route
+                if not (n == "topk_block" and fits and s.topk == 1)
+                and not (n in ("guided_ab", "box_rows4", "box_cols_ab", "box_rows2")
+                         and not s.refine)}
+    check(ran == want_ran, f"{label}: launches {ran}, expected {want_ran}")
+    fk.reset_launches()
+    for g1, g2 in zip(got, whole):
         check(torch.equal(g1, g2), f"{label}: halo pass chain != wrapper")
     torch.cuda.synchronize()
     want = ref.fused_transmission_halo(img, pre, guide, vr, vc, **kw)
     e = [max_err(g1, g2) for g1, g2 in zip(whole[:3], want[:3])]
-    check(e[0] <= 1e-3 and max(e[1:]) <= 1e-5 and torch.equal(whole[3], want[3]),
+    bf16 = s.out_dtype == torch.bfloat16
+    check(e[0] <= (2e-2 if bf16 else 1e-3) and e[1] <= 1e-5
+          and e[2] <= (BF16_STEP if bf16 else 1e-5) and torch.equal(whole[3], want[3]),
           f"{label}: B9 vs plain version t/tk_t/tk_rgb {e}, indices "
           f"{'equal' if torch.equal(whole[3], want[3]) else 'differ'}")
     errs["whole"] = max(errs.get("whole", 0.0), *e)
@@ -1565,6 +1784,46 @@ def plateau_frames(n: int, h: int = H, w: int = W) -> np.ndarray:
     return (q * 0.8 + 0.1).astype(np.float32)
 
 
+def check_halo_cells(errs, frames, a_saved) -> None:
+    """Corner tiles of 8 frames off the step's config: without refine (DCP
+    top-2), bfloat16 frames (t and the rows in bfloat16; CAP top-1), and a
+    halo too wide for the tiles (gf_r = 46: the ten masked passes, chosen
+    by shape), each held as :func:`check_halo_tile` holds the step's tiles;
+    then ``halo_tiled_fits`` against the library's on both sides of each
+    limit (radius 88, gf_r 45)."""
+    from repro_torch.core import DehazeConfig
+    from repro_torch.core import algorithms as alg
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import ref
+    # (label, frames, algorithm, topk, refine, gf_r, corner, the tiles fit)
+    cells = [("no refine", frames[:8], "dcp", 2, False, 20, 0, True),
+             ("bfloat16 frames", frames[:8].to(torch.bfloat16) / 255.0, "cap", 1,
+              True, 20, 3, True),
+             ("wide gf_r=46", frames[:8], "dcp", 4, True, 46, 0, False)]
+    for label, img, alg_, k, refine, gr, corner, fits in cells:
+        cfg = DehazeConfig(algorithm=alg_, topk=k, kernel_mode="fused")
+        x = ref.upcast_frames(img)
+        pre, guide = alg.premap(x, a_saved, cfg), alg.luminance(x)
+        kw = dict(algorithm=alg_, radius=7, omega=cfg.omega, beta=cfg.beta,
+                  refine=refine, gf_radius=gr, gf_eps=cfg.gf_eps, topk=k,
+                  out_dtype=None)
+        tile = spatial_tiles(img, x, pre, guide, 7 + 2 * gr, (2, 2))[corner]
+        check_halo_tile(tile, kw, errs, f"{label} corner tile", fits=fits)
+    img = torch.empty((1, 40, 50, 3), dtype=torch.uint8, device="cuda")
+    for r, gr in ((88, 20), (89, 20), (7, 45), (7, 46)):
+        plane = torch.empty((1, 40 + 2 * (r + 2 * gr), 50 + 2 * (r + 2 * gr)),
+                            device="cuda")
+        s = fk.make_halo_static(img, plane, plane, radius=r, refine=True,
+                                gf_radius=gr, gf_eps=1e-3)
+        lib = bool(fk._lib().fd_halo_tiled_fits(ctypes.byref(s.params())))
+        check(lib == fk.halo_tiled_fits(s) == (r <= 88 and gr <= 45),
+              f"halo_tiled_fits(r={r}, gf_r={gr}) disagrees with the library "
+              "or the limit")
+    print("B9 corner tiles without refine and of bfloat16 frames: tiled == "
+          "ten masked passes; gf_r 46: the ten masked passes by shape; fits "
+          "limits r 88, gf_r 45 agree with the library", flush=True)
+
+
 def phase_spatial():
     """Spatial sharding on one rank over virtual tilings (see the module
     docstring, phase 13)."""
@@ -1590,6 +1849,7 @@ def phase_spatial():
                False)]
     errs, vs_b7 = {}, {"t": 0.0}
     launches = {"fused_transmission_halo": 0, "staged.merge_topk": 0}
+    launches |= {f"fused_transmission_halo.{p}": 0 for p in fk.TILED_HALO_PASSES}
     corner_tiles = None
     for label, alg_, k, frames, tiling, plane_dt, against_b7 in cells:
         cfg = DehazeConfig(algorithm=alg_, topk=k, kernel_mode="fused",
@@ -1607,7 +1867,7 @@ def phase_spatial():
         reset_launches()
         t_parts, cand, lists = spatial_step(cfg, tiles)
         per_step = {f"fused_transmission_halo.{p}": len(tiles)
-                    for p in fk.HALO_PASSES}
+                    for p in fk.TILED_HALO_PASSES if p != "topk_block" or k > 1}
         per_step |= {"fused_transmission_halo": len(tiles), "staged.merge_topk": 1}
         counts = path_launches(f"spatial {label}", 1, per_step)
         for name in launches:
@@ -1628,6 +1888,7 @@ def phase_spatial():
         print(f"spatial {label}: ok", flush=True)
         if label == "dcp-1-2x2":
             corner_tiles = (tiles[0], tiles[3])
+    check_halo_cells(errs, ramp_u8, a_saved)
     # B8a and B8b through ops on the corner tiles' planes (the first tile's
     # rows and columns invalid at the top and left, the last's at the
     # bottom and right).
@@ -1662,10 +1923,12 @@ def phase_spatial():
 
 def phase_spatial_times():
     """B9 on a corner tile of the 2x2 tiling and on an interior tile of a
-    4x4 one (DCP top-4, 32 uint8 frames of 480x640, float32 planes), B8a on
-    the corner tile's pre-map plane (r = 7) and B8b on its luma plane
-    (r = 20), B10 on the four 2x2 tiles' lists (M = 16, k = 4). Bounds
-    count each input read once and each output written once."""
+    4x4 one (DCP top-4, 32 uint8 frames of 480x640, float32 planes), its
+    masked tiled sequence and its ten masked passes in turns, and on the
+    corner tile each tiled pass alone; B8a on the corner tile's pre-map
+    plane (r = 7) and B8b on its luma plane (r = 20), B10 on the four 2x2
+    tiles' lists (M = 16, k = 4). Bounds count each input read once and
+    each output written once."""
     from repro_torch.core import DehazeConfig
     from repro_torch.core import algorithms as alg
     from repro_torch.core.pipeline import spatial_shard_stage
@@ -1694,19 +1957,64 @@ def phase_spatial_times():
         pick = torch.gather(by_idx, 1, by_t)[:, :k]
         return torch.gather(tk_rgb, 1, pick[..., None].expand(-1, -1, 3)).mean(1)
 
-    work = {}
+    out = {}
+    kr, kg = 2 * kw["radius"] + 1, 2 * kw["gf_radius"] + 1
     for name, tile in (("fused_transmission_halo", tiles[0]),
                        ("fused_transmission_halo.interior", interior)):
         args = tile[:1] + tile[2:6]         # less the compute view
-        out = fk.fused_transmission_halo(*args, **kw)
-        ext_px = args[1].numel()
-        # The transmission stage's passes after the pre-map (phase 12's
-        # counts) on the extended plane; the refined t on the core.
-        work[name] = (
-            lambda a=args: fk.fused_transmission_halo(*a, **kw),
-            lambda a=args: ref.fused_transmission_halo(*a, **kw),
-            None, nbytes(*args, *out),
-            (3 + 5 + 10 + 20 + 4) * ext_px + (4 + 8) * args[0].numel() // 3)
+        res = fk.fused_transmission_halo(*args, **kw)
+        s = fk.make_halo_static(*args[:3], **kw)
+        check(fk.halo_tiled_fits(s), f"{name}: the serving shape must fit")
+        vh = sk.validity_bytes(args[3], s.h_ext, "cuda")
+        vw = sk.validity_bytes(args[4], s.w_ext, "cuda")
+        px = {p: (r[0].stop - r[0].start) * (r[1].stop - r[1].start) * s.N
+              for p in ("tmap_tile", "guided_ab", "refine_tmap")
+              for r in (s.region(p),)}
+        # Sliding-window operations as phase 12 counts them, less the
+        # pre-map (an input here), each on the part of the plane its pass
+        # writes; the direct sums' likewise.
+        ops = 12 * px["tmap_tile"] + 30 * px["guided_ab"] + 13 * px["refine_tmap"]
+        direct = ((2 * kr + 2) * px["tmap_tile"] + (8 * kg + 14) * px["guided_ab"]
+                  + (4 * kg + 4) * px["refine_tmap"])
+        r = turns(lambda a=args: fk.fused_transmission_halo(*a, **kw),
+                  lambda a=args: fk.run_halo_passes(*a[:3], vh, vw, s))
+        r.update(plain_ms=time_ms(lambda a=args: ref.fused_transmission_halo(*a, **kw),
+                                  reps=3, warmup=1),
+                 library_ms=None, blocks_per_sm=list(fk.halo_occupancy(s)))
+        out[name] = rates(r, nbytes(*args, *res), ops, direct)
+        if name == "fused_transmission_halo":      # each tiled pass alone
+            C, P = fk.TILED_HALO_CUDA_PASSES, fk.TILED_HALO_PLAIN_PASSES
+            img, pre_e, guide_e = args[:3]
+            t_ext, t_core, _ = C["tmap_tile"](pre_e, vh, vw, s)
+            keys = C["topk_block"](t_core, s)
+            lists = C["topk_list"](keys, img, s)
+            ab = C["guided_ab"](guide_e, t_ext, vh, vw, s)
+            t9 = C["refine_tmap"](t_core, guide_e, ab, vh, vw, s)
+            blocks = dict(zip(("tmap_tile", "guided_ab", "refine_tmap"),
+                              fk.halo_occupancy(s)))
+            # Bytes: each plane read on the part of it that a pass needs
+            # (its output region, widened by the window: the region of the
+            # pass before), each output written on its region.
+            core_px, pe, ge = t_core.numel(), pre_e.element_size(), guide_e.element_size()
+            for p, a_, nb, o, d in (
+                    ("tmap_tile", (pre_e, vh, vw),
+                     (pe + 4) * px["tmap_tile"] + 4 * core_px,
+                     12 * px["tmap_tile"], (2 * kr + 2) * px["tmap_tile"]),
+                    ("topk_block", (t_core,), nbytes(t_core, keys), 4 * core_px, 0),
+                    ("topk_list", (keys, img), nbytes(keys, *lists) + 3 * s.N * s.topk,
+                     keys.numel(), 0),
+                    ("guided_ab", (guide_e, t_ext, vh, vw),
+                     (ge + 4) * px["tmap_tile"] + 8 * px["guided_ab"],
+                     30 * px["guided_ab"], (8 * kg + 14) * px["guided_ab"]),
+                    ("refine_tmap", (t_core, guide_e, ab, vh, vw),
+                     8 * px["guided_ab"] + (ge + t9.element_size()) * core_px,
+                     13 * px["refine_tmap"], (4 * kg + 4) * px["refine_tmap"])):
+                fn = lambda a=a_, c=C[p]: c(*a, s)          # noqa: E731
+                rp = dict(ms=time_ms(fn),
+                          plain_ms=time_ms(lambda a=a_, q=P[p]: q(*a, s), reps=3, warmup=1),
+                          library_ms=None, device_busy_ms=device_busy_ms(fn),
+                          graph_ms=graph_ms(fn), blocks_per_sm=blocks.get(p))
+                out[f"fused_transmission_halo.{p}"] = rates(rp, nb, o, d)
     _, _, pre_ext, guide_ext, vr, vc = tiles[0][:6]
     mask = (vr[:, None] & vc[None, :])
     # The masks as the kernels' bytes, so the wrapper converts nothing.
@@ -1714,6 +2022,7 @@ def phase_spatial_times():
     mins = sk.cuda_masked_min_filter(pre_ext, vr, 7, vc)
     means = sk.cuda_masked_box_filter(guide_ext, vr, 20, vc)
     mask_f = mask.float()[None, None]
+    work = {}
     work["staged.masked_min_filter"] = (
         lambda: sk.cuda_masked_min_filter(pre_ext, vr, 7, vc),
         lambda: sk.plain_masked_min_filter(pre_ext, vr, 7, vc),
@@ -1730,20 +2039,22 @@ def phase_spatial_times():
         lambda: sk.cuda_merge_topk(tk_t, gidx, tk_rgb, k),
         lambda: sk.plain_merge_topk(tk_t, gidx, tk_rgb, k),
         merge_library, nbytes(tk_t, gidx, tk_rgb, cand), tk_t.numel() * k)
-    out = {}
     for name, (kernel, plain, lib, nb, ops) in work.items():
-        t_bytes = nb / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-        heavy = name.startswith("fused_transmission_halo")
-        out[name] = dict(
-            ms=time_ms(kernel),
-            plain_ms=time_ms(plain, reps=3 if heavy else 5, warmup=1),
-            library_ms=time_ms(lib) if lib else None,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            # The kernels' own time a call: where it is well below ms,
-            # the host's launch rate sets ms.
-            device_busy_ms=device_busy_ms(kernel))
+        # device_busy_ms: the kernels' own time a call; where it is well
+        # below ms, the host's launch rate sets ms.
+        out[name] = rates(dict(ms=time_ms(kernel), plain_ms=time_ms(plain, reps=5, warmup=1),
+                               library_ms=time_ms(lib) if lib else None,
+                               device_busy_ms=device_busy_ms(kernel)), nb, ops)
+    card = card_line()
+    for name in ("fused_transmission_halo", "fused_transmission_halo.interior"):
+        r = out[name]
+        print(f"B9 {'corner (2x2)' if name == 'fused_transmission_halo' else 'interior (4x4)'}"
+              f" tile, turns ten/tiled/tiled/ten {r['turns_ms']} ms: tiled {r['ms']} ms "
+              f"(device busy {r['device_busy_ms']}, CUDA graph {r['graph_ms']}), ten "
+              f"masked passes {r['ten_pass_ms']} ms (device busy "
+              f"{r['ten_pass_busy_ms']}, CUDA graph {r['ten_pass_graph_ms']}), bound "
+              f"{r['bound_ms']} ms ({r['bound_by']}), direct-sum floor {r['floor_ms']} "
+              f"ms, blocks an SM {r['blocks_per_sm']}; {card}", flush=True)
     print("spatial kernel times " + json.dumps(out), flush=True)
     return out
 
@@ -1795,7 +2106,7 @@ def main() -> int:
     cfg_cap = DehazeConfig(algorithm="cap", topk=4, io_dtype="uint8")
     c_launches, c_launches_serve, c_ticks = phase_serve(
         cfg_cap, vids, CAP_PER_TICK, "staged CAP top-4 ")
-    t_errs, t_whole, t_launches = phase_sharded()
+    t_errs, t_whole, t_launches, t_cells = phase_sharded()
     c_times = phase_slice3_times()
     sp_errs, sp_vs_b7, sp_launches, sp_steps = phase_spatial()
     sp_times = phase_spatial_times()
@@ -1816,7 +2127,8 @@ def main() -> int:
             **{k: r[k] for k in ("floor_ms", "device_busy_ms", "library_busy_ms",
                                  "graph_ms", "library_graph_ms", "flushed_busy_ms",
                                  "library_flushed_busy_ms", "ten_pass_ms",
-                                 "ten_pass_busy_ms", "blocks_per_sm")
+                                 "ten_pass_busy_ms", "ten_pass_graph_ms",
+                                 "blocks_per_sm")
                if r.get(k) is not None}})
         print(f"{name:36s} {r['ms']:9.4f} ms  bound {r['bound_ms']:8.4f} ms "
               f"({r['bound_by']})  plain {r['plain_ms']:9.3f} ms  library "
@@ -1833,22 +2145,27 @@ def main() -> int:
         entry(full, SOURCE, REPLACES[name], times[name], err,
               {full: launches[name]}, {full: launches_serve[name]}, ticks,
               "fused serve_many / serve")
-    # The ten passes: the fused transmission stage's (phase 11's steps, both
-    # paths; its merge is topk_merge's kernel) where it runs them; the rest
-    # run only in phase 2 (the megakernel's windows too wide for the tiles,
-    # and the tiled passes' comparator).
+    # The ten passes run on no path at the serving shape: they are the
+    # megakernel's and the transmission stage's route for windows too wide
+    # for the tiles (phases 2 and 11) and the tiled sequences' comparator.
+    # Their launches are those on the sharded steps (phase 11), where the
+    # transmission stage would run them.
     b7 = {name: sum(t_launches[path].get(f"fused_transmission.{name}", 0)
-                    for path in t_launches) for name in fk.TRANSMISSION_PASSES}
-    b7["topk_merge"] = b7["candidate"]
+                    for path in t_launches) for name in fk.transmission_launches}
     b7_steps = sum(t_launches[path]["fused_transmission"] for path in t_launches)
     for name in fk.PASSES:
         full = f"fused_dehaze_lanes.{name}"
         entry(full, SOURCE, REPLACES[name], times[name], pass_errs[name],
-              {full: b7.get(name, 0)}, None, b7_steps,
-              "sharded steps (B7a, B7b)" if name in b7
-              else "none at the serving shape: the megakernel's windows too "
-                   "wide for the tiles, and the tiled passes' comparator "
-                   "(phase 2)")
+              {full: b7[name] if name in fk.TRANSMISSION_PASSES else 0}, None,
+              b7_steps, "none at the serving shape: windows too wide for the "
+              "tiles (phases 2 and 11) and the tiled sequences' comparator; "
+              "launches on the sharded steps")
+    # The transmission stage's tiled passes on the sharded steps (phase 11).
+    for name in ("tmap_tile", "candidate", "guided_ab", "refine_tmap"):
+        full = f"fused_transmission.{name}"
+        entry(full, SOURCE, TILED_TRANSMISSION_REPLACES[name], c_times[full],
+              max(e.get(name, 0.0) for e in t_errs.values()), {full: b7[name]},
+              None, b7_steps, "sharded steps (B7a, B7b)")
     for name in ("dark_channel", "box_filter", "atmolight", "recover"):
         entry(f"staged.{name}", STAGED_SOURCE, STAGED_REPLACES[name],
               s_times[name], staged_errs[name], s_launches, s_launches_serve,
@@ -1859,7 +2176,8 @@ def main() -> int:
               c_launches_serve, c_ticks, "staged CAP top-4 serve_many / serve")
     for name in TRANSMISSION_REPLACES:
         entry(name, SOURCE, TRANSMISSION_REPLACES[name], c_times[name],
-              max(t_errs[name]["whole"], *t_whole[name].values()),
+              max(t_errs[name]["whole"], t_errs[name]["tiled_vs_ten_pass"],
+                  *t_whole[name].values()),
               {name: t_launches[name]["fused_transmission"]}, None, 2,
               f"sharded step ({name})")
     # Phase 13's path: its spatial steps (B9 one launch a tile, B10 one a
@@ -1868,8 +2186,8 @@ def main() -> int:
               "staged.masked_box_filter": sp_errs["masked_box_filter"],
               "staged.merge_topk": sp_errs["merge_topk"],
               "fused_transmission_halo": max(
-                  sp_errs["whole"], sp_vs_b7["t"],
-                  *(v for kk, v in sp_errs.items() if kk in fk.HALO_PASSES))}
+                  sp_errs["whole"], sp_vs_b7["t"], sp_errs["tiled_vs_ten_pass"],
+                  *(v for kk, v in sp_errs.items() if kk in fk.halo_launches))}
     for name in SPATIAL_REPLACES:
         source = SOURCE if name == "fused_transmission_halo" else STAGED_SOURCE
         entry(name, source, SPATIAL_REPLACES[name], sp_times[name],
@@ -1877,6 +2195,11 @@ def main() -> int:
               2 if name.startswith("staged.masked") else sp_steps,
               "ops on corner tiles" if name.startswith("staged.masked")
               else "spatial steps (virtual tilings)")
+    for name in fk.TILED_HALO_PASSES:
+        full = f"fused_transmission_halo.{name}"
+        entry(full, SOURCE, TILED_HALO_REPLACES[name], sp_times[full],
+              sp_errs[name], sp_launches, None, sp_steps,
+              "spatial steps (virtual tilings)")
     print(f"serve_many aggregate fps: fused {rep.fps} ({rep.frames} frames, "
           f"{rep.wall_s} s), staged {s_rep.fps} ({s_rep.frames} frames, "
           f"{s_rep.wall_s} s); total {time.perf_counter() - t_start:.1f} s",

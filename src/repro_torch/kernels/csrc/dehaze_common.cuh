@@ -165,6 +165,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_by
                  "l"(src), "r"(src_bytes));
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                      static_cast<unsigned>(__cvta_generic_to_shared(dst))),

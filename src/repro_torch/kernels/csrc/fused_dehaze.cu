@@ -1,5 +1,7 @@
 // Fused dehaze megakernel for NVIDIA Hopper (sm_90a): the whole DCP/CAP
-// chain for L lanes x B frames, as four tiled passes.
+// chain for L lanes x B frames, as four tiled passes; the same tiled passes
+// without the EMA and J make the fused transmission stage (B7), and their
+// masked form its halo form (B9).
 //
 // Replaces the TPU kernel src/repro/kernels/fused.py::fused_dehaze_lanes_pallas
 // (body _fused_dehaze_kernel -> _dehaze_grid_step -> _frame_tmap,
@@ -44,9 +46,8 @@
 // uses r = 60) run the ten passes below, chosen from the static shape
 // before anything launches (kernels/fused.py::fused_dehaze_lanes).
 //
-// The ten passes that came before stay, for those wide windows, for the
-// fused transmission stage (B7) and as the tiled sequence's comparator on
-// the card:
+// The ten passes that came before stay, for those wide windows and as the
+// tiled sequences' comparator on the card:
 //
 //   fd_premap        upcast, pre-map, luma
 //   fd_min_rows      vertical windowed min of the pre-map
@@ -61,12 +62,14 @@
 //   fd_recover       horizontal sums -> refined t; J = clip((I-A)/max(t,t0)+A)^gamma
 //   fd_tmap          (B7 only) horizontal sums -> refined t, no J
 //
-// The ten passes also make up the fused transmission stage of the
-// data-parallel sharded step, fused_transmission_pallas /
-// fused_transmission_lanes_pallas (body _fused_tmap_kernel): the same
-// passes up to the guided filter, the merge writing the candidate in the
-// output dtype with t_min, then fd_tmap writing the refined t; no EMA and
-// no recovery (the candidates cross ranks first).
+// The fused transmission stage of the data-parallel sharded step (B7,
+// fused_transmission_pallas / fused_transmission_lanes_pallas, body
+// _fused_tmap_kernel) has no EMA and no recovery (the candidates cross
+// ranks first): fd_tmap_tile with the lanes' saved A, fd_topk_block at
+// k > 1, fd_topk_merge on the tile keys writing the candidate in the output
+// dtype with t_min, fd_guided_ab, then fd_refine_tmap, refine_recover's
+// template without the wire rows and J (fd_transmission_tiled_fits; wider
+// windows run the ten passes' form, ending in fd_tmap).
 //
 // Rounding follows the plain PyTorch version (repro_torch/kernels/ref.py)
 // one operation at a time: IEEE division and expf (no fast math),
@@ -120,8 +123,24 @@
 // halo-extended pre-map and luma planes (N, h + 2 halo_h, w + 2 halo_w),
 // float32 or bfloat16 (upcast in the kernels, no cast pass), with the row
 // and column validity bytes of the exchange. There is no pre-map pass: the
-// pre-map crossed the ranks. Its own kernels, counted apart from B1's and
-// B7's, so neither of those changes:
+// pre-map crossed the ranks. It runs the tiled passes' templates with the
+// masked policy (HaloTmap, HaloGuided, HaloRefine):
+//
+//   fd_halo_tmap_tile      the pre-map plane staged with +inf where a pixel
+//                          is invalid -> windowed min -> t_raw, on core +-
+//                          2 gf_r; its core into (N, h, w); at top-1 each
+//                          tile's smallest key of a core pixel (core index)
+//   fd_halo_topk_block, fd_halo_topk_list (below; the list merge also takes
+//                          the tile keys at top-1)
+//   fd_halo_guided_ab      guide and t_raw staged with +0 where invalid ->
+//                          the guided filter's sums -> a, b on core +- gf_r
+//   fd_halo_refine_tmap    a, b staged with +0 where invalid -> the core's
+//                          refined t in the output dtype
+//
+// The mask is a select at load, and the divisor, masked_count's own
+// operations, comes from prefix counts of a tile's valid halo rows and
+// columns taken once a tile (mask_counts). Windows too wide for a block
+// (fd_halo_tiled_fits) run the ten masked passes, also the comparator:
 //
 //   fd_halo_min_rows       vertical windowed min, invalid pixels +inf
 //   fd_halo_min_cols_tmap  horizontal windowed min, then t_raw on the whole
@@ -137,20 +156,24 @@
 //   fd_halo_tmap           the core's refined t, clipped, in the output dtype
 //
 // A masked sum adds the valid terms in the order B7 adds them and skips the
-// rest, so on a tile of a frame the core's t_raw, t and keys are B7's on
-// that frame bit for bit.
+// rest (the tiled form adds +0 for them), so on a tile of a frame the
+// core's t_raw, t and keys are B7's on that frame bit for bit.
 //
-// The transmission stage and the halo form keep the one-thread-a-pixel
-// passes: every intermediate plane round-trips through L2/HBM and each
-// window pass loops over 2r+1 values per output. The halo form must read
-// the core frames and both extended planes once and write t: for a 2x2 tile of 32 uint8 frames at 480x640 (core
-// 240x320, halo 47, float32 planes of 334x414) 52.6 MB, >= 16 us; it
-// computes every pass on the whole extended plane, 1.8x the core's pixels.
+// What bounds B7 and B9 is B1's: the direct window sums (B7 at L=4, B=8,
+// 480x640: 0.17 ms at 33.5 T/s) over a byte bound of 0.02 ms. B9 must read
+// the core frames and both extended planes once and write t: for a 2x2
+// tile of 32 uint8 frames at 480x640 (core 240x320, halo 47, float32 planes
+// of 334x414) 52.6 MB, >= 16 us. Its passes cover only what the core needs:
+// t_raw on core +- 2 gf_r, a and b on core +- gf_r, t on the core, 0.93,
+// 0.73 and 0.56 of that tile's extended plane. A shard's planes are 414 (or
+// 254) floats wide, so their copies move 8 bytes, not 16 (copy_window).
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns the cudaError_t of its launches (0 on success).
 
 #include "dehaze_common.cuh"
+
+#include <type_traits>
 
 extern "C" {
 
@@ -221,8 +244,9 @@ __device__ __forceinline__ float luma_px(float r, float gg, float b, const Dehaz
                      __fmul_rn(p.luma2, b));
 }
 
-// t_raw from the windowed min of the pre-map.
-__device__ __forceinline__ float tmap_of(float m, const DehazeParams& p) {
+// t_raw from the windowed min of the pre-map (DehazeParams or HaloParams).
+template <class Params>
+__device__ __forceinline__ float tmap_of(float m, const Params& p) {
     return p.algorithm == 0 ? __fsub_rn(1.0f, __fmul_rn(p.omega, m))
                             : expf(__fmul_rn(p.neg_beta, m));
 }
@@ -516,7 +540,8 @@ __global__ void halo_min_cols_tmap_kernel(const float* __restrict__ x,
 // grid (N,): merge frame n's n_lists ascending lists of kk keys into its k
 // smallest keys, written in ascending order: tk_t (N, k) float32, tk_idx
 // (N, k) int32 (the key's index), tk_rgb (N, k, 3) in out_dt (img at that
-// index). The head merge of topk_merge_kernel, writing rows instead of a sum.
+// index). The head merge of topk_merge_kernel, writing rows instead of a sum;
+// at k = 1 the lists may be single keys of any tiling (lists_ok).
 __global__ void topk_list_kernel(const unsigned long long* __restrict__ keys,
                                  int n_lists, int kk, int k,
                                  const void* __restrict__ img, int img_dt,
@@ -541,7 +566,7 @@ __global__ void topk_list_kernel(const unsigned long long* __restrict__ keys,
         const unsigned long long m = block_min_u64<kTopkThreads>(best, red);
         if (threadIdx.x == 0) {
             const unsigned idx = static_cast<unsigned>(m & 0xffffffffULL);
-            ++head[idx / kTopkTile];             // list j is tile j
+            if (s + 1 < k) ++head[idx / kTopkTile];   // list j is tile j
             const long long row = n * k + s;
             tk_t[row] = key_to_t(m);
             tk_idx[row] = static_cast<int>(idx);
@@ -669,8 +694,12 @@ __global__ void halo_tmap_kernel(const float* __restrict__ t_core,
 }
 
 // ---------------------------------------------------------------------------
-// The tiled passes (B1): one block a kTileH x kTileW output tile of one
-// frame, its inputs with their window halo in shared memory.
+// The tiled passes: one block a kTileH x kTileW output tile of one plane (a
+// frame for B1 and B7, an extended plane for B9), its inputs with their
+// window halo in shared memory. Each pass is one kernel template over the
+// ends of its call, an Io type: where its inputs come from, where its
+// outputs go, and whether pixels are masked. The window arithmetic between
+// them is the same code for B1, B7 and B9.
 // ---------------------------------------------------------------------------
 
 constexpr int kTileH = 32;                       // output rows of a tile
@@ -685,13 +714,14 @@ static_assert(kTileH * (kTileW / kRunH) == kTileThreads, "one horizontal run a t
 static_assert(kTileH % 32 == 0, "a warp's lanes are 32 rows of a tile in the horizontal runs");
 
 // Shared memory of the tiled passes. A tile's inputs span (kTileH + 2r) x
-// (kTileW + 2r) of its frame; regions are reused once spent.
+// (kTileW + 2r) of its plane; regions are reused once spent.
 __host__ __device__ __forceinline__ int halo_rows(int r) { return kTileH + 2 * r; }
 __host__ __device__ __forceinline__ int halo_cols(int r) { return kTileW + 2 * r; }
 __host__ __device__ __forceinline__ int run_stride(int r) { return halo_cols(r) | 1; }
 constexpr int kStageStride = kTileW + 1;         // a staged output row
 
 __host__ __device__ __forceinline__ int max_i(int a, int b) { return a > b ? a : b; }
+__host__ __device__ __forceinline__ int min_i(int a, int b) { return a < b ? a : b; }
 
 // Bytes of a frame row's wire pixels staged from a 16-byte boundary:
 // n pixels of 3 elements of es bytes, plus the alignment slack.
@@ -740,14 +770,42 @@ inline size_t guided_smem(const DehazeParams& p) {
 
 // refine_recover: the tile's wire rows, the guide or t_raw tile, and with
 // refine the a/b halo planes (then mean_a, mean_b, t) and the window runs.
+// refine_tmap (B7) is the same without the wire rows.
 __host__ __device__ __forceinline__ int recover_wire_bytes(const DehazeParams& p) {
     return kTileH * wire_row_bytes(kTileW, elem_bytes(p.in_dtype));
 }
 
+__host__ __device__ __forceinline__ int refine_floats(int refine, int r) {
+    return kTileH * kTileW + (refine ? planes_and_runs(2, 2, r) : kTileH * kStageStride);
+}
+
 inline size_t recover_smem(const DehazeParams& p) {
-    const int r = p.gf_radius;
-    const size_t planes = p.refine ? planes_and_runs(2, 2, r) : kTileH * kStageStride;
-    return recover_wire_bytes(p) + sizeof(float) * (kTileH * kTileW + planes);
+    return recover_wire_bytes(p) + sizeof(float) * refine_floats(p.refine, p.gf_radius);
+}
+
+inline size_t refine_tmap_smem(const DehazeParams& p) {
+    return sizeof(float) * refine_floats(p.refine, p.gf_radius);
+}
+
+// The halo form's tiled passes (B9) stage no wire rows, and hold the prefix
+// counts of a tile's valid halo rows and columns.
+__host__ __device__ __forceinline__ int count_ints(int r) {
+    return halo_rows(r) + 1 + halo_cols(r) + 1;
+}
+
+inline size_t halo_tmap_smem(const HaloParams& p) {
+    return sizeof(float) * (kTileH * run_stride(p.radius) + in_floats(1, p.radius)) +
+           sizeof(int) * count_ints(p.radius);
+}
+
+inline size_t halo_guided_smem(const HaloParams& p) {
+    return sizeof(float) * planes_and_runs(2, 4, p.gf_radius) +
+           sizeof(int) * count_ints(p.gf_radius);
+}
+
+inline size_t halo_refine_smem(const HaloParams& p) {
+    return sizeof(float) * refine_floats(p.refine, p.gf_radius) +
+           (p.refine ? sizeof(int) * count_ints(p.gf_radius) : 0);
 }
 
 // The vertical window runs of a tile with an r-halo: run(it, s) computes
@@ -772,49 +830,198 @@ __device__ __forceinline__ void vertical_runs(int r, const Run& run, const Store
     }
 }
 
-// Frame plane (n, y, x) of a tile: the frame, its first output row and
-// column, and the frame position of halo element (0, 0).
-struct Tile {
-    long long n, P;
-    int y0, x0, yi, xi;
+// The rows [y0, y1) and columns [x0, x1) of a plane whose outputs a pass
+// writes, and the column ox <= x0 where its first tiles start.
+struct Region {
+    int y0, y1, x0, x1, ox;
 };
 
-__device__ __forceinline__ Tile this_tile(const DehazeParams& p, int r) {
-    const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
-    return {static_cast<long long>(blockIdx.z), static_cast<long long>(p.H) * p.W,
-            y0, x0, y0 - r, x0 - r};
+// A tile: plane n of P = H x W pixels (the windows stop at its edge), its
+// first output (y0, x0), the pass's output region's columns [x_lo, x1) and
+// rows up to y1, and the plane position (yi, xi) of halo element (0, 0).
+struct Tile {
+    long long n, P;
+    int H, W, y1, x_lo, x1;
+    int y0, x0, yi, xi;
+
+    __device__ __forceinline__ bool writes(int y, int x) const {
+        return y < y1 && x >= x_lo && x < x1;
+    }
+};
+
+// Tile (blockIdx.x, blockIdx.y) of region rg of plane blockIdx.z, r-halo.
+__device__ __forceinline__ Tile region_tile(int H, int W, const Region& rg, int r) {
+    const int y0 = rg.y0 + blockIdx.y * kTileH, x0 = rg.ox + blockIdx.x * kTileW;
+    return {static_cast<long long>(blockIdx.z), static_cast<long long>(H) * W, H, W,
+            rg.y1, rg.x0, rg.x1, y0, x0, y0 - r, x0 - r};
 }
 
-// Starts the copies of a rows x cols window of np float32 planes (plane q
-// at base + q * plane_stride; window element (0, 0) at frame row y_first,
-// column x_first) into dst[q] (rows x cols floats, 16-byte aligned), zero
-// off the frame. A warp a row, its lanes along it: 16 bytes a copy where
-// the window's columns, the frame width and the planes fall on 4-float
-// boundaries (each 4 floats then lie wholly on or off the frame), else 4.
-__device__ __forceinline__ void copy_window(const float* __restrict__ base,
-                                            long long plane_stride, int np, float* dst,
-                                            const Tile& t, int y_first, int x_first, int rows,
-                                            int cols, const DehazeParams& p) {
+// B1 and B7: the outputs are the whole frame.
+__device__ __forceinline__ Tile this_tile(const DehazeParams& p, int r) {
+    return region_tile(p.H, p.W, {0, p.H, 0, p.W, 0}, r);
+}
+
+// B9: the extended plane, and the part of it that a pass writes: the core
+// widened by m a side. tmap_tile writes t_raw on core +- 2 gf_r (the core
+// alone without refine), guided_ab a and b on core +- gf_r, refine_tmap t
+// on the core. Each output of a pass reads only pixels that the pass before
+// wrote, so the results are those of passes over the whole plane.
+__host__ __device__ __forceinline__ int ext_h(const HaloParams& p) { return p.h + 2 * p.halo_h; }
+__host__ __device__ __forceinline__ int ext_w(const HaloParams& p) { return p.w + 2 * p.halo_w; }
+
+__host__ __device__ __forceinline__ Region halo_region(const HaloParams& p, int m) {
+    const int x0 = max_i(p.halo_w - m, 0);
+    return {max_i(p.halo_h - m, 0), min_i(p.halo_h + p.h + m, ext_h(p)), x0,
+            min_i(p.halo_w + p.w + m, ext_w(p)), x0};
+}
+
+// The sums' passes (guided_ab, refine_tmap) start their tiles a column
+// early where that puts their r-halo on an even column: then a float32
+// plane of even width copies 8 bytes a cp.async, not 4 (copy_window).
+__host__ __device__ __forceinline__ Region sums_region(const HaloParams& p, int m) {
+    Region rg = halo_region(p, m);
+    rg.ox -= (rg.x0 - p.gf_radius) & 1;
+    return rg;
+}
+
+__host__ __device__ __forceinline__ int tmap_margin(const HaloParams& p) {
+    return p.refine ? 2 * p.gf_radius : 0;
+}
+
+__device__ __forceinline__ Tile halo_tile(const Region& rg, const HaloParams& p, int r) {
+    return region_tile(ext_h(p), ext_w(p), rg, r);
+}
+
+// copy_window's copies of kV floats each (4, 2 or 1).
+template <int kV>
+__device__ __forceinline__ void copy_window_by(const float* __restrict__ base,
+                                               long long plane_stride, int np, float* dst,
+                                               const Tile& t, int y_first, int x_first,
+                                               int rows, int cols) {
     const int lane = threadIdx.x & 31;
-    const bool quad = ((x_first | cols | p.W) & 3) == 0 && (plane_stride & 3) == 0 &&
-                      (reinterpret_cast<uintptr_t>(base) & 15) == 0;
-    const int step = quad ? 4 : 1;
     for (int q = 0; q < np; ++q)
         for (int i = threadIdx.x >> 5; i < rows; i += kTileThreads / 32) {
             const int y = y_first + i;
-            const bool row_in = y >= 0 && y < p.H;
+            const bool row_in = y >= 0 && y < t.H;
             const float* src = base + q * plane_stride + t.n * t.P +
-                               static_cast<long long>(row_in ? y : 0) * p.W;
+                               static_cast<long long>(row_in ? y : 0) * t.W;
             float* d = dst + (q * rows + i) * cols;
-            for (int j = lane * step; j < cols; j += 32 * step) {
+            for (int j = lane * kV; j < cols; j += 32 * kV) {
                 const int x = x_first + j;
-                const bool in = row_in && x >= 0 && x < p.W;
-                if (quad)
-                    cp_async16(d + j, in ? src + x : base, in ? 16 : 0);
-                else
-                    cp_async4(d + j, in ? src + x : base, in ? 4 : 0);
+                const bool in = row_in && x >= 0 && x < t.W;
+                const float* from = in ? src + x : base;
+                if constexpr (kV == 4) cp_async16(d + j, from, in ? 16 : 0);
+                else if constexpr (kV == 2) cp_async8(d + j, from, in ? 8 : 0);
+                else cp_async4(d + j, from, in ? 4 : 0);
             }
         }
+}
+
+// Starts the copies of a rows x cols window of np float32 planes (plane q
+// at base + q * plane_stride; window element (0, 0) at plane row y_first,
+// column x_first) into dst[q] (rows x cols floats, 16-byte aligned), zero
+// off the plane. A warp a row, its lanes along it: 16 bytes a copy where
+// the window's columns, the plane width and the planes fall on 4-float
+// boundaries (each 4 floats then lie wholly on or off the plane), 8 where
+// they fall on 2-float boundaries, else 4.
+__device__ __forceinline__ void copy_window(const float* __restrict__ base,
+                                            long long plane_stride, int np, float* dst,
+                                            const Tile& t, int y_first, int x_first, int rows,
+                                            int cols) {
+    const uintptr_t at = reinterpret_cast<uintptr_t>(base);
+    const int bounds = x_first | cols | t.W | static_cast<int>(plane_stride & 3);
+    if ((bounds & 3) == 0 && (at & 15) == 0)
+        copy_window_by<4>(base, plane_stride, np, dst, t, y_first, x_first, rows, cols);
+    else if ((bounds & 1) == 0 && (at & 7) == 0)
+        copy_window_by<2>(base, plane_stride, np, dst, t, y_first, x_first, rows, cols);
+    else
+        copy_window_by<1>(base, plane_stride, np, dst, t, y_first, x_first, rows, cols);
+}
+
+// Stages a rows x cols window of plane t.n of the (N, H, W) planes at base,
+// of dtype kDt (0 float32, 1 bfloat16), into dst as float32, zero off the
+// plane: float32 by cp.async (copy_window), bfloat16 by loads converted on
+// the way (a cp.async moves at least 4 bytes).
+template <int kDt>
+__device__ __forceinline__ void stage_plane(const void* __restrict__ base, float* dst,
+                                            const Tile& t, int y_first, int x_first, int rows,
+                                            int cols) {
+    if constexpr (kDt == 0) {
+        copy_window(static_cast<const float*>(base), 0, 1, dst, t, y_first, x_first, rows, cols);
+    } else {
+        const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(base) + t.n * t.P;
+        const int lane = threadIdx.x & 31;
+        for (int i = threadIdx.x >> 5; i < rows; i += kTileThreads / 32) {
+            const int y = y_first + i;
+            const bool row_in = y >= 0 && y < t.H;
+            for (int j = lane; j < cols; j += 32) {
+                const int x = x_first + j;
+                dst[i * cols + j] = row_in && x >= 0 && x < t.W
+                    ? __bfloat162float(b[static_cast<long long>(y) * t.W + x]) : 0.0f;
+            }
+        }
+    }
+}
+
+// B9's mask counts, once a tile: pr[i] = the valid rows among the tile's
+// halo rows 0 .. i-1 (halo_rows(r) + 1 entries), pc[j] likewise over its
+// halo columns, a pixel off the plane invalid; warp 0 counts the rows,
+// warp 1 the columns, 32 at a time by ballot. They read only the validity
+// bytes, so they run while the tile's copies are in flight; the caller
+// synchronises before reading them.
+__device__ __forceinline__ void mask_counts(int* pr, int* pc, const Tile& t, int r,
+                                            const uint8_t* __restrict__ vh,
+                                            const uint8_t* __restrict__ vw) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp > 1) return;
+    const bool by_row = warp == 0;
+    const uint8_t* v = by_row ? vh : vw;
+    const int first = by_row ? t.yi : t.xi, n = by_row ? halo_rows(r) : halo_cols(r);
+    const int lim = by_row ? t.H : t.W;
+    int* out = by_row ? pr : pc;
+    int carry = 0;
+    for (int b = 0; b < n; b += 32) {
+        const int i = b + lane, k = first + i;
+        const bool ok = i < n && k >= 0 && k < lim && v[k] != 0;
+        const unsigned m = __ballot_sync(0xffffffffu, ok);
+        if (i < n) out[i] = carry + __popc(m & ((1u << lane) - 1u));
+        carry += __popc(m);
+    }
+    if (lane == 0) out[n] = carry;
+}
+
+// Whether the mask counts say every pixel of a tile's halo is valid: then
+// the staged windows need no mask (most tiles of a shard's planes).
+__device__ __forceinline__ bool all_valid(const int* pr, const int* pc, int r) {
+    return pr[halo_rows(r)] == halo_rows(r) && pc[halo_cols(r)] == halo_cols(r);
+}
+
+// B9's mask at load: every element of np staged windows of a tile's r-halo
+// (as copy_window lays them out) whose row or column the mask counts find
+// invalid becomes fill (+inf for a min, +0 for a sum). A select, not a
+// product: t_raw is -inf on invalid rows deeper than r past a frame's edge,
+// and 0 * -inf is NaN. A sum from +0 that adds +0 keeps its bits, so the
+// sums equal the ten masked passes', which skip those terms. After the
+// copies have landed and the counts are read; the caller synchronises.
+__device__ __forceinline__ void mask_window(float* dst, int np, int r, const int* pr,
+                                            const int* pc, float fill) {
+    const int rows = halo_rows(r), cols = halo_cols(r), lane = threadIdx.x & 31;
+    for (int q = 0; q < np; ++q)
+        for (int i = threadIdx.x >> 5; i < rows; i += kTileThreads / 32) {
+            const bool row_ok = pr[i + 1] != pr[i];
+            float* d = dst + (q * rows + i) * cols;
+            for (int j = lane; j < cols; j += 32)
+                if (!(row_ok && pc[j + 1] != pc[j])) d[j] = fill;
+        }
+}
+
+// The divisor of tile output (row, col) from the mask counts: masked_count's
+// own operations on its window's valid rows and columns.
+__device__ __forceinline__ float mask_count(const int* pr, const int* pc, int row, int col,
+                                            int r) {
+    return fmaxf(__fmul_rn(static_cast<float>(pr[row + 2 * r + 1] - pr[row]),
+                           static_cast<float>(pc[col + 2 * r + 1] - pc[col])),
+                 1.0f);
 }
 
 // Starts the copies of frame rows y_first .. y_first + rows - 1, columns
@@ -871,54 +1078,133 @@ __device__ __forceinline__ void store_out(void* p, long long i, float v) {
     else static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
 }
 
-// Pass 1, tmap_tile (premap, min_rows, min_cols_tmap, and topk_block at
-// k = 1). grid (tiles_x, tiles_y, L*B), block kTileThreads, tmap_smem bytes:
-// the tile's wire rows with an r-halo -> pre-map (+inf off the frame) ->
-// vertical then horizontal windowed min -> t_raw; writes t_raw, g (refine)
-// and, where keys is given, the tile's smallest (t, flat index) key at
-// keys[(n * tiles_y + tile_y) * tiles_x + tile_x]. kIn is p.in_dtype.
-template <int kIn>
-__global__ void __launch_bounds__(kTileThreads)
-tmap_tile_kernel(const void* __restrict__ img, const float* __restrict__ carry_f,
-                 float* __restrict__ t_raw, float* __restrict__ g,
-                 unsigned long long* __restrict__ keys, DehazeParams p) {
-    extern __shared__ __align__(16) uint8_t smem_bytes[];
-    __shared__ unsigned long long red[kTileThreads / 32 + 1];
-    const int r = p.radius;
-    const Tile t = this_tile(p, r);
-    const int rows = halo_rows(r), cols = halo_cols(r), vstride = run_stride(r);
-    const int es = elem_bytes(kIn), row_bytes = wire_row_bytes(cols, es);
-    uint8_t* wire = smem_bytes;                  // [rows][row_bytes]
-    float* vmin = reinterpret_cast<float*>(smem_bytes);   // [kTileH][vstride], after wire
-    float* pre = reinterpret_cast<float*>(smem_bytes + tmap_wire_bytes(p));   // [rows][cols]
-    float* tst = pre;                            // [kTileH][kStageStride], after pre
-    int* off = reinterpret_cast<int*>(pre + in_floats(1, r));   // [rows]
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// ---------------------------------------------------------------------------
+// Pass 1, tmap_tile: the pre-map with an r-halo -> vertical then horizontal
+// windowed min -> t_raw, and at top-1 each tile's smallest (t, index) key.
+// ---------------------------------------------------------------------------
 
-    copy_wire_rows(img, wire, off, t, t.yi, t.xi, rows, cols, row_bytes, p);
-    cp_async_wait();
-    __syncthreads();
-    const Divisors a = lane_divisors(carry_f, static_cast<int>(t.n / p.B), p);
-    const int xs = max(t.xi, 0);
-    for (int i = warp; i < rows; i += kTileThreads / 32) {
-        const int y = t.yi + i;
-        const bool row_in = y >= 0 && y < p.H;
-        const uint8_t* w = wire + i * row_bytes + (row_in ? off[i] : 0);
-        for (int j = lane; j < cols; j += 32) {
-            const int x = t.xi + j;
-            float v = INFINITY;
-            if (row_in && x >= 0 && x < p.W) {
-                const uint8_t* px = w + 3 * es * (x - xs);
-                const float cr = staged_px<kIn>(px, 0, p.u8_scale);
-                const float cg = staged_px<kIn>(px, 1, p.u8_scale);
-                const float cb = staged_px<kIn>(px, 2, p.u8_scale);
-                v = premap_px(cr, cg, cb, a, p);
-                if (g != nullptr && i >= r && i < r + kTileH && j >= r && j < r + kTileW)
-                    g[t.n * t.P + static_cast<long long>(y) * p.W + x] = luma_px(cr, cg, cb, p);
+// B1, B7: the (L*B, H, W, 3) wire frames of dtype kIn, staged as bytes and
+// pre-mapped with the lane's saved A (+inf off the frame), the luma g
+// written on the way (refine); t_raw over the frame, keys under the
+// frame's flat index.
+template <int kIn>
+struct FrameTmap {
+    const void* img;
+    const float* carry_f;
+    float* t_raw;
+    float* g;
+    unsigned long long* keys;
+    DehazeParams p;
+
+    __host__ __device__ __forceinline__ static int stage_bytes(const DehazeParams& q) {
+        return tmap_wire_bytes(q);
+    }
+    __device__ __forceinline__ Tile tile(int r) const { return this_tile(p, r); }
+
+    __device__ __forceinline__ void stage(uint8_t* wire, float* pre, int* off,
+                                          const Tile& t) const {
+        const int r = p.radius, rows = halo_rows(r), cols = halo_cols(r);
+        const int es = elem_bytes(kIn), row_bytes = wire_row_bytes(cols, es);
+        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        copy_wire_rows(img, wire, off, t, t.yi, t.xi, rows, cols, row_bytes, p);
+        cp_async_wait();
+        __syncthreads();
+        const Divisors a = lane_divisors(carry_f, static_cast<int>(t.n / p.B), p);
+        const int xs = max(t.xi, 0);
+        for (int i = warp; i < rows; i += kTileThreads / 32) {
+            const int y = t.yi + i;
+            const bool row_in = y >= 0 && y < p.H;
+            const uint8_t* w = wire + i * row_bytes + (row_in ? off[i] : 0);
+            for (int j = lane; j < cols; j += 32) {
+                const int x = t.xi + j;
+                float v = INFINITY;
+                if (row_in && x >= 0 && x < p.W) {
+                    const uint8_t* px = w + 3 * es * (x - xs);
+                    const float cr = staged_px<kIn>(px, 0, p.u8_scale);
+                    const float cg = staged_px<kIn>(px, 1, p.u8_scale);
+                    const float cb = staged_px<kIn>(px, 2, p.u8_scale);
+                    v = premap_px(cr, cg, cb, a, p);
+                    if (g != nullptr && i >= r && i < r + kTileH && j >= r && j < r + kTileW)
+                        g[t.n * t.P + static_cast<long long>(y) * p.W + x] = luma_px(cr, cg, cb, p);
+                }
+                pre[i * cols + j] = v;
             }
-            pre[i * cols + j] = v;
         }
     }
+
+    __device__ __forceinline__ bool keyed(int y, int x) const { return y < p.H && x < p.W; }
+    __device__ __forceinline__ unsigned key_index(int y, int x) const {
+        return static_cast<unsigned>(static_cast<long long>(y) * p.W + x);
+    }
+    __device__ __forceinline__ void store(const Tile& t, int y, int x, float v) const {
+        t_raw[t.n * t.P + static_cast<long long>(y) * p.W + x] = v;
+    }
+};
+
+// B9: the extended pre-map plane of dtype kPre, +inf where a pixel is
+// invalid; t_raw on its region of the extended plane and on the (N, h, w)
+// core, keys of the core's pixels under their core index.
+template <int kPre>
+struct HaloTmap {
+    const void* pre;
+    const uint8_t* vh;
+    const uint8_t* vw;
+    float* t_ext;
+    float* t_core;
+    unsigned long long* keys;
+    HaloParams p;
+
+    __host__ __device__ __forceinline__ static int stage_bytes(const HaloParams& q) {
+        return static_cast<int>(sizeof(float)) * kTileH * run_stride(q.radius);
+    }
+    __device__ __forceinline__ Tile tile(int r) const {
+        return halo_tile(halo_region(p, tmap_margin(p)), p, r);
+    }
+
+    // counts: the mask counts (pr, then pc), where B1 keeps its row offsets.
+    __device__ __forceinline__ void stage(uint8_t*, float* dst, int* counts, const Tile& t) const {
+        const int r = p.radius;
+        int* pc = counts + halo_rows(r) + 1;
+        stage_plane<kPre>(pre, dst, t, t.yi, t.xi, halo_rows(r), halo_cols(r));
+        mask_counts(counts, pc, t, r, vh, vw);
+        cp_async_wait();
+        __syncthreads();
+        if (!all_valid(counts, pc, r)) mask_window(dst, 1, r, counts, pc, INFINITY);
+    }
+
+    __device__ __forceinline__ bool keyed(int y, int x) const {
+        return y >= p.halo_h && y < p.halo_h + p.h && x >= p.halo_w && x < p.halo_w + p.w;
+    }
+    __device__ __forceinline__ unsigned key_index(int y, int x) const {
+        return static_cast<unsigned>(static_cast<long long>(y - p.halo_h) * p.w + x - p.halo_w);
+    }
+    __device__ __forceinline__ void store(const Tile& t, int y, int x, float v) const {
+        t_ext[t.n * t.P + static_cast<long long>(y) * t.W + x] = v;
+        if (keyed(y, x))
+            t_core[(t.n * p.h + y - p.halo_h) * p.w + x - p.halo_w] = v;
+    }
+};
+
+// grid (tiles_x, tiles_y, planes) over the pass's region, block
+// kTileThreads, Io's shared memory (tmap_smem, halo_tmap_smem): the
+// staged pre-map -> vertical then horizontal windowed min -> t_raw,
+// written over the region; where keys is given, the tile's smallest
+// (t, index) key at keys[(n * tiles_y + tile_y) * tiles_x + tile_x]
+// (kNoKey for a tile without a keyed pixel).
+template <class Io>
+__global__ void __launch_bounds__(kTileThreads) tmap_tile_kernel(const Io io) {
+    extern __shared__ __align__(16) uint8_t smem_bytes[];
+    __shared__ unsigned long long red[kTileThreads / 32 + 1];
+    const int r = io.p.radius;
+    const Tile t = io.tile(r);
+    const int cols = halo_cols(r), vstride = run_stride(r);
+    float* vmin = reinterpret_cast<float*>(smem_bytes);   // [kTileH][vstride], once staged
+    float* pre = reinterpret_cast<float*>(smem_bytes + Io::stage_bytes(io.p));   // [rows][cols]
+    float* tst = pre;                            // [kTileH][kStageStride], after pre
+    int* off = reinterpret_cast<int*>(pre + in_floats(1, r));   // B1's [rows], B9's counts
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+    io.stage(smem_bytes, pre, off, t);
     __syncthreads();
     for (int it = threadIdx.x; it < cols * (kTileH / kRunVMin); it += kTileThreads) {
         const int c = it % cols, row0 = (it / cols) * kRunVMin;
@@ -938,26 +1224,24 @@ tmap_tile_kernel(const void* __restrict__ img, const float* __restrict__ carry_f
 #pragma unroll
     for (int j = 0; j < kRunH; ++j) {
         const int x = t.x0 + col0 + j;
-        const float tv = tmap_of(m[0][j], p);
+        const float tv = tmap_of(m[0][j], io.p);
         tst[row * kStageStride + col0 + j] = tv;
-        if (y < p.H && x < p.W) {
-            const unsigned long long key =
-                make_key(tv, static_cast<unsigned>(static_cast<long long>(y) * p.W + x));
+        if (io.keyed(y, x)) {
+            const unsigned long long key = make_key(tv, io.key_index(y, x));
             best = key < best ? key : best;
         }
     }
-    if (keys != nullptr) {
+    if (io.keys != nullptr) {
         best = block_min_u64<kTileThreads>(best, red);
         if (threadIdx.x == 0)
-            keys[(t.n * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = best;
+            io.keys[(t.n * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = best;
     }
     __syncthreads();
     for (int i = warp; i < kTileH; i += kTileThreads / 32) {
         const int yy = t.y0 + i;
         for (int j = lane; j < kTileW; j += 32) {
             const int x = t.x0 + j;
-            if (yy < p.H && x < p.W)
-                t_raw[t.n * t.P + static_cast<long long>(yy) * p.W + x] = tst[i * kStageStride + j];
+            if (t.writes(yy, x)) io.store(t, yy, x, tst[i * kStageStride + j]);
         }
     }
 }
@@ -1017,26 +1301,79 @@ __global__ void select_ema_kernel(const unsigned long long* __restrict__ keys, i
     carry_i_out[2 * lane + 1] = inited;
 }
 
-// Pass 3, guided_ab (box_rows4 and box_cols_ab). grid as tmap_tile,
-// guided_smem bytes: g and t_raw with a gf_r-halo (zero off the frame) ->
-// vertical sums of g, p, g*p, g*g (the products formed as each input is
-// fetched) -> horizontal sums -> means over the closed-form count -> a, b,
-// written to ab (2, L*B, H, W).
-__global__ void __launch_bounds__(kTileThreads, 3)
-guided_ab_kernel(const float* __restrict__ g, const float* __restrict__ t_raw,
-                 float* __restrict__ ab, DehazeParams p) {
+// ---------------------------------------------------------------------------
+// Pass 3, guided_ab: the guide g and t_raw with a gf_r-halo -> vertical sums
+// of g, p, g*p, g*g (the products formed as each input is fetched) ->
+// horizontal sums -> means -> the guided filter's a and b.
+// ---------------------------------------------------------------------------
+
+// B1, B7: the float32 g and t_raw planes of the frames, zero off the frame,
+// the means over the closed-form count; a and b over the frame.
+struct FrameGuided {
+    const float* g;
+    const float* t_raw;
+    float* ab;
+    DehazeParams p;
+    static constexpr bool kMasked = false;
+
+    __device__ __forceinline__ Tile tile(int r) const { return this_tile(p, r); }
+    __device__ __forceinline__ long long planes() const {
+        return static_cast<long long>(p.H) * p.W * p.L * p.B;
+    }
+    __device__ __forceinline__ void stage(float* in, const Tile& t, int rows, int cols) const {
+        copy_window(g, 0, 1, in, t, t.yi, t.xi, rows, cols);
+        copy_window(t_raw, 0, 1, in + rows * cols, t, t.yi, t.xi, rows, cols);
+    }
+};
+
+// B9: the extended guide plane (dtype kG) and t_raw, masked to +0, the
+// means over masked_count's divisor; a and b on core +- gf_r.
+template <int kG>
+struct HaloGuided {
+    const void* g;
+    const float* t_ext;
+    const uint8_t* vh;
+    const uint8_t* vw;
+    float* ab;
+    HaloParams p;
+    static constexpr bool kMasked = true;
+
+    __device__ __forceinline__ Tile tile(int r) const {
+        return halo_tile(sums_region(p, p.gf_radius), p, r);
+    }
+    __device__ __forceinline__ long long planes() const {
+        return static_cast<long long>(ext_h(p)) * ext_w(p) * p.N;
+    }
+    __device__ __forceinline__ void stage(float* in, const Tile& t, int rows, int cols) const {
+        stage_plane<kG>(g, in, t, t.yi, t.xi, rows, cols);
+        copy_window(t_ext, 0, 1, in + rows * cols, t, t.yi, t.xi, rows, cols);
+    }
+};
+
+// grid as tmap_tile over the pass's region, Io's shared memory
+// (guided_smem, halo_guided_smem); a and b written to ab (2, planes).
+template <class Io>
+__global__ void __launch_bounds__(kTileThreads, 3) guided_ab_kernel(const Io io) {
     extern __shared__ __align__(16) float smem[];
-    const int r = p.gf_radius;
-    const Tile t = this_tile(p, r);
+    const int r = io.p.gf_radius;
+    const Tile t = io.tile(r);
     const int rows = halo_rows(r), cols = halo_cols(r), vstride = run_stride(r);
-    const long long total = t.P * p.L * p.B;
+    const long long total = io.planes();
     float* in = smem;                            // g, p: [2][rows][cols]
     float4* vs = reinterpret_cast<float4*>(runs_overlay(r) ? smem : smem + in_floats(2, r));
     float* ost = smem;                           // a, b: [2][kTileH][kStageStride], at the end
-    copy_window(g, 0, 1, in, t, t.yi, t.xi, rows, cols, p);
-    copy_window(t_raw, 0, 1, in + rows * cols, t, t.yi, t.xi, rows, cols, p);
+    int* pr = reinterpret_cast<int*>(smem + planes_and_runs(2, 4, r));   // masked: mask counts
+    int* pc = pr + rows + 1;
+    io.stage(in, t, rows, cols);
+    if constexpr (Io::kMasked) mask_counts(pr, pc, t, r, io.vh, io.vw);
     cp_async_wait();
     __syncthreads();
+    if constexpr (Io::kMasked) {
+        if (!all_valid(pr, pc, r)) {
+            mask_window(in, 2, r, pr, pc, 0.0f);
+            __syncthreads();
+        }
+    }
     const float* in_g = in;
     const float* in_p = in + rows * cols;
     vertical_runs<4>(
@@ -1073,16 +1410,20 @@ guided_ab_kernel(const float* __restrict__ g, const float* __restrict__ t_raw,
             v[3] = f.w;
         },
         2 * r, s);
-    const float cnt_y = static_cast<float>(win_count(t.y0 + row, p.H, r));
+    const float cnt_y = static_cast<float>(win_count(t.y0 + row, t.H, r));
     float out_a[kRunH], out_b[kRunH];
 #pragma unroll
     for (int j = 0; j < kRunH; ++j) {
-        const float cnt = __fmul_rn(cnt_y, static_cast<float>(win_count(t.x0 + col0 + j, p.W, r)));
+        float cnt;
+        if constexpr (Io::kMasked)
+            cnt = mask_count(pr, pc, row, col0 + j, r);
+        else
+            cnt = __fmul_rn(cnt_y, static_cast<float>(win_count(t.x0 + col0 + j, t.W, r)));
         const float mean_g = __fdiv_rn(s[0][j], cnt), mean_p = __fdiv_rn(s[1][j], cnt);
         const float corr_gp = __fdiv_rn(s[2][j], cnt), corr_gg = __fdiv_rn(s[3][j], cnt);
         const float var_g = __fsub_rn(corr_gg, __fmul_rn(mean_g, mean_g));
         const float cov_gp = __fsub_rn(corr_gp, __fmul_rn(mean_g, mean_p));
-        out_a[j] = __fdiv_rn(cov_gp, __fadd_rn(var_g, p.gf_eps));
+        out_a[j] = __fdiv_rn(cov_gp, __fadd_rn(var_g, io.p.gf_eps));
         out_b[j] = __fsub_rn(mean_p, __fmul_rn(out_a[j], mean_g));
     }
     __syncthreads();                             // ost overwrites the runs' sums
@@ -1096,48 +1437,124 @@ guided_ab_kernel(const float* __restrict__ g, const float* __restrict__ t_raw,
         const int y = t.y0 + i;
         for (int j = threadIdx.x & 31; j < kTileW; j += 32) {
             const int x = t.x0 + j;
-            if (y < p.H && x < p.W) {
-                const long long px = t.n * t.P + static_cast<long long>(y) * p.W + x;
-                ab[px] = ost[i * kStageStride + j];
-                ab[total + px] = ost[(kTileH + i) * kStageStride + j];
+            if (t.writes(y, x)) {
+                const long long px = t.n * t.P + static_cast<long long>(y) * t.W + x;
+                io.ab[px] = ost[i * kStageStride + j];
+                io.ab[total + px] = ost[(kTileH + i) * kStageStride + j];
             }
         }
     }
 }
 
-// Pass 4, refine_recover (box_rows2 and recover). grid as tmap_tile,
-// recover_smem bytes: the tile's wire rows and its guide (refine) or t_raw
-// tile are copied while, with refine, a and b with a gf_r-halo -> vertical
-// then horizontal sums -> means -> t = clip(mean_a * g + mean_b, 0, 1);
-// without, t = t_raw. Then J = clip((I - A)/max(t, t0) + A)^gamma with the
-// frame's a_seq, a pixel a thread; J and t in the output dtype. kIn, kOut
-// are p.in_dtype, p.out_dtype.
-template <int kIn, int kOut>
-__global__ void __launch_bounds__(kTileThreads)
-refine_recover_kernel(const void* __restrict__ img, const float* __restrict__ t_raw,
-                      const float* __restrict__ g, const float* __restrict__ ab,
-                      const float* __restrict__ a_seq, void* __restrict__ J,
-                      void* __restrict__ t_out, DehazeParams p) {
+// ---------------------------------------------------------------------------
+// The last pass, refine_recover: with refine, a and b with a gf_r-halo ->
+// vertical then horizontal sums -> means -> t = clip(mean_a * g + mean_b,
+// 0, 1); without, t = t_raw; in the output dtype. Where Io::kRecover, J =
+// clip((I - A)/max(t, t0) + A)^gamma too, from the tile's wire rows (copied
+// while the sums run) and the frame's a_seq.
+// ---------------------------------------------------------------------------
+
+// B1 (kRecover, refine_recover) and B7 (refine_tmap: no wire rows, no J):
+// the frames' float32 planes, the closed-form count; t over the frame.
+template <int kIn, int kOut, bool kJ>
+struct FrameRefine {
+    const void* img;
+    const float* t_raw;
+    const float* g;
+    const float* ab;
+    const float* a_seq;
+    void* J;
+    void* t_out;
+    DehazeParams p;
+    static constexpr bool kMasked = false, kRecover = kJ;
+    static constexpr int kInDt = kIn, kOutDt = kOut;
+
+    __host__ __device__ __forceinline__ static int wire_bytes(const DehazeParams& q) {
+        return kJ ? recover_wire_bytes(q) : 0;
+    }
+    __device__ __forceinline__ Tile tile(int r) const { return this_tile(p, r); }
+    __device__ __forceinline__ long long planes() const {
+        return static_cast<long long>(p.H) * p.W * p.L * p.B;
+    }
+    __device__ __forceinline__ void stage_gt(float* gt, const Tile& t) const {
+        copy_window(p.refine ? g : t_raw, 0, 1, gt, t, t.y0, t.x0, kTileH, kTileW);
+    }
+    __device__ __forceinline__ void store_t(const Tile& t, int y, int x, float v) const {
+        store_out<kOut>(t_out, t.n * t.P + static_cast<long long>(y) * p.W + x, v);
+    }
+};
+
+// B9 (halo_refine_tmap): the extended a, b masked to +0 and the guide
+// (dtype kG), masked_count's divisor; t over the (N, h, w) core, the
+// core's t_raw without refine.
+template <int kG, int kOut>
+struct HaloRefine {
+    const float* t_core;
+    const void* g;
+    const float* ab;
+    const uint8_t* vh;
+    const uint8_t* vw;
+    void* t_out;
+    HaloParams p;
+    static constexpr bool kMasked = true, kRecover = false;
+
+    __host__ __device__ __forceinline__ static int wire_bytes(const HaloParams&) { return 0; }
+    __device__ __forceinline__ Tile tile(int r) const { return halo_tile(sums_region(p, 0), p, r); }
+    __device__ __forceinline__ long long planes() const {
+        return static_cast<long long>(ext_h(p)) * ext_w(p) * p.N;
+    }
+    __device__ __forceinline__ void stage_gt(float* gt, const Tile& t) const {
+        if (p.refine) {
+            stage_plane<kG>(g, gt, t, t.y0, t.x0, kTileH, kTileW);
+        } else {
+            Tile core = t;                       // the (N, h, w) plane of t_core
+            core.P = static_cast<long long>(p.h) * p.w;
+            core.H = p.h;
+            core.W = p.w;
+            copy_window(t_core, 0, 1, gt, core, t.y0 - p.halo_h, t.x0 - p.halo_w, kTileH,
+                        kTileW);
+        }
+    }
+    __device__ __forceinline__ void store_t(const Tile& t, int y, int x, float v) const {
+        store_out<kOut>(t_out, (t.n * p.h + y - p.halo_h) * p.w + x - p.halo_w, v);
+    }
+};
+
+// grid as tmap_tile over the pass's region, Io's shared memory
+// (recover_smem, refine_tmap_smem, halo_refine_smem).
+template <class Io>
+__global__ void __launch_bounds__(kTileThreads) refine_recover_kernel(const Io io) {
     extern __shared__ __align__(16) uint8_t smem_bytes[];
     __shared__ int off[kTileH];
+    const auto& p = io.p;
     const int r = p.gf_radius;
-    const Tile t = this_tile(p, r);
-    const int es = elem_bytes(kIn), row_bytes = wire_row_bytes(kTileW, es);
+    const Tile t = io.tile(r);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    uint8_t* wire = smem_bytes;                  // [kTileH][row_bytes]
-    float* gt = reinterpret_cast<float*>(smem_bytes + recover_wire_bytes(p));   // [kTileH][kTileW]
+    uint8_t* wire = smem_bytes;                  // [kTileH][row_bytes], kRecover only
+    float* gt = reinterpret_cast<float*>(smem_bytes + Io::wire_bytes(p));   // [kTileH][kTileW]
     float* smem = gt + kTileH * kTileW;
     float* tst = smem;                           // [kTileH][kStageStride]: mean_a, then t
     float* mb = smem + kTileH * kStageStride;    // [kTileH][kStageStride]: mean_b
-    copy_wire_rows(img, wire, off, t, t.y0, t.x0, kTileH, kTileW, row_bytes, p);
-    copy_window(p.refine ? g : t_raw, 0, 1, gt, t, t.y0, t.x0, kTileH, kTileW, p);
+    if constexpr (Io::kRecover)
+        copy_wire_rows(io.img, wire, off, t, t.y0, t.x0, kTileH, kTileW,
+                       wire_row_bytes(kTileW, elem_bytes(Io::kInDt)), p);
+    io.stage_gt(gt, t);
     if (p.refine) {
         const int rows = halo_rows(r), cols = halo_cols(r), vstride = run_stride(r);
         float* in = smem;                        // a, b: [2][rows][cols]
         float2* vs = reinterpret_cast<float2*>(runs_overlay(r) ? smem : smem + in_floats(2, r));
-        copy_window(ab, t.P * p.L * p.B, 2, in, t, t.yi, t.xi, rows, cols, p);
+        int* pr = reinterpret_cast<int*>(smem + planes_and_runs(2, 2, r));   // masked: counts
+        int* pc = pr + rows + 1;
+        copy_window(io.ab, io.planes(), 2, in, t, t.yi, t.xi, rows, cols);
+        if constexpr (Io::kMasked) mask_counts(pr, pc, t, r, io.vh, io.vw);
         cp_async_wait();
         __syncthreads();
+        if constexpr (Io::kMasked) {
+            if (!all_valid(pr, pc, r)) {
+                mask_window(in, 2, r, pr, pc, 0.0f);
+                __syncthreads();
+            }
+        }
         vertical_runs<2>(
             r,
             [&](int it, float (&s)[2][kRunV]) {
@@ -1167,12 +1584,15 @@ refine_recover_kernel(const void* __restrict__ img, const float* __restrict__ t_
                 v[1] = f.y;
             },
             2 * r, s);
-        const float cnt_y = static_cast<float>(win_count(t.y0 + row, p.H, r));
+        const float cnt_y = static_cast<float>(win_count(t.y0 + row, t.H, r));
         float mean_a[kRunH], mean_b[kRunH];
 #pragma unroll
         for (int j = 0; j < kRunH; ++j) {
-            const float cnt =
-                __fmul_rn(cnt_y, static_cast<float>(win_count(t.x0 + col0 + j, p.W, r)));
+            float cnt;
+            if constexpr (Io::kMasked)
+                cnt = mask_count(pr, pc, row, col0 + j, r);
+            else
+                cnt = __fmul_rn(cnt_y, static_cast<float>(win_count(t.x0 + col0 + j, t.W, r)));
             mean_a[j] = __fdiv_rn(s[0][j], cnt);
             mean_b[j] = __fdiv_rn(s[1][j], cnt);
         }
@@ -1190,63 +1610,51 @@ refine_recover_kernel(const void* __restrict__ img, const float* __restrict__ t_
         const int y = t.y0 + i;
         for (int j = lane; j < kTileW; j += 32) {
             const int x = t.x0 + j;
-            if (y < p.H && x < p.W) {
+            if (t.writes(y, x)) {
                 const float gv = gt[i * kTileW + j];
                 const float tv = p.refine
                     ? clip01(__fadd_rn(__fmul_rn(tst[i * kStageStride + j], gv),
                                        mb[i * kStageStride + j]))
                     : gv;
-                store_out<kOut>(t_out, t.n * t.P + static_cast<long long>(y) * p.W + x, tv);
+                io.store_t(t, y, x, tv);
                 tst[i * kStageStride + j] = tv;
             }
         }
     }
-    __syncthreads();
-    const float A[3] = {a_seq[3 * t.n], a_seq[3 * t.n + 1], a_seq[3 * t.n + 2]};
-    for (int i = warp; i < kTileH; i += kTileThreads / 32) {
-        const int y = t.y0 + i;
-        if (y >= p.H) break;
-        const long long el0 = 3 * (t.n * t.P + static_cast<long long>(y) * p.W + t.x0);
-        const uint8_t* w = wire + i * row_bytes + off[i];
-        for (int j = lane; j < kTileW; j += 32) {
-            if (t.x0 + j >= p.W) break;
-            const float tt = fmaxf(tst[i * kStageStride + j], p.t0);
+    if constexpr (Io::kRecover) {
+        __syncthreads();
+        const int es = elem_bytes(Io::kInDt), row_bytes = wire_row_bytes(kTileW, es);
+        const float A[3] = {io.a_seq[3 * t.n], io.a_seq[3 * t.n + 1], io.a_seq[3 * t.n + 2]};
+        for (int i = warp; i < kTileH; i += kTileThreads / 32) {
+            const int y = t.y0 + i;
+            if (y >= p.H) break;
+            const long long el0 = 3 * (t.n * t.P + static_cast<long long>(y) * p.W + t.x0);
+            const uint8_t* w = wire + i * row_bytes + off[i];
+            for (int j = lane; j < kTileW; j += 32) {
+                if (t.x0 + j >= p.W) break;
+                const float tt = fmaxf(tst[i * kStageStride + j], p.t0);
 #pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                const float xv = staged_px<kIn>(w + 3 * es * j, c, p.u8_scale);
-                float v = clip01(__fadd_rn(__fdiv_rn(__fsub_rn(xv, A[c]), tt), A[c]));
-                if (p.gamma != 1.0f) v = powf(v, p.gamma);
-                store_out<kOut>(J, el0 + 3 * j + c, v);
+                for (int c = 0; c < 3; ++c) {
+                    const float xv = staged_px<Io::kInDt>(w + 3 * es * j, c, p.u8_scale);
+                    float v = clip01(__fadd_rn(__fdiv_rn(__fsub_rn(xv, A[c]), tt), A[c]));
+                    if (p.gamma != 1.0f) v = powf(v, p.gamma);
+                    store_out<Io::kOutDt>(io.J, el0 + 3 * j + c, v);
+                }
             }
         }
     }
-}
-
-// The instantiations for a call's dtypes.
-using TmapKernel = void (*)(const void*, const float*, float*, float*, unsigned long long*,
-                            DehazeParams);
-using RecoverKernel = void (*)(const void*, const float*, const float*, const float*,
-                               const float*, void*, void*, DehazeParams);
-
-inline TmapKernel tmap_kernel_for(const DehazeParams& p) {
-    return p.in_dtype == 0 ? tmap_tile_kernel<0>
-         : p.in_dtype == 1 ? tmap_tile_kernel<1> : tmap_tile_kernel<2>;
-}
-
-template <int kIn>
-inline RecoverKernel recover_kernel_in(int out_dtype) {
-    return out_dtype == 0 ? refine_recover_kernel<kIn, 0> : refine_recover_kernel<kIn, 1>;
-}
-
-inline RecoverKernel recover_kernel_for(const DehazeParams& p) {
-    return p.in_dtype == 0 ? recover_kernel_in<0>(p.out_dtype)
-         : p.in_dtype == 1 ? recover_kernel_in<1>(p.out_dtype) : recover_kernel_in<2>(p.out_dtype);
 }
 
 inline dim3 tile_grid(const DehazeParams& p) {
     return dim3(static_cast<unsigned>((p.W + kTileW - 1) / kTileW),
                 static_cast<unsigned>((p.H + kTileH - 1) / kTileH),
                 static_cast<unsigned>(p.L * p.B));
+}
+
+inline dim3 region_grid(const Region& rg, int planes) {
+    return dim3(static_cast<unsigned>((rg.x1 - rg.ox + kTileW - 1) / kTileW),
+                static_cast<unsigned>((rg.y1 - rg.y0 + kTileH - 1) / kTileH),
+                static_cast<unsigned>(planes));
 }
 
 // Opts a kernel in to `bytes` of dynamic shared memory above 48 KB, with
@@ -1261,6 +1669,45 @@ cudaError_t smem_opt_in(Kernel kernel, size_t bytes) {
     if (e != cudaSuccess) return e;
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(bytes));
+}
+
+// Launches a tiled pass on io; cudaErrorInvalidValue, launching nothing,
+// where its tile and halo need more shared memory than a block has.
+template <class Io>
+int launch_tiled(void (*kernel)(const Io), const Io& io, dim3 grid, size_t smem,
+                 void* stream) {
+    const cudaError_t e = smem_opt_in(kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(io);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks an SM of a tiled pass, from the occupancy calculator.
+template <class Io>
+cudaError_t tiled_blocks(void (*kernel)(const Io), size_t smem, int* blocks) {
+    cudaError_t e = smem_opt_in(kernel, smem);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kTileThreads, smem);
+    return e;
+}
+
+// f(std::integral_constant<int, dt>{}) for a dtype code 0 <= dt < n (the
+// last code for any other): a call's dtypes pick a kernel's instantiation.
+template <int n, class F>
+int with_dtype(int dt, const F& f) {
+    if constexpr (n == 1)
+        return f(std::integral_constant<int, 0>{});
+    else
+        return dt == n - 1 ? f(std::integral_constant<int, n - 1>{}) : with_dtype<n - 1>(dt, f);
+}
+
+// Whether the top-k merges take n_lists ascending lists of kk keys a frame
+// for a top-k of k over frames of flat_lists top-k tiles: topk_block's lists
+// at k > 1; at k = 1 single keys of any tiling (a frame's smallest key
+// needs no list number), at most kTopkMaxLists of them.
+inline bool lists_ok(int n_lists, int kk, int flat_lists, int k) {
+    return n_lists >= 1 && n_lists <= kTopkMaxLists &&
+           (k == 1 ? kk == 1 : n_lists == flat_lists && kk == tile_keep(k));
 }
 
 inline dim3 threads_grid(long long total) {
@@ -1312,16 +1759,17 @@ int fd_topk_block(const float* t, unsigned long long* keys, const DehazeParams* 
     return static_cast<int>(cudaGetLastError());
 }
 
-// keys -> cand (N, 3) in cand_dt (0 float32, 1 bfloat16), and t_min (N,)
-// float32 unless null.
-int fd_topk_merge(const unsigned long long* keys, const void* img, void* cand,
-                  int cand_dt, float* t_min, const DehazeParams* p, void* stream) {
+// keys (N, n_lists, kk): topk_block's lists, or at topk 1 tmap_tile's tile
+// keys (kk = 1) -> cand (N, 3) in cand_dt (0 float32, 1 bfloat16), and t_min
+// (N,) float32 unless null.
+int fd_topk_merge(const unsigned long long* keys, int n_lists, int kk, const void* img,
+                  void* cand, int cand_dt, float* t_min, const DehazeParams* p,
+                  void* stream) {
     const long long P = static_cast<long long>(p->H) * p->W;
-    const int n_lists = static_cast<int>((P + kTopkTile - 1) / kTopkTile);
-    if (n_lists > kTopkMaxLists) return static_cast<int>(cudaErrorInvalidValue);
+    if (!lists_ok(n_lists, kk, static_cast<int>((P + kTopkTile - 1) / kTopkTile), p->topk))
+        return static_cast<int>(cudaErrorInvalidValue);
     topk_merge_kernel<<<p->L * p->B, kTopkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        keys, n_lists, tile_keep(p->topk), p->topk, img, p->in_dtype, p->u8_scale, P,
-        cand, cand_dt, t_min);
+        keys, n_lists, kk, p->topk, img, p->in_dtype, p->u8_scale, P, cand, cand_dt, t_min);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1367,9 +1815,10 @@ int fd_tmap(const float* t_raw, const float* g, const float* ab_rows, void* t_ou
     return static_cast<int>(cudaGetLastError());
 }
 
-// The tiled passes (B1). Each returns cudaErrorInvalidValue, launching
-// nothing, where its tile and halo need more shared memory than a block has:
-// fd_tiled_fits says beforehand whether they all fit.
+// The tiled passes (B1, B7, B9). Each returns cudaErrorInvalidValue,
+// launching nothing, where its tile and halo need more shared memory than a
+// block has: fd_tiled_fits, fd_transmission_tiled_fits and
+// fd_halo_tiled_fits say beforehand whether a sequence's passes all fit.
 
 int fd_tile_h() { return kTileH; }
 int fd_tile_w() { return kTileW; }
@@ -1388,13 +1837,12 @@ int fd_tiled_fits(const DehazeParams* p) {
 // and at topk 1 keys (L*B, tiles_y * tiles_x) (else null).
 int fd_tmap_tile(const void* img, const float* carry_f, float* t_raw, float* g,
                  unsigned long long* keys, const DehazeParams* p, void* stream) {
-    const size_t smem = tmap_smem(*p);
-    const TmapKernel kernel = tmap_kernel_for(*p);
-    const cudaError_t e = smem_opt_in(kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<tile_grid(*p), kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        img, carry_f, t_raw, g, keys, *p);
-    return static_cast<int>(cudaGetLastError());
+    return with_dtype<3>(p->in_dtype, [&](auto in) {
+        constexpr int kIn = decltype(in)::value;
+        return launch_tiled(tmap_tile_kernel<FrameTmap<kIn>>,
+                            FrameTmap<kIn>{img, carry_f, t_raw, g, keys, *p}, tile_grid(*p),
+                            tmap_smem(*p), stream);
+    });
 }
 
 // keys (tmap_tile's at topk 1, topk_block's above) -> a_seq (L, B, 3),
@@ -1419,33 +1867,27 @@ int fd_select_ema(const unsigned long long* keys, const void* img, const int* id
 // Blocks an SM of tmap_tile, guided_ab and refine_recover for p (their
 // registers and shared memory), into blocks[0..3).
 int fd_tiled_occupancy(const DehazeParams* p, int* blocks) {
-    const size_t smem[3] = {tmap_smem(*p), guided_smem(*p), recover_smem(*p)};
-    const TmapKernel tmap = tmap_kernel_for(*p);
-    const RecoverKernel recover = recover_kernel_for(*p);
-    cudaError_t e = smem_opt_in(tmap, smem[0]);
-    if (e == cudaSuccess) e = smem_opt_in(guided_ab_kernel, smem[1]);
-    if (e == cudaSuccess) e = smem_opt_in(recover, smem[2]);
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[0], tmap, kTileThreads,
-                                                          smem[0]);
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[1], guided_ab_kernel,
-                                                          kTileThreads, smem[1]);
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[2], recover, kTileThreads,
-                                                          smem[2]);
-    return static_cast<int>(e);
+    return with_dtype<3>(p->in_dtype, [&](auto in) {
+        constexpr int kIn = decltype(in)::value;
+        return with_dtype<2>(p->out_dtype, [&](auto out) {
+            constexpr int kOut = decltype(out)::value;
+            cudaError_t e = tiled_blocks(tmap_tile_kernel<FrameTmap<kIn>>, tmap_smem(*p),
+                                         &blocks[0]);
+            if (e == cudaSuccess)
+                e = tiled_blocks(guided_ab_kernel<FrameGuided>, guided_smem(*p), &blocks[1]);
+            if (e == cudaSuccess)
+                e = tiled_blocks(refine_recover_kernel<FrameRefine<kIn, kOut, true>>,
+                                 recover_smem(*p), &blocks[2]);
+            return static_cast<int>(e);
+        });
+    });
 }
 
 // g, t_raw (L*B, H, W) -> ab (2, L*B, H, W) float32.
 int fd_guided_ab(const float* g, const float* t_raw, float* ab, const DehazeParams* p,
                  void* stream) {
-    const size_t smem = guided_smem(*p);
-    const cudaError_t e = smem_opt_in(guided_ab_kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    guided_ab_kernel<<<tile_grid(*p), kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        g, t_raw, ab, *p);
-    return static_cast<int>(cudaGetLastError());
+    return launch_tiled(guided_ab_kernel<FrameGuided>, FrameGuided{g, t_raw, ab, *p},
+                        tile_grid(*p), guided_smem(*p), stream);
 }
 
 // img, t_raw, with refine g and ab, a_seq -> J (L, B, H, W, 3) and t
@@ -1453,13 +1895,62 @@ int fd_guided_ab(const float* g, const float* t_raw, float* ab, const DehazePara
 int fd_refine_recover(const void* img, const float* t_raw, const float* g, const float* ab,
                       const float* a_seq, void* J, void* t_out, const DehazeParams* p,
                       void* stream) {
-    const size_t smem = recover_smem(*p);
-    const RecoverKernel kernel = recover_kernel_for(*p);
-    const cudaError_t e = smem_opt_in(kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<tile_grid(*p), kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        img, t_raw, g, ab, a_seq, J, t_out, *p);
-    return static_cast<int>(cudaGetLastError());
+    return with_dtype<3>(p->in_dtype, [&](auto in) {
+        constexpr int kIn = decltype(in)::value;
+        return with_dtype<2>(p->out_dtype, [&](auto out) {
+            constexpr int kOut = decltype(out)::value;
+            return launch_tiled(refine_recover_kernel<FrameRefine<kIn, kOut, true>>,
+                                FrameRefine<kIn, kOut, true>{img, t_raw, g, ab, a_seq, J,
+                                                             t_out, *p},
+                                tile_grid(*p), recover_smem(*p), stream);
+        });
+    });
+}
+
+// The fused transmission stage's tiled sequence (B7): fd_tmap_tile with
+// the per-lane saved A for carry_f, fd_topk_block at topk > 1,
+// fd_topk_merge, fd_guided_ab (refine), then fd_refine_tmap.
+
+// 1 where every pass of that sequence fits a block (its last pass stages
+// no wire rows), and at topk 1 the merge takes the frame's tile keys; else
+// 0, and the caller runs the ten passes.
+int fd_transmission_tiled_fits(const DehazeParams* p) {
+    const size_t most = static_cast<size_t>(kMaxSmem);
+    const dim3 grid = tile_grid(*p);
+    return tmap_smem(*p) <= most && (!p->refine || guided_smem(*p) <= most) &&
+           refine_tmap_smem(*p) <= most &&
+           (p->topk > 1 || static_cast<long long>(grid.x) * grid.y <= kTopkMaxLists);
+}
+
+// t_raw, with refine g and ab -> t (L, B, H, W) in out_dtype: refine_recover
+// without the wire rows and J.
+int fd_refine_tmap(const float* t_raw, const float* g, const float* ab, void* t_out,
+                   const DehazeParams* p, void* stream) {
+    return with_dtype<2>(p->out_dtype, [&](auto out) {
+        constexpr int kOut = decltype(out)::value;
+        return launch_tiled(refine_recover_kernel<FrameRefine<0, kOut, false>>,
+                            FrameRefine<0, kOut, false>{nullptr, t_raw, g, ab, nullptr,
+                                                        nullptr, t_out, *p},
+                            tile_grid(*p), refine_tmap_smem(*p), stream);
+    });
+}
+
+// Blocks an SM of the sequence's tmap_tile, guided_ab and refine_tmap.
+int fd_transmission_occupancy(const DehazeParams* p, int* blocks) {
+    return with_dtype<3>(p->in_dtype, [&](auto in) {
+        constexpr int kIn = decltype(in)::value;
+        return with_dtype<2>(p->out_dtype, [&](auto out) {
+            constexpr int kOut = decltype(out)::value;
+            cudaError_t e = tiled_blocks(tmap_tile_kernel<FrameTmap<kIn>>, tmap_smem(*p),
+                                         &blocks[0]);
+            if (e == cudaSuccess)
+                e = tiled_blocks(guided_ab_kernel<FrameGuided>, guided_smem(*p), &blocks[1]);
+            if (e == cudaSuccess)
+                e = tiled_blocks(refine_recover_kernel<FrameRefine<0, kOut, false>>,
+                                 refine_tmap_smem(*p), &blocks[2]);
+            return static_cast<int>(e);
+        });
+    });
 }
 
 // The halo form (B9). vh (h + 2 halo_h,) and vw (w + 2 halo_w,) are
@@ -1492,16 +1983,18 @@ int fd_halo_topk_block(const float* t_core, unsigned long long* keys, const Halo
     return static_cast<int>(cudaGetLastError());
 }
 
-// keys, img (N, h, w, 3) -> tk_t (N, k) float32, tk_rgb (N, k, 3) out_dtype,
-// tk_idx (N, k) int32.
-int fd_halo_topk_list(const unsigned long long* keys, const void* img, float* tk_t,
-                  void* tk_rgb, int* tk_idx, const HaloParams* p, void* stream) {
+// keys (N, n_lists, kk): halo_topk_block's lists, or at topk 1
+// halo_tmap_tile's tile keys (kk = 1); img (N, h, w, 3) -> tk_t (N, k)
+// float32, tk_rgb (N, k, 3) out_dtype, tk_idx (N, k) int32.
+int fd_halo_topk_list(const unsigned long long* keys, int n_lists, int kk, const void* img,
+                      float* tk_t, void* tk_rgb, int* tk_idx, const HaloParams* p,
+                      void* stream) {
     const long long P = static_cast<long long>(p->h) * p->w;
-    const int n_lists = static_cast<int>((P + kTopkTile - 1) / kTopkTile);
-    if (n_lists > kTopkMaxLists || p->topk < 1 || p->topk > P)
+    if (p->topk < 1 || p->topk > P ||
+        !lists_ok(n_lists, kk, static_cast<int>((P + kTopkTile - 1) / kTopkTile), p->topk))
         return static_cast<int>(cudaErrorInvalidValue);
     topk_list_kernel<<<p->N, kTopkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        keys, n_lists, tile_keep(p->topk), p->topk, img, p->in_dtype, p->u8_scale, P,
+        keys, n_lists, kk, p->topk, img, p->in_dtype, p->u8_scale, P,
         tk_t, tk_rgb, p->out_dtype, tk_idx);
     return static_cast<int>(cudaGetLastError());
 }
@@ -1535,6 +2028,88 @@ int fd_halo_tmap(const float* t_core, const void* g, const float* ab_rows, const
                        0, static_cast<cudaStream_t>(stream)>>>(t_core, g, ab_rows, vh, vw,
                                                                t_out, *p);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The halo form's tiled sequence: fd_halo_tmap_tile, fd_halo_topk_block at
+// topk > 1, fd_halo_topk_list, fd_halo_guided_ab (refine), then
+// fd_halo_refine_tmap.
+
+// 1 where every pass of that sequence fits a block, and at topk 1 the list
+// merge takes the region's tile keys; else 0, and the caller runs the ten
+// masked passes: from radius 89, or with refine from gf_radius 46.
+int fd_halo_tiled_fits(const HaloParams* p) {
+    const size_t most = static_cast<size_t>(kMaxSmem);
+    const dim3 grid = region_grid(halo_region(*p, tmap_margin(*p)), 1);
+    return halo_tmap_smem(*p) <= most && (!p->refine || halo_guided_smem(*p) <= most) &&
+           halo_refine_smem(*p) <= most &&
+           (p->topk > 1 || static_cast<long long>(grid.x) * grid.y <= kTopkMaxLists);
+}
+
+// pre (N, h_ext, w_ext) -> t_ext (N, h_ext, w_ext), written on core +-
+// 2 gf_r (the core without refine), t_core (N, h, w), and at topk 1 keys
+// (N, tiles_y * tiles_x) over that region (else null).
+int fd_halo_tmap_tile(const void* pre, const uint8_t* vh, const uint8_t* vw, float* t_ext,
+                      float* t_core, unsigned long long* keys, const HaloParams* p,
+                      void* stream) {
+    const dim3 grid = region_grid(halo_region(*p, tmap_margin(*p)), p->N);
+    return with_dtype<2>(p->pre_dtype, [&](auto dt) {
+        constexpr int kPre = decltype(dt)::value;
+        return launch_tiled(tmap_tile_kernel<HaloTmap<kPre>>,
+                            HaloTmap<kPre>{pre, vh, vw, t_ext, t_core, keys, *p}, grid,
+                            halo_tmap_smem(*p), stream);
+    });
+}
+
+// guide, t_ext (N, h_ext, w_ext) -> ab (2, N, h_ext, w_ext) float32, written
+// on core +- gf_r.
+int fd_halo_guided_ab(const void* g, const float* t_ext, const uint8_t* vh, const uint8_t* vw,
+                      float* ab, const HaloParams* p, void* stream) {
+    const dim3 grid = region_grid(sums_region(*p, p->gf_radius), p->N);
+    return with_dtype<2>(p->guide_dtype, [&](auto dt) {
+        constexpr int kG = decltype(dt)::value;
+        return launch_tiled(guided_ab_kernel<HaloGuided<kG>>,
+                            HaloGuided<kG>{g, t_ext, vh, vw, ab, *p}, grid,
+                            halo_guided_smem(*p), stream);
+    });
+}
+
+// t_core (N, h, w) and, with refine, the guide and ab -> t (N, h, w) in
+// out_dtype.
+int fd_halo_refine_tmap(const float* t_core, const void* g, const float* ab,
+                        const uint8_t* vh, const uint8_t* vw, void* t_out,
+                        const HaloParams* p, void* stream) {
+    const dim3 grid = region_grid(sums_region(*p, 0), p->N);
+    return with_dtype<2>(p->guide_dtype, [&](auto dt) {
+        constexpr int kG = decltype(dt)::value;
+        return with_dtype<2>(p->out_dtype, [&](auto out) {
+            constexpr int kOut = decltype(out)::value;
+            return launch_tiled(refine_recover_kernel<HaloRefine<kG, kOut>>,
+                                HaloRefine<kG, kOut>{t_core, g, ab, vh, vw, t_out, *p}, grid,
+                                halo_refine_smem(*p), stream);
+        });
+    });
+}
+
+// Blocks an SM of halo_tmap_tile, halo_guided_ab and halo_refine_tmap.
+int fd_halo_occupancy(const HaloParams* p, int* blocks) {
+    return with_dtype<2>(p->pre_dtype, [&](auto pd) {
+        constexpr int kPre = decltype(pd)::value;
+        return with_dtype<2>(p->guide_dtype, [&](auto gd) {
+            constexpr int kG = decltype(gd)::value;
+            return with_dtype<2>(p->out_dtype, [&](auto out) {
+                constexpr int kOut = decltype(out)::value;
+                cudaError_t e = tiled_blocks(tmap_tile_kernel<HaloTmap<kPre>>,
+                                             halo_tmap_smem(*p), &blocks[0]);
+                if (e == cudaSuccess)
+                    e = tiled_blocks(guided_ab_kernel<HaloGuided<kG>>, halo_guided_smem(*p),
+                                     &blocks[1]);
+                if (e == cudaSuccess)
+                    e = tiled_blocks(refine_recover_kernel<HaloRefine<kG, kOut>>,
+                                     halo_refine_smem(*p), &blocks[2]);
+                return static_cast<int>(e);
+            });
+        });
+    });
 }
 
 }  // extern "C"

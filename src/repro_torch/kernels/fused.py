@@ -17,12 +17,11 @@ The megakernel is a short sequence of tiled passes over all L*B frames,
 frame and its window halo in shared memory. The ten passes it replaced,
 :data:`PASSES` run by :func:`run_passes`, stay: the megakernel runs them
 for windows whose halo does not fit a block (:func:`tiled_fits`, decided
-from the static shape before anything launches), the fused transmission
-stages below run them, and on the card they are the tiled sequence's
-comparator (bit-equal outputs). Each pass has a CUDA wrapper in
-:data:`CUDA_PASSES` and a plain PyTorch counterpart with the same
-signature in :data:`PLAIN_PASSES`; a sequence runs through either, so the
-CPU tests check the wiring the card runs, and ``chip_smoke.py`` holds
+from the static shape before anything launches), and on the card they are
+the tiled sequence's comparator (bit-equal outputs). Each pass has a CUDA
+wrapper in :data:`CUDA_PASSES` and a plain PyTorch counterpart with the
+same signature in :data:`PLAIN_PASSES`; a sequence runs through either, so
+the CPU tests check the wiring the card runs, and ``chip_smoke.py`` holds
 every pass against its plain counterpart on the card. :data:`launches`
 counts kernel launches per pass, each where its kernel launches; every run
 of the tiled sequence launches ``tmap_tile`` exactly once (of the ten
@@ -31,20 +30,32 @@ passes, ``premap``), so its count is also the count of whole tiled runs.
 The fused transmission stage of the data-parallel sharded step,
 ``fused_transmission_lanes`` (the port of ``fused_transmission_lanes_pallas``)
 and its L=1 view ``fused_transmission`` (``fused_transmission_pallas``),
-is the same passes up to the guided filter, then two of its own: the
-candidate merge (the megakernel's merge kernel, also writing t_min and the
-candidate in the output dtype) and ``tmap`` (the refined t, no J); no EMA,
-no recovery. Its passes are :data:`TRANSMISSION_PASSES`, run by
-:func:`run_transmission_passes` and counted apart from the megakernel's in
-:data:`transmission_launches`.
+is the megakernel's tiled passes without the EMA and J:
+:data:`TILED_TRANSMISSION_PASSES`, run by
+:func:`run_tiled_transmission_passes` (``tmap_tile`` with the lanes' saved
+A, ``topk_block`` at k > 1, ``candidate``, the megakernel's merge kernel
+writing t_min and the candidate in the output dtype, ``guided_ab``, and
+``refine_tmap``, the last tiled pass with neither wire rows nor J). Where
+a window's halo does not fit a block (:func:`transmission_tiled_fits`,
+from the static shape) it runs the ten passes' form,
+:data:`TRANSMISSION_PASSES` run by :func:`run_transmission_passes`, which
+on the card is also the tiled sequence's comparator. Both sequences count
+their launches in :data:`transmission_launches`, apart from the
+megakernel's; ``tmap_tile`` and ``premap`` each launch once a run, so they
+count the runs of each.
 
 The spatially sharded step's stage, :func:`fused_transmission_halo` (the
 port of ``fused_transmission_halo_pallas``), takes one shard's core frames
-and its halo-extended (pre-map, luma) planes with their validity vectors:
-the masked forms of those passes (no pre-map pass, the pre-map is an
-input), a merge writing the k ascending (t, rgb, local index) rows, and
-the core's t. Its passes are :data:`HALO_PASSES`, run by
-:func:`run_halo_passes` and counted in :data:`halo_launches`.
+and its halo-extended (pre-map, luma) planes with their validity vectors,
+and writes the core's t and the k ascending (t, rgb, local index) rows. It
+runs the masked form of the same tiles, :data:`TILED_HALO_PASSES` by
+:func:`run_tiled_halo_passes`: each tiled kernel with a mask policy, the
+inputs +inf (min) or +0 (sums) where a pixel is invalid, the divisors from
+prefix counts of a tile's valid rows and columns, and each pass only on the
+part of the extended plane that the core needs (:meth:`HaloStatic.region`).
+Windows too wide for a block (:func:`halo_tiled_fits`) run the ten masked
+passes, :data:`HALO_PASSES` by :func:`run_halo_passes`, also the tiled
+sequence's comparator. Both count their launches in :data:`halo_launches`.
 """
 from __future__ import annotations
 
@@ -57,9 +68,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.staged import (KEY_LAST, TOPK_MAX_TILES, TOPK_TILE,
-                                        flip_key_order, key_index, key_t,
-                                        topk_keys_signed, topk_mean,
+from repro_torch.kernels.staged import (KEY_LAST, MAX_SMEM, TOPK_MAX_TILES,
+                                        TOPK_TILE, flip_key_order, key_index,
+                                        key_t, topk_keys_signed, topk_mean,
                                         validity_bytes, window_counts,
                                         window_sum)
 
@@ -78,25 +89,43 @@ TILE_PIXELS = TOPK_TILE
 #: passes, which take any radius.
 TILE_H, TILE_W = 32, 64
 
-#: The ten passes (the fused transmission stages' and the tiled sequence's
-#: comparator) and the tiled passes (the megakernel).
+
+def tile_count(h: int, w: int) -> int:
+    """:data:`TILE_H` x :data:`TILE_W` tiles over h x w pixels."""
+    return -(-h // TILE_H) * -(-w // TILE_W)
+
+
+#: The megakernel's tiled passes and the ten passes they replaced (the
+#: megakernel's route for windows too wide for a block, and the tiled
+#: sequence's comparator).
 PASSES = ("premap", "min_rows", "min_cols_tmap", "topk_block", "topk_merge",
           "ema", "box_rows4", "box_cols_ab", "box_rows2", "recover")
 TILED_PASSES = ("tmap_tile", "select_ema", "guided_ab", "refine_recover")
 
+#: The fused transmission stage: its tiled passes (``topk_block`` at k > 1
+#: only, ``guided_ab`` with refine only), and the ten passes' form, its
+#: route for windows too wide for a block and the tiled passes' comparator.
+#: ``topk_block`` and ``candidate`` are the same kernels in both.
+TILED_TRANSMISSION_PASSES = ("tmap_tile", "topk_block", "candidate",
+                             "guided_ab", "refine_tmap")
 TRANSMISSION_PASSES = ("premap", "min_rows", "min_cols_tmap", "topk_block",
                        "candidate", "box_rows4", "box_cols_ab", "box_rows2",
                        "tmap")
 
+#: The halo form's masked tiled passes and its ten masked passes (the same
+#: roles); ``topk_block`` and ``topk_list`` are the same kernels in both.
+TILED_HALO_PASSES = ("tmap_tile", "topk_block", "topk_list", "guided_ab",
+                     "refine_tmap")
 HALO_PASSES = ("min_rows", "min_cols_tmap", "topk_block", "topk_list",
                "box_rows4", "box_cols_ab", "box_rows2", "tmap")
 
 #: Kernel launches since the last :func:`reset_launches`, by pass name: of
 #: the megakernel, of the fused transmission stage and of its halo form.
 launches: Dict[str, int] = {name: 0 for name in PASSES + TILED_PASSES}
-transmission_launches: Dict[str, int] = {name: 0
-                                         for name in TRANSMISSION_PASSES}
-halo_launches: Dict[str, int] = {name: 0 for name in HALO_PASSES}
+transmission_launches: Dict[str, int] = dict.fromkeys(
+    TILED_TRANSMISSION_PASSES + TRANSMISSION_PASSES, 0)
+halo_launches: Dict[str, int] = dict.fromkeys(
+    TILED_HALO_PASSES + HALO_PASSES, 0)
 
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -147,7 +176,10 @@ class Static:
     def n_frames(self) -> int:
         return self.L * self.B
 
+    @functools.lru_cache(maxsize=64)
     def params(self) -> _Params:
+        """The kernels' argument struct (made once a static; the entry
+        points copy it)."""
         # Python floats are rounded to float32 here, exactly as PyTorch
         # rounds a Python scalar operand of a float32 tensor operation.
         return _Params(
@@ -214,14 +246,14 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the entry points of a build of ``csrc/fused_dehaze.cu`` and
     check its tile constants against this module's; returns ``lib``."""
-    vp, pp = ctypes.c_void_p, ctypes.POINTER(_Params)
-    hp = ctypes.POINTER(_HaloParams)
+    vp, pp, ci = ctypes.c_void_p, ctypes.POINTER(_Params), ctypes.c_int
+    hp, ip = ctypes.POINTER(_HaloParams), ctypes.POINTER(ci)
     sigs = {
         "fd_premap": [vp, vp, vp, vp, pp, vp],
         "fd_min_rows": [vp, vp, pp, vp],
         "fd_min_cols_tmap": [vp, vp, pp, vp],
         "fd_topk_block": [vp, vp, pp, vp],
-        "fd_topk_merge": [vp, vp, vp, ctypes.c_int, vp, pp, vp],
+        "fd_topk_merge": [vp, ci, ci, vp, vp, ci, vp, pp, vp],
         "fd_ema": [vp, vp, vp, vp, vp, vp, vp, pp, vp],
         "fd_box_rows4": [vp, vp, vp, pp, vp],
         "fd_box_cols_ab": [vp, vp, pp, vp],
@@ -232,23 +264,29 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "fd_select_ema": [vp, vp, vp, vp, vp, vp, vp, vp, pp, vp],
         "fd_guided_ab": [vp, vp, vp, pp, vp],
         "fd_refine_recover": [vp, vp, vp, vp, vp, vp, vp, pp, vp],
+        "fd_refine_tmap": [vp, vp, vp, vp, pp, vp],
         "fd_halo_min_rows": [vp, vp, vp, vp, hp, vp],
         "fd_halo_min_cols_tmap": [vp, vp, vp, hp, vp],
         "fd_halo_topk_block": [vp, vp, hp, vp],
-        "fd_halo_topk_list": [vp, vp, vp, vp, vp, hp, vp],
+        "fd_halo_topk_list": [vp, ci, ci, vp, vp, vp, vp, hp, vp],
         "fd_halo_box_rows4": [vp, vp, vp, vp, vp, hp, vp],
         "fd_halo_box_cols_ab": [vp, vp, vp, vp, hp, vp],
         "fd_halo_box_rows2": [vp, vp, vp, vp, hp, vp],
         "fd_halo_tmap": [vp, vp, vp, vp, vp, vp, hp, vp],
+        "fd_halo_tmap_tile": [vp, vp, vp, vp, vp, vp, hp, vp],
+        "fd_halo_guided_ab": [vp, vp, vp, vp, vp, hp, vp],
+        "fd_halo_refine_tmap": [vp, vp, vp, vp, vp, vp, hp, vp],
+        "fd_tiled_fits": [pp],
+        "fd_transmission_tiled_fits": [pp],
+        "fd_halo_tiled_fits": [hp],
+        "fd_tiled_occupancy": [pp, ip],
+        "fd_transmission_occupancy": [pp, ip],
+        "fd_halo_occupancy": [hp, ip],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.fd_tiled_occupancy.argtypes = [pp, ctypes.POINTER(ctypes.c_int)]
-    lib.fd_tiled_occupancy.restype = ctypes.c_int
-    lib.fd_tiled_fits.argtypes = [pp]
-    lib.fd_tiled_fits.restype = ctypes.c_int
     consts = ("fd_tile_pixels", "fd_max_tiles", "fd_tile_h", "fd_tile_w")
     for name in consts:
         getattr(lib, name).argtypes = []
@@ -331,23 +369,30 @@ def cuda_topk_block(t_raw, s: Static, counts=launches):
     return keys
 
 
+def _lists(keys: torch.Tensor) -> Tuple[int, int]:
+    """(n_lists, kk) of a frame's keys: ``topk_block``'s (N, n_lists, kk)
+    lists, or a tiled pass's (N, tiles) single keys a tile (top-1)."""
+    return (keys.shape[1], keys.shape[2]) if keys.dim() == 3 else (keys.shape[1], 1)
+
+
 def cuda_topk_merge(keys, img, s: Static, counts=launches):
     _check_cuda(keys, img)
     cand = torch.empty((s.n_frames, 3), dtype=torch.float32, device=img.device)
     p = s.params()
-    _launch("topk_merge", counts, keys.data_ptr(), img.data_ptr(),
+    _launch("topk_merge", counts, keys.data_ptr(), *_lists(keys), img.data_ptr(),
             cand.data_ptr(), _OUT_CODES[torch.float32], None, ctypes.byref(p))
     return cand
 
 
 def cuda_candidate(keys, img, s: Static, counts=transmission_launches):
-    """The merge kernel for the transmission stage: ``(t_min (N,) float32,
+    """The merge kernel for the transmission stage, on ``topk_block``'s
+    lists or, at top-1, ``tmap_tile``'s tile keys: ``(t_min (N,) float32,
     cand (N, 3) in the output dtype)``."""
     _check_cuda(keys, img)
     t_min = torch.empty((s.n_frames,), dtype=torch.float32, device=img.device)
     cand = torch.empty((s.n_frames, 3), dtype=s.out_dtype, device=img.device)
     p = s.params()
-    _launch("candidate", counts, keys.data_ptr(), img.data_ptr(),
+    _launch("candidate", counts, keys.data_ptr(), *_lists(keys), img.data_ptr(),
             cand.data_ptr(), _OUT_CODES[s.out_dtype], t_min.data_ptr(),
             ctypes.byref(p), kernel="topk_merge")
     return t_min, cand
@@ -420,14 +465,87 @@ def tiled_fits(s: Static) -> bool:
     return bool(_lib().fd_tiled_fits(ctypes.byref(s.params())))
 
 
+# The tiled passes' shared memory as the CUDA source reckons it
+# (``tmap_smem``, ``guided_smem``, ``refine_tmap_smem``, ``halo_*_smem``),
+# which decides from the static shape alone which sequence a transmission
+# stage runs; ``chip_smoke.py`` holds these against the library's fits tests.
+_TILE_THREADS, _RUN_V, _STAGE_STRIDE = 256, 16, TILE_W + 1
+
+
+def _halo_rows(r: int) -> int:
+    return TILE_H + 2 * r
+
+
+def _halo_cols(r: int) -> int:
+    return TILE_W + 2 * r
+
+
+def _run_stride(r: int) -> int:
+    return _halo_cols(r) | 1
+
+
+def _in_floats(planes: int, r: int) -> int:
+    return planes * max(_halo_rows(r) * _halo_cols(r), TILE_H * _STAGE_STRIDE)
+
+
+def _planes_and_runs(planes: int, sums: int, r: int) -> int:
+    runs = sums * TILE_H * _run_stride(r)
+    if _halo_cols(r) * (TILE_H // _RUN_V) <= _TILE_THREADS:   # sums overwrite
+        return max(_in_floats(planes, r), runs)
+    return _in_floats(planes, r) + runs
+
+
+def _refine_floats(refine: bool, r: int) -> int:
+    return TILE_H * TILE_W + (_planes_and_runs(2, 2, r) if refine
+                              else TILE_H * _STAGE_STRIDE)
+
+
+def _count_ints(r: int) -> int:
+    return _halo_rows(r) + _halo_cols(r) + 2
+
+
+def transmission_smem(s: Static) -> Tuple[int, int, int]:
+    """Shared memory (bytes) of a block of the tiled transmission sequence's
+    ``tmap_tile``, ``guided_ab`` and ``refine_tmap``."""
+    r, es = s.radius, s.in_dtype.itemsize
+    wire = max(_halo_rows(r) * ((3 * _halo_cols(r) * es + 15) // 16 + 1) * 16,
+               4 * TILE_H * _run_stride(r))
+    return (wire + 4 * _in_floats(1, r) + 4 * _halo_rows(r),
+            4 * _planes_and_runs(2, 4, s.gf_radius),
+            4 * _refine_floats(s.refine, s.gf_radius))
+
+
+def transmission_tiled_fits(s: Static) -> bool:
+    """Whether the transmission stage runs its tiled sequence for ``s``
+    (``fd_transmission_tiled_fits``; launches nothing): every pass's block
+    fits its shared memory and, at top-1, the merge takes the frame's tile
+    keys. From the shape alone: radius <= 36 on float32 frames (52
+    bfloat16, 66 uint8) and, with refine, gf_radius <= 45. Past it the ten
+    passes, which take any radius."""
+    tmap, guided, refine = transmission_smem(s)
+    return (tmap <= MAX_SMEM and (not s.refine or guided <= MAX_SMEM)
+            and refine <= MAX_SMEM
+            and (s.topk > 1 or tile_count(s.H, s.W) <= TOPK_MAX_TILES))
+
+
+def _occupancy(fn: str, params) -> Tuple[int, int, int]:
+    blocks = (ctypes.c_int * 3)()
+    rc = getattr(_lib(), fn)(ctypes.byref(params), blocks)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed: cudaError_t {rc}")
+    return tuple(blocks)
+
+
 def tiled_occupancy(s: Static) -> Tuple[int, int, int]:
     """Blocks an SM of ``tmap_tile``, ``guided_ab`` and ``refine_recover``
     for ``s``, from the card's occupancy calculator (launches nothing)."""
-    blocks = (ctypes.c_int * 3)()
-    rc = _lib().fd_tiled_occupancy(ctypes.byref(s.params()), blocks)
-    if rc != 0:
-        raise RuntimeError(f"fd_tiled_occupancy failed: cudaError_t {rc}")
-    return tuple(blocks)
+    return _occupancy("fd_tiled_occupancy", s.params())
+
+
+def transmission_occupancy(s: Static) -> Tuple[int, int, int]:
+    """Blocks an SM of the transmission stage's ``tmap_tile``,
+    ``guided_ab`` and ``refine_tmap`` for ``s`` (launches nothing)."""
+    return _occupancy("fd_transmission_occupancy", s.params())
 
 
 def cuda_tmap_tile(img, carry_f, s: Static, counts=launches):
@@ -439,8 +557,7 @@ def cuda_tmap_tile(img, carry_f, s: Static, counts=launches):
     g = _plane(s, device=img.device) if s.refine else None
     keys = None
     if s.topk == 1:
-        tiles = -(-s.H // TILE_H) * -(-s.W // TILE_W)
-        keys = torch.empty((s.n_frames, tiles), dtype=torch.int64,
+        keys = torch.empty((s.n_frames, tile_count(s.H, s.W)), dtype=torch.int64,
                            device=img.device)
     p = s.params()
     _launch("tmap_tile", counts, img.data_ptr(), carry_f.data_ptr(),
@@ -485,6 +602,17 @@ def cuda_refine_recover(img, t_raw, g, ab, a_seq, s: Static, counts=launches):
             _ptr(ab), a_seq.data_ptr(), J.data_ptr(), t.data_ptr(),
             ctypes.byref(p))
     return J, t
+
+
+def cuda_refine_tmap(t_raw, g, ab, s: Static, counts=transmission_launches):
+    """``refine_recover`` without the wire rows and J: the refined t (t_raw
+    without refine) in the output dtype."""
+    _check_cuda(t_raw)
+    t = torch.empty((s.L, s.B, s.H, s.W), dtype=s.out_dtype, device=t_raw.device)
+    p = s.params()
+    _launch("refine_tmap", counts, t_raw.data_ptr(), _ptr(g), _ptr(ab),
+            t.data_ptr(), ctypes.byref(p))
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -617,17 +745,24 @@ def plain_tmap(t_raw, g, rows2, s: Static):
         s.L, s.B, s.H, s.W).to(s.out_dtype)
 
 
+def _tile_min_keys(keys: torch.Tensor) -> torch.Tensor:
+    """(N, h, w) signed-order keys -> each :data:`TILE_H` x :data:`TILE_W`
+    tile's smallest, (N, tiles) in row-major tile order (unsigned bits)."""
+    n, h, w = keys.shape
+    ty, tx = -(-h // TILE_H), -(-w // TILE_W)
+    padded = torch.full((n, ty * TILE_H, tx * TILE_W), KEY_LAST,
+                        dtype=torch.int64, device=keys.device)
+    padded[:, :h, :w] = keys
+    best = padded.reshape(n, ty, TILE_H, tx, TILE_W).amin(dim=(2, 4))
+    return flip_key_order(best.reshape(n, ty * tx))
+
+
 def tile2d_keys(t_raw: torch.Tensor) -> torch.Tensor:
     """(N, H, W) t -> each :data:`TILE_H` x :data:`TILE_W` tile's smallest
     key, (N, tiles) in row-major tile order: bit for bit what
     ``tmap_tile`` writes at top-1."""
     n, h, w = t_raw.shape
-    ty, tx = -(-h // TILE_H), -(-w // TILE_W)
-    keys = torch.full((n, ty * TILE_H, tx * TILE_W), KEY_LAST,
-                      dtype=torch.int64, device=t_raw.device)
-    keys[:, :h, :w] = topk_keys_signed(t_raw).reshape(n, h, w)
-    best = keys.reshape(n, ty, TILE_H, tx, TILE_W).amin(dim=(2, 4))
-    return flip_key_order(best.reshape(n, ty * tx))
+    return _tile_min_keys(topk_keys_signed(t_raw).reshape(n, h, w))
 
 
 def plain_tmap_tile(img, carry_f, s: Static):
@@ -649,6 +784,10 @@ def plain_refine_recover(img, t_raw, g, ab, a_seq, s: Static):
     return plain_recover(img, t_raw, g, rows2, a_seq, s)
 
 
+def plain_refine_tmap(t_raw, g, ab, s: Static):
+    return plain_tmap(t_raw, g, plain_box_rows2(ab, s) if s.refine else None, s)
+
+
 Passes = Dict[str, Callable]
 
 #: Every pass of both sequences, by name.
@@ -665,6 +804,12 @@ TRANSMISSION_CUDA_PASSES: Passes = {
     for name in TRANSMISSION_PASSES}
 TRANSMISSION_PLAIN_PASSES: Passes = {
     name: globals()[f"plain_{name}"] for name in TRANSMISSION_PASSES}
+TILED_TRANSMISSION_CUDA_PASSES: Passes = {
+    name: functools.partial(globals()[f"cuda_{name}"],
+                            counts=transmission_launches)
+    for name in TILED_TRANSMISSION_PASSES}
+TILED_TRANSMISSION_PLAIN_PASSES: Passes = {
+    name: globals()[f"plain_{name}"] for name in TILED_TRANSMISSION_PASSES}
 
 
 def run_tiled_passes(img, frame_ids, carry_f, carry_i, s: Static,
@@ -697,11 +842,27 @@ def run_passes(img, frame_ids, carry_f, carry_i, s: Static,
     return J, t, a_seq, cf, ci
 
 
+def run_tiled_transmission_passes(img, a_saved, s: Static,
+                                  passes: Passes = TILED_TRANSMISSION_CUDA_PASSES):
+    """The fused transmission stage's tiled sequence, through ``passes``:
+    (L, B, H, W, 3) frames and per-lane saved A (L, 3) -> ``(t (L, B, H, W)
+    and cand (L, B, 3) in the output dtype, t_min (L, B) float32)``; the
+    megakernel's passes with the saved A for its carry, without the EMA
+    and J."""
+    t_raw, g, keys = passes["tmap_tile"](img, a_saved, s)
+    if s.topk > 1:
+        keys = passes["topk_block"](t_raw, s)
+    t_min, cand = passes["candidate"](keys, img, s)
+    ab = passes["guided_ab"](g, t_raw, s) if s.refine else None
+    t = passes["refine_tmap"](t_raw, g, ab, s)
+    return t, t_min.reshape(s.L, s.B), cand.reshape(s.L, s.B, 3)
+
+
 def run_transmission_passes(img, a_saved, s: Static,
                             passes: Passes = TRANSMISSION_CUDA_PASSES):
-    """The fused transmission stage's pass sequence, through ``passes``:
-    (L, B, H, W, 3) frames and per-lane saved A (L, 3) -> ``(t (L, B, H, W)
-    and cand (L, B, 3) in the output dtype, t_min (L, B) float32)``."""
+    """The fused transmission stage's ten-pass sequence, through ``passes``:
+    the same outputs as :func:`run_tiled_transmission_passes`, bit for
+    bit, for windows of any width."""
     pre, g = passes["premap"](img, a_saved, s)
     t_raw = passes["min_cols_tmap"](passes["min_rows"](pre, s), s)
     t_min, cand = passes["candidate"](passes["topk_block"](t_raw, s), img, s)
@@ -762,6 +923,23 @@ class HaloStatic:
         return plane[..., self.halo_h:self.halo_h + self.h,
                      self.halo_w:self.halo_w + self.w]
 
+    def region(self, name: str) -> Tuple[slice, slice]:
+        """The rows and columns of the extended plane that the tiled pass
+        ``name`` writes (``halo_region`` in the CUDA source): the core
+        widened by 2 gf_r a side for ``tmap_tile``'s t_raw (the core alone
+        without refine), by gf_r for ``guided_ab``'s a and b, the core for
+        ``refine_tmap``. Each pass reads only what the pass before wrote;
+        the rest of its output planes is left unwritten."""
+        m = {"tmap_tile": 2 * self.gf_radius if self.refine else 0,
+             "guided_ab": self.gf_radius, "refine_tmap": 0}[name]
+        return (slice(max(self.halo_h - m, 0), min(self.halo_h + self.h + m, self.h_ext)),
+                slice(max(self.halo_w - m, 0), min(self.halo_w + self.w + m, self.w_ext)))
+
+    def region_shape(self, name: str) -> Tuple[int, int]:
+        ys, xs = self.region(name)
+        return ys.stop - ys.start, xs.stop - xs.start
+
+    @functools.lru_cache(maxsize=64)
     def params(self) -> _HaloParams:
         return _HaloParams(
             N=self.N, h=self.h, w=self.w, halo_h=self.halo_h,
@@ -862,16 +1040,18 @@ def cuda_halo_topk_block(t_core, s: HaloStatic):
 
 
 def cuda_halo_topk_list(keys, img, s: HaloStatic):
-    """-> ``(tk_t (N, k) float32, tk_rgb (N, k, 3) in the output dtype,
-    tk_idx (N, k) int32)``, ascending in (t, local flat index)."""
+    """``topk_block``'s lists or, at top-1, ``tmap_tile``'s tile keys ->
+    ``(tk_t (N, k) float32, tk_rgb (N, k, 3) in the output dtype, tk_idx
+    (N, k) int32)``, ascending in (t, local flat index)."""
     _check_cuda(keys, img)
     dev = img.device
     tk_t = torch.empty((s.N, s.topk), dtype=torch.float32, device=dev)
     tk_rgb = torch.empty((s.N, s.topk, 3), dtype=s.out_dtype, device=dev)
     tk_idx = torch.empty((s.N, s.topk), dtype=torch.int32, device=dev)
     p = s.params()
-    _halo_launch("topk_list", keys.data_ptr(), img.data_ptr(), tk_t.data_ptr(),
-                 tk_rgb.data_ptr(), tk_idx.data_ptr(), ctypes.byref(p))
+    _halo_launch("topk_list", keys.data_ptr(), *_lists(keys), img.data_ptr(),
+                 tk_t.data_ptr(), tk_rgb.data_ptr(), tk_idx.data_ptr(),
+                 ctypes.byref(p))
     return tk_t, tk_rgb, tk_idx
 
 
@@ -908,6 +1088,74 @@ def cuda_halo_tmap(t_core, guide_ext, rows2, vh, vw, s: HaloStatic):
     t = torch.empty((s.N, s.h, s.w), dtype=s.out_dtype, device=t_core.device)
     p = s.params()
     _halo_launch("tmap", t_core.data_ptr(), guide_ext.data_ptr(), _ptr(rows2),
+                 vh.data_ptr(), vw.data_ptr(), t.data_ptr(), ctypes.byref(p))
+    return t
+
+
+def halo_smem(s: HaloStatic) -> Tuple[int, int, int]:
+    """Shared memory (bytes) of a block of the masked tiled sequence's
+    ``tmap_tile``, ``guided_ab`` and ``refine_tmap`` (no wire rows; the
+    sums' passes hold the mask counts)."""
+    r, gr = s.radius, s.gf_radius
+    counts = 4 * _count_ints(gr)
+    return (4 * (TILE_H * _run_stride(r) + _in_floats(1, r) + _count_ints(r)),
+            4 * _planes_and_runs(2, 4, gr) + counts,
+            4 * _refine_floats(s.refine, gr) + (counts if s.refine else 0))
+
+
+def halo_tiled_fits(s: HaloStatic) -> bool:
+    """Whether the halo stage runs its masked tiled sequence for ``s``
+    (``fd_halo_tiled_fits``; launches nothing): every pass's block fits its
+    shared memory and, at top-1, the list merge takes the tile keys. From
+    the shape alone: radius <= 88 and, with refine, gf_radius <= 45. Past
+    it the ten masked passes, which take any radius."""
+    tmap, guided, refine = halo_smem(s)
+    return (tmap <= MAX_SMEM and (not s.refine or guided <= MAX_SMEM)
+            and refine <= MAX_SMEM
+            and (s.topk > 1 or tile_count(*s.region_shape("tmap_tile")) <= TOPK_MAX_TILES))
+
+
+def halo_occupancy(s: HaloStatic) -> Tuple[int, int, int]:
+    """Blocks an SM of the halo stage's ``tmap_tile``, ``guided_ab`` and
+    ``refine_tmap`` for ``s`` (launches nothing)."""
+    return _occupancy("fd_halo_occupancy", s.params())
+
+
+def cuda_halo_tmap_tile(pre_ext, vh, vw, s: HaloStatic):
+    """-> ``(t_raw on the extended plane, written on its tmap_tile region,
+    its core (N, h, w), and at top-1 each region tile's smallest key of a
+    core pixel under its core index, (N, tiles) int64; None at k > 1)``."""
+    _check_cuda(pre_ext, vh, vw)
+    dev = pre_ext.device
+    t_ext = _ext_planes(s, 1, dev)[0]
+    t_core = torch.empty((s.N, s.h, s.w), dtype=torch.float32, device=dev)
+    keys = None
+    if s.topk == 1:
+        keys = torch.empty((s.N, tile_count(*s.region_shape("tmap_tile"))),
+                           dtype=torch.int64, device=dev)
+    p = s.params()
+    _halo_launch("tmap_tile", pre_ext.data_ptr(), vh.data_ptr(), vw.data_ptr(),
+                 t_ext.data_ptr(), t_core.data_ptr(), _ptr(keys), ctypes.byref(p))
+    return t_ext, t_core, keys
+
+
+def cuda_halo_guided_ab(guide_ext, t_ext, vh, vw, s: HaloStatic):
+    """-> the masked a and b, (2, N, h_ext, w_ext) float32, written on the
+    ``guided_ab`` region."""
+    _check_cuda(guide_ext, t_ext, vh, vw)
+    ab = _ext_planes(s, 2, t_ext.device)
+    p = s.params()
+    _halo_launch("guided_ab", guide_ext.data_ptr(), t_ext.data_ptr(),
+                 vh.data_ptr(), vw.data_ptr(), ab.data_ptr(), ctypes.byref(p))
+    return ab
+
+
+def cuda_halo_refine_tmap(t_core, guide_ext, ab, vh, vw, s: HaloStatic):
+    """The core's refined t (t_raw without refine) in the output dtype."""
+    _check_cuda(t_core, guide_ext, vh, vw)
+    t = torch.empty((s.N, s.h, s.w), dtype=s.out_dtype, device=t_core.device)
+    p = s.params()
+    _halo_launch("refine_tmap", t_core.data_ptr(), guide_ext.data_ptr(), _ptr(ab),
                  vh.data_ptr(), vw.data_ptr(), t.data_ptr(), ctypes.byref(p))
     return t
 
@@ -993,18 +1241,66 @@ def plain_halo_tmap(t_core, guide_ext, rows2, vh, vw, s: HaloStatic):
     return s.core(t).to(s.out_dtype)
 
 
+def halo_tile_keys(t_core: torch.Tensor, s: HaloStatic) -> torch.Tensor:
+    """(N, h, w) core t -> each tile of ``tmap_tile``'s region of the
+    extended plane, its smallest key of a core pixel under the core index,
+    (N, tiles) in row-major tile order: bit for bit what ``halo_tmap_tile``
+    writes at top-1 (all ones for a tile without a core pixel)."""
+    ys, xs = s.region("tmap_tile")
+    plane = torch.full((s.N, ys.stop - ys.start, xs.stop - xs.start), KEY_LAST,
+                       dtype=torch.int64, device=t_core.device)
+    y0, x0 = s.halo_h - ys.start, s.halo_w - xs.start
+    plane[:, y0:y0 + s.h, x0:x0 + s.w] = topk_keys_signed(t_core).reshape(
+        s.N, s.h, s.w)
+    return _tile_min_keys(plane)
+
+
+def plain_halo_tmap_tile(pre_ext, vh, vw, s: HaloStatic):
+    t_ext, t_core = plain_halo_min_cols_tmap(
+        plain_halo_min_rows(pre_ext, vh, vw, s), s)
+    return t_ext, t_core, (halo_tile_keys(t_core, s) if s.topk == 1 else None)
+
+
+def plain_halo_guided_ab(guide_ext, t_ext, vh, vw, s: HaloStatic):
+    return plain_halo_box_cols_ab(
+        plain_halo_box_rows4(guide_ext, t_ext, vh, vw, s), vh, vw, s)
+
+
+def plain_halo_refine_tmap(t_core, guide_ext, ab, vh, vw, s: HaloStatic):
+    rows2 = plain_halo_box_rows2(ab, vh, vw, s) if s.refine else None
+    return plain_halo_tmap(t_core, guide_ext, rows2, vh, vw, s)
+
+
 HALO_CUDA_PASSES: Passes = {name: globals()[f"cuda_halo_{name}"]
                             for name in HALO_PASSES}
 HALO_PLAIN_PASSES: Passes = {name: globals()[f"plain_halo_{name}"]
                              for name in HALO_PASSES}
+TILED_HALO_CUDA_PASSES: Passes = {name: globals()[f"cuda_halo_{name}"]
+                                  for name in TILED_HALO_PASSES}
+TILED_HALO_PLAIN_PASSES: Passes = {name: globals()[f"plain_halo_{name}"]
+                                   for name in TILED_HALO_PASSES}
+
+
+def run_tiled_halo_passes(img, pre_ext, guide_ext, vh, vw, s: HaloStatic,
+                          passes: Passes = TILED_HALO_CUDA_PASSES):
+    """The halo stage's masked tiled sequence, through ``passes``: core
+    frames (N, h, w, 3), extended planes (N, h_ext, w_ext) and validity
+    bytes (h_ext,), (w_ext,) -> ``(t (N, h, w), tk_t (N, k), tk_rgb
+    (N, k, 3), tk_idx (N, k))``."""
+    t_ext, t_core, keys = passes["tmap_tile"](pre_ext, vh, vw, s)
+    if s.topk > 1:
+        keys = passes["topk_block"](t_core, s)
+    tk_t, tk_rgb, tk_idx = passes["topk_list"](keys, img, s)
+    ab = passes["guided_ab"](guide_ext, t_ext, vh, vw, s) if s.refine else None
+    t = passes["refine_tmap"](t_core, guide_ext, ab, vh, vw, s)
+    return t, tk_t, tk_rgb, tk_idx
 
 
 def run_halo_passes(img, pre_ext, guide_ext, vh, vw, s: HaloStatic,
                     passes: Passes = HALO_CUDA_PASSES):
-    """The halo stage's pass sequence, through ``passes``: core frames
-    (N, h, w, 3), extended planes (N, h_ext, w_ext) and validity bytes
-    (h_ext,), (w_ext,) -> ``(t (N, h, w), tk_t (N, k), tk_rgb (N, k, 3),
-    tk_idx (N, k))``."""
+    """The halo stage's ten masked passes, through ``passes``: the same
+    arguments and outputs as :func:`run_tiled_halo_passes`, bit for bit,
+    for windows of any width."""
     rows = passes["min_rows"](pre_ext, vh, vw, s)
     t_ext, t_core = passes["min_cols_tmap"](rows, s)
     tk_t, tk_rgb, tk_idx = passes["topk_list"](
@@ -1088,7 +1384,7 @@ def fused_transmission_lanes(img: torch.Tensor, A_saved: torch.Tensor, *,
     out_dtype)``; frame row i of the flat L*B batch reads lane i // B's A.
 
     CPU tensors run the plain version; CUDA tensors run the kernels (built
-    at first use) or raise."""
+    at first use) or raise: :func:`run_transmission`."""
     kw = dict(algorithm=algorithm, radius=radius, omega=omega, beta=beta,
               cap_w=cap_w, refine=refine, gf_radius=gf_radius, gf_eps=gf_eps,
               topk=topk, out_dtype=out_dtype)
@@ -1103,7 +1399,16 @@ def fused_transmission_lanes(img: torch.Tensor, A_saved: torch.Tensor, *,
         raise ValueError(f"unsupported device {img.device}")
     _check_cuda(img)
     a = A_saved.to(device=img.device, dtype=torch.float32).contiguous()
-    return run_transmission_passes(img, a, s)
+    return run_transmission(img, a, s)
+
+
+def run_transmission(img, a_saved, s: Static):
+    """The transmission stage on the card: the tiled sequence where
+    :func:`transmission_tiled_fits`, else the ten passes, chosen from the
+    static shape before anything launches."""
+    run = (run_tiled_transmission_passes if transmission_tiled_fits(s)
+           else run_transmission_passes)
+    return run(img, a_saved, s)
 
 
 def fused_transmission(img: torch.Tensor, A_saved: torch.Tensor, **kw):
@@ -1131,7 +1436,7 @@ def fused_transmission_halo(img: torch.Tensor, pre_ext: torch.Tensor,
     out_dtype)``.
 
     CPU tensors run the plain version (``kernels.ref``); CUDA tensors run
-    the kernels (built at first use) or raise."""
+    the kernels (built at first use) or raise: :func:`run_halo`."""
     kw = dict(algorithm=algorithm, radius=radius, omega=omega, beta=beta,
               refine=refine, gf_radius=gf_radius, gf_eps=gf_eps, topk=topk,
               out_dtype=out_dtype)
@@ -1144,4 +1449,12 @@ def fused_transmission_halo(img: torch.Tensor, pre_ext: torch.Tensor,
     _check_cuda(img, pre_ext, guide_ext)
     vh = validity_bytes(valid, s.h_ext, img.device)
     vw = validity_bytes(valid_w, s.w_ext, img.device)
-    return run_halo_passes(img, pre_ext, guide_ext, vh, vw, s)
+    return run_halo(img, pre_ext, guide_ext, vh, vw, s)
+
+
+def run_halo(img, pre_ext, guide_ext, vh, vw, s: HaloStatic):
+    """The halo stage on the card: the masked tiled sequence where
+    :func:`halo_tiled_fits`, else the ten masked passes, chosen from the
+    static shape before anything launches."""
+    run = run_tiled_halo_passes if halo_tiled_fits(s) else run_halo_passes
+    return run(img, pre_ext, guide_ext, vh, vw, s)

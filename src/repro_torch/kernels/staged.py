@@ -571,14 +571,17 @@ def _check_masks(x: torch.Tensor, valid: torch.Tensor,
 def validity_bytes(valid: Optional[torch.Tensor], n: int,
                    device) -> torch.Tensor:
     """A validity vector as the kernels' bytes (non-zero valid); None is
-    all valid. A contiguous uint8 vector on ``device`` passes as it is."""
+    all valid. A contiguous uint8 vector on ``device`` passes as it is, a
+    contiguous bool one as a view of its bytes."""
     if valid is None:
         return torch.ones(n, dtype=torch.uint8, device=device)
     if tuple(valid.shape) != (n,):
         raise ValueError(f"validity {tuple(valid.shape)} != ({n},)")
-    if valid.dtype == torch.uint8 and valid.device == torch.device(device) \
-            and valid.is_contiguous():
-        return valid
+    if valid.device == torch.device(device) and valid.is_contiguous():
+        if valid.dtype == torch.uint8:
+            return valid
+        if valid.dtype == torch.bool:            # 0/1 bytes already
+            return valid.view(torch.uint8)
     return (valid.to(device) != 0).to(torch.uint8).contiguous()
 
 

@@ -10,9 +10,11 @@ megakernel, and ``fused.run_passes``, the ten passes it replaced, through
 the plain passes) against the reference, at the reference's own tolerances
 (``tests/test_fused.py``): J/t 1e-4 with refine and 1e-5 without, a_seq
 and the final A 1e-5, last_update/initialized exact, bfloat16 2e-2. The
-fused transmission stage of the sharded step (its pass sequence through
-the plain passes) is held to the Pallas kernels in interpret mode: t 1e-4,
-t_min and the candidates 1e-5.
+fused transmission stage of the sharded step (its tiled sequence and its
+ten passes, through the plain passes, equal to each other) is held to the
+Pallas kernels in interpret mode: t 1e-4, t_min and the candidates 1e-5.
+Which sequence the stage and its halo form run is decided from the shape;
+a fake library shows the launches on both sides of each limit.
 """
 import numpy as np
 import pytest
@@ -277,8 +279,9 @@ def _compare_transmission(got, want):
 @pytest.mark.parametrize("topk", [1, 4])
 @pytest.mark.parametrize("algorithm", ["dcp", "cap"])
 def test_transmission_passes_match_pallas(algorithm, topk, dtype):
-    """The lane form (per-lane A: frame row i reads lane i // B's) through
-    the plain passes against ``fused_transmission_lanes_pallas``, and its
+    """The lane form (per-lane A: frame row i reads lane i // B's), its
+    tiled sequence and its ten passes through the plain passes, equal to
+    each other and each against ``fused_transmission_lanes_pallas``; its
     L=1 view through ``ops`` against ``fused_transmission_pallas``."""
     x = ramp_frames(19, 2, 3, h=12, w=16)
     a = np.array([[0.9, 0.8, 0.85], [0.6, 0.7, 0.65]], np.float32)
@@ -287,9 +290,14 @@ def test_transmission_passes_match_pallas(algorithm, topk, dtype):
     s = fused.make_static(tx, t0=0.1, gamma=1.0, period=1, lam=0.0, **kw)
     got = fused.run_transmission_passes(tx, torch.from_numpy(a), s,
                                         fused.TRANSMISSION_PLAIN_PASSES)
+    tiled = fused.run_tiled_transmission_passes(
+        tx, torch.from_numpy(a), s, fused.TILED_TRANSMISSION_PLAIN_PASSES)
+    for g, t in zip(tiled, got):
+        assert torch.equal(g, t)
     want = fused_transmission_lanes_pallas(jx, jnp.asarray(a),
                                            interpret=True, **kw)
     _compare_transmission(got, want)
+    _compare_transmission(tiled, want)
     got = tops.fused_transmission(tx[1], torch.from_numpy(a[1]),
                                   mode="fused", **kw)
     want = fused_transmission_pallas(jx[1], jnp.asarray(a[1]),
@@ -322,11 +330,83 @@ def test_cpu_transmission_wrapper_launches_no_kernel():
     x = torch.from_numpy(ramp_frames(21, L, B, h=H, w=W))
     fused.reset_launches()
     fused.fused_transmission_lanes(x, torch.ones(L, 3), refine=True, **TKW)
-    assert set(fused.transmission_launches) == set(fused.TRANSMISSION_PASSES)
+    assert set(fused.transmission_launches) == set(
+        fused.TILED_TRANSMISSION_PASSES + fused.TRANSMISSION_PASSES)
     assert not any(fused.transmission_launches.values())
     assert not any(fused.launches.values())
     with pytest.raises(ValueError, match=r"\(L, 3\)"):
         fused.fused_transmission_lanes(x, torch.ones(3), refine=True, **TKW)
+
+
+# Both sides of each limit of the transmission stage's and the halo form's
+# tiled sequences: (form, frame dtype, radius, gf_radius, refine, the tiles
+# fit).
+ROUTE_LIMITS = [
+    ("transmission", torch.float32, 36, 20, True, True),
+    ("transmission", torch.float32, 37, 20, True, False),
+    ("transmission", torch.bfloat16, 52, 20, True, True),
+    ("transmission", torch.bfloat16, 53, 20, True, False),
+    ("transmission", torch.uint8, 66, 20, True, True),
+    ("transmission", torch.uint8, 67, 20, True, False),
+    ("transmission", torch.uint8, 7, 45, True, True),
+    ("transmission", torch.uint8, 7, 46, True, False),
+    ("transmission", torch.uint8, 7, 46, False, True),   # no guided filter
+    ("halo", torch.float32, 88, 20, True, True),
+    ("halo", torch.float32, 89, 20, True, False),
+    ("halo", torch.uint8, 7, 45, True, True),
+    ("halo", torch.uint8, 7, 46, True, False),
+]
+
+
+@pytest.mark.parametrize("form,dtype,radius,gf_radius,refine,fits",
+                         ROUTE_LIMITS)
+def test_transmission_stages_pick_tiles_or_ten_passes_by_shape(
+        form, dtype, radius, gf_radius, refine, fits, monkeypatch):
+    """The transmission stage and its halo form launch their tiled sequence
+    where every block fits its shared memory
+    (:func:`fused.transmission_tiled_fits`, :func:`fused.halo_tiled_fits`,
+    the CUDA source's arithmetic, which ``chip_smoke.py`` holds against the
+    library) and the ten passes past it, chosen from the shape before any
+    launch, and count the launches under the passes' names."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append(name) or 0
+
+    class Stream:
+        cuda_stream = 0
+    monkeypatch.setattr(fused, "_lib", lambda: Lib())
+    monkeypatch.setattr(fused, "_check_cuda", lambda *t: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
+    fused.reset_launches()
+    kw = dict(radius=radius, refine=refine, gf_radius=gf_radius, gf_eps=1e-3,
+              topk=4)
+    if form == "transmission":
+        img = torch.empty((2, 3, 48, 80, 3), dtype=dtype, device="meta")
+        s = fused.make_static(img, t0=0.1, gamma=1.0, period=1, lam=0.0, **kw)
+        assert fused.transmission_tiled_fits(s) == fits
+        fused.run_transmission(img, torch.empty((2, 3), device="meta"), s)
+        counts, prefix = fused.transmission_launches, "fd_"
+        route = (fused.TILED_TRANSMISSION_PASSES if fits
+                 else fused.TRANSMISSION_PASSES)
+    else:
+        halo = radius + 2 * gf_radius
+        img = torch.empty((2, 24, 30, 3), dtype=dtype, device="meta")
+        plane = torch.empty((2, 24 + 2 * halo, 30 + 2 * halo), device="meta")
+        s = fused.make_halo_static(img, plane, plane, **kw)
+        assert fused.halo_tiled_fits(s) == fits
+        v = [torch.empty(n, dtype=torch.uint8, device="meta")
+             for n in (s.h_ext, s.w_ext)]
+        fused.run_halo(img, plane, plane, *v, s)
+        counts, prefix = fused.halo_launches, "fd_halo_"
+        route = fused.TILED_HALO_PASSES if fits else fused.HALO_PASSES
+    ran = [p for p in route if refine or p not in (
+        "guided_ab", "box_rows4", "box_cols_ab", "box_rows2")]
+    kernel = {"candidate": "topk_merge"}
+    assert calls == [prefix + kernel.get(p, p) for p in ran]
+    assert {p: n for p, n in counts.items() if n} == dict.fromkeys(ran, 1)
+    fused.reset_launches()
 
 
 # --- contracts: dispatch, no fallback ----------------------------------------
@@ -435,14 +515,20 @@ def test_cuda_kernel_matches_plain_version():
         for a, b in zip(fused.cuda_refine_recover(x, t_raw, g, ab, a_seq, s),
                         fused.plain_refine_recover(x, t_raw, g, ab, a_seq, s)):
             assert float((a - b).abs().max()) <= 1e-3
-        # The transmission stage: its kernels against its plain version.
+        # The transmission stage: its tiled sequence against its plain
+        # version, and against the ten passes bit for bit.
         tkw = {k: v for k, v in kw.items()
                if k not in ("t0", "gamma", "period", "lam")}
+        fused.reset_launches()
         got = fused.fused_transmission_lanes(x, cf, **tkw)
         torch.cuda.synchronize()
+        assert fused.transmission_launches["tmap_tile"] == 1
+        assert fused.transmission_launches["premap"] == 0
         want = tref.fused_transmission_lanes(x, cf, **tkw)
         for g, w, tol in zip(got, want, (1e-3, 1e-5, 1e-5)):
             assert float((g - w).abs().max()) <= tol
+        for g, t in zip(got, fused.run_transmission_passes(x, cf, s)):
+            assert torch.equal(g, t)
 
 
 @pytest.mark.cuda

@@ -41,6 +41,7 @@ from repro_torch.core import (DehazeConfig, PlacementSpec, init_atmo_state,
                               init_atmo_state_lanes, make_dehaze_step,
                               make_multi_stream_step,
                               make_sharded_dehaze_step, make_step, spatial)
+from repro_torch.kernels import fused
 from repro_torch.launch.mesh import make_host_mesh
 
 from _torch_common import as_np, ramp_frames, wire
@@ -343,7 +344,8 @@ def test_masked_filters_match_jax(with_cols):
 @pytest.mark.cuda
 def test_sharded_steps_on_the_card():
     """One NCCL rank: the frame- and lane-sharded fused steps (the
-    transmission stage's kernels) equal the single-device fused steps."""
+    transmission stage's tiled sequence, one a step) equal the
+    single-device fused steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     cfg = DehazeConfig(kernel_mode="fused", **STEP_CFG)
@@ -352,8 +354,11 @@ def test_sharded_steps_on_the_card():
         assert dist.get_backend() == "nccl"
         x = torch.from_numpy(ramp_frames(34, 2, 4, h=48, w=64)).cuda()
         ids = torch.arange(8, dtype=torch.int32, device="cuda")
+        fused.reset_launches()
         got = make_sharded_dehaze_step(cfg, m)(x.reshape(8, 48, 64, 3), ids,
                                                init_atmo_state("cuda"))
+        assert fused.transmission_launches["tmap_tile"] == 1
+        assert fused.transmission_launches["premap"] == 0
         want = make_dehaze_step(cfg)(x.reshape(8, 48, 64, 3), ids,
                                      init_atmo_state("cuda"))
         _compare_step(got, want, "float32")

@@ -145,9 +145,16 @@ def test_halo_stage_matches_pallas(algorithm, topk, tiling, tile, img_dtype,
     s = fused.make_halo_static(*port[:3], **kw)
     vh = staged.validity_bytes(port[3], s.h_ext, "cpu")
     vw = staged.validity_bytes(port[4], s.w_ext, "cpu")
-    for got in (tops.fused_transmission_halo(*port, mode="pallas", **kw),
-                fused.run_halo_passes(*port[:3], vh, vw, s,
-                                      fused.HALO_PLAIN_PASSES)):
+    ten = fused.run_halo_passes(*port[:3], vh, vw, s, fused.HALO_PLAIN_PASSES)
+    # The masked tiled sequence (halo 8 > r 2: rows and columns whose t_raw
+    # window holds no valid pixel) equals the ten masked passes.
+    tiled = fused.run_tiled_halo_passes(*port[:3], vh, vw, s,
+                                        fused.TILED_HALO_PLAIN_PASSES)
+    for g, t in zip(tiled, ten):
+        assert torch.equal(g, t)
+        assert not torch.isnan(g.float()).any()
+    for got in (tops.fused_transmission_halo(*port, mode="pallas", **kw), ten,
+                tiled):
         t, tk_t, tk_rgb, tk_idx = got
         np.testing.assert_allclose(as_np(t), as_np(want[0]), atol=1e-5,
                                    rtol=0)
@@ -575,16 +582,25 @@ def test_cpu_halo_wrappers_launch_no_kernel():
 
 @pytest.mark.cuda
 def test_spatial_kernels_match_plain_versions_on_the_card():
-    """B8a, B8b, B9 and B10 against their plain versions on a corner tile
-    (rows and columns masked at both edges)."""
+    """B8a, B8b, B9 (its masked tiled sequence, equal to the ten masked
+    passes) and B10 against their plain versions on a corner tile (rows
+    and columns masked at both edges)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     for plane_dtype in ("float32", "bfloat16"):
         port, _ = _halo_inputs("cap", (2, 2), (0, 1), "uint8", plane_dtype)
         cuda = [None if v is None else v.cuda() for v in port]
         kw = dict(HALO_KW, algorithm="cap", refine=True, topk=4)
+        fused.reset_launches()
         got = fused.fused_transmission_halo(*cuda, **kw)
         torch.cuda.synchronize()
+        assert fused.halo_launches["tmap_tile"] == 1
+        assert fused.halo_launches["min_rows"] == 0
+        s = fused.make_halo_static(*cuda[:3], **kw)
+        v = [staged.validity_bytes(c, n, "cuda")
+             for c, n in ((cuda[3], s.h_ext), (cuda[4], s.w_ext))]
+        for g, t in zip(got, fused.run_halo_passes(*cuda[:3], *v, s)):
+            assert torch.equal(g, t)
         want = tref.fused_transmission_halo(*cuda, **kw)
         assert float((got[0] - want[0]).abs().max()) <= 1e-3
         assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])

@@ -65,7 +65,7 @@ FIRST_INPUT_ONLY = WINDOW_RUN + """    {
 VARIANTS = {
     "base": [],
     "hot_loads": [("in ? src + x : base",
-                   "base + (((q * rows + i) * cols + j) & 4095)", 2),
+                   "base + (((q * rows + i) * cols + j) & 4095)", 1),
                   ("bytes + b, static_cast<int>",
                    "bytes + (b & 16383), static_cast<int>", 1)],
     "no_window": [(WINDOW_RUN, FIRST_INPUT_ONLY, 1)],
