@@ -53,13 +53,15 @@ any error:
    481x643, r = 0, windows wider than the frame, frames off a 16-byte
    boundary, float32 and bfloat16, He et al.'s gf_r = 60 and r = 875
    through ``ops.box_filter_2d``, and both sides of the strips' radius
-   limit, the launch counters showing the strips or the row window;
+   limit, the launch counters showing the strips or the row window
+   (``wide_launches``);
 7. phases 3 and 4 again with the default config (staged): per tick one
    dark channel, six box filters, one atmospheric light and one recover,
    and no megakernel pass; the aggregate fps over 4 streams x 192 frames;
 8. time the four staged kernels as phase 5 does, with their device busy
    time and that of the PyTorch call (B3a and B4 also a call in a replayed
-   CUDA graph, with their blocks an SM, B4 with its direct-sum floor), B6a
+   CUDA graph, with their blocks an SM, B4 with its direct-sum floor, and
+   their row window, the route past the strips' limit, by events), B6a
    and ``argmin`` + gather also a
    call in a replayed CUDA graph (their event time is the host's launch
    rate) and their device time with L2 flushed before each call
@@ -71,12 +73,23 @@ any error:
    staged plain chain and, at float32 output, against the fused step; no
    synchronising call); then the top-k atmospheric light alone on 8
    frames at k above one tile's pixels, up to H*W (ramp and all-ties t),
-   against its plain version;
+   against its plain version; then the min filter's strips (B3b) alone
+   against the plain version with max error 0 and value for value against
+   the row window they replaced, float32 and bfloat16, on CAP's depth at
+   the serving shape, a plane with +-inf and +-0 at r in {0, 7, 20}, a
+   batch off 16 bytes, a window wider than the frame, and both sides of
+   the strips' radius limit (the row window past it, by shape); then the
+   warp top-k (B6b) alone at k in {1, 2, 4, its limit 16, 17} on ramp,
+   all-ties and signed-zero t, 32 x 480x640 and 4 x 481x643, float32 and
+   bfloat16: bit-equal to the block rounds (its route past k = 16, chosen
+   by k) and to the plain picks summed with the kernels' arithmetic, within
+   tolerance of the plain version;
 10. ``serve_many`` (and ``serve``) of 4 x 48 uint8 frames with
    ``DehazeConfig(algorithm="cap", topk=4, io_dtype="uint8")`` and the
-   default ``kernel_mode``: per tick one min filter, six box filters, one
-   top-k atmospheric light, one recover, and no dark channel, argmin
-   atmospheric light or megakernel pass;
+   default ``kernel_mode``: per tick one min filter (its strips), six box
+   filters, one top-k atmospheric light (the warp top-k), one recover, and
+   no row window, block rounds, dark channel, argmin atmospheric light or
+   megakernel pass;
 11. the fused transmission stage (B7a, B7b): at 4 x 8 x 480x640 with
    per-lane saved A, {dcp, cap} x {topk 1, 4} x {uint8, bfloat16,
    float32} with refine, one cell without refine and a plateau cell
@@ -95,7 +108,12 @@ any error:
    single-device fused step (t and J 2e-4, a_seq 1e-5), one tiled
    transmission sequence a step (four launches) and no other kernel, no
    synchronising call;
-12. time the min filter and the top-k atmospheric light as phase 8 does;
+12. time the min filter's strips and the warp top-k beside the kernels
+   they replaced (the row window, the block rounds) in turns (old, new,
+   new, old), each with its device busy time, a call in a replayed CUDA
+   graph and its blocks an SM, the top-k also with L2 flushed, beside the
+   PyTorch call (also by device busy time and as a graph call); the
+   staged CAP top-4 lane step back to back with its device busy time;
    both transmission stages' tiled sequence and ten passes in turns, with
    device busy time, bound, direct-sum floor and blocks an SM; and each
    tiled transmission pass alone;
@@ -126,8 +144,9 @@ any error:
 15. print ``{"kernels": [...]}`` (each kernel's launches on the path it
    names: the megakernel's tiled passes on the fused serving path, the
    transmission stage's tiled passes on the sharded steps, the halo
-   stage's on the spatial steps, and the ten passes, which run on none of
-   them at the serving shape), the card line, and last ``{"ok": true,
+   stage's on the spatial steps, and the ten passes and the staged
+   kernels' routes past their limits, ``staged.wide.*``, which run on none
+   of them at the serving shape), the card line, and last ``{"ok": true,
    "device": {...}}``.
 """
 from __future__ import annotations
@@ -262,7 +281,12 @@ def to_wire(x: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+    """The largest absolute difference; 0 where the values are equal, so
+    equal infinities count as no error (NaN where a NaN differs)."""
+    if not a.numel():
+        return 0.0
+    a, b = a.float(), b.float()
+    return float(torch.where(a == b, 0.0, (a - b).abs()).max())
 
 
 # ---------------------------------------------------------------------------
@@ -747,7 +771,9 @@ def flushed_busy_ms(fn, reps: int = 10):
     L2; a sum, which leaves L2 full of clean lines, none of them ``fn``'s
     and none dirty to write back while ``fn`` runs). From a
     ``torch.profiler`` trace, leaving out the kernels that a trace of the
-    sum alone shows; None where the trace shows nothing or fails."""
+    sum alone shows and the sum's reduction kernel by name (a trace of one
+    kernel has come back empty late in a long run); None where the trace
+    shows nothing or fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     junk = torch.zeros(128 << 20, dtype=torch.float32, device="cuda")
@@ -769,7 +795,8 @@ def flushed_busy_ms(fn, reps: int = 10):
     torch.cuda.synchronize()
     try:
         flush = {name for name, _ in kernels(junk.sum)}
-        us = sum(t for name, t in kernels(calls) if name not in flush)
+        us = sum(t for name, t in kernels(calls)
+                 if name not in flush and "sum_functor" not in name)
     except Exception as e:       # a measurement only: report, go on
         print(f"device time not measured: {e!r}", flush=True)
         return None
@@ -1067,9 +1094,124 @@ def check_large_topk(errs) -> None:
         tol = staged_tolerance("atmolight_topk", args)
         check(err <= tol, f"staged atmolight_topk k={args[2]} "
               f"{args[0].dtype}: error {err} > {tol}")
-        errs["atmolight_topk"] = max(errs["atmolight_topk"], err)
-    print("staged atmolight_topk at k up to H*W: ok, max error "
-          f"{errs['atmolight_topk']}", flush=True)
+        errs["wide.atmolight_topk"] = max(errs.get("wide.atmolight_topk", 0.0), err)
+    print("staged atmolight_topk (block rounds) at k up to H*W: ok, max error "
+          f"{errs['wide.atmolight_topk']}", flush=True)
+
+
+def check_min_strips(errs) -> None:
+    """The min filter's strips (B3b) alone against the plain version with
+    max error 0, and against the row window (``window_kernel``, the
+    kernel they replaced) value for value, float32 and bfloat16: CAP's
+    depth at the serving shape (r = 7), a plane with +inf, -inf, -0.0 and
+    +0.0 at 481x643 (tail strips and bands) at r in {0, 7, 20}, a batch off
+    a 16-byte boundary, a window wider than a 17x13 frame, and both sides of
+    the strips' radius limit (the row window past it, chosen by shape)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import staged as sk
+    rng = np.random.default_rng(14)
+    u8 = to_wire(ramps(15, L * B).reshape(-1, 3), torch.uint8).reshape(L * B, H, W, 3)
+    depth = ref.cap_depth(ref.upcast_frames(u8).cuda(), *ref.CAP_COEFFS)
+
+    def plane(shape, dt):
+        v = rng.standard_normal(shape, dtype=np.float32)
+        flat = v.reshape(-1)
+        for value in (np.inf, -np.inf, -0.0, 0.0):    # scattered specials
+            flat[rng.choice(flat.size, flat.size // 97, replace=False)] = value
+        return torch.from_numpy(v).to(dt).cuda()
+
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).replace("torch.", "")
+        cases = [(depth.to(dt), 7, f"CAP depth serving {tag}")]
+        special = plane((4, 481, 643), dt)
+        cases += [(special, r, f"+-inf, +-0 481x643 {tag}") for r in (0, 7, 20)]
+        cases += [(plane((5, 481, 643), dt)[1:], 7, f"off 16 B 481x643 {tag}"),
+                  (plane((3, 17, 13), dt), 12, f"wider than 17x13 {tag}")]
+        cases += [(plane((2, 400, 300), dt), r, f"limit {r} {tag}")
+                  for r in strip_limit_radii("min_filter", dt)]
+        for x, r, label in cases:
+            check_window_route("min_filter", sk.cuda_min_filter, x, r, label, errs)
+            if sk.strips_fit("min_filter", r, dt):
+                got, old = sk.cuda_min_filter(x, r), wide_route("min_filter", x, r)
+                check(torch.equal(got, old), f"min filter strips {label} r={r}: "
+                      "differ from the row window")
+    reset_launches()
+
+
+def plain_topk_compensated(img: torch.Tensor, t: torch.Tensor, k: int) -> torch.Tensor:
+    """The top-k light with the kernels' arithmetic: the plain picks
+    (``staged.topk_select``, a sort of every key), their rgb summed in
+    ascending key order with Neumaier's compensation in float32 (one
+    PyTorch operation a step, no contraction), divided by a k tensor (a
+    scalar divisor may become a reciprocal multiply) and cast once; equal
+    to the kernels bit for bit."""
+    from repro_torch.kernels import staged as sk
+    n = img.shape[0]
+    idx = sk.key_index(sk.topk_select(t, k))
+    px = torch.gather(img.float().reshape(n, -1, 3), 1, idx[..., None].expand(n, k, 3))
+    s = torch.zeros(n, 3, device=img.device)
+    c = torch.zeros_like(s)
+    for j in range(k):
+        x = px[:, j]
+        total = s + x
+        lost = torch.where(s.abs() >= x.abs(), (s - total) + x, (x - total) + s)
+        c = c + lost
+        s = total
+    return ((s + c) / torch.full_like(s, float(k))).to(img.dtype)
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+
+
+def check_warp_topk(errs) -> None:
+    """The warp top-k (B6b) alone: bit-equal to the block rounds (the
+    kernels it replaced, its route past its limit) and to the plain picks
+    with the kernels' arithmetic (:func:`plain_topk_compensated`), and
+    within tolerance of the plain version, at k in {1, 2, 4, its limit,
+    limit + 1} on ramp, all-ties and signed-zero t (half the pixels -0.0 or
+    +0.0), 32 frames of 480x640 and 4 of 481x643 (no whole number of
+    tiles), float32 and bfloat16; the launch counters show the route."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import staged as sk
+    rng = np.random.default_rng(16)
+    limit = sk.WARP_TOPK_MAX
+    for n, h, w in ((L * B, H, W), (4, 481, 643)):
+        u8 = to_wire(ramps(17, n, h, w).reshape(-1, 3), torch.uint8).reshape(n, h, w, 3)
+        x = ref.upcast_frames(u8).cuda()
+        ramp_t = 1.0 - 0.95 * sk.cuda_dark_channel(x, 7)
+        zeros = torch.from_numpy(rng.random((n, h, w)) < 0.5).cuda()
+        signs = torch.from_numpy(rng.random((n, h, w)) < 0.5).cuda()
+        signed_zero = torch.where(zeros, torch.where(signs, -0.0, 0.0), ramp_t)
+        for label, t in (("ramp", ramp_t), ("ties", torch.full_like(ramp_t, 0.375)),
+                         ("signed zeros", signed_zero)):
+            for dt in (torch.float32, torch.bfloat16):
+                xd, td = x.to(dt), t.to(dt)
+                for k in (1, 2, 4, limit, limit + 1):
+                    cell = f"{n}x{h}x{w} {label} {dt} k={k}"
+                    reset_launches()
+                    got = sk.cuda_atmolight_topk(xd, td, k)
+                    torch.cuda.synchronize()
+                    wide = k > limit
+                    check(sk.launches["atmolight_topk"] == 1
+                          and sk.wide_launches["atmolight_topk"] == int(wide),
+                          f"staged atmolight_topk {cell}: route not picked by k")
+                    old = sk._atmolight_topk(xd, td, k, wide=True)
+                    exact = plain_topk_compensated(xd, td, k)
+                    check(torch.equal(bits(got), bits(old)) and torch.equal(bits(got), bits(exact)),
+                          f"staged atmolight_topk {cell}: not bit-equal to the block "
+                          f"rounds ({max_err(got, old)}) or the compensated plain picks "
+                          f"({max_err(got, exact)})")
+                    want = sk.plain_atmolight_topk(xd, td, k)
+                    err = max_err(got, want)
+                    tol = staged_tolerance("atmolight_topk", (xd, td, k))
+                    check(err <= tol, f"staged atmolight_topk {cell}: error {err} > {tol}")
+                    key = "wide.atmolight_topk" if wide else "atmolight_topk"
+                    errs[key] = max(errs.get(key, 0.0), err)
+        print(f"staged atmolight_topk {n}x{h}x{w}: the warp top-k (k <= {limit}) and the "
+              "block rounds bit-equal to each other and to the compensated plain picks",
+              flush=True)
+    reset_launches()
 
 
 def check_atmolight(errs) -> None:
@@ -1142,33 +1284,65 @@ def check_strips(errs) -> None:
                   "r=875 on 1816 rows ops float32"))
     for dark, dt in itertools.product((False, True), (torch.float32, torch.bfloat16)):
         tag = str(dt).replace("torch.", "")
-        limit = max(r for r in range(1000) if sk.strips_fit(dark, r, dt))
-        for r in (limit, limit + 1):
-            check(bool(sk._lib().st_strips_fit(int(dark), r, sk._DTYPES[dt]))
-                  == sk.strips_fit(dark, r, dt) == (r == limit),
-                  f"strips_fit({dark}, {r}, {tag}) disagrees with st_strips_fit")
+        for r in strip_limit_radii("dark_channel" if dark else "box_filter", dt):
             x = frames((1, 100, 80), dt) if dark else plane((2, 400, 300), dt)
             cases.append((dark, x, r, False, f"limit {r} {tag}"))
     for dark, x, r, via_ops, label in cases:
         name = "dark_channel" if dark else "box_filter"
-        check(x.is_contiguous(), f"{label}: input not contiguous")
-        reset_launches()
         if via_ops:
-            got = (ops.dark_channel if dark else ops.box_filter_2d)(x, r, mode="auto")
+            run = lambda x_, r_: (ops.dark_channel if dark else ops.box_filter_2d)(  # noqa: E731
+                x_, r_, mode="auto")
         else:
-            got = sk.PAIRS[name][0](x, r)
-        torch.cuda.synchronize()
-        wide = not sk.strips_fit(dark, r, x.dtype)
-        check(sk.launches[name] == 1 and sk.wide_launches[name] == int(wide)
-              and sum(sk.launches.values()) == 1,
-              f"staged {name} {label} r={r}: launches {sk.launches[name]}, "
-              f"row window {sk.wide_launches[name]}, expected 1 and {int(wide)}")
-        err = max_err(got, sk.PAIRS[name][1](x, r))
-        check(err == 0.0, f"staged {name} {label} r={r}: error {err}")
-        errs[name] = max(errs.get(name, 0.0), err)
-        print(f"staged {name} {label} r={r}: "
-              f"{'row window' if wide else 'strips'}, error 0", flush=True)
+            run = sk.PAIRS[name][0]
+        check_window_route(name, run, x, r, label, errs)
     reset_launches()
+
+
+def strip_limit_radii(name: str, dt: torch.dtype):
+    """The largest radius the strips of ``name`` take on ``dt`` planes and
+    the next, after checking that the C library's ``st_strips_fit`` agrees
+    with ``strips_fit`` on both."""
+    from repro_torch.kernels import staged as sk
+    limit = max(r for r in range(1000) if sk.strips_fit(name, r, dt))
+    for r in (limit, limit + 1):
+        check(bool(sk._lib().st_strips_fit(sk.STRIP_KINDS[name], r, sk._DTYPES[dt]))
+              == sk.strips_fit(name, r, dt) == (r == limit),
+              f"strips_fit({name}, {r}, {dt}) disagrees with st_strips_fit")
+    return limit, limit + 1
+
+
+def check_window_route(name, run, x, r, label, errs) -> None:
+    """``run(x, r)`` must launch one staged ``name`` kernel, the strips where
+    ``strips_fit`` and the row window (``wide_launches``) past it, and equal
+    the plain version with max error 0; its error goes to ``errs[name]``
+    (``errs["wide." + name]`` for the row window)."""
+    from repro_torch.kernels import staged as sk
+    check(x.is_contiguous(), f"{label}: input not contiguous")
+    reset_launches()
+    got = run(x, r)
+    torch.cuda.synchronize()
+    wide = not sk.strips_fit(name, r, x.dtype)
+    check(sk.launches[name] == 1 and sk.wide_launches[name] == int(wide)
+          and sum(sk.launches.values()) == 1,
+          f"staged {name} {label} r={r}: launches {sk.launches[name]}, "
+          f"row window {sk.wide_launches[name]}, expected 1 and {int(wide)}")
+    err = max_err(got, sk.PAIRS[name][1](x, r))
+    check(err == 0.0, f"staged {name} {label} r={r}: error {err}")
+    key = f"wide.{name}" if wide else name
+    errs[key] = max(errs.get(key, 0.0), err)
+    print(f"staged {name} {label} r={r}: "
+          f"{'row window' if wide else 'strips'}, error 0", flush=True)
+
+
+def wide_route(name: str, x: torch.Tensor, r: int) -> torch.Tensor:
+    """The staged window kernel ``name`` (dark channel, min or box filter)
+    by its row window (``window_kernel``) at any radius: the route past the
+    strips' limit, and the min filter's only route before the strips."""
+    from repro_torch.kernels import staged as sk
+    out = torch.empty(x.shape[:3], dtype=x.dtype, device=x.device)
+    sk._launch(name, x.data_ptr(), out.data_ptr(), *x.shape[:3], r, sk._DTYPES[x.dtype],
+               wide=True)
+    return out
 
 
 def check_no_sync(step, frames, ids, state, label: str) -> None:
@@ -1257,12 +1431,15 @@ def phase_staged_times():
             library_busy_ms=device_busy_ms(lib) if lib else None)
     # The window strips (B3a, B4): blocks an SM, and B4's direct-sum floor
     # (2 (2r + 1) float32 adds an output, none recomputed, at the card's
-    # rate of adds).
-    for name, dark, r in (("dark_channel", True, 7), ("box_filter", False, 20)):
-        out[name]["blocks_per_sm"] = sk.strips_occupancy(dark, r, torch.float32, H)
+    # rate of adds); and the row window, their route past the strips'
+    # radius, on the same inputs.
+    for name, r in (("dark_channel", 7), ("box_filter", 20)):
+        out[name]["blocks_per_sm"] = sk.strips_occupancy(name, r, torch.float32, H)
         # The device's time a call, without the host: a profiler trace of
         # five calls has lost one kernel's record now and then.
         out[name]["graph_ms"] = graph_ms(lambda: sk.PAIRS[name][0](*work[name][0]))
+        out[f"wide.{name}"] = dict(out[name], ms=time_ms(lambda: wide_route(name, *work[name][0])),
+                                   graph_ms=None, device_busy_ms=None, blocks_per_sm=None)
     out["box_filter"]["floor_ms"] = 2 * 41 * npx / PEAK_F32_NONFMA_PER_S * 1e3
     card = card_line()
     for name in ("dark_channel", "box_filter"):
@@ -1540,13 +1717,20 @@ def turns(tiled, ten) -> dict:
 
 
 def phase_slice3_times():
-    """The min filter on CAP's depth and the top-k atmospheric light (k = 4)
-    on DCP's t_raw, 32 frames of 480x640 float32 after the uint8 upcast; the
-    transmission stage over 32 uint8 frames (B7a) and 4 x 8 (B7b), its
-    tiled sequence and its ten passes in turns, and each tiled pass alone
-    at B7b's shape with its blocks an SM. Bounds count each input read once
-    and each output written once; of the top-k's frames they count the k
-    pixels a frame this data needs."""
+    """The min filter on CAP's depth (r = 7) and the top-k atmospheric
+    light (k = 4) on DCP's t_raw, 32 frames of 480x640 float32 after the
+    uint8 upcast: the strips and the warp top-k beside the kernels they
+    replaced (the row window, the block rounds: their routes past the new
+    limits), timed in turns (old, new, new, old), each also by device busy
+    time, as a call in a replayed CUDA graph and with its blocks an SM, the
+    top-k also with L2 flushed, beside the PyTorch call; the staged CAP
+    top-4 lane step back to back; the transmission stage over 32 uint8
+    frames (B7a) and 4 x 8 (B7b), its tiled sequence and its ten passes in
+    turns, and each tiled pass alone at B7b's shape with its blocks an SM.
+    Bounds count each input read once and each output written once; of the
+    top-k's frames they count the k pixels a frame this data needs."""
+    from repro_torch.core import (DehazeConfig, init_atmo_state_lanes,
+                                  make_multi_stream_step)
     from repro_torch.kernels import fused as fk
     from repro_torch.kernels import ref
     from repro_torch.kernels import staged as sk
@@ -1565,16 +1749,63 @@ def phase_slice3_times():
         return torch.gather(x.reshape(n, -1, 3), 1, j[..., None].expand(n, k, 3)).mean(1)
 
     out = {}
-    for name, kernel, plain, lib, nb, ops in (
-            ("staged.min_filter", lambda: sk.cuda_min_filter(depth, 7),
+    card = card_line()
+    for name, new, old, plain, lib, nb, ops, blocks in (
+            ("min_filter", lambda: sk.cuda_min_filter(depth, 7),
+             lambda: wide_route("min_filter", depth, 7),
              lambda: sk.plain_min_filter(depth, 7),
              lambda: -F.max_pool2d(-depth[:, None], 15, 1, 7),
-             nbytes(depth, mins), 2 * npx),
-            ("staged.atmolight_topk", lambda: sk.cuda_atmolight_topk(x, t_raw, k),
+             nbytes(depth, mins), 2 * npx,
+             (sk.strips_occupancy("min_filter", 7, torch.float32, H),
+              sk.window_occupancy(7, H))),
+            ("atmolight_topk", lambda: sk.cuda_atmolight_topk(x, t_raw, k),
+             lambda: sk._atmolight_topk(x, t_raw, k, wide=True),
              lambda: sk.plain_atmolight_topk(x, t_raw, k), topk_library,
-             nbytes(t_raw, a) + n * k * 12, npx)):
-        out[name] = rates(dict(ms=time_ms(kernel), plain_ms=time_ms(plain, reps=5, warmup=1),
-                               library_ms=time_ms(lib)), nb, ops)
+             nbytes(t_raw, a) + n * k * 12, npx,
+             (sk.topk_occupancy(k), sk.topk_occupancy(sk.WARP_TOPK_MAX + 1)))):
+        order = [(m, time_ms(fn)) for m, fn in (("old", old), ("new", new), ("new", new),
+                                                ("old", old))]
+        mean = {m: sum(v for q, v in order if q == m) / 2 for m in ("new", "old")}
+        plain_ms = time_ms(plain, reps=5, warmup=1)
+        lib_r = dict(ms=time_ms(lib), device_busy_ms=device_busy_ms(lib), graph_ms=graph_ms(lib))
+        for route, fn, blk in (("new", new, blocks[0]), ("old", old, blocks[1])):
+            r = dict(ms=mean[route], plain_ms=plain_ms, library_ms=lib_r["ms"],
+                     library_busy_ms=lib_r["device_busy_ms"],
+                     library_graph_ms=lib_r["graph_ms"], device_busy_ms=device_busy_ms(fn),
+                     graph_ms=graph_ms(fn), blocks_per_sm=blk, turns_ms=[v for _, v in order])
+            if name == "atmolight_topk":
+                r["flushed_busy_ms"] = flushed_busy_ms(fn)
+            out[f"staged.{name}" if route == "new" else f"staged.wide.{name}"] = rates(r, nb, ops)
+        if name == "atmolight_topk":
+            lib_flushed = flushed_busy_ms(lib)
+            for key in ("staged.atmolight_topk", "staged.wide.atmolight_topk"):
+                out[key]["library_flushed_busy_ms"] = lib_flushed
+        new_r, old_r = out[f"staged.{name}"], out[f"staged.wide.{name}"]
+        print(f"staged {name} ({npx} px float32, turns old/new/new/old "
+              f"{new_r['turns_ms']} ms): new {new_r['ms']} ms, in a CUDA graph "
+              f"{new_r['graph_ms']}, device busy {new_r['device_busy_ms']}"
+              + (f", L2 flushed {new_r['flushed_busy_ms']}" if "flushed_busy_ms" in new_r
+                 else "") + f", {new_r['blocks_per_sm']} blocks an SM; old {old_r['ms']} ms, "
+              f"in a CUDA graph {old_r['graph_ms']}, device busy {old_r['device_busy_ms']}"
+              + (f", L2 flushed {old_r['flushed_busy_ms']}" if "flushed_busy_ms" in old_r
+                 else "") + f", {old_r['blocks_per_sm']} blocks an SM; bound "
+              f"{new_r['bound_ms']} ms ({new_r['bound_by']}); PyTorch call "
+              f"{new_r['library_ms']} ms, in a CUDA graph {new_r['library_graph_ms']}, "
+              f"device busy {new_r['library_busy_ms']}"
+              + (f", L2 flushed {new_r['library_flushed_busy_ms']}"
+                 if "library_flushed_busy_ms" in new_r else "") + f"; {card}", flush=True)
+    # The staged CAP top-4 lane step on device-resident uint8 frames, back
+    # to back (the host's launches included).
+    step = make_multi_stream_step(DehazeConfig(algorithm="cap", topk=4, io_dtype="uint8"),
+                                  device="cuda")
+    state = init_atmo_state_lanes(L, "cuda")
+    ids = torch.arange(B, dtype=torch.int32).repeat(L, 1).cuda()
+    ms = time_ms(lambda: step(u8, ids, state))
+    busy = device_busy_ms(lambda: step(u8, ids, state))
+    print(f"lane step staged CAP top-4 ({L} x {B} x {H}x{W} uint8) back to back: {ms} ms a "
+          "step, device busy " + ("not measured" if busy is None else
+                                  f"{busy} ms a step (idle share {1.0 - busy / ms})")
+          + f"; {card}", flush=True)
 
     kw = transmission_kw("dcp", 1)
     a_lanes = torch.tensor([[0.9, 0.85, 0.8]] * L, device="cuda")
@@ -1619,7 +1850,6 @@ def phase_slice3_times():
                  library_ms=None, device_busy_ms=device_busy_ms(fn),
                  graph_ms=graph_ms(fn), blocks_per_sm=blocks.get(name))
         out[f"fused_transmission.{name}"] = rates(r, nb, ops, direct)
-    card = card_line()
     for name in ("fused_transmission", "fused_transmission_lanes"):
         r = out[name]
         print(f"{name} ({'32' if name == 'fused_transmission' else '4 x 8'} x "
@@ -2103,6 +2333,8 @@ def main() -> int:
 
     cap_errs, _ = phase_staged_parity(CAP_TOPK_CELLS, "staged CAP/top-k")
     check_large_topk(cap_errs)
+    check_min_strips(cap_errs)
+    check_warp_topk(cap_errs)
     cfg_cap = DehazeConfig(algorithm="cap", topk=4, io_dtype="uint8")
     c_launches, c_launches_serve, c_ticks = phase_serve(
         cfg_cap, vids, CAP_PER_TICK, "staged CAP top-4 ")
@@ -2166,14 +2398,28 @@ def main() -> int:
         entry(full, SOURCE, TILED_TRANSMISSION_REPLACES[name], c_times[full],
               max(e.get(name, 0.0) for e in t_errs.values()), {full: b7[name]},
               None, b7_steps, "sharded steps (B7a, B7b)")
+    # The staged kernels, and each one's route past its new kernel's limits
+    # (``staged.wide.<name>``: the row window, the top-k's block rounds),
+    # which runs on no path at the serving shape.
     for name in ("dark_channel", "box_filter", "atmolight", "recover"):
         entry(f"staged.{name}", STAGED_SOURCE, STAGED_REPLACES[name],
               s_times[name], staged_errs[name], s_launches, s_launches_serve,
               s_ticks, "staged serve_many / serve")
+    for name in ("dark_channel", "box_filter"):
+        entry(f"staged.wide.{name}", STAGED_SOURCE, STAGED_REPLACES[name],
+              s_times[f"wide.{name}"], staged_errs[f"wide.{name}"], s_launches,
+              s_launches_serve, s_ticks, "none: radii past the strips' limit "
+              "(phase 6); 0 on staged serve_many / serve")
     for name in ("min_filter", "atmolight_topk"):
         entry(f"staged.{name}", STAGED_SOURCE, STAGED_REPLACES[name],
               c_times[f"staged.{name}"], cap_errs[name], c_launches,
               c_launches_serve, c_ticks, "staged CAP top-4 serve_many / serve")
+        entry(f"staged.wide.{name}", STAGED_SOURCE, STAGED_REPLACES[name],
+              c_times[f"staged.wide.{name}"], cap_errs[f"wide.{name}"], c_launches,
+              c_launches_serve, c_ticks, "none: " + (
+                  "radii past the strips' limit" if name == "min_filter"
+                  else f"k > {sk.WARP_TOPK_MAX}") + " (phase 9); 0 on staged CAP top-4 "
+              "serve_many / serve")
     for name in TRANSMISSION_REPLACES:
         entry(name, SOURCE, TRANSMISSION_REPLACES[name], c_times[name],
               max(t_errs[name]["whole"], t_errs[name]["tiled_vs_ten_pass"],

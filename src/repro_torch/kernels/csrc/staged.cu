@@ -29,40 +29,44 @@
 // + eps; the plain version adds the same terms in the same order, so the
 // two are equal bit for bit.
 //
-// The dark channel and the box filter (B3a, B4) run as window strips: a
-// block takes a 64-column strip of a frame over a band of at most 128
-// output rows (64 for B3a; the host evens the bands out: 4 of 120 rows, 8
-// of 60, at H = 480) and walks down its input rows 32 at a time, each
-// piece into float32 rows of shared memory (odd row stride, so a warp's
-// lanes on 32 rows hit 32 banks), the fill off the frame (+0 for the sum,
-// +inf for the min). The float32 box filter copies its plane straight into
-// those rows with cp.async, 4 bytes a copy, zero-filled off the frame, two
-// pieces in flight (16-byte copies would need rows on 16-byte boundaries,
-// a stride that puts 4 of the 32 rows on each bank). B3a, and the bfloat16
-// box filter, load the piece's pixels from device memory, a warp's lanes
-// on adjacent pixels, and store them as float32, B3a the min of each
-// pixel's three channels, taken once a pixel: staging the raw RGB rows
-// would take three times the shared memory of the float32 piece and halve
-// the blocks an SM. Then the horizontal windows of the piece's rows, a
-// warp's lanes on its 32 rows, each thread a register-blocked run of 8
-// outputs that fetches each input once (window_run, shared with the
-// megakernel's tiled passes), into the band's horizontal sums; last the
+// The dark channel, the min filter and the box filter (B3a, B3b, B4) run
+// as window strips: a block takes a 64-column strip of a frame over a band
+// of at most 128 output rows (64 for B3a; the host evens the bands out: 4
+// of 120 rows, 8 of 60, at H = 480) and walks down its input rows
+// 32 at a time, each piece into float32 rows of shared memory (odd row
+// stride, so a warp's lanes on 32 rows hit 32 banks), the fill off the
+// frame (+0 for the sum, +inf for the min). The float32 box and min
+// filters copy their plane straight into those rows with cp.async, 4
+// bytes a copy, two pieces in flight, the columns off the frame zero-filled
+// by the copies (the sum) or stored as +inf (the min) (16-byte copies would
+// need rows on 16-byte boundaries, a stride that puts 4 of the 32 rows on
+// each bank). B3a, and the bfloat16 planes, load the piece's pixels from
+// device memory, a warp's lanes on adjacent pixels, and store them as
+// float32, B3a the min of each pixel's three channels, taken once a pixel:
+// staging the raw RGB rows would take three times the shared memory of the
+// float32 piece and halve the blocks an SM. Then the horizontal windows of
+// the piece's rows, a warp's lanes on its 32 rows, each thread a
+// register-blocked run of 8 outputs that fetches each input once
+// (window_run, shared with the megakernel's tiled passes; B3b's min_run
+// takes each run's minima as van Herk / Gil-Werman do, about 4.75 an output
+// at r = 7 instead of 15), into the band's horizontal sums; last the
 // vertical windows of the band's outputs, 8 a thread, from those sums,
 // straight to device memory. A term off the frame is +0, which leaves a sum
 // from +0 unchanged, so the strips compute window_kernel<kMean>'s sums bit
-// for bit. A strip's input rows are recomputed (band + 2r)/band times,
-// 1.33 at r = 20, against 1.63 for window_kernel's 64-row tiles; its
-// columns (64 + 2r)/64 times. Shared memory grows with r (the band's sums
-// and a piece's halo): the strips take r up to 175 on float32 planes (243
-// bfloat16) for the box filter and up to 265 for the dark channel
-// (st_strips_fit; He et al.'s guided filter uses r = 60), and
-// st_box_filter_wide / st_dark_channel_wide launch window_kernel for wider
-// windows. The caller picks one from the shape before it launches
+// for bit; a min is a selection, equal in any order. A strip's input rows
+// are recomputed (band + 2r)/band times, 1.33 at r = 20, against 1.63 for
+// window_kernel's 64-row tiles; its columns (64 + 2r)/64 times. Shared
+// memory grows with r (the band's sums and a piece's halo): the strips
+// take r up to 175 on float32 planes (243 bfloat16) for the box and min
+// filters and up to 265 for the dark channel (st_strips_fit; He
+// et al.'s guided filter uses r = 60), and st_box_filter_wide,
+// st_min_filter_wide and st_dark_channel_wide launch window_kernel for
+// wider windows. The caller picks one from the shape before it launches
 // (kernels/staged.py::strips_fit); a strip entry point given a radius it
 // does not take returns cudaErrorInvalidValue and launches nothing.
 //
-// window_kernel (the min filter, the masked forms, and B3a/B4 past the
-// strips' radius): a block computes a kTileY x kTileX output tile, each
+// window_kernel (the masked forms, and B3a, B3b and B4 past the strips'
+// radius): a block computes a kTileY x kTileX output tile, each
 // thread of a warp one output column: first the horizontal window of every
 // input row the tile's vertical windows touch (kTileY + 2r rows, at most H)
 // goes into shared memory, read tap by tap from device memory, then the
@@ -86,14 +90,25 @@
 // and gathering I's RGB there. The caller gives the tile keys' scratch.
 //
 // Top-k atmospheric light (k > 1). The TPU kernel folds each row tile's
-// top-k into k rows carried through its sequential grid. Here the top-k
-// kernels of dehaze_common.cuh, which the megakernel's candidate passes
-// launch too: per-tile lists of the kk = min(k, 2048) smallest keys, one
-// block a tile over all frames, then one block a frame merging the list
-// heads, k rounds for any k up to H*W; the mean of I over the k picks is a
-// compensated float32 sum in ascending (t, index) order over k, cast to
-// the frames' dtype. The caller gives the key lists' scratch (N x tiles x
-// kk keys).
+// top-k into k rows carried through its sequential grid. Two routes, the
+// caller picking one by k before it launches (kernels/staged.py::
+// warp_topk_fits). For k <= kWarpTopkMax (16), the warp top-k
+// (st_atmolight_topk), B6a's two launches with k keys for one: a grid of
+// (tiles, N) blocks of kTop1Tile pixels with B6a's 16-byte loads, each lane
+// keeping its 16 pixels' K smallest keys in registers by a branch-free
+// insertion (K the next of 2, 4, 8, 16 from k, a template), each warp
+// taking its k smallest from its lanes' lists in k rounds of a warp
+// minimum (the lane holding it pops it), warp 0 the tile's from the
+// warps' after one barrier (the old route's tiles pay 2k), then one warp a
+// frame doing the same over its tiles' lists. Past it, for any k up to
+// H*W (st_atmolight_topk_wide), the top-k kernels of dehaze_common.cuh,
+// which the megakernel's candidate passes launch too: per-tile lists of
+// the kk = min(k, 2048) smallest keys, one block a tile and kk block-wide
+// rounds, then one block a frame merging the list heads, k rounds. Both
+// take the mean of I over the k picks as a compensated float32 sum in
+// ascending (t, index) order over k, cast to the frames' dtype, so they
+// agree bit for bit. The caller gives the key lists' scratch (N x tiles x
+// k keys; the wide route's N x tiles x kk).
 //
 // Masked windows (the halo-extended planes of a spatial shard). The window
 // kernel's two masked forms take an (H,) row and a (W,) column validity
@@ -130,9 +145,10 @@
 // of the plane they filter), the merge by its 20 bytes a row. The box
 // filter's direct sums bound it about as much: (2r + 1) adds an output an
 // axis, 94.8 at r = 20 with the strips' recomputed rows, 0.028 ms at the
-// card's 33.5 T/s of float32 adds. window_kernel reaches neither: each
-// window tap is a load (2r + 1 per output per axis, the dark channel's
-// three channels each time).
+// card's 33.5 T/s of float32 adds; the min filter's direct minima would
+// too (30 an output at r = 7), hence min_run. window_kernel reaches
+// neither: each window tap is a load (2r + 1 per output per axis, the dark
+// channel's three channels each time).
 //
 // Rounding: IEEE division and powf (no fast math, --fmad=false), float32
 // constants rounded on the Python side exactly as PyTorch rounds a scalar
@@ -140,6 +156,7 @@
 // nothing and returns the cudaError_t of its launch (0 on success).
 
 #include <atomic>
+#include <type_traits>
 
 #include "dehaze_common.cuh"
 
@@ -245,6 +262,7 @@ constexpr int kStripW = 64;                      // output columns of a strip
 constexpr int kPieceRows = 32;                   // input rows staged at a time
 constexpr int kBandRows = 128;                   // most output rows a box filter block
 constexpr int kDarkBandRows = 64;                // the same for the dark channel
+constexpr int kMinBandRows = 128;                // and for the min filter
 constexpr int kStripThreads = 256;
 constexpr int kRunX = 8;                         // horizontal window outputs a thread
 constexpr int kRunY = 8;                         // vertical window outputs a thread
@@ -254,12 +272,12 @@ static_assert((kStripW / kRunX) * kPieceRows == kStripThreads, "one horizontal r
 static_assert(kStripThreads % kStripW == 0, "whole vertical runs a round of a band");
 
 // Whether a strip block copies its pieces straight into the float32 rows
-// its horizontal runs read (the float32 box filter: cp.async, 4 bytes a
-// copy, two pieces in flight), or loads each piece's pixels from device
-// memory and stores them as float32 (bfloat16, and the dark channel's
-// channel min).
+// its horizontal runs read (the float32 box and min filters: cp.async, 4
+// bytes a copy, two pieces in flight), or loads each piece's pixels from
+// device memory and stores them as float32 (bfloat16, and the dark
+// channel's channel min).
 __host__ __device__ constexpr bool strip_direct(int mode, int dt) {
-    return mode == kMean && dt == 0;
+    return (mode == kMean || mode == kMin) && dt == 0;
 }
 
 // Input columns of a strip: its outputs and their halo.
@@ -283,7 +301,44 @@ __host__ __device__ __forceinline__ long long strip_smem(long long r, int mode, 
 // device memory, and its shorter bands (less shared memory a block) put
 // more blocks, and more loads in flight, on an SM.
 __host__ __device__ constexpr int strip_band_rows(int mode) {
-    return mode == kDark ? kDarkBandRows : kBandRows;
+    return mode == kDark ? kDarkBandRows : mode == kMin ? kMinBandRows : kBandRows;
+}
+
+// Register-blocked running minimum (van Herk / Gil-Werman within a run):
+// acc[j] (j < R) = the min of v(j) .. v(j + w), where fetch(k) returns
+// v(k); R + w fetches, as window_run, but about w + 3R minima for the R
+// outputs, not R (w + 1). Where w + 1 >= R, every output's window holds
+// v(R - 1) .. v(w), the core, whose min is taken once; output j takes it
+// with the suffix min of v(j) .. v(R - 2) and the prefix min of v(w + 1)
+// .. v(w + j). Narrower windows take each output's window directly. A
+// min is a selection, so any order of minima gives window_run's value.
+template <int R, class Fetch>
+__device__ __forceinline__ void min_run(const Fetch& fetch, int w, float (&acc)[R]) {
+    if (w + 1 >= R) {
+        float suf[R - 1];                        // suf[j] = min v(j) .. v(R - 2)
+        suf[R - 2] = fetch(R - 2);
+#pragma unroll
+        for (int j = R - 3; j >= 0; --j) suf[j] = fminf(fetch(j), suf[j + 1]);
+        float core = fetch(R - 1);
+        for (int k = R; k <= w; ++k) core = fminf(core, fetch(k));
+        acc[0] = fminf(suf[0], core);
+        float pre = INFINITY;                    // min v(w + 1) .. v(w + j)
+#pragma unroll
+        for (int j = 1; j < R; ++j) {
+            pre = j == 1 ? fetch(w + 1) : fminf(pre, fetch(w + j));
+            acc[j] = j < R - 1 ? fminf(fminf(suf[j], core), pre) : fminf(core, pre);
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < R; ++j) acc[j] = INFINITY;
+        for (int k = 0; k < R + w; ++k) {
+            const float v = fetch(k);
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+                if (static_cast<unsigned>(k - j) <= static_cast<unsigned>(w))
+                    acc[j] = fminf(acc[j], v);
+        }
+    }
 }
 
 // Whether a strip block of the tallest band fits a block's shared memory:
@@ -295,9 +350,10 @@ __host__ __device__ __forceinline__ bool strips_fit(int mode, int r, int dt) {
 
 // grid (ceil(W / kStripW), ceil(H / band), N), block kStripThreads,
 // strip_smem(r, kMode, kDt, band) bytes. kMode kDark: (N, H, W, 3) -> the
-// channel min, then the windowed min (+inf off the frame); kMean: (N, H,
-// W) -> the windowed mean over the clipped window. kDt: 0 float32, 1
-// bfloat16, in and out. A block walks down its input rows (its band and r
+// channel min, then the windowed min (+inf off the frame); kMin: (N, H, W)
+// -> the windowed min (+inf off the frame), its runs min_run's; kMean:
+// (N, H, W) -> the windowed mean over the clipped window. kDt: 0 float32,
+// 1 bfloat16, in and out. A block walks down its input rows (its band and r
 // above and below) a piece of kPieceRows rows at a time, into float32 rows
 // with the fill off the frame (see the head of this file for how each
 // form fills them); the horizontal windows of a piece's rows, a warp's
@@ -331,7 +387,8 @@ strip_window_kernel(const void* __restrict__ x, void* __restrict__ out, int H, i
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
     // kDirect: starts the copies of piece p's rows that lie in the frame
-    // (zeros for their columns off it) into buffer p & 1.
+    // into buffer p & 1, their columns off it the fill (the box filter's
+    // zeros by the copies, the min filter's +inf by stores).
     auto stage = [&](int p) {
         if (p >= pieces) return;
         for (int i = warp; i < kPieceRows; i += kWarps) {
@@ -342,7 +399,8 @@ strip_window_kernel(const void* __restrict__ x, void* __restrict__ out, int H, i
             for (int j = lane; j < cols; j += 32) {
                 const int xx = xf + j;
                 const bool in = xx >= 0 && xx < W;
-                cp_async4(dst + j, in ? src + xx : src, in ? 4 : 0);
+                if (kSum || in) cp_async4(dst + j, in ? src + xx : src, in ? 4 : 0);
+                else dst[j] = INFINITY;
             }
         }
     };
@@ -390,8 +448,11 @@ strip_window_kernel(const void* __restrict__ x, void* __restrict__ out, int H, i
             float s[1][kRunX];
             if (y >= 0 && y < H) {
                 const float* src = piece + lane * fstride + c0;
-                window_run<1, kRunX, kSum>([&](int k, float (&v)[1]) { v[0] = src[k]; }, 2 * r,
-                                           s);
+                if constexpr (kMode == kMin)
+                    min_run<kRunX>([&](int k) { return src[k]; }, 2 * r, s[0]);
+                else
+                    window_run<1, kRunX, kSum>([&](int k, float (&v)[1]) { v[0] = src[k]; },
+                                               2 * r, s);
             } else {
 #pragma unroll
                 for (int j = 0; j < kRunX; ++j) s[0][j] = fill;
@@ -415,8 +476,11 @@ strip_window_kernel(const void* __restrict__ x, void* __restrict__ out, int H, i
          o0 += kRunY * (kStripThreads / kStripW)) {
         const float* src = hsum + o0 * kSumStride + c;
         float s[1][kRunY];
-        window_run<1, kRunY, kSum>([&](int k, float (&v)[1]) { v[0] = src[k * kSumStride]; },
-                                   2 * r, s);
+        if constexpr (kMode == kMin)
+            min_run<kRunY>([&](int k) { return src[k * kSumStride]; }, 2 * r, s[0]);
+        else
+            window_run<1, kRunY, kSum>(
+                [&](int k, float (&v)[1]) { v[0] = src[k * kSumStride]; }, 2 * r, s);
         if (xo >= W) continue;
 #pragma unroll
         for (int q = 0; q < kRunY; ++q) {
@@ -425,6 +489,37 @@ strip_window_kernel(const void* __restrict__ x, void* __restrict__ out, int H, i
             if constexpr (kSum)
                 v = __fdiv_rn(v, __fmul_rn(static_cast<float>(win_count(y, H, r)), cnt_x));
             if (o0 + q < rows_out) store_px(out, frame + static_cast<long long>(y) * W + xo, kDt, v);
+        }
+    }
+}
+
+constexpr int kTop1Loads = kTop1Items / 4;       // 4-pixel loads a thread
+
+// Whether a tile of `count` pixels at `first` takes load_tile: whole and
+// aligned to 4 pixels (16 bytes of float32, 8 of bfloat16).
+__device__ __forceinline__ bool tile_vector(const char* first, long long count, int t_dt) {
+    return count == kTop1Tile && reinterpret_cast<uintptr_t>(first) % (t_dt == 0 ? 16 : 8) == 0;
+}
+
+// The calling thread's pixels of such a tile, every load in flight first:
+// v[j][c] = pixel 4 (j * kTop1Threads + threadIdx.x) + c.
+__device__ __forceinline__ void load_tile(const char* first, int t_dt,
+                                          float (&v)[kTop1Loads][4]) {
+#pragma unroll
+    for (int j = 0; j < kTop1Loads; ++j) {
+        const int q = j * kTop1Threads + threadIdx.x;
+        if (t_dt == 0) {
+            const float4 f = reinterpret_cast<const float4*>(first)[q];
+            v[j][0] = f.x;
+            v[j][1] = f.y;
+            v[j][2] = f.z;
+            v[j][3] = f.w;
+        } else {                                 // bfloat16 widens by a shift
+            const uint2 u = reinterpret_cast<const uint2*>(first)[q];
+            v[j][0] = __uint_as_float(u.x << 16);
+            v[j][1] = __uint_as_float(u.x & 0xffff0000u);
+            v[j][2] = __uint_as_float(u.y << 16);
+            v[j][3] = __uint_as_float(u.y & 0xffff0000u);
         }
     }
 }
@@ -441,30 +536,12 @@ top1_tile_kernel(const void* __restrict__ t, int t_dt, unsigned long long* __res
     const long long count = min(static_cast<long long>(kTop1Tile), P - start);
     const long long base = n * P + start;        // element of the tile's first pixel
     const char* first = static_cast<const char*>(t) + base * (t_dt == 0 ? 4 : 2);
-    const unsigned vec = t_dt == 0 ? 16u : 8u;   // bytes of 4 pixels
     unsigned long long best = kNoKey;
-    if (count == kTop1Tile && reinterpret_cast<uintptr_t>(first) % vec == 0) {
-        constexpr int kLoads = kTop1Items / 4;
-        float v[kLoads][4];
+    if (tile_vector(first, count, t_dt)) {
+        float v[kTop1Loads][4];
+        load_tile(first, t_dt, v);
 #pragma unroll
-        for (int j = 0; j < kLoads; ++j) {       // every load in flight first
-            const int q = j * kTop1Threads + threadIdx.x;
-            if (t_dt == 0) {
-                const float4 f = reinterpret_cast<const float4*>(first)[q];
-                v[j][0] = f.x;
-                v[j][1] = f.y;
-                v[j][2] = f.z;
-                v[j][3] = f.w;
-            } else {                             // bfloat16 widens by a shift
-                const uint2 u = reinterpret_cast<const uint2*>(first)[q];
-                v[j][0] = __uint_as_float(u.x << 16);
-                v[j][1] = __uint_as_float(u.x & 0xffff0000u);
-                v[j][2] = __uint_as_float(u.y << 16);
-                v[j][3] = __uint_as_float(u.y & 0xffff0000u);
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < kLoads; ++j)
+        for (int j = 0; j < kTop1Loads; ++j)
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
                 const long long i = start + 4LL * (j * kTop1Threads + threadIdx.x) + c;
@@ -494,6 +571,181 @@ __global__ void top1_gather_kernel(const unsigned long long* __restrict__ keys, 
         store_px(out, 3 * n + threadIdx.x, img_dt,
                  load_px(img, 3 * px + threadIdx.x, img_dt, 1.0f));
     }
+}
+
+// ---------------------------------------------------------------------------
+// Warp top-k (B6b st_atmolight_topk, 1 <= k <= kWarpTopkMax): a grid of
+// kTop1Tile-pixel tiles as the top-1 light's, each lane keeping the K >= k
+// smallest keys of its pixels in registers, then one warp a frame.
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpTopkMax = 16;                 // the largest k of the warp top-k
+
+// The high word of make_key: t's order-preserving bits (-0.0 as +0.0).
+__device__ __forceinline__ unsigned key_hi(float t) {
+    return static_cast<unsigned>(make_key(t, 0u) >> 32);
+}
+
+// A lane's K smallest keys of those given it, ascending (kNoKey where it
+// was given fewer), in registers as high and low words (32-bit compares
+// and selects where the order allows): K is a compile-time size.
+template <int K>
+struct KeyList {
+    unsigned hi[K], lo[K];
+
+    __device__ __forceinline__ KeyList() {
+#pragma unroll
+        for (int i = 0; i < K; ++i) hi[i] = lo[i] = 0xffffffffu;
+    }
+
+    __device__ __forceinline__ static bool less(unsigned h, unsigned l, unsigned eh, unsigned el) {
+        return (static_cast<unsigned long long>(h) << 32 | l) <
+               (static_cast<unsigned long long>(eh) << 32 | el);
+    }
+
+    // Any key, without a branch: entry i becomes entry i - 1 where the key
+    // is below it, else the key where it is below entry i, else stays (the
+    // largest falls off).
+    __device__ __forceinline__ void insert(unsigned long long key) {
+        const unsigned h = static_cast<unsigned>(key >> 32), l = static_cast<unsigned>(key);
+#pragma unroll
+        for (int i = K - 1; i > 0; --i) {
+            const bool c1 = less(h, l, hi[i - 1], lo[i - 1]), c0 = less(h, l, hi[i], lo[i]);
+            hi[i] = c1 ? hi[i - 1] : c0 ? h : hi[i];
+            lo[i] = c1 ? lo[i - 1] : c0 ? l : lo[i];
+        }
+        const bool c0 = less(h, l, hi[0], lo[0]);
+        hi[0] = c0 ? h : hi[0];
+        lo[0] = c0 ? l : lo[0];
+    }
+
+    // The same for the filled-th key given this list (a compile-time count
+    // once unrolled; entries from `filled` on are empty) whose index is
+    // above every key's given before: a tie in t goes after the entries, so
+    // the high words alone decide, 32-bit compares.
+    __device__ __forceinline__ void insert_after(unsigned h, unsigned l, int filled) {
+#pragma unroll
+        for (int i = K - 1; i > 0; --i) {
+            if (i > filled) continue;            // stays empty
+            const bool c1 = h < hi[i - 1], c0 = i == filled || h < hi[i];
+            hi[i] = c1 ? hi[i - 1] : c0 ? h : hi[i];
+            lo[i] = c1 ? lo[i - 1] : c0 ? l : lo[i];
+        }
+        const bool c0 = filled == 0 || h < hi[0];
+        hi[0] = c0 ? h : hi[0];
+        lo[0] = c0 ? l : lo[0];
+    }
+
+    // The calling warp's k <= K smallest keys over every lane's list,
+    // ascending: k rounds of a warp minimum over the lanes' heads (two
+    // 32-bit warp reductions, high word then low word), the lane that holds
+    // it (keys are unique: the low word is the index) popping its head.
+    // take(s, m) runs in every lane with the s-th smallest, s a
+    // compile-time index once unrolled.
+    template <class Take>
+    __device__ __forceinline__ void warp_take(int k, const Take& take) {
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+            if (s >= k) break;
+            const unsigned mh = __reduce_min_sync(0xffffffffu, hi[0]);
+            const unsigned ml = __reduce_min_sync(0xffffffffu, hi[0] == mh ? lo[0] : 0xffffffffu);
+            if (hi[0] == mh && lo[0] == ml) {
+#pragma unroll
+                for (int i = 0; i < K - 1; ++i) {
+                    hi[i] = hi[i + 1];
+                    lo[i] = lo[i + 1];
+                }
+                hi[K - 1] = lo[K - 1] = 0xffffffffu;
+            }
+            take(s, static_cast<unsigned long long>(mh) << 32 | ml);
+        }
+    }
+};
+
+// grid (tiles, N), block kTop1Threads: lists[(n * tiles + j) * k + s] = the
+// s-th smallest key of pixels [j * kTop1Tile, (j + 1) * kTop1Tile) of frame
+// n of t (P pixels a frame, t_dt), kNoKey past the tile's pixels; k <= K.
+// The loads are top1_tile_kernel's (load_tile); each lane keeps its
+// pixels' K smallest keys (its 16 pixels arrive in index order, so by
+// insert_after), each warp takes its k smallest from its lanes' lists, and
+// warp 0 the tile's from the warps': one barrier a tile, not 2k.
+template <int K>
+__global__ void __launch_bounds__(kTop1Threads)
+topk_tile_kernel(const void* __restrict__ t, int t_dt, unsigned long long* __restrict__ lists,
+                 long long P, int k) {
+    constexpr int kWarps = kTop1Threads / 32;
+    __shared__ unsigned long long warp_keys[kWarps * K];
+    const long long n = blockIdx.y;
+    const long long start = static_cast<long long>(blockIdx.x) * kTop1Tile;
+    const long long count = min(static_cast<long long>(kTop1Tile), P - start);
+    const long long base = n * P + start;
+    const char* first = static_cast<const char*>(t) + base * (t_dt == 0 ? 4 : 2);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    KeyList<K> mine;
+    if (tile_vector(first, count, t_dt)) {
+        float v[kTop1Loads][4];
+        load_tile(first, t_dt, v);
+        const unsigned i0 = static_cast<unsigned>(start) + 4u * threadIdx.x;
+#pragma unroll
+        for (int j = 0; j < kTop1Loads; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                mine.insert_after(key_hi(v[j][c]), i0 + 4u * (j * kTop1Threads) + c, 4 * j + c);
+    } else {
+        for (long long i = threadIdx.x; i < count; i += kTop1Threads)
+            mine.insert(make_key(load_px(t, base + i, t_dt, 1.0f),
+                                 static_cast<unsigned>(start + i)));
+    }
+    mine.warp_take(k, [&](int s, unsigned long long m) {
+        if (lane == 0) warp_keys[warp * k + s] = m;
+    });
+    __syncthreads();
+    if (warp != 0) return;
+    KeyList<K> tile;
+    for (int i = lane; i < kWarps * k; i += 32) tile.insert(warp_keys[i]);
+    unsigned long long* out = lists + (n * gridDim.x + blockIdx.x) * k;
+    tile.warp_take(k, [&](int s, unsigned long long m) {
+        if (lane == 0) out[s] = m;
+    });
+}
+
+// grid (N,), one warp a block: out[n] (img_dt) = the mean of img over the
+// k <= K smallest keys of frame n's n_keys tile-list keys, its rgb summed
+// in ascending key order with RgbSum's compensated sum (lane q channel q),
+// so it equals topk_merge_kernel's output bit for bit.
+template <int K>
+__global__ void topk_gather_kernel(const unsigned long long* __restrict__ lists, int n_keys,
+                                   int k, const void* __restrict__ img, int img_dt, long long P,
+                                   void* __restrict__ out) {
+    const long long n = blockIdx.x;
+    const int lane = threadIdx.x;
+    const unsigned long long* keys = lists + n * n_keys;
+    KeyList<K> mine;
+    constexpr int kBatch = 8;                    // keys a lane loads before it inserts them
+    for (int i0 = lane; i0 < n_keys; i0 += 32 * kBatch) {
+        unsigned long long b[kBatch];
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+            const int i = i0 + 32 * q;
+            b[q] = i < n_keys ? keys[i] : kNoKey;
+        }
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) mine.insert(b[q]);
+    }
+    long long px[K];
+    mine.warp_take(k, [&](int s, unsigned long long m) {
+        px[s] = n * P + static_cast<long long>(m & 0xffffffffULL);
+    });
+    if (lane >= 3) return;
+    float v[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s)                  // every load in flight first
+        if (s < k) v[s] = load_px(img, 3 * px[s] + lane, img_dt, 1.0f);
+    float sum = 0.0f, c = 0.0f;
+#pragma unroll
+    for (int s = 0; s < K; ++s)
+        if (s < k) comp_add(sum, c, v[s]);
+    store_px(out, 3 * n + lane, img_dt, __fdiv_rn(__fadd_rn(sum, c), static_cast<float>(k)));
 }
 
 // One thread a pixel of N*P: J (img dtype) from I, t and the frame's A.
@@ -597,6 +849,28 @@ size_t strips_opt_in(int H, int r, int& band, cudaError_t& e) {
     return smem;
 }
 
+template <int K>
+int launch_warp_topk(const void* img, const void* t, unsigned long long* lists, void* out,
+                     int N, long long P, int k, int img_dt, int t_dt, cudaStream_t s) {
+    const int tiles = static_cast<int>((P + kTop1Tile - 1) / kTop1Tile);
+    topk_tile_kernel<K><<<dim3(tiles, N), kTop1Threads, 0, s>>>(t, t_dt, lists, P, k);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    topk_gather_kernel<K><<<N, 32, 0, s>>>(lists, tiles * k, k, img, img_dt, P, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// f(std::integral_constant<int, K>{}) for the warp top-k's list size K of
+// k: the next of 2, 4, 8, 16 (kWarpTopkMax).
+template <class F>
+int with_list_size(int k, const F& f) {
+    static_assert(kWarpTopkMax == 16, "the largest list takes k = kWarpTopkMax");
+    if (k <= 2) return f(std::integral_constant<int, 2>{});
+    if (k <= 4) return f(std::integral_constant<int, 4>{});
+    if (k <= 8) return f(std::integral_constant<int, 8>{});
+    return f(std::integral_constant<int, 16>{});
+}
+
 template <int kMode, int kDt>
 int launch_strips(const void* x, void* out, int N, int H, int W, int r, void* stream) {
     int band = 0;
@@ -630,6 +904,12 @@ int strips_occupancy(int H, int r, int* blocks) {
     return static_cast<int>(e);
 }
 
+// The window mode of a strip kind: 0 the box filter, 1 the dark channel,
+// 2 the min filter.
+int strip_mode(int kind) {
+    return kind == 1 ? kDark : kind == 2 ? kMin : kMean;
+}
+
 }  // namespace
 
 extern "C" {
@@ -644,20 +924,54 @@ int st_strip_w() { return kStripW; }
 int st_piece_rows() { return kPieceRows; }
 int st_band_rows() { return kBandRows; }
 int st_dark_band_rows() { return kDarkBandRows; }
+int st_min_band_rows() { return kMinBandRows; }
+int st_warp_topk_max() { return kWarpTopkMax; }
 
-// 1 where the strips take the dark channel (dark = 1) or the box filter
-// (dark = 0) at this radius and dtype, else 0.
-int st_strips_fit(int dark, int radius, int dt) {
-    return strips_fit(dark ? kDark : kMean, radius, dt) ? 1 : 0;
+// 1 where the strips take the box filter (kind 0), the dark channel (1) or
+// the min filter (2) at this radius and dtype, else 0.
+int st_strips_fit(int kind, int radius, int dt) {
+    return strips_fit(strip_mode(kind), radius, dt) ? 1 : 0;
 }
 
-// *blocks = blocks an SM of the dark channel's (dark = 1) or the box
-// filter's strips on frames of H rows at this radius and dtype.
-int st_strips_occupancy(int dark, int radius, int dt, int H, int* blocks) {
-    if (dark) return dt == 0 ? strips_occupancy<kDark, 0>(H, radius, blocks)
-                             : strips_occupancy<kDark, 1>(H, radius, blocks);
-    return dt == 0 ? strips_occupancy<kMean, 0>(H, radius, blocks)
-                   : strips_occupancy<kMean, 1>(H, radius, blocks);
+// *blocks = blocks an SM of the strips of a kind (as st_strips_fit) on
+// frames of H rows at this radius and dtype.
+int st_strips_occupancy(int kind, int radius, int dt, int H, int* blocks) {
+    switch (strip_mode(kind)) {
+        case kDark: return dt == 0 ? strips_occupancy<kDark, 0>(H, radius, blocks)
+                                   : strips_occupancy<kDark, 1>(H, radius, blocks);
+        case kMin: return dt == 0 ? strips_occupancy<kMin, 0>(H, radius, blocks)
+                                  : strips_occupancy<kMin, 1>(H, radius, blocks);
+        default: return dt == 0 ? strips_occupancy<kMean, 0>(H, radius, blocks)
+                                : strips_occupancy<kMean, 1>(H, radius, blocks);
+    }
+}
+
+// *blocks = blocks an SM of the row-window min filter (window_kernel<kMin>)
+// on frames of H rows at this radius.
+int st_window_occupancy(int radius, int H, int* blocks) {
+    const size_t smem = static_cast<size_t>(min(kTileY + 2 * radius, H)) * kTileX * sizeof(float);
+    if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024)
+        e = cudaFuncSetAttribute(window_kernel<kMin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, window_kernel<kMin>,
+                                                          kTileX * kRowThreads, smem);
+    return static_cast<int>(e);
+}
+
+// *blocks = blocks an SM of the top-k light's tile kernel at k: the warp
+// top-k's topk_tile_kernel for k <= st_warp_topk_max(), else
+// topk_block_kernel.
+int st_topk_occupancy(int k, int* blocks) {
+    if (k < 1 || k > kWarpTopkMax)
+        return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks, topk_block_kernel, kTopkThreads, 0));
+    return with_list_size(k, [&](auto K) {
+        return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks, topk_tile_kernel<decltype(K)::value>, kTop1Threads, 0));
+    });
 }
 
 // (N, H, W, 3) -> (N, H, W), both in dt (0 float32, 1 bfloat16): the
@@ -673,9 +987,16 @@ int st_dark_channel_wide(const void* img, void* out, int N, int H, int W, int ra
     return launch_window<kDark>(img, out, N, H, W, radius, dt, stream);
 }
 
-// (N, H, W) -> (N, H, W), both in dt.
+// (N, H, W) -> (N, H, W), both in dt: the strips, where
+// st_strips_fit(2, radius, dt).
 int st_min_filter(const void* x, void* out, int N, int H, int W, int radius, int dt,
                   void* stream) {
+    return launch_strips<kMin>(x, out, N, H, W, radius, dt, stream);
+}
+
+// The same by window_kernel, for radii the strips do not take.
+int st_min_filter_wide(const void* x, void* out, int N, int H, int W, int radius, int dt,
+                       void* stream) {
     return launch_window<kMin>(x, out, N, H, W, radius, dt, stream);
 }
 
@@ -735,11 +1056,26 @@ int st_atmolight(const void* img, const void* t, unsigned long long* keys, void*
 }
 
 // (N, H, W, 3) img_dt, (N, H, W) t_dt -> (N, 3) img_dt, the mean of I over
-// the k smallest (t, flat index) keys of each frame, 1 <= k <= H*W; keys is
-// scratch for N x ceil(H*W / st_topk_tile()) x min(k, st_topk_tile()) keys.
-int st_atmolight_topk(const void* img, const void* t, unsigned long long* keys,
+// the k smallest (t, flat index) keys of each frame, 1 <= k <= min(H*W,
+// st_warp_topk_max()), by the warp top-k; lists is scratch for N x
+// ceil(H*W / st_top1_tile()) x k keys.
+int st_atmolight_topk(const void* img, const void* t, unsigned long long* lists,
                       void* out, int N, int H, int W, int k, int img_dt, int t_dt,
                       void* stream) {
+    const long long P = static_cast<long long>(H) * W;
+    if (k < 1 || k > P || k > kWarpTopkMax) return static_cast<int>(cudaErrorInvalidValue);
+    return with_list_size(k, [&](auto K) {
+        return launch_warp_topk<decltype(K)::value>(img, t, lists, out, N, P, k, img_dt, t_dt,
+                                                   static_cast<cudaStream_t>(stream));
+    });
+}
+
+// The same for any 1 <= k <= H*W by the top-k kernels of dehaze_common.cuh
+// (per-tile block rounds, then one block a frame); keys is scratch for N x
+// ceil(H*W / st_topk_tile()) x min(k, st_topk_tile()) keys.
+int st_atmolight_topk_wide(const void* img, const void* t, unsigned long long* keys,
+                           void* out, int N, int H, int W, int k, int img_dt, int t_dt,
+                           void* stream) {
     const long long P = static_cast<long long>(H) * W;
     const long long n_tiles = (P + kTopkTile - 1) / kTopkTile;
     if (k < 1 || k > P || n_tiles > kTopkMaxLists)

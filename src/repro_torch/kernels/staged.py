@@ -20,7 +20,11 @@ and the spatially sharded step's kernels:
 
 For each, ``cuda_<name>`` launches the hand-written kernel on CUDA tensors
 (built at first use; a failed build or launch raises) and adds one to
-:data:`launches`; ``plain_<name>`` is a plain PyTorch version that follows
+:data:`launches`; the dark channel, min filter and box filter past their
+window strips' radius, and the top-k light past the warp top-k's k, take
+a second route (the row window, the block rounds), chosen from the shape
+before the launch and also counted in :data:`wide_launches`;
+``plain_<name>`` is a plain PyTorch version that follows
 the Pallas kernel's arithmetic (upcast to float32, compute, one cast at the
 end, the Pallas kernel's output dtype); ``<name>_op`` takes a CPU tensor
 to the plain version and any other to the kernel. Nothing falls back from
@@ -44,22 +48,32 @@ SPATIAL_KERNELS = ("masked_min_filter", "masked_box_filter", "merge_topk")
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
 launches: Dict[str, int] = {name: 0 for name in KERNELS + SPATIAL_KERNELS}
 
-#: Of those, the dark channel's and the box filter's launches of the row
-#: window kernel, for radii the strips do not take (:func:`strips_fit`).
-wide_launches: Dict[str, int] = {"dark_channel": 0, "box_filter": 0}
+#: Of those, the launches of the route past the new kernels' limits: the
+#: dark channel's, min filter's and box filter's row window kernel, for
+#: radii the strips do not take (:func:`strips_fit`), and the top-k light's
+#: block rounds, for k the warp top-k does not take
+#: (:func:`warp_topk_fits`).
+wide_launches: Dict[str, int] = {"dark_channel": 0, "min_filter": 0,
+                                 "box_filter": 0, "atmolight_topk": 0}
 
 #: Output tile of a row-window block and the shared memory a block may use
 #: (``kTileX``/``kTileY``/``kMaxSmem`` in the CUDA sources, checked at load).
 TILE_X, TILE_Y, MAX_SMEM = 32, 64, 232448
 
-#: The window strips of the dark channel and the box filter: output columns
-#: of a strip, input rows staged at a time, most output rows of a band (the
-#: box filter's, the dark channel's), the horizontal sums' row stride and
-#: the vertical run (``kStripW``/``kPieceRows``/``kBandRows``/
-#: ``kDarkBandRows`` in the CUDA source, checked at load;
+#: The window strips of the dark channel, the min filter and the box
+#: filter: output columns of a strip, input rows staged at a time, most
+#: output rows of a band (the box filter's, the dark channel's, the min
+#: filter's), the horizontal sums' row stride and the vertical run
+#: (``kStripW``/``kPieceRows``/``kBandRows``/``kDarkBandRows``/
+#: ``kMinBandRows`` in the CUDA source, checked at load;
 #: ``kSumStride``/``kRunY`` enter :func:`strip_smem`).
-STRIP_W, PIECE_ROWS, BAND_ROWS, DARK_BAND_ROWS = 64, 32, 128, 64
+STRIP_W, PIECE_ROWS = 64, 32
+BAND_ROWS, DARK_BAND_ROWS, MIN_BAND_ROWS = 128, 64, 128
 _SUM_STRIDE, _RUN_Y = STRIP_W + 1, 8
+
+#: The kernels that run as window strips, and each one's code in
+#: ``st_strips_fit`` / ``st_strips_occupancy``.
+STRIP_KINDS = {"box_filter": 0, "dark_channel": 1, "min_filter": 2}
 
 #: Pixels a top-k tile and tiles a frame the top-k merge takes
 #: (``kTopkTile``/``kTopkMaxLists`` in ``csrc/dehaze_common.cuh``, checked
@@ -67,8 +81,14 @@ _SUM_STRIDE, _RUN_Y = STRIP_W + 1, 8
 TOPK_TILE, TOPK_MAX_TILES = 2048, 8192
 
 #: Contiguous pixels a tile of the top-1 atmospheric light reduces to one
-#: key (``kTop1Tile`` in the CUDA source, checked at load).
+#: key, and of the warp top-k to its k smallest (``kTop1Tile`` in the CUDA
+#: source, checked at load).
 TOP1_TILE = 4096
+
+#: The largest k the warp top-k takes (``kWarpTopkMax``, checked at load):
+#: each lane keeps its pixels' k smallest keys in registers (lists of 2, 4,
+#: 8 or 16), so k is bounded by the registers a lane can give them.
+WARP_TOPK_MAX = 16
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -97,10 +117,12 @@ def _lib() -> ctypes.CDLL:
             "st_dark_channel": [vp, vp, i, i, i, i, i, vp],
             "st_dark_channel_wide": [vp, vp, i, i, i, i, i, vp],
             "st_min_filter": [vp, vp, i, i, i, i, i, vp],
+            "st_min_filter_wide": [vp, vp, i, i, i, i, i, vp],
             "st_box_filter": [vp, vp, i, i, i, i, i, vp],
             "st_box_filter_wide": [vp, vp, i, i, i, i, i, vp],
             "st_atmolight": [vp, vp, vp, vp, i, i, i, i, i, vp],
             "st_atmolight_topk": [vp, vp, vp, vp, i, i, i, i, i, i, vp],
+            "st_atmolight_topk_wide": [vp, vp, vp, vp, i, i, i, i, i, i, vp],
             "st_recover": [vp, vp, vp, vp, i, i, i, f, f, i, i, i, vp],
             "st_masked_min_filter": [vp, vp, vp, vp, i, i, i, i, i, vp],
             "st_masked_box_filter": [vp, vp, vp, vp, i, i, i, i, i, vp],
@@ -113,16 +135,22 @@ def _lib() -> ctypes.CDLL:
         lib.st_strips_fit.argtypes = [i, i, i]
         lib.st_strips_fit.restype = ctypes.c_int
         lib.st_strips_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
-        lib.st_strips_occupancy.restype = ctypes.c_int
+        lib.st_window_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.st_topk_occupancy.argtypes = [i, ctypes.POINTER(i)]
+        for name in ("st_strips_occupancy", "st_window_occupancy",
+                     "st_topk_occupancy"):
+            getattr(lib, name).restype = ctypes.c_int
         consts = ("st_tile_x", "st_tile_y", "st_max_smem", "st_topk_tile",
                   "st_topk_max_tiles", "st_top1_tile", "st_strip_w",
-                  "st_piece_rows", "st_band_rows", "st_dark_band_rows")
+                  "st_piece_rows", "st_band_rows", "st_dark_band_rows",
+                  "st_min_band_rows", "st_warp_topk_max")
         for name in consts:
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         got = tuple(getattr(lib, name)() for name in consts)
         want = (TILE_X, TILE_Y, MAX_SMEM, TOPK_TILE, TOPK_MAX_TILES, TOP1_TILE,
-                STRIP_W, PIECE_ROWS, BAND_ROWS, DARK_BAND_ROWS)
+                STRIP_W, PIECE_ROWS, BAND_ROWS, DARK_BAND_ROWS, MIN_BAND_ROWS,
+                WARP_TOPK_MAX)
         if got != want:
             raise RuntimeError(f"{SOURCE} constants {got}, expected {want}")
         _lib_handle = lib
@@ -172,9 +200,10 @@ def _check_frames(img: torch.Tensor) -> None:
 def _check_window(h: int, radius: int) -> None:
     """The radii the window kernels take: any whose row-window tile fits a
     block, min(TILE_Y + 2r, H) x TILE_X float32 (r up to 875 on frames of
-    1816 rows or more, any r on shorter ones). The dark channel and the box
-    filter run the strips where :func:`strips_fit`, which holds only for
-    radii the row window also takes, and the row window past them."""
+    1816 rows or more, any r on shorter ones). The dark channel, the min
+    filter and the box filter run the strips where :func:`strips_fit`,
+    which holds only for radii the row window also takes, and the row
+    window past them."""
     if radius < 0:
         raise ValueError("window radius must be >= 0")
     if min(TILE_Y + 2 * radius, h) * TILE_X * 4 > MAX_SMEM:
@@ -182,39 +211,55 @@ def _check_window(h: int, radius: int) -> None:
                          f"memory than a block has ({MAX_SMEM} bytes)")
 
 
-def strip_smem(radius: int, dark: bool, dtype: torch.dtype) -> int:
-    """Shared memory of a window-strip block of the tallest band
-    (``strip_smem`` in the CUDA source): a piece in float32 at an odd row
-    stride (two for the float32 box filter, copied straight in while the
-    other is used), then the band's horizontal sums, with room for a last
-    vertical run past the band's end."""
-    band = DARK_BAND_ROWS if dark else BAND_ROWS
+def strip_smem(radius: int, kind: str, dtype: torch.dtype) -> int:
+    """Shared memory of a window-strip block of the tallest band of
+    ``kind`` (a key of :data:`STRIP_KINDS`; ``strip_smem`` in the CUDA
+    source): a piece in float32 at an odd row stride (two for the float32
+    box and min filters, copied straight in while the other is used), then
+    the band's horizontal sums, with room for a last vertical run past the
+    band's end."""
+    band = {"box_filter": BAND_ROWS, "dark_channel": DARK_BAND_ROWS,
+            "min_filter": MIN_BAND_ROWS}[kind]
     piece = 4 * PIECE_ROWS * ((STRIP_W + 2 * radius) | 1)
-    pieces = 2 if not dark and dtype == torch.float32 else 1
+    pieces = 2 if kind != "dark_channel" and dtype == torch.float32 else 1
     return pieces * piece + 4 * (band + 2 * radius + _RUN_Y - 1) * _SUM_STRIDE
 
 
-def strips_fit(dark: bool, radius: int, dtype: torch.dtype) -> bool:
-    """Whether the window strips take the dark channel (``dark``) or the
-    box filter at this radius on ``dtype`` planes (``st_strips_fit``): a
-    block of the tallest band fits its shared memory. From the shape
-    alone, before any launch: r <= 175 (box filter, float32), 243
-    (bfloat16), 265 (dark channel). Past it the wrappers launch the
-    row-window kernel."""
-    return radius >= 0 and strip_smem(radius, dark, dtype) <= MAX_SMEM
+def strips_fit(kind: str, radius: int, dtype: torch.dtype) -> bool:
+    """Whether the window strips take the kernel ``kind`` (the dark
+    channel, the min filter or the box filter) at this radius on ``dtype``
+    planes (``st_strips_fit``): a block of the tallest band fits its shared
+    memory. From the shape alone, before any launch: r <= 175 (box and min
+    filters, float32), 243 (bfloat16), 265 (dark channel). Past it the
+    wrappers launch the row-window kernel."""
+    return radius >= 0 and strip_smem(radius, kind, dtype) <= MAX_SMEM
 
 
-def strips_occupancy(dark: bool, radius: int, dtype: torch.dtype,
-                     h: int) -> int:
-    """Blocks an SM of the dark channel's (``dark``) or the box filter's
-    strips on frames of ``h`` rows, from the card's occupancy calculator
-    (launches nothing)."""
+def _occupancy(entry: str, *args) -> int:
     blocks = ctypes.c_int()
-    rc = _lib().st_strips_occupancy(int(dark), radius, _DTYPES[dtype], h,
-                                    ctypes.byref(blocks))
+    rc = getattr(_lib(), entry)(*args, ctypes.byref(blocks))
     if rc != 0:
-        raise RuntimeError(f"st_strips_occupancy failed: cudaError_t {rc}")
+        raise RuntimeError(f"{entry} failed: cudaError_t {rc}")
     return blocks.value
+
+
+def strips_occupancy(kind: str, radius: int, dtype: torch.dtype,
+                     h: int) -> int:
+    """Blocks an SM of the strips of ``kind`` on frames of ``h`` rows, from
+    the card's occupancy calculator (launches nothing)."""
+    return _occupancy("st_strips_occupancy", STRIP_KINDS[kind], radius,
+                      _DTYPES[dtype], h)
+
+
+def window_occupancy(radius: int, h: int) -> int:
+    """Blocks an SM of the row-window min filter on frames of ``h`` rows."""
+    return _occupancy("st_window_occupancy", radius, h)
+
+
+def topk_occupancy(k: int) -> int:
+    """Blocks an SM of the top-k light's tile kernel on the route of k
+    (:func:`warp_topk_fits`)."""
+    return _occupancy("st_topk_occupancy", k)
 
 
 def _on_kernel(x: torch.Tensor) -> bool:
@@ -318,7 +363,7 @@ def cuda_dark_channel(img: torch.Tensor, radius: int) -> torch.Tensor:
     _check_window(h, radius)
     out = torch.empty((n, h, w), dtype=img.dtype, device=img.device)
     _launch("dark_channel", img.data_ptr(), out.data_ptr(), n, h, w, radius, dt,
-            wide=not strips_fit(True, radius, img.dtype))
+            wide=not strips_fit("dark_channel", radius, img.dtype))
     return out
 
 
@@ -354,7 +399,8 @@ def cuda_min_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
     n, h, w = x.shape
     _check_window(h, radius)
     out = torch.empty_like(x)
-    _launch("min_filter", x.data_ptr(), out.data_ptr(), n, h, w, radius, dt)
+    _launch("min_filter", x.data_ptr(), out.data_ptr(), n, h, w, radius, dt,
+            wide=not strips_fit("min_filter", radius, x.dtype))
     return out
 
 
@@ -385,7 +431,7 @@ def cuda_box_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
     _check_window(h, radius)
     out = torch.empty_like(x)
     _launch("box_filter", x.data_ptr(), out.data_ptr(), n, h, w, radius, dt,
-            wide=not strips_fit(False, radius, x.dtype))
+            wide=not strips_fit("box_filter", radius, x.dtype))
     return out
 
 
@@ -472,17 +518,35 @@ def _check_topk(img: torch.Tensor, t: torch.Tensor, k: int) -> None:
                          f"tiles of {TOPK_TILE} pixels")
 
 
+def warp_topk_fits(k: int) -> bool:
+    """Whether the warp top-k takes k (1 <= k <= :data:`WARP_TOPK_MAX`),
+    from k alone, before any launch; past it the wrapper launches the
+    block rounds of ``csrc/dehaze_common.cuh``, which take any k up to
+    H*W."""
+    return 1 <= k <= WARP_TOPK_MAX
+
+
 def cuda_atmolight_topk(img: torch.Tensor, t_raw: torch.Tensor,
                         k: int) -> torch.Tensor:
+    """The warp top-k where :func:`warp_topk_fits`, else the block
+    rounds."""
+    return _atmolight_topk(img, t_raw, k, not warp_topk_fits(k))
+
+
+def _atmolight_topk(img: torch.Tensor, t_raw: torch.Tensor, k: int,
+                    wide: bool) -> torch.Tensor:
+    """The top-k light by the route named: the block rounds (``wide``, any
+    k) or the warp top-k; each takes its key lists' scratch."""
     _check_topk(img, t_raw, k)
     _check_cuda(img, t_raw)
     n, h, w, _ = img.shape
-    keys = torch.empty((n, -(-(h * w) // TOPK_TILE), min(k, TOPK_TILE)),
-                       dtype=torch.int64, device=img.device)
+    lists = ((n, -(-(h * w) // TOPK_TILE), min(k, TOPK_TILE)) if wide
+             else (n, -(-(h * w) // TOP1_TILE), k))
+    keys = torch.empty(lists, dtype=torch.int64, device=img.device)
     out = torch.empty((n, 3), dtype=img.dtype, device=img.device)
     _launch("atmolight_topk", img.data_ptr(), t_raw.data_ptr(),
             keys.data_ptr(), out.data_ptr(), n, h, w, k, _dtype_code(img),
-            _dtype_code(t_raw))
+            _dtype_code(t_raw), wide=wide)
     return out
 
 
@@ -707,8 +771,9 @@ PAIRS = {name: (globals()[f"cuda_{name}"], globals()[f"plain_{name}"])
          for name in KERNELS + SPATIAL_KERNELS}
 
 __all__ = ["SOURCE", "KERNELS", "SPATIAL_KERNELS", "launches",
-           "wide_launches", "reset_launches", "PAIRS", "strip_smem",
-           "strips_fit", "strips_occupancy", "window_sum",
+           "wide_launches", "reset_launches", "PAIRS", "STRIP_KINDS",
+           "strip_smem", "strips_fit", "strips_occupancy", "window_occupancy",
+           "topk_occupancy", "WARP_TOPK_MAX", "warp_topk_fits", "window_sum",
            "ascending_window_sum", "window_counts",
            "validity_bytes", "KEY_LAST", "topk_keys_signed",
            "flip_key_order", "key_index", "key_t", "topk_select", "topk_mean",

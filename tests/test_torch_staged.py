@@ -131,57 +131,113 @@ def test_plain_box_filter_sums_in_the_kernel_order(radius):
                                   _ascending_box_filter(v, radius).view(np.uint32))
 
 
-# Largest radius the window strips take: (dark channel, dtype) -> r.
-STRIP_LIMITS = [(False, torch.float32, 175), (False, torch.bfloat16, 243),
-                (True, torch.float32, 265), (True, torch.bfloat16, 265)]
+# Largest radius the window strips take: (kernel, dtype) -> r.
+STRIP_LIMITS = [("box_filter", torch.float32, 175),
+                ("box_filter", torch.bfloat16, 243),
+                ("dark_channel", torch.float32, 265),
+                ("dark_channel", torch.bfloat16, 265),
+                ("min_filter", torch.float32, 175),
+                ("min_filter", torch.bfloat16, 243)]
 
 
-@pytest.mark.parametrize("dark,dtype,limit", STRIP_LIMITS)
-def test_strips_fit_up_to_their_shared_memory(dark, dtype, limit):
+@pytest.mark.parametrize("kind,dtype,limit", STRIP_LIMITS)
+def test_strips_fit_up_to_their_shared_memory(kind, dtype, limit):
     """The strips take a radius while a block of the tallest band fits its
     shared memory; past it the row window, which takes every radius the
     strips take at any height, so the strips narrow nothing. The serving
     radii (r = 7, gf_r = 20) and He et al.'s gf_r = 60 take the strips."""
-    assert staged.strip_smem(limit, dark, dtype) <= staged.MAX_SMEM \
-        < staged.strip_smem(limit + 1, dark, dtype)
-    assert staged.strips_fit(dark, limit, dtype)
-    assert not staged.strips_fit(dark, limit + 1, dtype)
-    assert all(staged.strips_fit(dark, r, dtype) for r in (0, 7, 20, 60))
+    assert staged.strip_smem(limit, kind, dtype) <= staged.MAX_SMEM \
+        < staged.strip_smem(limit + 1, kind, dtype)
+    assert staged.strips_fit(kind, limit, dtype)
+    assert not staged.strips_fit(kind, limit + 1, dtype)
+    assert all(staged.strips_fit(kind, r, dtype) for r in (0, 7, 20, 60))
     for h in (1, 16, 481, 4096):
         staged._check_window(h, limit)
 
 
-def test_window_wrappers_pick_the_strips_or_the_row_window_by_shape(
-        monkeypatch):
-    """The dark channel and box filter wrappers launch the strips where
-    :func:`staged.strips_fit` and the row window past it, chosen from the
-    shape before the launch, and count both; the row window's launches
-    also in ``wide_launches``."""
-    calls = []
+class _FakeLib:
+    """A kernel library that records (entry point, argument ``arg``) and
+    returns 0."""
 
-    class Lib:
-        def __getattr__(self, name):
-            return lambda *args: calls.append((name, args[5])) or 0
+    def __init__(self, calls, arg):
+        self.calls, self.arg = calls, arg
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args[self.arg])) or 0
+
+
+def _fake_launches(monkeypatch, arg):
+    """Route the wrappers' launches to a :class:`_FakeLib`; returns its
+    list of calls."""
+    calls = []
 
     class Stream:
         cuda_stream = 0
-    monkeypatch.setattr(staged, "_lib", lambda: Lib())
+    monkeypatch.setattr(staged, "_lib", lambda: _FakeLib(calls, arg))
     monkeypatch.setattr(staged, "_check_cuda", lambda *t: None)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
     staged.reset_launches()
+    return calls
+
+
+def test_window_wrappers_pick_the_strips_or_the_row_window_by_shape(
+        monkeypatch):
+    """The dark channel, min filter and box filter wrappers launch the
+    strips where :func:`staged.strips_fit` and the row window past it,
+    chosen from the shape before the launch, and count both; the row
+    window's launches also in ``wide_launches``."""
+    calls = _fake_launches(monkeypatch, 5)
     for r in (0, 175, 176):
         staged.box_filter_op(_meta(2, 900, 8), r)
     staged.box_filter_op(_meta(2, 900, 8).bfloat16(), 244)
     for r in (265, 266):
         staged.dark_channel_op(_meta(2, 900, 8, 3), r)
+    for r in (0, 7, 175, 176):
+        staged.min_filter_op(_meta(2, 900, 8), r)
+    staged.min_filter_op(_meta(2, 900, 8).bfloat16(), 243)
+    staged.min_filter_op(_meta(2, 900, 8).bfloat16(), 244)
     assert calls == [("st_box_filter", 0), ("st_box_filter", 175),
                      ("st_box_filter_wide", 176), ("st_box_filter_wide", 244),
-                     ("st_dark_channel", 265), ("st_dark_channel_wide", 266)]
+                     ("st_dark_channel", 265), ("st_dark_channel_wide", 266),
+                     ("st_min_filter", 0), ("st_min_filter", 7),
+                     ("st_min_filter", 175), ("st_min_filter_wide", 176),
+                     ("st_min_filter", 243), ("st_min_filter_wide", 244)]
     assert staged.launches["box_filter"] == 4
     assert staged.launches["dark_channel"] == 2
-    assert staged.wide_launches == {"box_filter": 2, "dark_channel": 1}
+    assert staged.launches["min_filter"] == 6
+    assert staged.wide_launches == {"box_filter": 2, "dark_channel": 1,
+                                    "min_filter": 2, "atmolight_topk": 0}
     staged.reset_launches()
     assert not any(staged.wide_launches.values())
+
+
+@pytest.mark.parametrize("k,wide", [(1, False), (4, False),
+                                    (staged.WARP_TOPK_MAX, False),
+                                    (staged.WARP_TOPK_MAX + 1, True),
+                                    (48 * 64, True)])
+def test_atmolight_topk_picks_its_route_by_k(k, wide, monkeypatch):
+    """The top-k light's wrapper launches the warp top-k for k up to
+    ``WARP_TOPK_MAX`` and the block rounds past it, chosen from k before
+    the launch, each with its own key lists' scratch, and counts both; the
+    block rounds also in ``wide_launches``."""
+    calls = _fake_launches(monkeypatch, 7)
+    img, t = _meta(2, 48, 64, 3), _meta(2, 48, 64)
+    made = []
+    real_empty = torch.empty
+
+    def empty(shape, **kw):               # the scratch and the output
+        made.append(tuple(shape))
+        return real_empty(shape, **kw)
+    monkeypatch.setattr(torch, "empty", empty)
+    staged.atmolight_topk_op(img, t, k)
+    entry = "st_atmolight_topk_wide" if wide else "st_atmolight_topk"
+    assert calls == [(entry, k)]
+    assert staged.warp_topk_fits(k) == (not wide)
+    lists = ((2, 2, min(k, staged.TOPK_TILE)) if wide
+             else (2, 1, k))                # 3072 px: 2 tiles of 2048, 1 of 4096
+    assert made == [lists, (2, 3)]
+    assert staged.launches["atmolight_topk"] == 1
+    assert staged.wide_launches["atmolight_topk"] == int(wide)
 
 
 def _ties_t_map(h, w):
@@ -258,11 +314,11 @@ def test_atmolight_tile_keys_match_plain_and_pallas(t_map, dtype):
 
 
 @pytest.mark.parametrize("t_map", ["ramp", "constant"])
-@pytest.mark.parametrize("k", [2, 4, 16, "HW"])
+@pytest.mark.parametrize("k", [2, 4, 16, 17, "HW"])
 def test_atmolight_topk_matches_pallas(k, t_map):
     """The plain version's picks are ``lax.top_k``'s bit for bit (ties, on
     the constant plane, to the lowest index) and its means the Pallas
-    kernel's; k up to H*W."""
+    kernel's; k up to H*W, on both sides of the warp top-k's limit."""
     h, w = (4, 6) if k == "HW" else (12, 16)
     k = h * w if k == "HW" else k
     x = ramp_frames(12, 2, h=h, w=w)
@@ -550,16 +606,16 @@ def test_cuda_kernels_match_plain_versions():
         want = plain(*args)
         tol = {"recover": 1e-5, "atmolight_topk": 1e-6}.get(name, 0.0)
         assert float((got - want).abs().max()) <= tol, name
-    # The window strips (B3a, B4), bit-equal to their plain versions, and
-    # the row window past their radius, chosen by shape: tails, r = 0, a
-    # window wider than the frame, a batch off a 16-byte boundary, both
+    # The window strips (B3a, B3b, B4), bit-equal to their plain versions,
+    # and the row window past their radius, chosen by shape: tails, r = 0,
+    # a window wider than the frame, a batch off a 16-byte boundary, both
     # sides of the strips' limit.
     for dt in (torch.float32, torch.bfloat16):
         tx = torch.from_numpy(_maps(34, (5, 70, 61)) - 0.5).to(dt).cuda()
         fx = torch.from_numpy(ramp_frames(35, 5, h=70, w=61)).to(dt).cuda()
-        for name, v in (("box_filter", tx), ("dark_channel", fx)):
-            dark = name == "dark_channel"
-            limit = {(d, t): r for d, t, r in STRIP_LIMITS}[dark, dt]
+        for name, v in (("box_filter", tx), ("dark_channel", fx),
+                        ("min_filter", tx)):
+            limit = {(kind, t): r for kind, t, r in STRIP_LIMITS}[name, dt]
             for arg, r in ((v, 7), (v, 0), (v, 40), (v[1:], 3), (v, limit),
                            (v, limit + 1)):
                 staged.reset_launches()
@@ -585,6 +641,18 @@ def test_cuda_kernels_match_plain_versions():
         got = staged.cuda_atmolight_topk(x, t, k)
         torch.cuda.synchronize()
         want = staged.plain_atmolight_topk(x, t, k)
+        assert float((got - want).abs().max()) <= 1e-6, k
+    # The warp top-k on both sides of its limit, bit-equal to the block
+    # rounds, on a frame whose pixels are not a whole number of tiles.
+    xs = torch.from_numpy(ramp_frames(36, 3, h=70, w=61)).cuda()
+    ts = torch.from_numpy(_maps(37, (3, 70, 61))).cuda()
+    for k in (2, 4, staged.WARP_TOPK_MAX, staged.WARP_TOPK_MAX + 1):
+        staged.reset_launches()
+        got = staged.cuda_atmolight_topk(xs, ts, k)
+        torch.cuda.synchronize()
+        assert staged.wide_launches["atmolight_topk"] == int(k > staged.WARP_TOPK_MAX)
+        assert torch.equal(got, staged._atmolight_topk(xs, ts, k, wide=True)), k
+        want = staged.plain_atmolight_topk(xs, ts, k)
         assert float((got - want).abs().max()) <= 1e-6, k
     # The staged lane step on device-resident frames never synchronises.
     step = make_multi_stream_step(DehazeConfig(), device="cuda")

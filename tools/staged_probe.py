@@ -1,16 +1,19 @@
-"""What holds the staged window strips (B3a, B4) back, on the card.
+"""What holds the staged window strips (B3a, B3b, B4) and the warp top-k
+(B6b) back, on the card.
 
-    python3 tools/strip_probe.py [variant ...]
+    python3 tools/staged_probe.py [variant ...]
 
 Run from the root of a checkout on a machine with an sm_90a card and
 ``nvcc``. It builds variants (those named, else all) of
 ``src/repro_torch/kernels/csrc/staged.cu`` and its header, each a text
-patch of a copy under ``build/strip_probe/``, all at once, and times the
-box filter (B4, r = 20) and the dark channel (B3a, r = 7) of each at the
-serving shape (32 float32 planes or frames of 480x640), beside the
-row-window kernel (``st_*_wide``) of the same build: back to back with
-CUDA events, and as 20 calls in a replayed CUDA graph (``_graph``, the
-device's time a call without the host's launches):
+patch of a copy under ``build/staged_probe/``, all at once, and times the
+box filter (B4, r = 20), the dark channel (B3a, r = 7), the min filter
+(B3b, r = 7) and the top-k atmospheric light (B6b, k = 4) of each at the
+serving shape (32 float32 planes or frames of 480x640), beside the route
+past each one's limits (``st_*_wide``: the row-window kernel, the top-k's
+block rounds) of the same build: back to back with CUDA events, and as 20
+calls in a replayed CUDA graph (``_graph``, the device's time a call
+without the host's launches):
 
 - ``base``: the sources as they are;
 - ``unroll4``: the middle loop of ``window_run`` unrolled by 4;
@@ -25,17 +28,24 @@ device's time a call without the host's launches):
 - ``no_div``: the mean's IEEE division a multiplication;
 - ``no_store``: no output stored (a test on each keeps it live);
 - ``band_half``, ``band_double``: bands of at most half or twice as many
-  output rows (box filter 64 or 256, not 128; dark channel 32 or 128, not
-  64): less or more shared memory a block, more or fewer rows recomputed.
+  output rows (box and min filters 64 or 256, not 128; dark channel 32 or
+  128, not 64): less or more shared memory a block, more or fewer rows
+  recomputed;
+- ``min_direct``: the min filter's runs by ``window_run`` (2r + 1 minima
+  an output an axis), not ``min_run`` (van Herk / Gil-Werman);
+- ``topk_insert64``: the warp top-k's lanes insert each pixel's key with
+  64-bit compares (``KeyList::insert``), not the high word alone
+  (``insert_after``, which the pixels' index order allows).
 
 A patch that no longer matches the source as often as it says fails the
-run. The variants but ``base``, ``unroll4``, ``run16`` and the bands
-compute wrong results: they are timed, never checked. The variants run in
+run. The variants but ``base``, ``unroll4``, ``run16``, the bands,
+``min_direct`` and ``topk_insert64`` compute wrong results: they are
+timed, never checked. The variants run in
 two rounds, the second in reverse order, and each time is the mean of
 both. It prints the opcode counts of the base float32 box filter kernel's
-SASS (``cuobjdump``), one line a variant with its kernels' blocks an SM,
-the card's name and power limit, and last a JSON object of every time
-(ms) and the blocks an SM.
+SASS (``cuobjdump``), one line a variant with its strips' blocks an SM
+(box, dark, min), the card's name and power limit, and last a JSON object
+of every time (ms) and the blocks an SM.
 """
 from __future__ import annotations
 
@@ -73,6 +83,10 @@ NO_VERTICAL = [("staged.cu", "window_run<1, kRunY, kSum>(", "first_only<1, kRunY
 NO_HORIZONTAL = [("staged.cu", "window_run<1, kRunX, kSum>(", "first_only<1, kRunX, kSum>(", 1)]
 FIRST = [("staged.cu", INCLUDE, FIRST_ONLY, 1)]
 
+MIN_RUN = "min_run<{R}>([&](int k) {{ return src[{at}]; }}, 2 * r, {acc});"
+WINDOW_RUN = "window_run<1, {R}, false>([&](int k, float (&v)[1]) {{ v[0] = src[{at}]; }}, 2 * r, s);"
+PIXEL = "i0 + 4u * (j * kTop1Threads) + c"
+
 # variant -> [(file, text, replacement, occurrences)]
 VARIANTS = {
     "base": [],
@@ -87,11 +101,20 @@ VARIANTS = {
     "no_store": [("staged.cu", "if (o0 + q < rows_out) store_px(",
                   "if (o0 + q < rows_out && v == 1234.5f) store_px(", 1)],
     "band_half": [("staged.cu", "constexpr int kBandRows = 128;", "constexpr int kBandRows = 64;", 1),
-                  ("staged.cu", "constexpr int kDarkBandRows = 64;", "constexpr int kDarkBandRows = 32;", 1)],
+                  ("staged.cu", "constexpr int kDarkBandRows = 64;", "constexpr int kDarkBandRows = 32;", 1),
+                  ("staged.cu", "constexpr int kMinBandRows = 128;", "constexpr int kMinBandRows = 64;", 1)],
     "band_double": [("staged.cu", "constexpr int kBandRows = 128;", "constexpr int kBandRows = 256;", 1),
-                    ("staged.cu", "constexpr int kDarkBandRows = 64;", "constexpr int kDarkBandRows = 128;", 1)],
+                    ("staged.cu", "constexpr int kDarkBandRows = 64;", "constexpr int kDarkBandRows = 128;", 1),
+                    ("staged.cu", "constexpr int kMinBandRows = 128;", "constexpr int kMinBandRows = 256;", 1)],
+    "min_direct": [("staged.cu", MIN_RUN.format(R="kRunX", at="k", acc="s[0]"),
+                    WINDOW_RUN.format(R="kRunX", at="k"), 1),
+                   ("staged.cu", MIN_RUN.format(R="kRunY", at="k * kSumStride", acc="s[0]"),
+                    WINDOW_RUN.format(R="kRunY", at="k * kSumStride"), 1)],
+    "topk_insert64": [("staged.cu", "mine.insert_after(key_hi(v[j][c]), " + PIXEL + ", 4 * j + c);",
+                       "mine.insert(make_key(v[j][c], " + PIXEL + "));", 1)],
 }
-KERNELS = ("box_filter", "dark_channel")
+KERNELS = ("box_filter", "dark_channel", "min_filter", "atmolight_topk")
+TOPK = 4
 
 
 def build_all(out_dir: Path) -> dict:
@@ -180,22 +203,31 @@ def main() -> int:
         for name in list(VARIANTS):
             if name not in sys.argv[1:]:
                 del VARIANTS[name]
-    libs = build_all(ROOT / "build" / "strip_probe")
+    libs = build_all(ROOT / "build" / "staged_probe")
     if "base" in libs:
         sass_opcodes(libs["base"])
     rng = np.random.default_rng(0)
     plane = torch.from_numpy(rng.standard_normal((N, H, W), dtype=np.float32)).cuda()
     frames = torch.from_numpy(rng.random((N, H, W, 3), dtype=np.float32)).cuda()
+    t_map = torch.from_numpy(rng.permutation(N * H * W).astype(np.float32).reshape(N, H, W)
+                             / (N * H * W)).cuda()
     out = torch.empty_like(plane)
-    args = {"box_filter": (plane, 20), "dark_channel": (frames, 7)}
+    lists = torch.empty(N * -(-(H * W) // 2048) * TOPK, dtype=torch.int64, device="cuda")
+    light = torch.empty((N, 3), device="cuda")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    # entry -> the arguments before the stream
+    args = {name: (x.data_ptr(), out.data_ptr(), N, H, W, r, 0) for name, x, r in
+            (("box_filter", plane, 20), ("dark_channel", frames, 7), ("min_filter", plane, 7))}
+    args["atmolight_topk"] = (frames.data_ptr(), t_map.data_ptr(), lists.data_ptr(),
+                              light.data_ptr(), N, H, W, TOPK, 0, 0)
     loaded = {}
     for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
         for k in KERNELS:
             for entry in (f"st_{k}", f"st_{k}_wide"):
-                getattr(lib, entry).argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 \
-                    + [ctypes.c_void_p]
-        lib.st_strips_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+                getattr(lib, entry).argtypes = ([vp] * 4 + [i] * 6 if k == "atmolight_topk"
+                                                else [vp] * 2 + [i] * 5) + [vp]
+        lib.st_strips_occupancy.argtypes = [i] * 4 + [ctypes.POINTER(i)]
         loaded[name] = lib
     keys = [f"{k}{s}{t}" for k in KERNELS for s in ("", "_wide") for t in ("", "_graph")]
     times = {name: {k: 0.0 for k in keys} for name in loaded}
@@ -205,12 +237,11 @@ def main() -> int:
             print(f"timing {name}", flush=True)
             for key in keys:
                 entry = key.removesuffix("_graph")
-                x, r = args[entry.removesuffix("_wide")]
+                a = args[entry.removesuffix("_wide")]
                 fn = getattr(loaded[name], f"st_{entry}")
 
                 def call():
-                    rc = fn(x.data_ptr(), out.data_ptr(), N, H, W, r, 0,
-                            torch.cuda.current_stream().cuda_stream)
+                    rc = fn(*a, torch.cuda.current_stream().cuda_stream)
                     if rc != 0:
                         raise SystemExit(f"{name} st_{entry}: cudaError_t {rc}")
                 call()
@@ -219,9 +250,9 @@ def main() -> int:
     blocks = {}
     for name, lib in loaded.items():
         got = []
-        for dark, r in ((0, 20), (1, 7)):
+        for kind, r in ((0, 20), (1, 7), (2, 7)):
             b = ctypes.c_int()
-            lib.st_strips_occupancy(dark, r, 0, H, ctypes.byref(b))
+            lib.st_strips_occupancy(kind, r, 0, H, ctypes.byref(b))
             got.append(b.value)
         blocks[name] = got
     for name in order:
