@@ -107,7 +107,12 @@ any error:
    each two chained batches, held as the cells are, the step against the
    single-device fused step (t and J 2e-4, a_seq 1e-5), one tiled
    transmission sequence a step (four launches) and no other kernel, no
-   synchronising call;
+   synchronising call; then the same two steps with
+   ``kernel_mode="pallas"``, their staged branch, two chained batches each,
+   against the single-device staged steps (J and t 2e-4, a_seq 1e-5) and
+   their t against the fused sharded steps' (2e-4), one masked min filter
+   (B8a) and six masked box filters (B8b) a step, their strips, and no
+   other kernel, no synchronising call;
 12. time the min filter's strips and the warp top-k beside the kernels
    they replaced (the row window, the block rounds) in turns (old, new,
    new, old), each with its device busy time, a call in a replayed CUDA
@@ -134,20 +139,34 @@ any error:
    (against B9's plain version); corner tiles without refine and of
    bfloat16 frames, and a halo too wide for the tiles (gf_r 46: the ten
    masked passes), and ``halo_tiled_fits`` against the library's at each
-   limit; the masked min and box filters (B8a, B8b) through
-   ``ops`` on corner tiles' planes against their plain versions; one B9 a
-   tile (its tiled sequence) and one B10 a step, no synchronising call;
+   limit; one B9 a tile (its tiled sequence) and one B10 a step, no
+   synchronising call; the staged branch (``spatial_shard_stage(...,
+   fused=False)``, ``kernel_mode="pallas"``) on the DCP top-1 and CAP
+   top-4 2x2 cells: 4 B8a, 24 B8b and 1 B10 a step, no synchronising call,
+   the stitched t within 2e-4 of the unsharded staged stage (the
+   frame-sharded step's) on the same frames, the merged candidate
+   bit-equal to that stage's picks through B10; then B8a and B8b alone
+   (the masked strips) against their plain versions with error 0 and
+   against the row window they replaced, value for value: both corner
+   tiles and an interior 4x4 tile (all valid), float32 and bfloat16,
+   +-inf and NaN in the invalid pixels, r in {0, 2, 7, 20}, and both sides
+   of each masked kind's strip limit (the row window past it, by shape);
    this measures no scaling;
 14. time B9 on a corner tile of the 2x2 tiling and an interior tile of a
    4x4 one, tiled sequence and ten masked passes in turns, and each tiled
-   halo pass alone; B8a, B8b and B10 as phase 12 does;
+   halo pass alone; B8a and B8b on the corner tile, the masked strips and
+   the row window in turns (old, new, new, old), as phase 12 times B3b;
+   B10; the staged spatial tile stage on the corner tile with the masked
+   strips and with the plain masked filters in turns, and its top-k
+   candidates' sort alone;
 15. print ``{"kernels": [...]}`` (each kernel's launches on the path it
    names: the megakernel's tiled passes on the fused serving path, the
    transmission stage's tiled passes on the sharded steps, the halo
-   stage's on the spatial steps, and the ten passes and the staged
-   kernels' routes past their limits, ``staged.wide.*``, which run on none
-   of them at the serving shape), the card line, and last ``{"ok": true,
-   "device": {...}}``.
+   stage's on the spatial steps, B8a and B8b on the staged sharded and
+   spatial steps, and the ten passes and the staged kernels' routes past
+   their limits, ``staged.wide.*``, which run on none of them at the
+   serving shape), the card line, and last ``{"ok": true, "device":
+   {...}}``.
 """
 from __future__ import annotations
 
@@ -1608,11 +1627,20 @@ def check_transmission_cells(errs) -> int:
     return len(cells) + len(wide)
 
 
+# The staged branch of the sharded steps (kernel_mode "pallas"): one
+# masked min filter (B8a) and the guided filter's six masked means (B8b) a
+# step, their strips, and no other kernel.
+STAGED_SHARDED_PER_STEP = {"staged.masked_min_filter": 1, "staged.masked_box_filter": 6}
+
+
 def phase_sharded():
     """The stage's cells (:func:`check_transmission_cells`), then the
     frame-sharded (B7a) and lane-sharded (B7b, ``lane_native=False``) steps
     on a one-rank NCCL mesh, each two chained batches, held against the
-    single-device fused steps."""
+    single-device fused steps; then the same two steps with
+    ``kernel_mode="pallas"`` (their staged branch: B8a and B8b), held
+    against the single-device staged steps, and their t against the fused
+    sharded steps'."""
     import torch.distributed as dist
     from repro_torch.core import (DehazeConfig, PlacementSpec, init_atmo_state,
                                   init_atmo_state_lanes, make_dehaze_step,
@@ -1631,6 +1659,31 @@ def phase_sharded():
     mesh = make_host_mesh(1, 1)
     errs, whole = {"cells": cell_errs}, {}
     launches = {name: {} for name in TRANSMISSION_REPLACES}
+
+    def batch_inputs(batch: int, lanes: bool):
+        img = frames[batch] if lanes else frames[batch].reshape(L * B, H, W, 3)
+        ids = torch.arange(L * B, dtype=torch.int32, device="cuda") + L * B * batch
+        ids = ids.reshape(L, B) if lanes else ids
+        if lanes:
+            ids[L - 1] = -1                                   # padding lane
+        return img, ids
+
+    def new_state(lanes: bool):
+        return init_atmo_state_lanes(L, "cuda") if lanes else init_atmo_state("cuda")
+
+    def vs_single(name, batch, out, want) -> dict:
+        torch.cuda.synchronize()
+        e_jt = max(max_err(out.frames, want.frames),
+                   max_err(out.transmission, want.transmission))
+        e_a = max(max_err(out.atmo_light, want.atmo_light),
+                  max_err(out.state.A, want.state.A))
+        check(e_jt <= 2e-4, f"{name} b{batch}: J/t vs single device {e_jt}")
+        check(e_a <= 1e-5, f"{name} b{batch}: a_seq/A vs single device {e_a}")
+        check(torch.equal(out.state.last_update, want.state.last_update)
+              and torch.equal(out.state.initialized, want.state.initialized),
+              f"{name} b{batch}: last_update/initialized differ")
+        return {"J_t": e_jt, "a_seq_A": e_a}
+
     try:
         check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
         paths = {
@@ -1643,16 +1696,9 @@ def phase_sharded():
         }
         for name, (step, single, lanes) in paths.items():
             e_out = {"J_t": 0.0, "a_seq_A": 0.0}
-            state = init_atmo_state_lanes(L, "cuda") if lanes \
-                else init_atmo_state("cuda")
-            ref_state = state
+            state = ref_state = new_state(lanes)
             for batch in range(2):
-                img = frames[batch] if lanes else frames[batch].reshape(L * B, H, W, 3)
-                ids = (torch.arange(L * B, dtype=torch.int32, device="cuda")
-                       + L * B * batch)
-                ids = ids.reshape(L, B) if lanes else ids
-                if lanes:
-                    ids[L - 1] = -1                           # padding lane
+                img, ids = batch_inputs(batch, lanes)
                 a_lanes = (state.A if lanes else state.A.reshape(1, 3)).contiguous()
                 check_transmission(img if lanes else img[None], a_lanes, kw,
                                    errs.setdefault(name, {}), f"{name} b{batch}")
@@ -1662,23 +1708,48 @@ def phase_sharded():
                                           transmission_per_tick()).items():
                     launches[name][c] = launches[name].get(c, 0) + v
                 want = single(img, ids, ref_state)
-                torch.cuda.synchronize()
-                e_jt = max(max_err(out.frames, want.frames),
-                           max_err(out.transmission, want.transmission))
-                e_a = max(max_err(out.atmo_light, want.atmo_light),
-                          max_err(out.state.A, want.state.A))
-                check(e_jt <= 2e-4, f"{name} b{batch}: J/t vs single device {e_jt}")
-                check(e_a <= 1e-5, f"{name} b{batch}: a_seq/A vs single device {e_a}")
-                check(torch.equal(out.state.last_update, want.state.last_update)
-                      and torch.equal(out.state.initialized, want.state.initialized),
-                      f"{name} b{batch}: last_update/initialized differ")
-                e_out = {"J_t": max(e_out["J_t"], e_jt),
-                         "a_seq_A": max(e_out["a_seq_A"], e_a)}
+                e = vs_single(name, batch, out, want)
+                e_out = {k: max(e_out[k], e[k]) for k in e_out}
                 state, ref_state = out.state, want.state
             check_no_sync(step, img, ids, state, f"sharded {name}")
             whole[name] = e_out
             print(f"sharded {name}: passes " + json.dumps(errs[name])
                   + " vs single device " + json.dumps(e_out), flush=True)
+        # The staged branch: the frame- and lane-sharded steps with
+        # kernel_mode "pallas" against the single-device staged steps, and
+        # their t against the fused sharded steps' on the same state.
+        cfg_s = DehazeConfig(kernel_mode="pallas", io_dtype="uint8")
+        staged_paths = {
+            "staged_frame_sharded": (make_sharded_dehaze_step(cfg_s, mesh),
+                                     make_dehaze_step(cfg_s),
+                                     paths["fused_transmission"][0], False),
+            "staged_lane_sharded": (
+                make_step(cfg_s, PlacementSpec.lane_sharded(), mesh, lane_native=False),
+                make_multi_stream_step(cfg_s), paths["fused_transmission_lanes"][0], True),
+        }
+        for name, (step, single, fused_step, lanes) in staged_paths.items():
+            e_out = {"J_t": 0.0, "a_seq_A": 0.0, "t_vs_fused": 0.0}
+            launches[name] = {}
+            state = ref_state = new_state(lanes)
+            for batch in range(2):
+                img, ids = batch_inputs(batch, lanes)
+                reset_launches()
+                out = step(img, ids, state)
+                for c, v in path_launches(f"{name} step", 1,
+                                          STAGED_SHARDED_PER_STEP).items():
+                    launches[name][c] = launches[name].get(c, 0) + v
+                want = single(img, ids, ref_state)
+                t_fused = fused_step(img, ids, state).transmission
+                e = vs_single(name, batch, out, want)
+                e["t_vs_fused"] = max_err(out.transmission, t_fused)
+                check(e["t_vs_fused"] <= 2e-4,
+                      f"{name} b{batch}: t vs the fused sharded step {e['t_vs_fused']}")
+                e_out = {k: max(e_out[k], e[k]) for k in e_out}
+                state, ref_state = out.state, want.state
+            check_no_sync(step, img, ids, state, f"sharded {name}")
+            whole[name] = e_out
+            print(f"sharded {name} (kernel_mode pallas): vs single device and the "
+                  "fused step " + json.dumps(e_out), flush=True)
     finally:
         dist.destroy_process_group()
     return errs, whole, launches, n_cells
@@ -1979,18 +2050,19 @@ def check_halo_tile(tile, kw, errs, label, fits: bool = True):
     errs["whole"] = max(errs.get("whole", 0.0), *e)
 
 
-def spatial_step(cfg, tiles):
+def spatial_step(cfg, tiles, fused: bool = True):
     """What the spatially sharded step computes after the exchange, for
-    every tile in rank order: the per-shard function, then the lists
-    gathered in rank order through the merge. Returns the tiles' t, the
-    per-frame candidates and the gathered lists ``(tk_t, gidx, tk_rgb)``;
-    fails on a synchronising call."""
+    every tile in rank order: the per-shard function (its halo stage, or
+    where not ``fused`` its staged branch), then the lists gathered in rank
+    order through the merge. Returns the tiles' t, the per-frame
+    candidates and the gathered lists ``(tk_t, gidx, tk_rgb)``; fails on a
+    synchronising call."""
     from repro_torch.core import algorithms as alg
     from repro_torch.core.pipeline import spatial_shard_stage
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        outs = [spatial_shard_stage(cfg, *tile, W, fused=True) for tile in tiles]
+        outs = [spatial_shard_stage(cfg, *tile, W, fused=fused) for tile in tiles]
         tk_t, tk_rgb, gidx = (torch.cat([o[q] for o in outs], dim=1)
                               for q in (1, 2, 3))
         cand = alg.merge_topk_candidates(tk_t, gidx, tk_rgb, cfg)
@@ -2060,7 +2132,6 @@ def phase_spatial():
     from repro_torch.core import DehazeConfig
     from repro_torch.core import algorithms as alg
     from repro_torch.kernels import fused as fk
-    from repro_torch.kernels import ops
     from repro_torch.kernels import ref
     from repro_torch.kernels import staged as sk
     n = L * B
@@ -2078,6 +2149,7 @@ def phase_spatial():
               ("packed-bf16-dcp-4-2x2", "dcp", 4, ramp_u8, (2, 2), torch.bfloat16,
                False)]
     errs, vs_b7 = {}, {"t": 0.0}
+    staged_launches, staged_steps = {}, 0
     launches = {"fused_transmission_halo": 0, "staged.merge_topk": 0}
     launches |= {f"fused_transmission_halo.{p}": 0 for p in fk.TILED_HALO_PASSES}
     corner_tiles = None
@@ -2118,33 +2190,135 @@ def phase_spatial():
         print(f"spatial {label}: ok", flush=True)
         if label == "dcp-1-2x2":
             corner_tiles = (tiles[0], tiles[3])
+        if tiling == (2, 2) and against_b7 and frames is ramp_u8:
+            staged_steps += check_staged_spatial(alg_, k, frames, x, pre, guide, tiles,
+                                                 a_saved, staged_launches, vs_b7)
     check_halo_cells(errs, ramp_u8, a_saved)
-    # B8a and B8b through ops on the corner tiles' planes (the first tile's
-    # rows and columns invalid at the top and left, the last's at the
-    # bottom and right).
+    x = ref.upcast_frames(ramp_u8)
+    cfg = DehazeConfig(kernel_mode="fused", io_dtype="uint8")
+    interior = spatial_tiles(ramp_u8, x, alg.premap(x, a_saved, cfg), alg.luminance(x),
+                             cfg.patch_radius + 2 * cfg.gf_radius, (4, 4))[5]
+    check_masked_strips(errs, corner_tiles, interior)
+    print("spatial passes " + json.dumps(errs) + " vs B7a and the unsharded staged "
+          "stage " + json.dumps(vs_b7) + " launches " + json.dumps(launches)
+          + " staged spatial steps " + json.dumps(staged_launches), flush=True)
+    return errs, vs_b7, launches, len(cells), staged_launches, staged_steps
+
+
+# A staged spatial step of a 2 x 2 tiling (kernel_mode "pallas"): per tile
+# one masked min filter and six masked box filters (their strips), and the
+# merge once a step.
+STAGED_SPATIAL_PER_STEP = {"staged.masked_min_filter": 4, "staged.masked_box_filter": 24,
+                           "staged.merge_topk": 1}
+
+
+def check_staged_spatial(alg_, k, frames, x, pre, guide, tiles, a_saved, counts,
+                         vs) -> int:
+    """The staged branch of the spatial step (``spatial_shard_stage(...,
+    fused=False)`` with kernel_mode "pallas") on the 2 x 2 tiles: launches
+    as :data:`STAGED_SPATIAL_PER_STEP`, no synchronising call; the
+    stitched t within 2e-4 of the unsharded staged stage on the same frames
+    (the frame-sharded step's, every row valid), and the merged candidate
+    through B10 bit-equal to that stage's k picks through B10 (and within
+    1e-6 of their mean, the frame-sharded step's candidate). Adds the
+    launches to ``counts``; returns the steps run (1)."""
+    from repro_torch.core import DehazeConfig
+    from repro_torch.core.pipeline import spatial_shard_stage
+    from repro_torch.kernels import ops
+    label = f"staged {alg_}-{k}-2x2"
+    cfg = DehazeConfig(algorithm=alg_, topk=k, kernel_mode="pallas", io_dtype="uint8")
     reset_launches()
-    b8 = []
-    for _, _, pre_ext, guide_ext, vr, vc, _, _ in corner_tiles:
-        b8.append(("masked_min_filter", (pre_ext, vr, 7, vc),
-                   ops.masked_min_filter_2d(pre_ext, vr, 7, vc, mode="fused")))
-        b8.append(("masked_box_filter", (guide_ext, vr, 20, vc),
-                   ops.masked_box_filter_2d(guide_ext, vr, 20, vc, mode="fused")))
-    counts = path_launches("spatial B8a/B8b (ops)", 1,
-                           {"staged.masked_min_filter": 2,
-                            "staged.masked_box_filter": 2})
-    for name in ("staged.masked_min_filter", "staged.masked_box_filter"):
-        launches[name] = counts[name]
+    t_parts, cand, _ = spatial_step(cfg, tiles, fused=False)
+    for name, n in path_launches(f"spatial {label}", 1, STAGED_SPATIAL_PER_STEP).items():
+        counts[name] = counts.get(name, 0) + n
+    valid = torch.ones(H, dtype=torch.bool, device="cuda")
+    t, tk_t, tk_rgb, gidx = spatial_shard_stage(cfg, frames, x, pre, guide, valid, None,
+                                                0, 0, W, fused=False)
+    whole = ops.merge_topk_candidates(tk_t, gidx, tk_rgb, k, mode="pallas")
     torch.cuda.synchronize()
-    for name, args, got in b8:
-        want = sk.PAIRS[name][1](*args)
-        err = float(torch.where(got == want, 0.0, (got - want).abs()
-                                / want.abs().clamp_min(1.0)).max())
-        tol = 0.0 if name == "masked_min_filter" else 1e-5
-        check(err <= tol, f"{name} on a corner tile: error {err} > {tol}")
-        errs[name] = max(errs.get(name, 0.0), err)
-    print("spatial passes " + json.dumps(errs) + " vs B7a " + json.dumps(vs_b7)
-          + " launches " + json.dumps(launches), flush=True)
-    return errs, vs_b7, launches, len(cells)
+    e_t = max_err(stitch(t_parts, (2, 2)), t)
+    check(e_t <= 2e-4, f"{label}: stitched t vs the unsharded staged stage {e_t} > 2e-4")
+    check(torch.equal(cand, whole), f"{label}: merged candidate differs from the "
+          f"unsharded stage's picks by {max_err(cand, whole)}")
+    e_mean = max_err(cand, tk_rgb.mean(1))
+    check(e_mean <= 1e-6, f"{label}: merged candidate vs the stage's mean {e_mean}")
+    vs["staged_t"] = max(vs.get("staged_t", 0.0), e_t)
+    print(f"spatial {label}: ok (t vs the unsharded staged stage {e_t}, candidate "
+          "bit-equal)", flush=True)
+    return 1
+
+
+def masked_planes(plane, vr, vc, rng):
+    """``plane`` with its invalid pixels (rows ``vr``, columns ``vc``
+    invalid) set to +inf, -inf or NaN: what the kernels must never read."""
+    mask = vr[:, None] & (vc[None, :] if vc is not None else True)
+    bad = torch.from_numpy(rng.choice(np.array([np.inf, -np.inf, np.nan], np.float32),
+                                      tuple(plane.shape))).to(plane.device, plane.dtype)
+    return torch.where(mask, plane, bad).contiguous()
+
+
+def check_masked_strips(errs, corner_tiles, interior) -> None:
+    """B8a and B8b alone: the masked strips (and the row window past their
+    limit, by shape) against their plain versions with error 0 (the mean
+    bit for bit) and against the row window they replaced value for value,
+    no NaN; on both 2 x 2 corner tiles' planes (rows and columns invalid at
+    the top and left, and at the bottom and right), an interior 4 x 4
+    tile's (all valid: the blocks skip the mask), float32 and bfloat16,
+    the corner planes with +-inf and NaN in their invalid pixels, at r in
+    {0, 2, 7, 20}, and at each masked kind's strip limit and one past it on
+    a 2 x 100 x 90 corner of a plane. The C library's ``st_strips_fit``
+    agrees with ``strips_fit`` at each limit."""
+    rng = np.random.default_rng(19)
+    cells = []
+    for t_i, tile in enumerate(corner_tiles + (interior,)):
+        _, _, pre_ext, guide_ext, vr, vc = tile[:6]
+        where = "interior" if t_i == 2 else f"corner {t_i}"
+        for dt in (torch.float32, torch.bfloat16):
+            tag = f"{where} {str(dt).replace('torch.', '')}"
+            cells += [(pre_ext.to(dt), vr, vc, f"pre-map {tag}"),
+                      (guide_ext.to(dt), vr, vc, f"luma {tag}")]
+            if t_i < 2:
+                cells.append((masked_planes(guide_ext.to(dt), vr, vc, rng), vr, vc,
+                              f"+-inf/NaN invalid {tag}"))
+    for name in ("masked_min_filter", "masked_box_filter"):
+        for x, vr, vc, label in cells:
+            for r in (0, 2, 7, 20):
+                check_masked_route(name, x, vr, vc, r, label, errs)
+        for dt in (torch.float32, torch.bfloat16):
+            x, vr, vc = cells[0][0][:2, :100, :90].to(dt), cells[0][1][:100], cells[0][2][:90]
+            x = masked_planes(x.contiguous(), vr, vc, rng)
+            for r in strip_limit_radii(name, dt):
+                check_masked_route(name, x, vr, vc, r, f"limit {dt}", errs)
+    print(f"B8a/B8b alone on {len(cells)} planes x r in (0, 2, 7, 20) and the strips' "
+          "limits: equal to the plain versions and the row window, error 0", flush=True)
+    reset_launches()
+
+
+def check_masked_route(name, x, vr, vc, r, label, errs) -> None:
+    """``cuda_<name>`` must launch one masked kernel, the strips where
+    ``strips_fit`` and the row window (``wide_launches``) past it, equal
+    the plain version with error 0 (``torch.equal``), equal the row window
+    run by hand, and hold no NaN; its error goes to ``errs[name]``
+    (``errs["wide." + name]`` for the row window)."""
+    from repro_torch.kernels import staged as sk
+    reset_launches()
+    got = sk.PAIRS[name][0](x, vr, r, vc)
+    torch.cuda.synchronize()
+    wide = not sk.strips_fit(name, r, x.dtype)
+    check(sk.launches[name] == 1 and sk.wide_launches[name] == int(wide)
+          and sum(sk.launches.values()) == 1,
+          f"staged {name} {label} r={r}: launches {sk.launches[name]}, row window "
+          f"{sk.wide_launches[name]}, expected 1 and {int(wide)}")
+    want = sk.PAIRS[name][1](x, vr, r, vc)
+    old = sk._masked_window(name, x, vr, r, vc, wide=True)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    check(err == 0.0 and torch.equal(got, want), f"staged {name} {label} r={r}: error {err}")
+    check(torch.equal(got, old), f"staged {name} {label} r={r}: differs from the row "
+          f"window by {max_err(got, old)}")
+    check(not bool(torch.isnan(got.float()).any()), f"staged {name} {label} r={r}: NaN")
+    key = f"wide.{name}" if wide else name
+    errs[key] = max(errs.get(key, 0.0), err)
 
 
 # ---------------------------------------------------------------------------
@@ -2156,9 +2330,14 @@ def phase_spatial_times():
     4x4 one (DCP top-4, 32 uint8 frames of 480x640, float32 planes), its
     masked tiled sequence and its ten masked passes in turns, and on the
     corner tile each tiled pass alone; B8a on the corner tile's pre-map
-    plane (r = 7) and B8b on its luma plane (r = 20), B10 on the four 2x2
-    tiles' lists (M = 16, k = 4). Bounds count each input read once and
-    each output written once."""
+    plane (r = 7) and B8b on its luma plane (r = 20), the masked strips
+    and the row window they replaced in turns (old, new, new, old), each
+    also by device busy time, as a call in a replayed CUDA graph and with
+    its blocks an SM; B10 on the four 2x2 tiles' lists (M = 16, k = 4); the
+    staged spatial tile stage on the corner tile with the masked strips
+    and with the plain masked filters in turns, and its top-k candidates'
+    sort alone. Bounds count each input read once and each output written
+    once."""
     from repro_torch.core import DehazeConfig
     from repro_torch.core import algorithms as alg
     from repro_torch.core.pipeline import spatial_shard_stage
@@ -2252,29 +2431,66 @@ def phase_spatial_times():
     mins = sk.cuda_masked_min_filter(pre_ext, vr, 7, vc)
     means = sk.cuda_masked_box_filter(guide_ext, vr, 20, vc)
     mask_f = mask.float()[None, None]
+    h_ext = pre_ext.shape[1]
+    # B8a and B8b: the masked strips and the row window they replaced
+    # (window_kernel) in turns, old/new/new/old, as phase 12 times B3b.
     work = {}
-    work["staged.masked_min_filter"] = (
-        lambda: sk.cuda_masked_min_filter(pre_ext, vr, 7, vc),
-        lambda: sk.plain_masked_min_filter(pre_ext, vr, 7, vc),
-        lambda: -F.max_pool2d(-torch.where(mask, pre_ext, torch.inf)[:, None],
-                              15, 1, 7),
+    work["masked_min_filter"] = (
+        (pre_ext, vr, 7, vc),
+        lambda: -F.max_pool2d(-torch.where(mask, pre_ext, torch.inf)[:, None], 15, 1, 7),
         nbytes(pre_ext, mins, vr, vc), 2 * pre_ext.numel())
-    work["staged.masked_box_filter"] = (
-        lambda: sk.cuda_masked_box_filter(guide_ext, vr, 20, vc),
-        lambda: sk.plain_masked_box_filter(guide_ext, vr, 20, vc),
+    work["masked_box_filter"] = (
+        (guide_ext, vr, 20, vc),
         lambda: (F.avg_pool2d(torch.where(mask, guide_ext, 0.0)[:, None], 41, 1, 20)
                  / F.avg_pool2d(mask_f, 41, 1, 20).clamp_min(1.0 / 41 ** 2)),
         nbytes(guide_ext, means, vr, vc), 5 * guide_ext.numel())
-    work["staged.merge_topk"] = (
+    for name, (args, lib, nb, ops) in work.items():
+        new = lambda a=args, n_=name: sk.PAIRS[n_][0](*a)                      # noqa: E731
+        old = lambda a=args, n_=name: sk._masked_window(n_, *a, wide=True)     # noqa: E731
+        order = [(m, time_ms(fn)) for m, fn in (("old", old), ("new", new), ("new", new),
+                                                ("old", old))]
+        mean = {m: sum(v for q, v in order if q == m) / 2 for m in ("new", "old")}
+        plain_ms = time_ms(lambda a=args, n_=name: sk.PAIRS[n_][1](*a), reps=5, warmup=1)
+        lib_r = dict(ms=time_ms(lib), device_busy_ms=device_busy_ms(lib), graph_ms=graph_ms(lib))
+        blocks = (sk.strips_occupancy(name, args[2], torch.float32, h_ext),
+                  sk.window_occupancy(args[2], h_ext, name))
+        for route, fn, blk in (("new", new, blocks[0]), ("old", old, blocks[1])):
+            r = dict(ms=mean[route], plain_ms=plain_ms, library_ms=lib_r["ms"],
+                     library_busy_ms=lib_r["device_busy_ms"],
+                     library_graph_ms=lib_r["graph_ms"], device_busy_ms=device_busy_ms(fn),
+                     graph_ms=graph_ms(fn), blocks_per_sm=blk, turns_ms=[v for _, v in order])
+            key = f"staged.{name}" if route == "new" else f"staged.wide.{name}"
+            out[key] = rates(r, nb, ops)
+    work = {"staged.merge_topk": (
         lambda: sk.cuda_merge_topk(tk_t, gidx, tk_rgb, k),
         lambda: sk.plain_merge_topk(tk_t, gidx, tk_rgb, k),
-        merge_library, nbytes(tk_t, gidx, tk_rgb, cand), tk_t.numel() * k)
+        merge_library, nbytes(tk_t, gidx, tk_rgb, cand), tk_t.numel() * k)}
     for name, (kernel, plain, lib, nb, ops) in work.items():
         # device_busy_ms: the kernels' own time a call; where it is well
         # below ms, the host's launch rate sets ms.
         out[name] = rates(dict(ms=time_ms(kernel), plain_ms=time_ms(plain, reps=5, warmup=1),
                                library_ms=time_ms(lib) if lib else None,
                                device_busy_ms=device_busy_ms(kernel)), nb, ops)
+    # The staged spatial tile stage (spatial_shard_stage's staged branch,
+    # kernel_mode "pallas") on the corner tile with the masked strips and
+    # with the plain masked filters ("ref"), in turns; the stable sort of
+    # its top-k candidates alone. Bound: each plane read once, t written
+    # once.
+    stage = {m: (lambda c=DehazeConfig(topk=k, kernel_mode=m, io_dtype="uint8"):
+                 spatial_shard_stage(c, *tiles[0], W, fused=False))
+             for m in ("pallas", "ref")}
+    t_stage, *lists = stage["pallas"]()
+    order = [(m, time_ms(stage[m], reps=10)) for m in ("ref", "pallas", "pallas", "ref")]
+    mean = {m: sum(v for q, v in order if q == m) / 2 for m in ("pallas", "ref")}
+    t_raw_core = 1.0 - 0.95 * mins[:, halo:-halo, halo:-halo]
+    x_core = tiles[0][1]
+    out["staged_spatial_stage"] = rates(dict(
+        ms=mean["pallas"], plain_ms=mean["ref"], library_ms=None, turns_ms=[v for _, v in order],
+        device_busy_ms=device_busy_ms(stage["pallas"]),
+        plain_busy_ms=device_busy_ms(stage["ref"]),
+        topk_candidates_ms=time_ms(lambda: ref.topk_candidates(t_raw_core.contiguous(),
+                                                               x_core, k))),
+        nbytes(pre_ext, guide_ext, t_stage, *lists), 0)
     card = card_line()
     for name in ("fused_transmission_halo", "fused_transmission_halo.interior"):
         r = out[name]
@@ -2285,6 +2501,23 @@ def phase_spatial_times():
               f"{r['ten_pass_busy_ms']}, CUDA graph {r['ten_pass_graph_ms']}), bound "
               f"{r['bound_ms']} ms ({r['bound_by']}), direct-sum floor {r['floor_ms']} "
               f"ms, blocks an SM {r['blocks_per_sm']}; {card}", flush=True)
+    for name in ("masked_min_filter", "masked_box_filter"):
+        new_r, old_r = out[f"staged.{name}"], out[f"staged.wide.{name}"]
+        print(f"staged {name} on the corner tile ({tuple(pre_ext.shape)} float32, turns "
+              f"old/new/new/old {new_r['turns_ms']} ms): strips {new_r['ms']} ms, in a CUDA "
+              f"graph {new_r['graph_ms']}, device busy {new_r['device_busy_ms']}, "
+              f"{new_r['blocks_per_sm']} blocks an SM; row window {old_r['ms']} ms, in a CUDA "
+              f"graph {old_r['graph_ms']}, device busy {old_r['device_busy_ms']}, "
+              f"{old_r['blocks_per_sm']} blocks an SM; bound {new_r['bound_ms']} ms "
+              f"({new_r['bound_by']}); plain {new_r['plain_ms']} ms; PyTorch call "
+              f"{new_r['library_ms']} ms, in a CUDA graph {new_r['library_graph_ms']}; {card}",
+              flush=True)
+    r = out["staged_spatial_stage"]
+    print(f"staged spatial tile stage (corner tile, top-{k}, turns ref/pallas/pallas/ref "
+          f"{r['turns_ms']} ms): masked strips {r['ms']} ms (device busy "
+          f"{r['device_busy_ms']}), plain masked filters {r['plain_ms']} ms (device busy "
+          f"{r['plain_busy_ms']}); its top-k candidates' stable sort alone "
+          f"{r['topk_candidates_ms']} ms; bound {r['bound_ms']} ms; {card}", flush=True)
     print("spatial kernel times " + json.dumps(out), flush=True)
     return out
 
@@ -2313,7 +2546,12 @@ def main() -> int:
     check(fk.TILE_PIXELS == fk._lib().fd_tile_pixels(), "tile size mismatch")
     sk._lib()                                # checks its tile constants
 
+    def stamp(phases: str) -> None:
+        """The script's clock after ``phases``: where its time limit goes."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {phases} done", flush=True)
+
     pass_errs, whole_errs = phase_parity()
+    stamp("phase 2")
     cfg = DehazeConfig(kernel_mode="fused", io_dtype="uint8")
     rng = np.random.default_rng(1)
     vids = [rng.integers(0, 256, (48, H, W, 3), dtype=np.uint8)
@@ -2321,15 +2559,18 @@ def main() -> int:
     launches, launches_serve, ticks = phase_serve(cfg, vids, fused_per_tick())
     rep = phase_throughput(cfg, vids, fused_per_tick())
     times = phase_times()
+    stamp("phases 3-5")
 
     staged_errs, _ = phase_staged_parity(STAGED_CELLS)
     check_atmolight(staged_errs)
     check_strips(staged_errs)
+    stamp("phase 6")
     cfg_staged = DehazeConfig(io_dtype="uint8")            # kernel_mode "auto"
     s_launches, s_launches_serve, s_ticks = phase_serve(
         cfg_staged, vids, STAGED_PER_TICK, "staged ")
     s_rep = phase_throughput(cfg_staged, vids, STAGED_PER_TICK, "staged ")
     s_times = phase_staged_times()
+    stamp("phases 7-8")
 
     cap_errs, _ = phase_staged_parity(CAP_TOPK_CELLS, "staged CAP/top-k")
     check_large_topk(cap_errs)
@@ -2338,10 +2579,15 @@ def main() -> int:
     cfg_cap = DehazeConfig(algorithm="cap", topk=4, io_dtype="uint8")
     c_launches, c_launches_serve, c_ticks = phase_serve(
         cfg_cap, vids, CAP_PER_TICK, "staged CAP top-4 ")
+    stamp("phases 9-10")
     t_errs, t_whole, t_launches, t_cells = phase_sharded()
+    stamp("phase 11")
     c_times = phase_slice3_times()
-    sp_errs, sp_vs_b7, sp_launches, sp_steps = phase_spatial()
+    stamp("phase 12")
+    sp_errs, sp_vs_b7, sp_launches, sp_steps, st_launches, st_steps = phase_spatial()
+    stamp("phase 13")
     sp_times = phase_spatial_times()
+    stamp("phase 14")
 
     kernels = []
 
@@ -2427,7 +2673,16 @@ def main() -> int:
               {name: t_launches[name]["fused_transmission"]}, None, 2,
               f"sharded step ({name})")
     # Phase 13's path: its spatial steps (B9 one launch a tile, B10 one a
-    # step); B8a/B8b: one ops call on each of two corner tiles.
+    # step). B8a/B8b: the staged branch of the sharded steps (phase 11,
+    # 1 + 6 a step) and of the spatial steps (phase 13, 4 + 24 a 2 x 2
+    # step); their row window (past the strips' limit) on none of them.
+    b8_paths = [p for p in t_launches if p.startswith("staged_")]
+    b8 = {f"staged.{w}{n}": sum(t_launches[p][f"staged.{w}{n}"] for p in b8_paths)
+          + st_launches[f"staged.{w}{n}"]
+          for n in ("masked_min_filter", "masked_box_filter") for w in ("", "wide.")}
+    b8_steps = 2 * len(b8_paths) + st_steps
+    b8_path = ("staged sharded steps (frame, lanes; 1 + 6 a step) and staged spatial "
+               "steps (2x2 tiles; 4 + 24 a step)")
     sp_err = {"staged.masked_min_filter": sp_errs["masked_min_filter"],
               "staged.masked_box_filter": sp_errs["masked_box_filter"],
               "staged.merge_topk": sp_errs["merge_topk"],
@@ -2436,11 +2691,17 @@ def main() -> int:
                   *(v for kk, v in sp_errs.items() if kk in fk.halo_launches))}
     for name in SPATIAL_REPLACES:
         source = SOURCE if name == "fused_transmission_halo" else STAGED_SOURCE
-        entry(name, source, SPATIAL_REPLACES[name], sp_times[name],
-              sp_err[name], sp_launches, None,
-              2 if name.startswith("staged.masked") else sp_steps,
-              "ops on corner tiles" if name.startswith("staged.masked")
-              else "spatial steps (virtual tilings)")
+        if name.startswith("staged.masked"):
+            entry(name, source, SPATIAL_REPLACES[name], sp_times[name], sp_err[name],
+                  b8, None, b8_steps, b8_path)
+            wide = name.replace("staged.", "staged.wide.")
+            entry(wide, source, SPATIAL_REPLACES[name], sp_times[wide],
+                  sp_errs[wide.replace("staged.", "")], b8, None, b8_steps,
+                  "none: radii past the masked strips' limit (phase 13); 0 on " + b8_path)
+        else:
+            entry(name, source, SPATIAL_REPLACES[name], sp_times[name],
+                  sp_err[name], sp_launches, None, sp_steps,
+                  "spatial steps (virtual tilings)")
     for name in fk.TILED_HALO_PASSES:
         full = f"fused_transmission_halo.{name}"
         entry(full, SOURCE, TILED_HALO_REPLACES[name], sp_times[full],

@@ -21,7 +21,7 @@ SPMD step over a ``torch.distributed`` device mesh
 every rank calls it with its own block and the replicated state.
 Frame-sharded, each rank computes t and its frames' A candidates (fused:
 the megakernel's transmission passes, one sequence; staged: the masked
-filters of ``core.spatial`` and a stable top-k), the candidates and ids
+filters of ``kernels.ops`` and a stable top-k), the candidates and ids
 are all-gathered in rank order over the mesh's ``data`` group, and every
 rank scans the §3.3 EMA over the whole batch and keeps its slice.
 Lane-sharded, every rank serves whole lanes and scans them locally.
@@ -30,7 +30,7 @@ A height or width axis of size > 1 splits each frame into tiles: the
 (pre-map, luma) planes (or the RGB block) are halo-exchanged over the
 axis's group, :func:`spatial_shard_stage` computes the tile's t and its k
 best candidates with global indices (fused: the halo stage's kernels;
-staged: the masked filters), and the lists are all-gathered over the
+staged: the masked filters' kernels), and the lists are all-gathered over the
 spatial groups and merged on every rank of the tile's frames. Recovery runs
 the plain chain, as in the reference. Buffer donation is not ported.
 """
@@ -50,6 +50,7 @@ from repro_torch.core.normalize import (AtmoState, ema_scan,
                                         ema_scan_associative, ema_scan_lanes,
                                         get_lane_state, pack_atmo_states)
 from repro_torch.core.placement import PlacementSpec
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 
 DeviceLike = Union[None, str, torch.device]
@@ -302,7 +303,10 @@ def spatial_shard_stage(cfg: DehazeConfig, frames: torch.Tensor,
     (w_ext,) column validity (None: every column); ``(row0, col0)`` the
     core's origin in the frame and ``width`` the frame's width. ``fused``
     runs the halo stage's kernels (``alg.fused_transmission_halo``), else
-    the staged chain on the masked filters of ``core.spatial``. Returns
+    the staged chain on the masked filters of ``kernels.ops`` under
+    ``cfg.kernel_mode`` (their kernels, or ``core.spatial``'s plain
+    filters under ``"ref"``: one masked min filter, and six masked means
+    for the guided filter). Returns
     ``(t (N, h, w), tk_t (N, k), tk_rgb (N, k, 3) float32, tk_gidx (N, k)
     int32)``: the refined t and the shard's k smallest (t_raw, index) rows,
     ascending, each index the pixel's flat index in the whole frame."""
@@ -314,15 +318,15 @@ def spatial_shard_stage(cfg: DehazeConfig, frames: torch.Tensor,
         hh = (pre_ext.shape[1] - h_loc) // 2
         hw = (pre_ext.shape[2] - w_loc) // 2
         t_raw_ext = kref.tmap_from_dark(
-            spatial.masked_min_filter_2d(pre_ext, valid_h, cfg.patch_radius,
-                                         valid_w),
+            ops.masked_min_filter_2d(pre_ext, valid_h, cfg.patch_radius,
+                                     valid_w, mode=cfg.kernel_mode),
             cfg.algorithm, cfg.omega, cfg.beta).to(x.dtype)
         t_raw = t_raw_ext[:, hh:hh + h_loc, hw:hw + w_loc]
         tk_t, tk_rgb, tk_idx = kref.topk_candidates(t_raw, x, cfg.topk)
         if cfg.refine:
-            t_ext = spatial.masked_guided_filter(
+            t_ext = ops.masked_guided_filter(
                 guide_ext, t_raw_ext, valid_h, cfg.gf_radius, cfg.gf_eps,
-                valid_w)
+                valid_w, mode=cfg.kernel_mode)
             t = torch.clamp(t_ext[:, hh:hh + h_loc, hw:hw + w_loc], 0.0, 1.0)
         else:
             t = t_raw

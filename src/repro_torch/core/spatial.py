@@ -8,12 +8,13 @@ edge keeps the global border semantics (clipped windows): the min filter
 treats invalid rows/columns as +inf, the box filter leaves them out of
 both the sum and the count.
 
-The masked filters: the reference computes them with XLA ``reduce_window``,
-not with a Pallas kernel, so their port is plain PyTorch on any device,
-the card included; this is their implementation, not a fallback for a
-missing kernel. The staged sharded step (``core.pipeline``) runs them; the
-Pallas kernels of the same functions are ``ops.masked_min_filter_2d`` /
-``ops.masked_box_filter_2d``.
+The masked filters here are the plain versions: the reference computes
+them with XLA ``reduce_window`` in its sharded step, and its Pallas kernels
+of the same functions (``masked_min_filter_2d_pallas``,
+``masked_box_filter_2d_pallas``) are ported as ``ops.masked_min_filter_2d``
+/ ``ops.masked_box_filter_2d`` (``kernels.staged``). The staged branch of
+the sharded steps (``core.pipeline``) takes the filters through ``ops``:
+their kernels on the card, and these under ``kernel_mode="ref"``.
 
 The halo exchange (:func:`halo_exchange_along` and its height and width
 views) moves ``halo`` slices from each side over ``torch.distributed``

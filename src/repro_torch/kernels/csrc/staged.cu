@@ -29,14 +29,15 @@
 // + eps; the plain version adds the same terms in the same order, so the
 // two are equal bit for bit.
 //
-// The dark channel, the min filter and the box filter (B3a, B3b, B4) run
-// as window strips: a block takes a 64-column strip of a frame over a band
+// The dark channel, the min filter and the box filter (B3a, B3b, B4), and
+// the masked min and box filters (B8a, B8b), run as window strips: a block
+// takes a 64-column strip of a frame over a band
 // of at most 128 output rows (64 for B3a; the host evens the bands out: 4
 // of 120 rows, 8 of 60, at H = 480) and walks down its input rows
 // 32 at a time, each piece into float32 rows of shared memory (odd row
 // stride, so a warp's lanes on 32 rows hit 32 banks), the fill off the
 // frame (+0 for the sum, +inf for the min). The float32 box and min
-// filters copy their plane straight into those rows with cp.async, 4
+// filters (masked or not) copy their plane straight into those rows with cp.async, 4
 // bytes a copy, two pieces in flight, the columns off the frame zero-filled
 // by the copies (the sum) or stored as +inf (the min) (16-byte copies would
 // need rows on 16-byte boundaries, a stride that puts 4 of the 32 rows on
@@ -58,15 +59,15 @@
 // window_kernel's 64-row tiles; its columns (64 + 2r)/64 times. Shared
 // memory grows with r (the band's sums and a piece's halo): the strips
 // take r up to 175 on float32 planes (243 bfloat16) for the box and min
-// filters and up to 265 for the dark channel (st_strips_fit; He
-// et al.'s guided filter uses r = 60), and st_box_filter_wide,
-// st_min_filter_wide and st_dark_channel_wide launch window_kernel for
-// wider windows. The caller picks one from the shape before it launches
-// (kernels/staged.py::strips_fit); a strip entry point given a radius it
-// does not take returns cudaErrorInvalidValue and launches nothing.
+// filters, 170 (236) for their masked forms and up to 265 for the dark
+// channel (st_strips_fit; He et al.'s guided filter uses r = 60), and the
+// _wide entry points launch window_kernel for wider windows. The caller
+// picks one from the shape before it launches (kernels/staged.py::
+// strips_fit); a strip entry point given a radius it does not take returns
+// cudaErrorInvalidValue and launches nothing.
 //
-// window_kernel (the masked forms, and B3a, B3b and B4 past the strips'
-// radius): a block computes a kTileY x kTileX output tile, each
+// window_kernel (every window kernel past the strips' radius, and the one
+// the strips replaced): a block computes a kTileY x kTileX output tile, each
 // thread of a warp one output column: first the horizontal window of every
 // input row the tile's vertical windows touch (kTileY + 2r rows, at most H)
 // goes into shared memory, read tap by tap from device memory, then the
@@ -110,14 +111,20 @@
 // agree bit for bit. The caller gives the key lists' scratch (N x tiles x
 // k keys; the wide route's N x tiles x kk).
 //
-// Masked windows (the halo-extended planes of a spatial shard). The window
-// kernel's two masked forms take an (H,) row and a (W,) column validity
-// vector (bytes, 0 = invalid): the min reads an invalid pixel as +inf; the
-// mean leaves it out of the sum (a select, not a multiply: an upstream
-// +-inf must not become NaN) and divides by max(rowcnt(y) * colcnt(x), 1),
-// each count the windowed sum of its axis's mask. The reference's XLA
-// filter divides by the windowed sum of the 2-D mask; the masks are outer
-// products, so the two are the same integer, and the product is cheaper.
+// Masked windows (the halo-extended planes of a spatial shard, and the
+// whole planes of the staged sharded step). The masked forms take an (H,)
+// row and a (W,) column validity vector (bytes, 0 = invalid): the min
+// takes an invalid pixel as +inf; the mean leaves it out of the sum and
+// divides by max(rowcnt(y) * colcnt(x), 1), each count the windowed sum of
+// its axis's mask. An invalid pixel may hold +-inf or NaN from upstream,
+// so it is never read into an operation, only replaced (a select, not a
+// multiply): the strips take the mask where a piece is staged (an invalid
+// column is the fill, an invalid row takes no runs), and take each
+// block's counts from prefix counts of its valid columns and rows, once a
+// block; a block with every input column and row valid skips the mask.
+// The reference's XLA filter divides by the windowed sum of the 2-D mask;
+// the masks are outer products, so the two are the same integer, and the
+// product is cheaper.
 //
 // Cross-shard candidate merge (st_merge_topk). After the all-gather each
 // frame has M = shards x k candidate rows (t, global flat index, rgb) in
@@ -142,7 +149,8 @@
 // 0.047 ms (atmospheric light, 16 B/px counting all of I; the top-k's
 // reads only t and k pixels a frame, 0.012 ms) and 0.082 ms (recover,
 // 28 B/px); the masked filters are bound as the min and box filter (8 B/px
-// of the plane they filter), the merge by its 20 bytes a row. The box
+// of the plane they filter, the validity bytes besides), the merge by its
+// 20 bytes a row. The box
 // filter's direct sums bound it about as much: (2r + 1) adds an output an
 // axis, 94.8 at r = 20 with the strips' recomputed rows, 0.028 ms at the
 // card's 33.5 T/s of float32 adds; the min filter's direct minima would
@@ -272,12 +280,17 @@ static_assert((kStripW / kRunX) * kPieceRows == kStripThreads, "one horizontal r
 static_assert(kStripThreads % kStripW == 0, "whole vertical runs a round of a band");
 
 // Whether a strip block copies its pieces straight into the float32 rows
-// its horizontal runs read (the float32 box and min filters: cp.async, 4
-// bytes a copy, two pieces in flight), or loads each piece's pixels from
-// device memory and stores them as float32 (bfloat16, and the dark
-// channel's channel min).
+// its horizontal runs read (the float32 box and min filters and their
+// masked forms: cp.async, 4 bytes a copy, two pieces in flight), or loads
+// each piece's pixels from device memory and stores them as float32
+// (bfloat16, and the dark channel's channel min).
 __host__ __device__ constexpr bool strip_direct(int mode, int dt) {
-    return (mode == kMean || mode == kMin) && dt == 0;
+    return mode != kDark && dt == 0;
+}
+
+// The masked forms (B8a kMaskedMin, B8b kMaskedMean).
+__host__ __device__ constexpr bool strip_masked(int mode) {
+    return mode == kMaskedMin || mode == kMaskedMean;
 }
 
 // Input columns of a strip: its outputs and their halo.
@@ -288,20 +301,26 @@ __host__ __device__ __forceinline__ long long strip_cols(long long r) {
 // Shared memory of a strip block with bands of `band` rows: a piece in
 // float32 (odd row stride; strip_direct: two), and the horizontal sums of
 // every input row a band's windows touch, with room for a last vertical
-// run that passes the band's end (its outputs are not stored). 64-bit, as
-// the radius may be any int.
+// run that passes the band's end (its outputs are not stored); the masked
+// forms then the prefix counts of the strip's valid input columns and of
+// the band's valid input rows (int, one more than the columns and rows),
+// and the columns' and rows' validity bytes. 64-bit, as the radius may be
+// any int.
 __host__ __device__ __forceinline__ long long strip_smem(long long r, int mode, int dt,
                                                          int band) {
     const long long piece = 4LL * kPieceRows * (strip_cols(r) | 1);
+    const long long cols = strip_cols(r), rows = band + 2 * r;
     return (strip_direct(mode, dt) ? 2 : 1) * piece +
-           4 * (band + 2 * r + kRunY - 1) * kSumStride;
+           4 * (band + 2 * r + kRunY - 1) * kSumStride +
+           (strip_masked(mode) ? 4 * (cols + 1) + 4 * (rows + 1) + cols + rows : 0);
 }
 
 // Most output rows of a strip block: the dark channel's pixels come from
 // device memory, and its shorter bands (less shared memory a block) put
 // more blocks, and more loads in flight, on an SM.
 __host__ __device__ constexpr int strip_band_rows(int mode) {
-    return mode == kDark ? kDarkBandRows : mode == kMin ? kMinBandRows : kBandRows;
+    return mode == kDark ? kDarkBandRows
+           : mode == kMin || mode == kMaskedMin ? kMinBandRows : kBandRows;
 }
 
 // Register-blocked running minimum (van Herk / Gil-Werman within a run):
@@ -341,34 +360,76 @@ __device__ __forceinline__ void min_run(const Fetch& fetch, int w, float (&acc)[
     }
 }
 
-// Whether a strip block of the tallest band fits a block's shared memory:
-// the strips take every such radius; st_dark_channel_wide and
-// st_box_filter_wide take the rest.
+// Whether a strip block of the tallest band fits a block's shared memory
+// (which holds its input columns to far fewer than the 32 x 32 a lane's
+// column bits cover): the strips take every such radius; the _wide entry
+// points (window_kernel) take the rest.
 __host__ __device__ __forceinline__ bool strips_fit(int mode, int r, int dt) {
-    return r >= 0 && strip_smem(r, mode, dt, strip_band_rows(mode)) <= kMaxSmem;
+    return r >= 0 && strip_smem(r, mode, dt, strip_band_rows(mode)) <= kMaxSmem &&
+           strip_cols(r) <= 32 * 32;
+}
+
+// pre[0] = 0 and pre[i + 1] = flag[0] + .. + flag[i] for i < n, by the
+// calling warp: a shuffle scan of 32 flags at a time.
+__device__ __forceinline__ void warp_prefix_counts(const uint8_t* flag, int* pre, int n) {
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) pre[0] = 0;
+    int carry = 0;
+    for (int base = 0; base < n; base += 32) {
+        int v = base + lane < n ? flag[base + lane] : 0;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const int u = __shfl_up_sync(0xffffffffu, v, off);
+            if (lane >= off) v += u;
+        }
+        if (base + lane < n) pre[base + lane + 1] = carry + v;
+        carry += __shfl_sync(0xffffffffu, v, 31);
+    }
 }
 
 // grid (ceil(W / kStripW), ceil(H / band), N), block kStripThreads,
 // strip_smem(r, kMode, kDt, band) bytes. kMode kDark: (N, H, W, 3) -> the
 // channel min, then the windowed min (+inf off the frame); kMin: (N, H, W)
 // -> the windowed min (+inf off the frame), its runs min_run's; kMean:
-// (N, H, W) -> the windowed mean over the clipped window. kDt: 0 float32,
-// 1 bfloat16, in and out. A block walks down its input rows (its band and r
-// above and below) a piece of kPieceRows rows at a time, into float32 rows
-// with the fill off the frame (see the head of this file for how each
-// form fills them); the horizontal windows of a piece's rows, a warp's
-// lanes on its 32 rows, a run of kRunX outputs a thread, go into the band's
-// horizontal sums; last the vertical windows of the band's outputs, a run
-// of kRunY a thread, straight to out. Each sum adds its terms in ascending
-// order from +0, horizontal then vertical, and the mean divides once by the
-// closed-form count: the terms, order and division of window_kernel<kMean>,
-// with +0 for each term off the frame, which leaves a sum from +0
-// unchanged bit for bit.
+// (N, H, W) -> the windowed mean over the clipped window; kMaskedMin and
+// kMaskedMean the same with the (H,) / (W,) validity bytes vh / vw (0 =
+// invalid), an invalid pixel taken as one off the frame, and the mean
+// divided by max(rowcnt * colcnt, 1) of the valid rows and columns. kDt: 0
+// float32, 1 bfloat16, in and out. A block walks down its input rows (its
+// band and r above and below) a piece of kPieceRows rows at a time, into
+// float32 rows with the fill off the frame (see the head of this file for
+// how each form fills them); the horizontal windows of a piece's rows, a
+// warp's lanes on its 32 rows, a run of kRunX outputs a thread, go into the
+// band's horizontal sums; last the vertical windows of the band's outputs,
+// a run of kRunY a thread, straight to out. Each sum adds its terms in
+// ascending order from +0, horizontal then vertical, and the mean divides
+// once by the count: the terms, order and division of window_kernel<kMean>
+// (<kMaskedMean>), with +0 for each term off the frame (or invalid), which
+// leaves a sum from +0 unchanged bit for bit.
+//
+// The masked forms take the mask where the pieces are staged, never per
+// tap: an invalid column of a piece is the fill (the sum's a zero-filled
+// copy, which reads nothing; the min's a stored +inf) and an invalid row
+// takes no runs, its horizontal results the fill, so an invalid pixel's
+// value (+-inf or NaN from upstream) is never read into an operation. The
+// block takes its input columns' and rows' validity bytes into shared
+// memory once, and each lane its columns' validity into the bits of one
+// register, which its copies test. A block whose input columns and rows
+// are all valid (an interior block, every block of an unsharded plane)
+// skips the mask: the rest of the kernel is compiled twice, and such a
+// block runs the unmasked strips' code with the closed-form counts, not
+// code that tests a runtime flag at every row and count. In a masked
+// block warps 0 and 1 take the prefix counts of its valid columns and
+// rows while the first copies fly, and each output's counts are two
+// differences of them.
 template <int kMode, int kDt>
 __global__ void __launch_bounds__(kStripThreads)
 strip_window_kernel(const void* __restrict__ x, void* __restrict__ out, int H, int W, int r,
-                    int band) {
-    constexpr bool kSum = kMode == kMean;
+                    int band, const uint8_t* __restrict__ vh,
+                    const uint8_t* __restrict__ vw) {
+    constexpr bool kSum = kMode == kMean || kMode == kMaskedMean;
+    constexpr bool kVanHerk = kMode == kMin || kMode == kMaskedMin;
+    constexpr bool kMasked = strip_masked(kMode);
     constexpr bool kDirect = strip_direct(kMode, kDt);
     constexpr int kWarps = kStripThreads / 32;
     extern __shared__ __align__(16) uint8_t smem[];
@@ -376,9 +437,15 @@ strip_window_kernel(const void* __restrict__ x, void* __restrict__ out, int H, i
     const int cols = static_cast<int>(strip_cols(r)), fstride = cols | 1;
     const int piece_floats = kPieceRows * fstride;
     // flt[kPieceRows][fstride] (kDirect: two), then
-    // hsum[band + 2r + kRunY - 1][kSumStride].
+    // hsum[band + 2r + kRunY - 1][kSumStride]; the masked forms then
+    // ccnt[cols + 1], rcnt[band + 2r + 1] (int) and cflag[cols],
+    // rflag[band + 2r] (bytes).
     float* flt = reinterpret_cast<float*>(smem);
     float* hsum = flt + (kDirect ? 2 : 1) * piece_floats;
+    int* ccnt = reinterpret_cast<int*>(hsum + (band + 2 * r + kRunY - 1) * kSumStride);
+    int* rcnt = ccnt + cols + 1;
+    uint8_t* cflag = reinterpret_cast<uint8_t*>(rcnt + band + 2 * r + 1);
+    uint8_t* rflag = cflag + cols;
     const int x0 = blockIdx.x * kStripW, xf = x0 - r;   // first output, first input column
     const int y0 = blockIdx.y * band, rows_out = min(band, H - y0);
     const int need = rows_out + 2 * r;           // input rows, from y0 - r
@@ -386,111 +453,165 @@ strip_window_kernel(const void* __restrict__ x, void* __restrict__ out, int H, i
     const long long frame = static_cast<long long>(blockIdx.z) * H * W;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-    // kDirect: starts the copies of piece p's rows that lie in the frame
-    // into buffer p & 1, their columns off it the fill (the box filter's
-    // zeros by the copies, the min filter's +inf by stores).
-    auto stage = [&](int p) {
-        if (p >= pieces) return;
-        for (int i = warp; i < kPieceRows; i += kWarps) {
-            const int rel = p * kPieceRows + i, y = y0 - r + rel;
-            if (rel >= need || y < 0 || y >= H) continue;
-            const float* src = static_cast<const float*>(x) + frame + static_cast<long long>(y) * W;
-            float* dst = flt + (p & 1) * piece_floats + i * fstride;
-            for (int j = lane; j < cols; j += 32) {
-                const int xx = xf + j;
-                const bool in = xx >= 0 && xx < W;
-                if (kSum || in) cp_async4(dst + j, in ? src + xx : src, in ? 4 : 0);
-                else dst[j] = INFINITY;
+    // The mask: the validity of the strip's input columns and the band's
+    // input rows (0 off the frame), and whether any in the frame is invalid.
+    bool any_invalid = false;
+    if constexpr (kMasked) {
+        bool all = true;
+        for (int j = threadIdx.x; j < cols; j += kStripThreads) {
+            const int xx = xf + j;
+            const bool in = xx >= 0 && xx < W;
+            const bool v = in && vw[xx] != 0;
+            all = all && v == in;
+            cflag[j] = v;
+        }
+        for (int i = threadIdx.x; i < need; i += kStripThreads) {
+            const int y = y0 - r + i;
+            const bool in = y >= 0 && y < H;
+            const bool v = in && vh[y] != 0;
+            all = all && v == in;
+            rflag[i] = v;
+        }
+        any_invalid = !__syncthreads_and(all);   // and the flags are in
+    }
+    // The rest, compiled twice for the masked forms (masked: some input
+    // column or row of the block invalid), so that the other blocks run
+    // the unmasked strips' code.
+    auto body = [&](auto masked_v) {
+        constexpr bool masked = decltype(masked_v)::value;
+        // Whether input row i of the band is in the frame and valid; bit m
+        // of cbits whether the lane's input column j = lane + 32 m of the
+        // strip is (taken once: a piece's copies test a register, not the
+        // flags).
+        auto row_in = [&](int i) {
+            const int y = y0 - r + i;
+            return y >= 0 && y < H && (!masked || rflag[i]);
+        };
+        uint32_t cbits = 0;
+        for (int m = 0, j = lane; j < cols; ++m, j += 32) {
+            const int xx = xf + j;
+            cbits |= (xx >= 0 && xx < W && (!masked || cflag[j]) ? 1u : 0u) << m;
+        }
+
+        // kDirect: starts the copies of piece p's rows that lie in the
+        // frame (and are valid) into buffer p & 1, their columns off it (or
+        // invalid) the fill (the sums' zeros by the copies, the minima's
+        // +inf by stores).
+        auto stage = [&](int p) {
+            if (p >= pieces) return;
+            for (int i = warp; i < kPieceRows; i += kWarps) {
+                const int rel = p * kPieceRows + i, y = y0 - r + rel;
+                if (rel >= need || !row_in(rel)) continue;
+                const float* src =
+                    static_cast<const float*>(x) + frame + static_cast<long long>(y) * W;
+                float* dst = flt + (p & 1) * piece_floats + i * fstride;
+                for (int m = 0, j = lane; j < cols; ++m, j += 32) {
+                    const bool in = (cbits >> m) & 1u;
+                    if (kSum || in) cp_async4(dst + j, in ? src + xf + j : src, in ? 4 : 0);
+                    else dst[j] = INFINITY;
+                }
+            }
+        };
+
+        if constexpr (kDirect) {
+            stage(0);
+            cp_async_commit();
+            stage(1);
+            cp_async_commit();
+        }
+        if (masked) {                            // read after the pieces' barriers
+            if (warp == 0) warp_prefix_counts(cflag, ccnt, cols);
+            if (warp == 1) warp_prefix_counts(rflag, rcnt, need);
+        }
+        for (int p = 0; p < pieces; ++p) {
+            if constexpr (kDirect) cp_async_wait_group<1>();   // piece p landed
+            __syncthreads();                     // and every thread's copies; flt read
+            const float* piece = flt + (kDirect ? (p & 1) * piece_floats : 0);
+            if constexpr (!kDirect) {
+                // Piece p in float32 from device memory: a warp a row, its
+                // lanes along it; the loads of a warp's rows do not wait on
+                // each other.
+#pragma unroll
+                for (int i = warp; i < kPieceRows; i += kWarps) {
+                    const int rel = p * kPieceRows + i, y = y0 - r + rel;
+                    if (rel >= need || !row_in(rel)) continue;   // no runs
+                    const long long row = frame + static_cast<long long>(y) * W;
+                    float* dst = flt + i * fstride;
+#pragma unroll 4
+                    for (int m = 0, j = lane; j < cols; ++m, j += 32) {
+                        const bool in = (cbits >> m) & 1u;
+                        const long long e = row + (in ? xf + j : 0);
+                        float v;
+                        if constexpr (kMode == kDark)
+                            v = fminf(fminf(load_px(x, 3 * e, kDt, 1.0f),
+                                            load_px(x, 3 * e + 1, kDt, 1.0f)),
+                                      load_px(x, 3 * e + 2, kDt, 1.0f));
+                        else
+                            v = load_px(x, e, kDt, 1.0f);
+                        dst[j] = in ? v : fill;
+                    }
+                }
+                __syncthreads();                     // piece p in flt
+            }
+            // The horizontal runs: a warp's lanes are the piece's rows.
+            const int rel = p * kPieceRows + lane, c0 = warp * kRunX;
+            if (rel < need) {
+                float s[1][kRunX];
+                if (row_in(rel)) {
+                    const float* src = piece + lane * fstride + c0;
+                    if constexpr (kVanHerk)
+                        min_run<kRunX>([&](int k) { return src[k]; }, 2 * r, s[0]);
+                    else
+                        window_run<1, kRunX, kSum>(
+                            [&](int k, float (&v)[1]) { v[0] = src[k]; }, 2 * r, s);
+                } else {
+#pragma unroll
+                    for (int j = 0; j < kRunX; ++j) s[0][j] = fill;
+                }
+#pragma unroll
+                for (int j = 0; j < kRunX; ++j) hsum[rel * kSumStride + c0 + j] = s[0][j];
+            }
+            if constexpr (kDirect) {
+                __syncthreads();                     // buffer p & 1 read
+                stage(p + 2);
+                cp_async_commit();
+            }
+        }
+        __syncthreads();                             // every horizontal sum written
+
+        // The vertical runs: a warp's lanes are adjacent columns; output row
+        // o's window is input rows o .. o + 2r counted from y0 - r, output
+        // column c's input columns c .. c + 2r counted from xf.
+        const int c = threadIdx.x % kStripW, xo = x0 + c;
+        const float cnt_x = static_cast<float>(masked ? ccnt[c + 2 * r + 1] - ccnt[c]
+                                                      : win_count(xo, W, r));
+        for (int o0 = (threadIdx.x / kStripW) * kRunY; o0 < rows_out;
+             o0 += kRunY * (kStripThreads / kStripW)) {
+            const float* src = hsum + o0 * kSumStride + c;
+            float s[1][kRunY];
+            if constexpr (kVanHerk)
+                min_run<kRunY>([&](int k) { return src[k * kSumStride]; }, 2 * r, s[0]);
+            else
+                window_run<1, kRunY, kSum>(
+                    [&](int k, float (&v)[1]) { v[0] = src[k * kSumStride]; }, 2 * r, s);
+            if (xo >= W) continue;
+#pragma unroll
+            for (int q = 0; q < kRunY; ++q) {
+                const int o = o0 + q, y = y0 + o;
+                if (o >= rows_out) continue;         // past the band: not stored
+                float v = s[0][q];
+                if constexpr (kSum) {
+                    const float cnt_y = static_cast<float>(
+                        masked ? rcnt[o + 2 * r + 1] - rcnt[o] : win_count(y, H, r));
+                    v = kMasked ? __fdiv_rn(v, fmaxf(__fmul_rn(cnt_y, cnt_x), 1.0f))
+                                : __fdiv_rn(v, __fmul_rn(cnt_y, cnt_x));
+                }
+                store_px(out, frame + static_cast<long long>(y) * W + xo, kDt, v);
             }
         }
     };
-
-    if constexpr (kDirect) {
-        stage(0);
-        cp_async_commit();
-        stage(1);
-        cp_async_commit();
-    }
-    for (int p = 0; p < pieces; ++p) {
-        if constexpr (kDirect) cp_async_wait_group<1>();   // piece p landed
-        __syncthreads();                         // and every thread's copies; flt read
-        const float* piece = flt + (kDirect ? (p & 1) * piece_floats : 0);
-        if constexpr (!kDirect) {
-            // Piece p in float32 from device memory: a warp a row, its
-            // lanes along it; the loads of a warp's rows do not wait on
-            // each other.
-#pragma unroll
-            for (int i = warp; i < kPieceRows; i += kWarps) {
-                const int rel = p * kPieceRows + i, y = y0 - r + rel;
-                if (rel >= need || y < 0 || y >= H) continue;   // rows off the frame: no runs
-                const long long row = frame + static_cast<long long>(y) * W;
-                float* dst = flt + i * fstride;
-#pragma unroll 4
-                for (int j = lane; j < cols; j += 32) {
-                    const int xx = xf + j;
-                    const bool in = xx >= 0 && xx < W;
-                    const long long e = row + (in ? xx : 0);
-                    float v;
-                    if constexpr (kMode == kDark)
-                        v = fminf(fminf(load_px(x, 3 * e, kDt, 1.0f),
-                                        load_px(x, 3 * e + 1, kDt, 1.0f)),
-                                  load_px(x, 3 * e + 2, kDt, 1.0f));
-                    else
-                        v = load_px(x, e, kDt, 1.0f);
-                    dst[j] = in ? v : fill;
-                }
-            }
-            __syncthreads();                     // piece p in flt
-        }
-        // The horizontal runs: a warp's lanes are the piece's rows.
-        const int rel = p * kPieceRows + lane, y = y0 - r + rel, c0 = warp * kRunX;
-        if (rel < need) {
-            float s[1][kRunX];
-            if (y >= 0 && y < H) {
-                const float* src = piece + lane * fstride + c0;
-                if constexpr (kMode == kMin)
-                    min_run<kRunX>([&](int k) { return src[k]; }, 2 * r, s[0]);
-                else
-                    window_run<1, kRunX, kSum>([&](int k, float (&v)[1]) { v[0] = src[k]; },
-                                               2 * r, s);
-            } else {
-#pragma unroll
-                for (int j = 0; j < kRunX; ++j) s[0][j] = fill;
-            }
-#pragma unroll
-            for (int j = 0; j < kRunX; ++j) hsum[rel * kSumStride + c0 + j] = s[0][j];
-        }
-        if constexpr (kDirect) {
-            __syncthreads();                     // buffer p & 1 read
-            stage(p + 2);
-            cp_async_commit();
-        }
-    }
-    __syncthreads();                             // every horizontal sum written
-
-    // The vertical runs: a warp's lanes are adjacent columns; output row o's
-    // window is input rows o .. o + 2r counted from y0 - r.
-    const int c = threadIdx.x % kStripW, xo = x0 + c;
-    const float cnt_x = static_cast<float>(win_count(xo, W, r));
-    for (int o0 = (threadIdx.x / kStripW) * kRunY; o0 < rows_out;
-         o0 += kRunY * (kStripThreads / kStripW)) {
-        const float* src = hsum + o0 * kSumStride + c;
-        float s[1][kRunY];
-        if constexpr (kMode == kMin)
-            min_run<kRunY>([&](int k) { return src[k * kSumStride]; }, 2 * r, s[0]);
-        else
-            window_run<1, kRunY, kSum>(
-                [&](int k, float (&v)[1]) { v[0] = src[k * kSumStride]; }, 2 * r, s);
-        if (xo >= W) continue;
-#pragma unroll
-        for (int q = 0; q < kRunY; ++q) {
-            const int y = y0 + o0 + q;
-            float v = s[0][q];
-            if constexpr (kSum)
-                v = __fdiv_rn(v, __fmul_rn(static_cast<float>(win_count(y, H, r)), cnt_x));
-            if (o0 + q < rows_out) store_px(out, frame + static_cast<long long>(y) * W + xo, kDt, v);
-        }
-    }
+    if (kMasked && any_invalid) body(std::true_type{});
+    else body(std::false_type{});
 }
 
 constexpr int kTop1Loads = kTop1Items / 4;       // 4-pixel loads a thread
@@ -872,23 +993,25 @@ int with_list_size(int k, const F& f) {
 }
 
 template <int kMode, int kDt>
-int launch_strips(const void* x, void* out, int N, int H, int W, int r, void* stream) {
+int launch_strips(const void* x, void* out, int N, int H, int W, int r, void* stream,
+                  const uint8_t* vh, const uint8_t* vw) {
     int band = 0;
     cudaError_t e;
     const size_t smem = strips_opt_in<kMode, kDt>(H, r, band, e);
     if (e != cudaSuccess) return static_cast<int>(e);
     const dim3 grid((W + kStripW - 1) / kStripW, (H + band - 1) / band, N);
     strip_window_kernel<kMode, kDt><<<grid, kStripThreads, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(x, out, H, W, r,
-                                                                           band);
+                                      static_cast<cudaStream_t>(stream)>>>(
+        x, out, H, W, r, band, vh, vw);
     return static_cast<int>(cudaGetLastError());
 }
 
+// vh and vw: the masked forms' validity bytes (read by those only).
 template <int kMode>
 int launch_strips(const void* x, void* out, int N, int H, int W, int r, int dt,
-                  void* stream) {
-    return dt == 0 ? launch_strips<kMode, 0>(x, out, N, H, W, r, stream)
-                   : launch_strips<kMode, 1>(x, out, N, H, W, r, stream);
+                  void* stream, const uint8_t* vh = nullptr, const uint8_t* vw = nullptr) {
+    return dt == 0 ? launch_strips<kMode, 0>(x, out, N, H, W, r, stream, vh, vw)
+                   : launch_strips<kMode, 1>(x, out, N, H, W, r, stream, vh, vw);
 }
 
 // Blocks an SM of the strips on frames of H rows at radius r, from the
@@ -905,9 +1028,27 @@ int strips_occupancy(int H, int r, int* blocks) {
 }
 
 // The window mode of a strip kind: 0 the box filter, 1 the dark channel,
-// 2 the min filter.
+// 2 the min filter, 3 the masked box filter, 4 the masked min filter.
 int strip_mode(int kind) {
-    return kind == 1 ? kDark : kind == 2 ? kMin : kMean;
+    switch (kind) {
+        case 1: return kDark;
+        case 2: return kMin;
+        case 3: return kMaskedMean;
+        case 4: return kMaskedMin;
+        default: return kMean;
+    }
+}
+
+// f(std::integral_constant<int, mode>{}) for a window mode.
+template <class F>
+int with_mode(int mode, const F& f) {
+    switch (mode) {
+        case kDark: return f(std::integral_constant<int, kDark>{});
+        case kMin: return f(std::integral_constant<int, kMin>{});
+        case kMaskedMean: return f(std::integral_constant<int, kMaskedMean>{});
+        case kMaskedMin: return f(std::integral_constant<int, kMaskedMin>{});
+        default: return f(std::integral_constant<int, kMean>{});
+    }
 }
 
 }  // namespace
@@ -927,8 +1068,9 @@ int st_dark_band_rows() { return kDarkBandRows; }
 int st_min_band_rows() { return kMinBandRows; }
 int st_warp_topk_max() { return kWarpTopkMax; }
 
-// 1 where the strips take the box filter (kind 0), the dark channel (1) or
-// the min filter (2) at this radius and dtype, else 0.
+// 1 where the strips take the box filter (kind 0), the dark channel (1),
+// the min filter (2), the masked box filter (3) or the masked min filter
+// (4) at this radius and dtype, else 0.
 int st_strips_fit(int kind, int radius, int dt) {
     return strips_fit(strip_mode(kind), radius, dt) ? 1 : 0;
 }
@@ -936,29 +1078,29 @@ int st_strips_fit(int kind, int radius, int dt) {
 // *blocks = blocks an SM of the strips of a kind (as st_strips_fit) on
 // frames of H rows at this radius and dtype.
 int st_strips_occupancy(int kind, int radius, int dt, int H, int* blocks) {
-    switch (strip_mode(kind)) {
-        case kDark: return dt == 0 ? strips_occupancy<kDark, 0>(H, radius, blocks)
-                                   : strips_occupancy<kDark, 1>(H, radius, blocks);
-        case kMin: return dt == 0 ? strips_occupancy<kMin, 0>(H, radius, blocks)
-                                  : strips_occupancy<kMin, 1>(H, radius, blocks);
-        default: return dt == 0 ? strips_occupancy<kMean, 0>(H, radius, blocks)
-                                : strips_occupancy<kMean, 1>(H, radius, blocks);
-    }
+    return with_mode(strip_mode(kind), [&](auto M) {
+        constexpr int kMode = decltype(M)::value;
+        return dt == 0 ? strips_occupancy<kMode, 0>(H, radius, blocks)
+                       : strips_occupancy<kMode, 1>(H, radius, blocks);
+    });
 }
 
-// *blocks = blocks an SM of the row-window min filter (window_kernel<kMin>)
-// on frames of H rows at this radius.
-int st_window_occupancy(int radius, int H, int* blocks) {
+// *blocks = blocks an SM of the row window (window_kernel) of a kind (as
+// st_strips_fit) on frames of H rows at this radius.
+int st_window_occupancy(int kind, int radius, int H, int* blocks) {
     const size_t smem = static_cast<size_t>(min(kTileY + 2 * radius, H)) * kTileX * sizeof(float);
     if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t e = cudaSuccess;
-    if (smem > 48 * 1024)
-        e = cudaFuncSetAttribute(window_kernel<kMin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, window_kernel<kMin>,
-                                                          kTileX * kRowThreads, smem);
-    return static_cast<int>(e);
+    return with_mode(strip_mode(kind), [&](auto M) {
+        const auto kernel = window_kernel<decltype(M)::value>;
+        cudaError_t e = cudaSuccess;
+        if (smem > 48 * 1024)
+            e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     static_cast<int>(smem));
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                              kTileX * kRowThreads, smem);
+        return static_cast<int>(e);
+    });
 }
 
 // *blocks = blocks an SM of the top-k light's tile kernel at k: the warp
@@ -1014,18 +1156,34 @@ int st_box_filter_wide(const void* x, void* out, int N, int H, int W, int radius
 }
 
 // (N, H, W) in dt, (H,) and (W,) validity bytes -> (N, H, W) in dt, the
-// windowed min with invalid pixels +inf.
+// windowed min with invalid pixels +inf: the strips, where
+// st_strips_fit(4, radius, dt).
 int st_masked_min_filter(const void* x, const uint8_t* vh, const uint8_t* vw,
                          void* out, int N, int H, int W, int radius, int dt,
                          void* stream) {
+    return launch_strips<kMaskedMin>(x, out, N, H, W, radius, dt, stream, vh, vw);
+}
+
+// The same by window_kernel, for radii the strips do not take.
+int st_masked_min_filter_wide(const void* x, const uint8_t* vh, const uint8_t* vw,
+                              void* out, int N, int H, int W, int radius, int dt,
+                              void* stream) {
     return launch_window<kMaskedMin>(x, out, N, H, W, radius, dt, stream, vh, vw);
 }
 
 // (N, H, W) in dt, (H,) and (W,) validity bytes -> (N, H, W) in dt, the
-// windowed mean over the valid pixels (0 where a window has none).
+// windowed mean over the valid pixels (0 where a window has none): the
+// strips, where st_strips_fit(3, radius, dt).
 int st_masked_box_filter(const void* x, const uint8_t* vh, const uint8_t* vw,
                          void* out, int N, int H, int W, int radius, int dt,
                          void* stream) {
+    return launch_strips<kMaskedMean>(x, out, N, H, W, radius, dt, stream, vh, vw);
+}
+
+// The same by window_kernel, for radii the strips do not take.
+int st_masked_box_filter_wide(const void* x, const uint8_t* vh, const uint8_t* vw,
+                              void* out, int N, int H, int W, int radius, int dt,
+                              void* stream) {
     return launch_window<kMaskedMean>(x, out, N, H, W, radius, dt, stream, vh, vw);
 }
 

@@ -23,10 +23,17 @@ the top-k (``k > 1``) atmospheric light, and recovery. The fused
 transmission stage of the data-parallel sharded step
 (:func:`fused_transmission`, :func:`fused_transmission_lanes`) and its
 halo form for a spatial shard (:func:`fused_transmission_halo`) run the
-megakernel's passes under any mode but ``"ref"``; so do the spatial step's
-masked filters (:func:`masked_min_filter_2d`, :func:`masked_box_filter_2d`)
-and cross-shard merge (:func:`merge_topk_candidates`) their kernels of
-``kernels.staged``. The TPU tiling knobs
+megakernel's passes under any mode but ``"ref"``. The masked filters
+(:func:`masked_min_filter_2d`, :func:`masked_box_filter_2d` and the
+:func:`masked_guided_filter` over it) and the cross-shard merge
+(:func:`merge_topk_candidates`) run their kernels of ``kernels.staged``
+under any mode but ``"ref"`` (``core.spatial``'s plain filters there):
+the staged branch of the sharded steps (frame-sharded, lane-sharded
+without the lane-native megakernel, and spatial, under ``"auto"``,
+``"pallas"`` and the ``"fused"`` configs the megakernel does not cover)
+calls the masked filters once a step (a tile) for the min and six times
+for the guided filter's means, and the spatial steps the merge once a
+step. The TPU tiling knobs
 (``frames_per_block``, ``lane_major``, ``buffer_depth``, the tuning
 table) have no counterpart.
 """
@@ -121,15 +128,12 @@ def masked_box_filter_2d(x, valid, radius: int, valid_w=None,
                                         valid_w).reshape(x.shape)
 
 
-def guided_filter(guide, src, radius: int, eps: float, mode: Mode = "auto"):
-    """Gray-guide guided filter: six box filters and pointwise algebra."""
-    if resolve_mode(mode) == "ref":
-        return _ref.guided_filter(guide, src, radius, eps)
+def _guided(guide, src, eps: float, bf):
+    """The gray-guide guided filter's algebra over the mean ``bf``: six
+    means and the pointwise ops between them, in float32, cast back to
+    ``src``'s dtype."""
     g = guide.to(torch.float32)
     p = src.to(torch.float32)
-
-    def bf(v):
-        return box_filter_2d(v, radius, mode)
     mean_g = bf(g)
     mean_p = bf(p)
     corr_gp = bf(g * p)
@@ -139,6 +143,31 @@ def guided_filter(guide, src, radius: int, eps: float, mode: Mode = "auto"):
     a = cov_gp / (var_g + eps)
     b = mean_p - a * mean_g
     return (bf(a) * g + bf(b)).to(src.dtype)
+
+
+def guided_filter(guide, src, radius: int, eps: float, mode: Mode = "auto"):
+    """Gray-guide guided filter: six box filters and pointwise algebra."""
+    if resolve_mode(mode) == "ref":
+        return _ref.guided_filter(guide, src, radius, eps)
+    return _guided(guide, src, eps, lambda v: box_filter_2d(v, radius, mode))
+
+
+def masked_guided_filter(guide, src, valid, radius: int, eps: float,
+                         valid_w=None, mode: Mode = "auto"):
+    """:func:`guided_filter` on a halo-extended plane, its six means over
+    the valid rows [and columns] only (:func:`masked_box_filter_2d`); under
+    ``"ref"`` ``core.spatial.masked_guided_filter``."""
+    if resolve_mode(mode) == "ref":
+        from repro_torch.core import spatial
+        return spatial.masked_guided_filter(guide, src, valid, radius, eps,
+                                            valid_w)
+    # The masks as the kernels' bytes once, not once a mean.
+    h, w = src.shape[-2:]
+    valid = _staged.validity_bytes(valid, h, src.device)
+    valid_w = None if valid_w is None else _staged.validity_bytes(
+        valid_w, w, src.device)
+    return _guided(guide, src, eps, lambda v: masked_box_filter_2d(
+        v, valid, radius, valid_w, mode))
 
 
 def atmospheric_light(img, t_raw, k: int = 1, mode: Mode = "auto"):
@@ -323,7 +352,8 @@ def fused_transmission_halo(img: torch.Tensor, pre_ext: torch.Tensor,
 
 __all__ = ["MODES", "resolve_mode", "dark_channel", "min_filter_2d",
            "box_filter_2d", "masked_min_filter_2d", "masked_box_filter_2d",
-           "guided_filter", "atmospheric_light", "merge_topk_candidates",
+           "guided_filter", "masked_guided_filter", "atmospheric_light",
+           "merge_topk_candidates",
            "per_frame", "recover",
            "cap_depth", "fused_dehaze", "fused_dehaze_lanes",
            "fused_transmission", "fused_transmission_lanes",

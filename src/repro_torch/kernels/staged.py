@@ -20,10 +20,11 @@ and the spatially sharded step's kernels:
 
 For each, ``cuda_<name>`` launches the hand-written kernel on CUDA tensors
 (built at first use; a failed build or launch raises) and adds one to
-:data:`launches`; the dark channel, min filter and box filter past their
-window strips' radius, and the top-k light past the warp top-k's k, take
-a second route (the row window, the block rounds), chosen from the shape
-before the launch and also counted in :data:`wide_launches`;
+:data:`launches`; the window kernels (the dark channel, the min and box
+filters and their masked forms) past their window strips' radius, and the
+top-k light past the warp top-k's k, take a second route (the row window,
+the block rounds), chosen from the shape before the launch and also
+counted in :data:`wide_launches`;
 ``plain_<name>`` is a plain PyTorch version that follows
 the Pallas kernel's arithmetic (upcast to float32, compute, one cast at the
 end, the Pallas kernel's output dtype); ``<name>_op`` takes a CPU tensor
@@ -49,21 +50,22 @@ SPATIAL_KERNELS = ("masked_min_filter", "masked_box_filter", "merge_topk")
 launches: Dict[str, int] = {name: 0 for name in KERNELS + SPATIAL_KERNELS}
 
 #: Of those, the launches of the route past the new kernels' limits: the
-#: dark channel's, min filter's and box filter's row window kernel, for
-#: radii the strips do not take (:func:`strips_fit`), and the top-k light's
-#: block rounds, for k the warp top-k does not take
-#: (:func:`warp_topk_fits`).
+#: window kernels' row window, for radii the strips do not take
+#: (:func:`strips_fit`), and the top-k light's block rounds, for k the
+#: warp top-k does not take (:func:`warp_topk_fits`).
 wide_launches: Dict[str, int] = {"dark_channel": 0, "min_filter": 0,
-                                 "box_filter": 0, "atmolight_topk": 0}
+                                 "box_filter": 0, "atmolight_topk": 0,
+                                 "masked_min_filter": 0,
+                                 "masked_box_filter": 0}
 
 #: Output tile of a row-window block and the shared memory a block may use
 #: (``kTileX``/``kTileY``/``kMaxSmem`` in the CUDA sources, checked at load).
 TILE_X, TILE_Y, MAX_SMEM = 32, 64, 232448
 
-#: The window strips of the dark channel, the min filter and the box
-#: filter: output columns of a strip, input rows staged at a time, most
-#: output rows of a band (the box filter's, the dark channel's, the min
-#: filter's), the horizontal sums' row stride and the vertical run
+#: The window strips of the dark channel, the min and box filters and
+#: their masked forms: output columns of a strip, input rows staged at a
+#: time, most output rows of a band (the box filters', the dark channel's,
+#: the min filters'), the horizontal sums' row stride and the vertical run
 #: (``kStripW``/``kPieceRows``/``kBandRows``/``kDarkBandRows``/
 #: ``kMinBandRows`` in the CUDA source, checked at load;
 #: ``kSumStride``/``kRunY`` enter :func:`strip_smem`).
@@ -72,8 +74,9 @@ BAND_ROWS, DARK_BAND_ROWS, MIN_BAND_ROWS = 128, 64, 128
 _SUM_STRIDE, _RUN_Y = STRIP_W + 1, 8
 
 #: The kernels that run as window strips, and each one's code in
-#: ``st_strips_fit`` / ``st_strips_occupancy``.
-STRIP_KINDS = {"box_filter": 0, "dark_channel": 1, "min_filter": 2}
+#: ``st_strips_fit`` / ``st_strips_occupancy`` / ``st_window_occupancy``.
+STRIP_KINDS = {"box_filter": 0, "dark_channel": 1, "min_filter": 2,
+               "masked_box_filter": 3, "masked_min_filter": 4}
 
 #: Pixels a top-k tile and tiles a frame the top-k merge takes
 #: (``kTopkTile``/``kTopkMaxLists`` in ``csrc/dehaze_common.cuh``, checked
@@ -125,7 +128,9 @@ def _lib() -> ctypes.CDLL:
             "st_atmolight_topk_wide": [vp, vp, vp, vp, i, i, i, i, i, i, vp],
             "st_recover": [vp, vp, vp, vp, i, i, i, f, f, i, i, i, vp],
             "st_masked_min_filter": [vp, vp, vp, vp, i, i, i, i, i, vp],
+            "st_masked_min_filter_wide": [vp, vp, vp, vp, i, i, i, i, i, vp],
             "st_masked_box_filter": [vp, vp, vp, vp, i, i, i, i, i, vp],
+            "st_masked_box_filter_wide": [vp, vp, vp, vp, i, i, i, i, i, vp],
             "st_merge_topk": [vp, vp, vp, vp, vp, i, i, i, vp],
         }
         for name, args in sigs.items():
@@ -135,7 +140,7 @@ def _lib() -> ctypes.CDLL:
         lib.st_strips_fit.argtypes = [i, i, i]
         lib.st_strips_fit.restype = ctypes.c_int
         lib.st_strips_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
-        lib.st_window_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.st_window_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.st_topk_occupancy.argtypes = [i, ctypes.POINTER(i)]
         for name in ("st_strips_occupancy", "st_window_occupancy",
                      "st_topk_occupancy"):
@@ -200,10 +205,9 @@ def _check_frames(img: torch.Tensor) -> None:
 def _check_window(h: int, radius: int) -> None:
     """The radii the window kernels take: any whose row-window tile fits a
     block, min(TILE_Y + 2r, H) x TILE_X float32 (r up to 875 on frames of
-    1816 rows or more, any r on shorter ones). The dark channel, the min
-    filter and the box filter run the strips where :func:`strips_fit`,
-    which holds only for radii the row window also takes, and the row
-    window past them."""
+    1816 rows or more, any r on shorter ones). Each window kernel runs the
+    strips where :func:`strips_fit`, which holds only for radii the row
+    window also takes, and the row window past them."""
     if radius < 0:
         raise ValueError("window radius must be >= 0")
     if min(TILE_Y + 2 * radius, h) * TILE_X * 4 > MAX_SMEM:
@@ -215,23 +219,30 @@ def strip_smem(radius: int, kind: str, dtype: torch.dtype) -> int:
     """Shared memory of a window-strip block of the tallest band of
     ``kind`` (a key of :data:`STRIP_KINDS`; ``strip_smem`` in the CUDA
     source): a piece in float32 at an odd row stride (two for the float32
-    box and min filters, copied straight in while the other is used), then
-    the band's horizontal sums, with room for a last vertical run past the
-    band's end."""
-    band = {"box_filter": BAND_ROWS, "dark_channel": DARK_BAND_ROWS,
-            "min_filter": MIN_BAND_ROWS}[kind]
-    piece = 4 * PIECE_ROWS * ((STRIP_W + 2 * radius) | 1)
+    box and min filters and their masked forms, copied straight in while
+    the other is used), then the band's horizontal sums, with room for a
+    last vertical run past the band's end; the masked forms then the int
+    prefix counts of the strip's valid input columns and the band's valid
+    input rows and their validity bytes."""
+    band = (DARK_BAND_ROWS if kind == "dark_channel" else
+            MIN_BAND_ROWS if kind.endswith("min_filter") else BAND_ROWS)
+    cols, rows = STRIP_W + 2 * radius, band + 2 * radius
     pieces = 2 if kind != "dark_channel" and dtype == torch.float32 else 1
-    return pieces * piece + 4 * (band + 2 * radius + _RUN_Y - 1) * _SUM_STRIDE
+    smem = (pieces * 4 * PIECE_ROWS * (cols | 1)
+            + 4 * (rows + _RUN_Y - 1) * _SUM_STRIDE)
+    if kind.startswith("masked_"):
+        smem += 4 * (cols + 1) + 4 * (rows + 1) + cols + rows
+    return smem
 
 
 def strips_fit(kind: str, radius: int, dtype: torch.dtype) -> bool:
-    """Whether the window strips take the kernel ``kind`` (the dark
-    channel, the min filter or the box filter) at this radius on ``dtype``
-    planes (``st_strips_fit``): a block of the tallest band fits its shared
+    """Whether the window strips take the kernel ``kind`` (a key of
+    :data:`STRIP_KINDS`) at this radius on ``dtype`` planes
+    (``st_strips_fit``): a block of the tallest band fits its shared
     memory. From the shape alone, before any launch: r <= 175 (box and min
-    filters, float32), 243 (bfloat16), 265 (dark channel). Past it the
-    wrappers launch the row-window kernel."""
+    filters, float32), 243 (bfloat16), 170 and 236 (their masked forms),
+    265 (dark channel). Past it the wrappers launch the row-window
+    kernel."""
     return radius >= 0 and strip_smem(radius, kind, dtype) <= MAX_SMEM
 
 
@@ -251,9 +262,10 @@ def strips_occupancy(kind: str, radius: int, dtype: torch.dtype,
                       _DTYPES[dtype], h)
 
 
-def window_occupancy(radius: int, h: int) -> int:
-    """Blocks an SM of the row-window min filter on frames of ``h`` rows."""
-    return _occupancy("st_window_occupancy", radius, h)
+def window_occupancy(radius: int, h: int, kind: str = "min_filter") -> int:
+    """Blocks an SM of the row window of ``kind`` (a key of
+    :data:`STRIP_KINDS`) on frames of ``h`` rows."""
+    return _occupancy("st_window_occupancy", STRIP_KINDS[kind], radius, h)
 
 
 def topk_occupancy(k: int) -> int:
@@ -649,7 +661,11 @@ def validity_bytes(valid: Optional[torch.Tensor], n: int,
     return (valid.to(device) != 0).to(torch.uint8).contiguous()
 
 
-def _masked_window(name: str, x, valid, radius, valid_w):
+def _masked_window(name: str, x, valid, radius, valid_w,
+                   wide: Optional[bool] = None):
+    """Launch the masked window kernel ``name``: the strips, or the row
+    window where ``wide`` (by default where :func:`strips_fit` does not
+    hold)."""
     _check_masks(x, valid, valid_w)
     _check_cuda(x)
     dt = _dtype_code(x)
@@ -658,8 +674,10 @@ def _masked_window(name: str, x, valid, radius, valid_w):
     vh = validity_bytes(valid, h, x.device)
     vw = validity_bytes(valid_w, w, x.device)
     out = torch.empty_like(x)
+    if wide is None:
+        wide = not strips_fit(name, radius, x.dtype)
     _launch(name, x.data_ptr(), vh.data_ptr(), vw.data_ptr(), out.data_ptr(),
-            n, h, w, radius, dt)
+            n, h, w, radius, dt, wide=wide)
     return out
 
 
@@ -694,15 +712,38 @@ def cuda_masked_box_filter(x: torch.Tensor, valid: torch.Tensor, radius: int,
     return _masked_window("masked_box_filter", x, valid, radius, valid_w)
 
 
+def _valid_counts(valid: Optional[torch.Tensor], n: int, r: int,
+                  device) -> torch.Tensor:
+    """(n,) float32 counts of the valid entries in each clipped window of
+    radius r along one axis (None: all valid)."""
+    v = (torch.ones(n, device=device) if valid is None
+         else (valid.to(device) != 0).to(torch.float32))
+    return window_sum(v, r, -1)
+
+
 def plain_masked_box_filter(x: torch.Tensor, valid: torch.Tensor,
                             radius: int,
                             valid_w: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
-    """``core.spatial.masked_box_filter_2d``: the windowed sum of the valid
-    pixels over the windowed count of the 2-D mask (at least 1)."""
-    from repro_torch.core import spatial        # spatial imports this module
+    """The windowed mean over the valid pixels in the kernel's order: the
+    invalid pixels selected to +0 (``where``, not a multiply: they may hold
+    +-inf or NaN), direct sums horizontal then vertical, each ascending
+    from +0 (:func:`ascending_window_sum`), divided by max(rowcnt *
+    colcnt, 1) of the valid rows and columns: the kernel's result bit for
+    bit. ``core.spatial.masked_box_filter_2d`` (the ``"ref"`` route) is the
+    same function summed in another order."""
     _check_masks(x, valid, valid_w)
-    return spatial.masked_box_filter_2d(x, valid, radius, valid_w)
+    n, h, w = x.shape
+    rows = _valid_counts(valid, h, radius, x.device)
+    cols = _valid_counts(valid_w, w, radius, x.device)
+    mask = (valid.to(x.device) != 0)[:, None]
+    if valid_w is not None:
+        mask = mask & (valid_w.to(x.device) != 0)[None, :]
+    v = torch.where(mask, x.to(torch.float32),
+                    torch.zeros((), device=x.device))
+    s = ascending_window_sum(ascending_window_sum(v, radius, -1), radius, -2)
+    cnt = torch.clamp_min(rows[:, None] * cols[None, :], 1.0)
+    return (s / cnt).to(x.dtype)
 
 
 def masked_box_filter_op(x: torch.Tensor, valid: torch.Tensor, radius: int,

@@ -10,7 +10,8 @@ ranks in child processes (rendezvous through a file) and concatenates their
 blocks, as ``tests/test_distributed.py`` runs the JAX step on 8 host
 devices. The fused configs run the fused transmission stage (on the CPU,
 its plain version; the JAX side the Pallas kernel in interpret mode), the
-staged ones the masked filters of ``core.spatial``. Tolerances: steps J/t
+staged ones the masked filters through ``ops`` (on the CPU their plain
+versions; ``core.spatial``'s under ``"ref"``). Tolerances: steps J/t
 2e-4, A 1e-5, ``last_update`` exact (the reference's pipeline level); the
 two-rank step against the single-device step frames/t 2e-5, A 1e-5 (as
 ``tests/test_distributed.py``); masked filters 1e-6.
@@ -41,7 +42,7 @@ from repro_torch.core import (DehazeConfig, PlacementSpec, init_atmo_state,
                               init_atmo_state_lanes, make_dehaze_step,
                               make_multi_stream_step,
                               make_sharded_dehaze_step, make_step, spatial)
-from repro_torch.kernels import fused
+from repro_torch.kernels import fused, staged
 from repro_torch.launch.mesh import make_host_mesh
 
 from _torch_common import as_np, ramp_frames, wire
@@ -315,6 +316,70 @@ def test_sharded_step_matches_the_local_step(mesh):
         _compare_step(got, want, "float32")
 
 
+def _count_masked_calls(monkeypatch):
+    """Count the calls of the masked filters at each layer: ``ops`` (what
+    the staged branch calls), the kernels' ops of ``kernels.staged`` (their
+    plain versions here) and ``core.spatial``'s plain filters (the
+    ``"ref"`` route)."""
+    from repro_torch.kernels import ops, staged
+    calls = {}
+
+    def counted(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kw):
+            key = f"{module.__name__.rsplit('.', 1)[-1]}.{name}"
+            calls[key] = calls.get(key, 0) + 1
+            return fn(*args, **kw)
+        monkeypatch.setattr(module, name, wrapper)
+    for module, name in ((ops, "masked_min_filter_2d"), (ops, "masked_box_filter_2d"),
+                         (staged, "masked_min_filter_op"),
+                         (staged, "masked_box_filter_op"),
+                         (spatial, "masked_box_filter_2d"),
+                         (spatial, "masked_guided_filter")):
+        counted(module, name)
+    return calls
+
+
+# What one staged stage calls under each mode: one masked min filter and
+# the guided filter's six masked means, through ops.
+STAGED_CALLS = {
+    "pallas": {"ops.masked_min_filter_2d": 1, "ops.masked_box_filter_2d": 6,
+               "staged.masked_min_filter_op": 1, "staged.masked_box_filter_op": 6},
+    "ref": {"ops.masked_min_filter_2d": 1, "spatial.masked_guided_filter": 1,
+            "spatial.masked_box_filter_2d": 6}}
+
+
+@pytest.mark.parametrize("mode", ["pallas", "ref"])
+def test_staged_branch_takes_the_masked_filters_through_ops(mesh, mode,
+                                                            monkeypatch):
+    """The staged branch of the frame-sharded step and of one spatial
+    shard's stage (a corner tile, rows and columns masked) calls ``ops``'
+    masked min filter once and its masked means six times a stage: under
+    ``"pallas"`` the kernels' ops (the plain versions on the CPU), under
+    ``"ref"`` ``core.spatial``'s plain filters."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.pipeline import spatial_shard_stage
+    calls = _count_masked_calls(monkeypatch)
+    cfg = DehazeConfig(kernel_mode=mode, **STEP_CFG)
+    x = torch.from_numpy(ramp_frames(35, 4, h=16, w=20))
+    make_sharded_dehaze_step(cfg, mesh)(x, torch.arange(4, dtype=torch.int32),
+                                        init_atmo_state())
+    assert calls == STAGED_CALLS[mode]
+    calls.clear()
+    # The top-left tile of a 2 x 2 tiling, extended by its halo (zero and
+    # invalid above and left of the frame).
+    halo = 2 + 2 * 3
+    pre, guide = (torch.nn.functional.pad(p, (halo, 0, halo, 0))[
+        :, :8 + 2 * halo, :10 + 2 * halo]
+        for p in (alg.premap(x, torch.full((3,), 0.9), cfg), alg.luminance(x)))
+    valid_h = torch.arange(-halo, 8 + halo) >= 0
+    valid_w = torch.arange(-halo, 10 + halo) >= 0
+    t, *_ = spatial_shard_stage(cfg, x[:, :8, :10], x[:, :8, :10], pre, guide,
+                                valid_h, valid_w, 0, 0, 20, fused=False)
+    assert calls == STAGED_CALLS[mode] and t.shape == (4, 8, 10)
+
+
 @pytest.mark.parametrize("with_cols", [False, True])
 def test_masked_filters_match_jax(with_cols):
     rng = np.random.default_rng(33)
@@ -345,7 +410,9 @@ def test_masked_filters_match_jax(with_cols):
 def test_sharded_steps_on_the_card():
     """One NCCL rank: the frame- and lane-sharded fused steps (the
     transmission stage's tiled sequence, one a step) equal the
-    single-device fused steps."""
+    single-device fused steps; the staged frame-sharded step (one masked
+    min filter and six masked box filters a step, their strips) the
+    single-device staged step."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     cfg = DehazeConfig(kernel_mode="fused", **STEP_CFG)
@@ -366,6 +433,16 @@ def test_sharded_steps_on_the_card():
             x, ids.reshape(2, 4), init_atmo_state_lanes(2, "cuda"))
         want = make_multi_stream_step(cfg)(x, ids.reshape(2, 4),
                                            init_atmo_state_lanes(2, "cuda"))
+        _compare_step(got, want, "float32")
+        cfg = DehazeConfig(kernel_mode="pallas", **STEP_CFG)
+        staged.reset_launches()
+        got = make_sharded_dehaze_step(cfg, m)(x.reshape(8, 48, 64, 3), ids,
+                                               init_atmo_state("cuda"))
+        assert staged.launches["masked_min_filter"] == 1
+        assert staged.launches["masked_box_filter"] == 6
+        assert not any(staged.wide_launches.values())
+        want = make_dehaze_step(cfg)(x.reshape(8, 48, 64, 3), ids,
+                                     init_atmo_state("cuda"))
         _compare_step(got, want, "float32")
     finally:
         dist.destroy_process_group()

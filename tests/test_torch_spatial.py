@@ -582,9 +582,10 @@ def test_cpu_halo_wrappers_launch_no_kernel():
 
 @pytest.mark.cuda
 def test_spatial_kernels_match_plain_versions_on_the_card():
-    """B8a, B8b, B9 (its masked tiled sequence, equal to the ten masked
-    passes) and B10 against their plain versions on a corner tile (rows
-    and columns masked at both edges)."""
+    """B8a, B8b (the masked strips, equal to the row window they replaced
+    and to their plain versions with error 0), B9 (its masked tiled
+    sequence, equal to the ten masked passes) and B10 against their plain
+    versions on a corner tile (rows and columns masked at both edges)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     for plane_dtype in ("float32", "bfloat16"):
@@ -605,12 +606,29 @@ def test_spatial_kernels_match_plain_versions_on_the_card():
         assert float((got[0] - want[0]).abs().max()) <= 1e-3
         assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
         assert float((got[2] - want[2]).abs().max()) <= 1e-5
-        pre, vh, vw = cuda[1].float(), cuda[3], cuda[4]
-        for op, tol in ((staged.masked_min_filter_op, 0.0),
-                        (staged.masked_box_filter_op, 1e-5)):
-            g = op(pre, vh, 2, vw)
-            w = op(pre.cpu(), vh.cpu(), 2, vw.cpu())
-            assert float((g.cpu() - w).abs().max()) <= tol
+        # B8a and B8b: the masked strips equal their plain versions and the
+        # row window they replaced with error 0 (the mean bit for bit), at
+        # r in {0, 2, 7, 20} and on both sides of the strips' limit (the
+        # row window past it, by shape), the invalid pixels +-inf and NaN.
+        pre, vh, vw = cuda[1], cuda[3], cuda[4]
+        mask = vh.bool()[:, None] & vw.bool()[None, :]
+        specials = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                                device="cuda").to(pre.dtype)
+        bad = specials[torch.arange(mask.numel(), device="cuda") % 3].reshape(mask.shape)
+        pre = torch.where(mask, pre, bad).contiguous()
+        limit = max(r for r in range(400) if staged.strips_fit(
+            "masked_box_filter", r, pre.dtype))
+        for name in ("masked_min_filter", "masked_box_filter"):
+            for r in (0, 2, 7, 20, limit, limit + 1):
+                staged.reset_launches()
+                g = staged.PAIRS[name][0](pre, vh, r, vw)
+                torch.cuda.synchronize()
+                assert staged.wide_launches[name] == int(r > limit), (name, r)
+                old = staged._masked_window(name, pre, vh, r, vw, wide=True)
+                w = staged.PAIRS[name][1](pre.cpu(), vh.cpu(), r, vw.cpu())
+                assert torch.equal(g, old), (name, plane_dtype, r)
+                assert not bool(torch.isnan(g).any()), (name, plane_dtype, r)
+                assert torch.equal(g.cpu(), w), (name, plane_dtype, r)
     t, gidx, rgb, k = _merge_inputs("ties")
     args = [torch.from_numpy(a) for a in (t, gidx, rgb)]
     got = staged.cuda_merge_topk(*[a.cuda() for a in args], k)

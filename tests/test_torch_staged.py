@@ -131,13 +131,67 @@ def test_plain_box_filter_sums_in_the_kernel_order(radius):
                                   _ascending_box_filter(v, radius).view(np.uint32))
 
 
+def _ascending_masked_box_filter(v, vr, vc, r):
+    """The masked box filter as a per-pixel float32 loop: over the clipped
+    window, the valid pixels of each valid row added in ascending column
+    order from +0, then those row sums in ascending row order, divided by
+    max(valid rows x valid columns, 1); invalid pixels never read."""
+    f = np.float32
+    n, h, w = v.shape
+    out = np.empty_like(v)
+    for b, y, x in np.ndindex(n, h, w):
+        rows = [k for k in range(max(y - r, 0), min(y + r, h - 1) + 1) if vr[k]]
+        cols = [c for c in range(max(x - r, 0), min(x + r, w - 1) + 1) if vc[c]]
+        s = f(0.0)
+        for k in rows:
+            hs = f(0.0)
+            for c in cols:
+                hs = f(hs + v[b, k, c])
+            s = f(s + hs)
+        out[b, y, x] = s / max(f(len(rows)) * f(len(cols)), f(1.0))
+    return out
+
+
+@pytest.mark.parametrize("mask", ["corner", "rows", "all"])
+@pytest.mark.parametrize("radius", [0, 2, 7])
+def test_plain_masked_box_filter_sums_in_the_kernel_order(mask, radius):
+    """The plain masked box filter, which the masked strips must equal bit
+    for bit on the card, is the ascending per-pixel sum over the valid
+    pixels bit for bit: +inf, -inf and NaN in the invalid rows and
+    columns, -0.0 among the valid pixels, on a corner tile's mask (the
+    first rows and last columns invalid), a row-only mask (no column
+    validity) and an all-valid one; at r = 7 windows wider than the
+    9 x 11 plane."""
+    v = _maps(7, (2, 9, 11)) - 0.5
+    v[0, 5, :] = -0.0
+    vr, vc = np.ones(9, bool), np.ones(11, bool)
+    if mask == "corner":
+        vr[:3], vc[8:] = False, False
+    elif mask == "rows":
+        vr[[0, 4, 8]] = False
+    specials = np.array([np.inf, -np.inf, np.nan], np.float32)
+    v[:, ~vr, :] = specials[np.arange((~vr).sum()) % 3][None, :, None]
+    v[:, :, ~vc] = specials[np.arange((~vc).sum()) % 3][None, None, :]
+    tw = torch.from_numpy(vc) if mask == "corner" else None
+    got = staged.plain_masked_box_filter(torch.from_numpy(v),
+                                         torch.from_numpy(vr), radius,
+                                         tw).numpy()
+    want = _ascending_masked_box_filter(v, vr, vc, radius)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
 # Largest radius the window strips take: (kernel, dtype) -> r.
 STRIP_LIMITS = [("box_filter", torch.float32, 175),
                 ("box_filter", torch.bfloat16, 243),
                 ("dark_channel", torch.float32, 265),
                 ("dark_channel", torch.bfloat16, 265),
                 ("min_filter", torch.float32, 175),
-                ("min_filter", torch.bfloat16, 243)]
+                ("min_filter", torch.bfloat16, 243),
+                ("masked_box_filter", torch.float32, 170),
+                ("masked_box_filter", torch.bfloat16, 236),
+                ("masked_min_filter", torch.float32, 170),
+                ("masked_min_filter", torch.bfloat16, 236)]
 
 
 @pytest.mark.parametrize("kind,dtype,limit", STRIP_LIMITS)
@@ -145,7 +199,9 @@ def test_strips_fit_up_to_their_shared_memory(kind, dtype, limit):
     """The strips take a radius while a block of the tallest band fits its
     shared memory; past it the row window, which takes every radius the
     strips take at any height, so the strips narrow nothing. The serving
-    radii (r = 7, gf_r = 20) and He et al.'s gf_r = 60 take the strips."""
+    radii (r = 7, gf_r = 20) and He et al.'s gf_r = 60 take the strips.
+    The masked forms' counts and validity bytes take a little more than
+    the unmasked strips' memory."""
     assert staged.strip_smem(limit, kind, dtype) <= staged.MAX_SMEM \
         < staged.strip_smem(limit + 1, kind, dtype)
     assert staged.strips_fit(kind, limit, dtype)
@@ -153,6 +209,10 @@ def test_strips_fit_up_to_their_shared_memory(kind, dtype, limit):
     assert all(staged.strips_fit(kind, r, dtype) for r in (0, 7, 20, 60))
     for h in (1, 16, 481, 4096):
         staged._check_window(h, limit)
+    if kind.startswith("masked_"):             # + the counts and the bytes
+        cols, rows = staged.STRIP_W + 2 * limit, 128 + 2 * limit
+        plain = staged.strip_smem(limit, kind[len("masked_"):], dtype)
+        assert staged.strip_smem(limit, kind, dtype) - plain == 5 * (cols + rows) + 8
 
 
 class _FakeLib:
@@ -206,9 +266,31 @@ def test_window_wrappers_pick_the_strips_or_the_row_window_by_shape(
     assert staged.launches["dark_channel"] == 2
     assert staged.launches["min_filter"] == 6
     assert staged.wide_launches == {"box_filter": 2, "dark_channel": 1,
-                                    "min_filter": 2, "atmolight_topk": 0}
+                                    "min_filter": 2, "atmolight_topk": 0,
+                                    "masked_min_filter": 0,
+                                    "masked_box_filter": 0}
     staged.reset_launches()
     assert not any(staged.wide_launches.values())
+
+
+@pytest.mark.parametrize("name", ["masked_min_filter", "masked_box_filter"])
+def test_masked_wrappers_pick_the_strips_or_the_row_window_by_shape(
+        name, monkeypatch):
+    """The masked filters' wrappers launch the masked strips where
+    :func:`staged.strips_fit` and the row window past it, chosen from the
+    shape before the launch, and count both; the row window's launches
+    also in ``wide_launches``."""
+    calls = _fake_launches(monkeypatch, 7)
+    op = getattr(staged, f"{name}_op")
+    valid = torch.ones(900, dtype=torch.bool)
+    limit = {torch.float32: 170, torch.bfloat16: 236}
+    for dt, r in ((torch.float32, 0), (torch.float32, 20), (torch.float32, 170),
+                  (torch.float32, 171), (torch.bfloat16, 236),
+                  (torch.bfloat16, 237)):
+        op(_meta(2, 900, 8).to(dt), valid, r, torch.ones(8, dtype=torch.bool))
+        assert calls[-1] == (f"st_{name}" + ("_wide" if r > limit[dt] else ""), r)
+    assert staged.launches[name] == 6 and staged.wide_launches[name] == 2
+    assert sum(staged.launches.values()) == 6
 
 
 @pytest.mark.parametrize("k,wide", [(1, False), (4, False),
