@@ -159,21 +159,42 @@ any error:
    B10; the staged spatial tile stage on the corner tile with the masked
    strips and with the plain masked filters in turns, and its top-k
    candidates' sort alone;
-15. print ``{"kernels": [...]}`` (each kernel's launches on the path it
+15. the zero-copy overlapped serve tick on the fused and the default
+   (staged) path: ``serve_many`` of phase 3's 4 x 48 uint8 frames with
+   ``tick_overlap`` off and on, and of 3 streams of unequal lengths on 4
+   lanes (an idle lane, partial batches), and ``serve`` of one stream at
+   uint8 and at float32 (whose uploaded batches receive J), each
+   overlapped run equal to its blocking run bit for bit (J and the final
+   states), every tick overlapped, no skip or straggler, exact order, the
+   launches a tick of phases 3 and 7; the overlapped ``serve_many``
+   fetching fewer bytes where lanes hold padding; ``stage`` of 4 lanes
+   plus ``tick`` making no synchronising call; a ``torch.profiler`` trace
+   of 6 overlapped ticks with every frame H2D and J D2H of 1 MB or more on
+   a stream other than the kernels' (the share of their time that runs
+   beside a kernel printed); ``serve_many`` of 4 x 192 frames blocking,
+   overlapped, overlapped, blocking (fps, ms a tick, loop phases, D2H
+   bytes printed, not gated); and the serve CLI, ``REPRO_TICK_OVERLAP=1
+   python -m repro_torch.launch.serve --resolution 480p --streams 4
+   --lanes 4 --frames 64 --io-dtype uint8 --expect-overlap
+   --fail-on-skipped``, which must exit 0;
+16. print ``{"kernels": [...]}`` (each kernel's launches on the path it
    names: the megakernel's tiled passes on the fused serving path, the
    transmission stage's tiled passes on the sharded steps, the halo
    stage's on the spatial steps, B8a and B8b on the staged sharded and
    spatial steps, and the ten passes and the staged kernels' routes past
    their limits, ``staged.wide.*``, which run on none of them at the
-   serving shape), the card line, and last ``{"ok": true, "device":
-   {...}}``.
+   serving shape; the fused and staged serving kernels also with their
+   launches on phase 15's overlapped ``serve_many``), the card line, and
+   last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import dataclasses
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -698,10 +719,11 @@ def phase_serve(cfg, vids, per_tick: dict, label: str = ""):
 # ---------------------------------------------------------------------------
 
 def phase_throughput(cfg, vids, per_tick: dict, label: str = "",
-                     repeats: int = 4):
+                     repeats: int = 4, tick_overlap: bool = False):
     """``serve_many`` of 4 fresh streams, each its video ``repeats`` times
-    over, with a sink that only records the order. The step is the one
-    phase 3 (or 7) built and ran (the step cache is shared)."""
+    over, with a sink that only records the order, on the blocking or
+    (``tick_overlap``) the overlapped tick path. The step is the one phase
+    3 (or 7, or 15) built and ran (the step cache is shared)."""
     from repro_torch.stream import ElasticServer, StreamRequest
     order = {}
 
@@ -713,14 +735,20 @@ def phase_throughput(cfg, vids, per_tick: dict, label: str = "",
     reset_launches()
     rep = srv.serve_many(
         [StreamRequest(f"tput{i}", itertools.chain.from_iterable([v] * repeats))
-         for i, v in enumerate(vids)], n_lanes=4, sink=sink)
+         for i, v in enumerate(vids)], n_lanes=4, sink=sink,
+        tick_overlap=tick_overlap)
     path_launches(label + "serve_many (throughput)", rep.ticks, per_tick)
     check(rep.skipped == 0 and rep.frames == 4 * n,
           f"throughput serve: {rep.frames} frames, {rep.skipped} skipped")
+    check(rep.overlap_ticks == (rep.ticks if tick_overlap else 0)
+          and rep.stragglers == 0,
+          f"throughput serve: {rep.overlap_ticks} of {rep.ticks} ticks "
+          f"overlapped, {rep.stragglers} stragglers")
     for i in range(4):
         check(order[f"tput{i}"] == list(range(n)),
               f"tput{i}: frames not exactly once in order")
-    print(f"{label}serve_many throughput: {rep.frames} frames, {rep.ticks} ticks, "
+    print(f"{label}serve_many throughput"
+          f"{' (overlap)' if tick_overlap else ''}: {rep.frames} frames, {rep.ticks} ticks, "
           f"{rep.wall_s} s, {rep.wall_s / rep.ticks * 1e3} ms per tick, "
           f"aggregate {rep.fps} fps, d2h {rep.d2h_bytes} bytes, "
           f"loop phases (s) " + json.dumps(rep.phases), flush=True)
@@ -2522,6 +2550,245 @@ def phase_spatial_times():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the zero-copy overlapped serve tick
+# ---------------------------------------------------------------------------
+
+def serve_many_once(cfg, vids, per_tick: dict, label: str, overlap: bool,
+                    keep: bool = True):
+    """``serve_many`` of ``vids`` on 4 lanes, the blocking or (``overlap``)
+    the overlapped tick path, launch counters zeroed just before and read
+    just after: every frame once and in order, no skip, no straggler, every
+    tick on the path asked for. Returns the report, the delivered frames
+    (``keep``), the final store states and the launch counts."""
+    from repro_torch.stream import ElasticServer, StreamRequest
+    outs, order = {}, {}
+
+    def sink(sid, fid, frame):
+        order.setdefault(sid, []).append(fid)
+        if keep:
+            outs[(sid, fid)] = frame
+
+    srv = ElasticServer(cfg, batch=8, timeout_s=2.0)
+    reset_launches()
+    rep = srv.serve_many([StreamRequest(f"cam{i}", iter(v))
+                          for i, v in enumerate(vids)], n_lanes=4, sink=sink,
+                         tick_overlap=overlap)
+    counts = path_launches(label, rep.ticks, per_tick)
+    check(rep.skipped == 0 and rep.stragglers == 0,
+          f"{label}: {rep.skipped} skipped, {rep.stragglers} stragglers")
+    check(rep.overlap_ticks == (rep.ticks if overlap else 0),
+          f"{label}: {rep.overlap_ticks} of {rep.ticks} ticks overlapped")
+    for i, v in enumerate(vids):
+        check(order.get(f"cam{i}") == list(range(len(v))),
+              f"{label}: cam{i} frames not exactly once in order")
+    finals = {f"cam{i}": srv.store.get(f"cam{i}") for i in range(len(vids))}
+    return rep, outs, finals, counts
+
+
+def check_same_serves(label: str, blocking, overlapped) -> None:
+    """The overlapped serve's frames and final states against the blocking
+    one's: equal bit for bit (max error 0)."""
+    (_, outs_b, fin_b, _), (_, outs_o, fin_o, _) = blocking, overlapped
+    check(outs_b.keys() == outs_o.keys(), f"{label}: other frames delivered")
+    err = max(max_err(outs_o[k], outs_b[k]) for k in outs_b)
+    check(err == 0.0, f"{label}: overlapped J differs from blocking by {err}")
+    for sid, st in fin_b.items():
+        for f in ("A", "last_update", "initialized"):
+            check(torch.equal(getattr(fin_o[sid], f), getattr(st, f)),
+                  f"{label}: final {sid}.{f} differs")
+
+
+def check_overlap_sync_free(cfg, lane_native: bool) -> None:
+    """``stage`` of 4 lanes plus ``tick`` on the overlapped adapter make no
+    synchronising CUDA call (host frames and ids in pageable memory, the
+    state on the device, as the serve loop passes them)."""
+    from repro_torch.core import init_atmo_state_lanes
+    from repro_torch.stream.elastic import _cached_multi_step
+    from repro_torch.stream.iobuf import LaneTickStep
+    dev = torch.device("cuda")
+    adapter = LaneTickStep(_cached_multi_step(cfg, L, lane_native, dev,
+                                              donate="state"), L)
+    lanes = [torch.from_numpy(np.random.default_rng(5 + i).integers(
+        0, 256, (B, H, W, 3), dtype=np.uint8)) for i in range(L)]
+    ids = torch.arange(L * B, dtype=torch.int32).reshape(L, B)
+    state = init_atmo_state_lanes(L, "cuda")
+
+    def stage_and_tick(state):
+        for i, f in enumerate(lanes):
+            adapter.stage(i, f)
+        return adapter.tick(ids, state).state
+
+    state = stage_and_tick(state)               # buffers, pinned blocks
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stage_and_tick(state)
+    except RuntimeError as e:
+        fail(f"overlapped stage + tick synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def overlap_trace(cfg, vids, per_tick: dict) -> dict:
+    """A ``torch.profiler`` trace of 6 overlapped ticks (4 streams x 48
+    frames): the frames' H2D and J's D2H (every copy of 1 MB or more) must
+    run on streams other than the kernels' stream; returns the share of the
+    copies' time that runs while a kernel runs on the kernels' stream."""
+    from torch.profiler import ProfilerActivity, profile
+    trace = ROOT / "build" / "overlap_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rep, _, _, _ = serve_many_once(cfg, vids, per_tick,
+                                       "overlap (profiled) serve_many", True,
+                                       keep=False)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(kernels, "the profiler recorded no kernel")
+    by_stream = {}
+    for e in kernels:
+        st = e["args"].get("stream")
+        by_stream[st] = by_stream.get(st, 0.0) + e["dur"]
+    compute = max(by_stream, key=by_stream.get)
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and e["args"].get("bytes", 0) >= 1 << 20]
+    kinds = {k: [e for e in copies if k in e["name"]] for k in ("HtoD", "DtoH")}
+    for k, evs in kinds.items():
+        check(evs, f"no {k} copy of 1 MB or more in the overlapped trace")
+        on_compute = [e for e in evs if e["args"].get("stream") == compute]
+        check(not on_compute, f"{len(on_compute)} of {len(evs)} {k} copies "
+              f"on the kernels' stream {compute}")
+    def union(evs):
+        merged = []
+        for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in evs):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        return merged
+
+    merged = union([e for e in kernels if e["args"].get("stream") == compute])
+
+    def shared(a, b):
+        return sum(max(0.0, min(b, y) - max(a, x)) for x, y in merged)
+
+    # The device's idle share over the span of its work: neither a kernel
+    # nor a copy (of any size) running.
+    device = union(kernels + [e for e in events if e.get("cat") == "gpu_memcpy"])
+    span = device[-1][1] - device[0][0]
+    out = {"ticks": rep.ticks, "kernel_stream": compute,
+           "copy_streams": sorted({e["args"].get("stream") for e in copies}),
+           "kernels_us": sum(b - a for a, b in merged), "span_us": span,
+           "idle_share": 1.0 - sum(b - a for a, b in device) / span}
+    for k, evs in kinds.items():
+        total = sum(e["dur"] for e in evs)
+        out[k] = {"copies": len(evs), "bytes": sum(e["args"]["bytes"] for e in evs),
+                  "us": total,
+                  "concurrent_share": sum(shared(e["ts"], e["ts"] + e["dur"])
+                                          for e in evs) / total}
+    return out
+
+
+def phase_overlap(vids, paths) -> dict:
+    """Phase 15 (module docstring): ``paths`` maps a path's name to its
+    config and its per-tick launches. Returns the overlapped
+    ``serve_many``'s launch counts by path, the throughput turns, the
+    trace's copy shares and the CLI's tick-I/O line."""
+    from repro_torch.core.pipeline import donation_spec, resolve_lane_native
+    from repro_torch.stream import ElasticServer
+    res = {"launches": {}, "turns": {}}
+    edge = [vids[0], vids[1][:29], vids[2][:13]]   # an idle lane, partial batches
+    for name, (cfg, per_tick) in paths.items():
+        runs = [serve_many_once(cfg, vids, per_tick, f"{name} {tag} serve_many", ov)
+                for tag, ov in (("blocking", False), ("overlap", True))]
+        check_same_serves(f"{name} serve_many", *runs)
+        check(runs[1][0].d2h_bytes == runs[0][0].d2h_bytes,
+              f"{name}: full lanes fetched {runs[1][0].d2h_bytes} bytes "
+              f"overlapped, {runs[0][0].d2h_bytes} blocking")
+        res["launches"][name] = runs[1][3]
+        del runs
+        edges = [serve_many_once(cfg, edge, per_tick,
+                                 f"{name} {tag} serve_many (3 streams, 4 lanes)", ov)
+                 for tag, ov in (("blocking", False), ("overlap", True))]
+        check_same_serves(f"{name} serve_many, 3 streams on 4 lanes", *edges)
+        check(edges[1][0].d2h_bytes < edges[0][0].d2h_bytes,
+              f"{name}: the idle lane's and partial batches' padding was fetched")
+        del edges
+        # One stream through serve: uint8, and float32, whose uploaded
+        # batches receive J (donation_spec offers the frames).
+        for dtype, frames in (("uint8", vids[0]), ("float32", vids[0] / np.float32(255))):
+            cfg_d = dataclasses.replace(cfg, io_dtype=dtype)
+            check((0 in donation_spec(cfg_d)) == (dtype == "float32"),
+                  f"donation_spec({dtype}) = {donation_spec(cfg_d)}")
+            got = []
+            for ov in (False, True):
+                srv, outs = ElasticServer(cfg_d, batch=8, timeout_s=2.0), {}
+                reset_launches()
+                rep = srv.serve(iter(frames), stream_id="cam0", tick_overlap=ov,
+                                sink=lambda fid, f: outs.setdefault(fid, f))
+                path_launches(f"{name} serve {dtype}{' overlap' if ov else ''}",
+                              rep.ticks, per_tick)
+                check(rep.overlap_ticks == (rep.ticks if ov else 0)
+                      and rep.skipped == 0 and sorted(outs) == list(range(len(frames))),
+                      f"{name} serve {dtype} overlap={ov}: {rep.overlap_ticks} of "
+                      f"{rep.ticks} overlapped, {rep.skipped} skipped")
+                got.append((outs, srv.store.get("cam0")))
+            err = max(max_err(got[1][0][f], got[0][0][f]) for f in got[0][0])
+            check(err == 0.0 and torch.equal(got[1][1].A, got[0][1].A),
+                  f"{name} serve {dtype}: overlapped vs blocking error {err}")
+        check_overlap_sync_free(cfg, resolve_lane_native(cfg))
+        print(f"{name}: overlapped serve_many and serve equal the blocking ones "
+              "bit for bit (4 streams, 3 streams on 4 lanes, serve uint8 and "
+              "float32); stage + tick make no synchronising call", flush=True)
+        # Throughput in turns: blocking, overlap, overlap, blocking. The
+        # order-only sink drops each frame, so its pinned block goes back
+        # to the pinned pool: the second overlapped run must not grow it.
+        turns = []
+        for ov in (False, True, True, False):
+            r = phase_throughput(cfg, vids, per_tick, f"{name} ", tick_overlap=ov)
+            turns.append({"overlap": ov, "fps": r.fps,
+                          "ms_per_tick": r.wall_s / r.ticks * 1e3,
+                          "d2h_bytes": r.d2h_bytes, "phases": r.phases,
+                          "pinned_pool_bytes": torch.cuda.host_memory_stats().get(
+                              "allocated_bytes.current")})
+        pool = [t["pinned_pool_bytes"] for t in turns]
+        if None in pool:
+            print(f"{name}: pinned pool not measured (host_memory_stats keys "
+                  f"{sorted(torch.cuda.host_memory_stats())[:12]})", flush=True)
+        else:
+            check(pool[2] <= pool[1], f"{name}: the second overlapped run grew "
+                  f"the pinned pool from {pool[1]} to {pool[2]} bytes")
+            print(f"{name}: pinned pool after each turn {pool} bytes", flush=True)
+        res["turns"][name] = turns
+    # The spout alone: batching 4 x 192 frames as the throughput runs do.
+    from repro_torch.stream import Spout
+    t0 = time.perf_counter()
+    n_batches = sum(1 for v in vids for _ in Spout(
+        itertools.chain.from_iterable([v] * 4), batch=8))
+    res["spout_ms_per_tick"] = (time.perf_counter() - t0) * 1e3 * L / n_batches
+    print(f"spout batching alone: {res['spout_ms_per_tick']} ms a tick of "
+          f"{L} lanes", flush=True)
+    res["trace"] = overlap_trace(paths["fused"][0], vids, paths["fused"][1])
+    print("overlapped copies (fused, 6 ticks): " + json.dumps(res["trace"]), flush=True)
+
+    env = dict(os.environ, REPRO_TICK_OVERLAP="1",
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src")] + [
+                   p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--resolution", "480p",
+         "--streams", "4", "--lanes", "4", "--frames", "64", "--io-dtype",
+         "uint8", "--expect-overlap", "--fail-on-skipped"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    print(cli.stdout, end="", flush=True)
+    check(cli.returncode == 0, f"serve CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    res["cli"] = next(line for line in cli.stdout.splitlines()
+                      if line.startswith("tick_io:"))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2588,6 +2855,9 @@ def main() -> int:
     stamp("phase 13")
     sp_times = phase_spatial_times()
     stamp("phase 14")
+    ov = phase_overlap(vids, {"fused": (cfg, fused_per_tick()),
+                              "staged": (cfg_staged, STAGED_PER_TICK)})
+    stamp("phase 15")
 
     kernels = []
 
@@ -2707,6 +2977,22 @@ def main() -> int:
         entry(full, SOURCE, TILED_HALO_REPLACES[name], sp_times[full],
               sp_errs[name], sp_launches, None, sp_steps,
               "spatial steps (virtual tilings)")
+    # The overlapped serve_many's launches (phase 15) beside the blocking
+    # path's, on the fused and the default (staged) serving paths.
+    for e in kernels:
+        if e["path"] == "fused serve_many / serve":
+            e["launches_overlap"] = ov["launches"]["fused"][
+                e["name"].replace("fused_dehaze_lanes.", "")]
+        elif e["path"] == "staged serve_many / serve":
+            e["launches_overlap"] = ov["launches"]["staged"][e["name"]]
+    print("launches on the overlapped serve_many (phase 15): " + json.dumps(
+        {e["name"]: e["launches_overlap"] for e in kernels
+         if "launches_overlap" in e}), flush=True)
+    for name, turns in ov["turns"].items():
+        print(f"serve_many turns ({name}; blocking, overlap, overlap, blocking): "
+              f"fps {[t['fps'] for t in turns]}, ms per tick "
+              f"{[t['ms_per_tick'] for t in turns]}", flush=True)
+    print(f"serve CLI (overlap, 4 x 64 uint8 480p): {ov['cli']}", flush=True)
     print(f"serve_many aggregate fps: fused {rep.fps} ({rep.frames} frames, "
           f"{rep.wall_s} s), staged {s_rep.fps} ({s_rep.frames} frames, "
           f"{s_rep.wall_s} s); total {time.perf_counter() - t_start:.1f} s",

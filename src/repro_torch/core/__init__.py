@@ -4,8 +4,10 @@
 - ``env``        — validated ``REPRO_*`` accessors
 - ``algorithms`` — the three generic components + DCP/CAP instantiations
 - ``normalize``  — cross-frame atmospheric-light EMA normalization (§3.3)
+- ``physics``    — the scattering model (Eqs. 1, 2, 8) on tensors
 - ``placement``  — single, lane-batched and data-parallel placements
-- ``pipeline``   — single-stream, lane-batched and sharded dehaze steps
+- ``pipeline``   — single-stream, lane-batched and sharded dehaze steps,
+                   and the buffer-donation contract (``donation_spec``)
 - ``spatial``    — the masked filters of the sharded step
 """
 from repro_torch.core.config import DehazeConfig
@@ -16,7 +18,8 @@ from repro_torch.core.normalize import (AtmoState, ema_scan,
                                         pack_atmo_states, set_lane_state,
                                         state_from_lane_carry,
                                         unpack_atmo_states)
-from repro_torch.core.pipeline import (DehazeOutput, make_dehaze_step,
+from repro_torch.core.pipeline import (DehazeOutput, donation_spec,
+                                       make_dehaze_step,
                                        make_multi_stream_step,
                                        make_sharded_dehaze_step, make_step,
                                        resolve_device, resolve_lane_native)
@@ -28,6 +31,7 @@ __all__ = [
     "lane_carry", "pack_atmo_states", "unpack_atmo_states",
     "state_from_lane_carry", "get_lane_state", "set_lane_state",
     "DehazeOutput", "PlacementSpec", "make_step", "make_dehaze_step",
+    "donation_spec",
     "make_multi_stream_step", "make_sharded_dehaze_step", "resolve_device",
     "resolve_lane_native",
 ]

@@ -13,7 +13,7 @@ path runs all three components and the §3.3 EMA as the megakernel.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -97,10 +97,13 @@ def refine_transmission(frames: torch.Tensor, t_raw: torch.Tensor,
 
 
 def generate_haze_free(frames: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
-                       cfg: DehazeConfig) -> torch.Tensor:
+                       cfg: DehazeConfig,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Eq. 8 with the serving tone-curve epilogue; ``A`` as in
-    :func:`transmission_dcp` (per frame: (B, 3) or (L, B, 3))."""
-    return ops.recover(frames, t, A, cfg.t0, cfg.gamma, cfg.kernel_mode)
+    :func:`transmission_dcp` (per frame: (B, 3) or (L, B, 3)). J goes into
+    ``out`` where given (``frames`` itself under buffer donation)."""
+    return ops.recover(frames, t, A, cfg.t0, cfg.gamma, cfg.kernel_mode,
+                       out=out)
 
 
 # ---------------------------------------------------------------------------
@@ -134,13 +137,14 @@ def _fused_kw(cfg: DehazeConfig) -> dict:
 
 
 def fused_dehaze(frames: torch.Tensor, frame_ids: torch.Tensor,
-                 state: AtmoState, cfg: DehazeConfig):
+                 state: AtmoState, cfg: DehazeConfig,
+                 out: Optional[torch.Tensor] = None):
     """Components 1-3 + the §3.3 EMA as one fused op: (J, t, a_seq, new
     state). ``initialized`` flips only once a valid (id >= 0) frame was
-    folded in."""
+    folded in. J goes into ``out`` where given."""
     J, t, a_seq, a_fin, k_fin = ops.fused_dehaze(
         frames, frame_ids, state.A, state.last_update, state.initialized,
-        **_fused_kw(cfg))
+        out=out, **_fused_kw(cfg))
     ids = frame_ids.to(a_fin.device)
     new_state = AtmoState(
         A=a_fin, last_update=k_fin,
@@ -149,13 +153,15 @@ def fused_dehaze(frames: torch.Tensor, frame_ids: torch.Tensor,
 
 
 def fused_dehaze_lanes(frames: torch.Tensor, frame_ids: torch.Tensor,
-                       state: AtmoState, cfg: DehazeConfig):
+                       state: AtmoState, cfg: DehazeConfig,
+                       out: Optional[torch.Tensor] = None):
     """Lane-native fused path: L streams in one megakernel call.
     ``frames`` (L, B, H, W, 3), ``frame_ids`` (L, B), lane-batched
-    ``state``; per lane the same as :func:`fused_dehaze` on that lane."""
+    ``state``; per lane the same as :func:`fused_dehaze` on that lane. J
+    goes into ``out`` where given."""
     carry_f, carry_i = lane_carry(state)
     J, t, a_seq, cf, ci = ops.fused_dehaze_lanes(
-        frames, frame_ids, carry_f, carry_i, **_fused_kw(cfg))
+        frames, frame_ids, carry_f, carry_i, out=out, **_fused_kw(cfg))
     return J, t, a_seq, state_from_lane_carry(cf, ci)
 
 

@@ -6,6 +6,8 @@ selecting another code path.
 
   REPRO_KERNEL_MODE      execution substrate / pipeline mode override
   REPRO_LANE_NATIVE      force the lane-native megakernel on (1) or off (0)
+  REPRO_TICK_OVERLAP     force the zero-copy overlapped serve tick on (1) or
+                         off (0)
   REPRO_STEP_CACHE_SIZE  bounded LRU size of the serving step cache
 """
 from __future__ import annotations
@@ -40,6 +42,22 @@ def lane_native() -> Optional[bool]:
     return None if env == "" else env == "1"
 
 
+def tick_overlap() -> Optional[bool]:
+    """``REPRO_TICK_OVERLAP``: ``True`` (force the zero-copy overlapped
+    serve tick path), ``False`` (force the blocking path, the parity
+    oracle) or ``None`` when unset. Unknown values raise. The port
+    implements donation itself (``stream.iobuf.donation_supported``), so
+    a forced overlap is always honoured; ``launch/serve.py
+    --expect-overlap`` fails a serve in which a tick took the blocking
+    path all the same."""
+    env = os.environ.get("REPRO_TICK_OVERLAP", "")
+    if env not in ("", "0", "1"):
+        raise ValueError(
+            f"REPRO_TICK_OVERLAP={env!r} is not a valid override; expected "
+            "'0' (force blocking), '1' (force overlap) or unset")
+    return None if env == "" else env == "1"
+
+
 def step_cache_size(default: int = 8) -> int:
     """``REPRO_STEP_CACHE_SIZE``: max entries in the bounded LRU step
     cache. Must parse as a positive integer."""
@@ -58,4 +76,4 @@ def step_cache_size(default: int = 8) -> int:
 
 
 __all__ = ["SUBSTRATES", "KERNEL_MODES", "kernel_mode", "lane_native",
-           "step_cache_size"]
+           "tick_overlap", "step_cache_size"]

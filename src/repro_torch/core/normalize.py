@@ -40,6 +40,9 @@ from repro_torch.kernels.ref import ema_step
 BOOTSTRAP_ID = -(2 ** 30)
 
 
+_FIELDS = ("A", "last_update", "initialized")
+
+
 @dataclasses.dataclass
 class AtmoState:
     """Shared atmospheric-light state for one stream (or L lanes)."""
@@ -51,6 +54,27 @@ class AtmoState:
         return AtmoState(A=self.A.to(device),
                          last_update=self.last_update.to(device),
                          initialized=self.initialized.to(device))
+
+    def clone(self) -> "AtmoState":
+        return AtmoState(A=self.A.clone(),
+                         last_update=self.last_update.clone(),
+                         initialized=self.initialized.clone())
+
+    def consume(self) -> None:
+        """Mark this state donated (``core.pipeline.make_step(...,
+        donate=...)``): the step wrote the new state into its tensors, which
+        now belong to the step's ``out.state``; reading a field of this
+        object raises ``RuntimeError`` from here on."""
+        for name in _FIELDS:
+            self.__dict__.pop(name, None)
+
+    def __getattr__(self, name):
+        # Reached only where the normal lookup fails: a consumed state.
+        if name in _FIELDS:
+            raise RuntimeError(
+                f"AtmoState.{name} read after the state was donated to a "
+                "step; the step's out.state holds the new state")
+        raise AttributeError(name)
 
 
 def init_atmo_state(device="cpu") -> AtmoState:
@@ -164,14 +188,13 @@ def set_lane_state(packed: AtmoState, lane: int,
                    state: AtmoState) -> AtmoState:
     """A new lane-batched state with one lane replaced (admission: a new
     stream takes over a free lane). ``packed`` itself is not modified."""
-    out = AtmoState(A=packed.A.clone(),
-                    last_update=packed.last_update.clone(),
-                    initialized=packed.initialized.clone())
-    out.A[lane] = state.A.to(out.A.device, out.A.dtype)
-    out.last_update[lane] = state.last_update.to(out.last_update.device,
-                                                 out.last_update.dtype)
-    out.initialized[lane] = state.initialized.to(out.initialized.device,
-                                                 out.initialized.dtype)
+    out = packed.clone()
+    # A host state goes up without waiting for the device: CUDA copies a
+    # pageable source to staging memory before the call returns.
+    for name in _FIELDS:
+        dst = getattr(out, name)
+        dst[lane] = getattr(state, name).to(dst.device, dst.dtype,
+                                            non_blocking=True)
     return out
 
 

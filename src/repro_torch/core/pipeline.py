@@ -32,7 +32,13 @@ axis's group, :func:`spatial_shard_stage` computes the tile's t and its k
 best candidates with global indices (fused: the halo stage's kernels;
 staged: the masked filters' kernels), and the lists are all-gathered over the
 spatial groups and merged on every rank of the tile's frames. Recovery runs
-the plain chain, as in the reference. Buffer donation is not ported.
+the plain chain, as in the reference.
+
+**Buffer donation** (``make_step(..., donate=...)``, the serving tiers'
+contract; :func:`donation_spec`) is a buffer-reuse contract the port keeps
+itself, where the reference asks ``jax.jit`` for it: a donated state's
+tensors receive the new state in place, and J goes into a donated frame
+buffer. The sharded steps take no donation.
 """
 from __future__ import annotations
 
@@ -94,9 +100,52 @@ def _on(device: torch.device, frames, frame_ids, state: AtmoState):
             state.to(device))
 
 
+# ---------------------------------------------------------------------------
+# Buffer donation
+# ---------------------------------------------------------------------------
+
+# Step argument positions (frames, frame_ids, state): the donation argnums
+# index into this signature, as on the reference.
+_ARG_FRAMES, _ARG_IDS, _ARG_STATE = 0, 1, 2
+_DONATE = (False, True, "state")
+
+
+def donation_spec(cfg: DehazeConfig) -> Tuple[int, ...]:
+    """The step arguments a donating step may reuse, the reference's
+    argnums: the EMA state (2) always (``out.state`` has its shapes and
+    dtypes, and the serve loops thread it sequentially), the frame batch
+    (0) only where the wire dtype is the resolved J dtype (float32 in and
+    out, bfloat16 in and out): J then goes into the frames' buffer. A
+    uint8 stream, or an ``out_dtype`` other than the wire's, never offers
+    its frames."""
+    cfg = cfg.validate()
+    io = kref.as_torch_dtype(cfg.io_dtype)
+    if kref.resolve_out_dtype(io, cfg.out_dtype) == io:
+        return (_ARG_FRAMES, _ARG_STATE)
+    return (_ARG_STATE,)
+
+
+def _donate_state(given: AtmoState, used: AtmoState,
+                  new: AtmoState) -> AtmoState:
+    """Write ``new`` into ``used``'s tensors (the state the step read, on
+    its device) and return a state over them. Where ``used``'s tensors
+    are ``given``'s own (it lay on the step's device), ``given`` is
+    consumed."""
+    for name in ("A", "last_update", "initialized"):
+        dst, src = getattr(used, name), getattr(new, name)
+        if src is not dst:
+            dst.copy_(src)
+    if any(getattr(used, n) is getattr(given, n)
+           for n in ("A", "last_update", "initialized")):
+        given.consume()
+    return AtmoState(A=used.A, last_update=used.last_update,
+                     initialized=used.initialized)
+
+
 def make_step(cfg: DehazeConfig, placement: Optional[PlacementSpec] = None,
               mesh=None, *, device: DeviceLike = None,
-              associative: bool = True, lane_native: Optional[bool] = None):
+              associative: bool = True, lane_native: Optional[bool] = None,
+              donate=False):
     """Build the step a placement declares:
     ``step(frames, frame_ids, state) -> DehazeOutput``.
 
@@ -109,10 +158,35 @@ def make_step(cfg: DehazeConfig, placement: Optional[PlacementSpec] = None,
       lanes' (lane-sharded) state, and gets its block's output and the new
       state. The device is the mesh's; an explicit ``device`` of another
       type raises ``ValueError``.
+
+    ``donate`` is the buffer-reuse contract of the serving tiers (README,
+    "Tick I/O & overlap"):
+
+    - ``False`` (default): nothing the caller passed is written;
+    - ``"state"``: the step writes the new EMA state into the tensors of
+      the state it read, so ``out.state`` shares their storage (the same
+      ``data_ptr``) and the state chain allocates nothing from tick to
+      tick. A state that lay on the step's device is consumed: reading
+      its fields raises ``RuntimeError`` (reads dispatched before the
+      call are safe). A host state is copied up first and stays the
+      caller's;
+    - ``True``: the state as under ``"state"``, and J written into the
+      frame buffer the step read (on its device) where
+      :func:`donation_spec` offers the frames, with no other full-size
+      buffer for J.
+
+    The sharded placements take no donation and raise ``ValueError``.
     """
     placement = (placement if placement is not None
                  else PlacementSpec()).validate()
     cfg = cfg.validate()
+    if donate not in _DONATE:
+        raise ValueError(
+            f"donate must be False, True or 'state', got {donate!r}")
+    if donate is not False and placement.sharded:
+        raise ValueError(
+            "donate= is a serving-tier contract for local batches; "
+            f"mesh-sharded placement {placement} manages its own buffers")
     if placement.sharded:
         if mesh is None:
             raise ValueError(f"placement {placement} names mesh axes "
@@ -128,9 +202,23 @@ def make_step(cfg: DehazeConfig, placement: Optional[PlacementSpec] = None,
         dev = resolve_device(device)
         step = _make_local_step(cfg, placement, associative, lane_native)
 
-    def on_device(frames, frame_ids, state: AtmoState) -> DehazeOutput:
-        return step(*_on(dev, frames, frame_ids, state))
-    return on_device
+    if donate is False:
+        def on_device(frames, frame_ids, state: AtmoState) -> DehazeOutput:
+            return step(*_on(dev, frames, frame_ids, state))
+        return on_device
+
+    frames_donated = donate is True and _ARG_FRAMES in donation_spec(cfg)
+
+    def donating(frames, frame_ids, state: AtmoState) -> DehazeOutput:
+        x, ids, st = _on(dev, frames, frame_ids, state)
+        out = None
+        if (frames_donated and x.is_contiguous()
+                and x.dtype == kref.resolve_out_dtype(x.dtype, cfg.out_dtype)):
+            out = x
+        res = step(x, ids, st, out=out)
+        return dataclasses.replace(res, state=_donate_state(state, st,
+                                                             res.state))
+    return donating
 
 
 def _make_local_step(cfg: DehazeConfig, placement: PlacementSpec,
@@ -148,11 +236,14 @@ def _fused_covers(cfg: DehazeConfig) -> bool:
 
 
 def _make_single_step(cfg: DehazeConfig, associative: bool = True):
+    """``step(frames, frame_ids, state, out=None)``: J goes into ``out``
+    where given (so do the lane steps')."""
     if _fused_covers(cfg):
-        def fused_step(frames, frame_ids, state: AtmoState) -> DehazeOutput:
-            out, t, a_seq, new_state = alg.fused_dehaze(frames, frame_ids,
-                                                        state, cfg)
-            return DehazeOutput(out, t, a_seq.to(out.dtype), new_state)
+        def fused_step(frames, frame_ids, state: AtmoState,
+                       out=None) -> DehazeOutput:
+            J, t, a_seq, new_state = alg.fused_dehaze(frames, frame_ids,
+                                                      state, cfg, out=out)
+            return DehazeOutput(J, t, a_seq.to(J.dtype), new_state)
         return fused_step
     return _make_staged_step(cfg, associative=associative, lanes=False)
 
@@ -170,7 +261,7 @@ def _make_staged_step(cfg: DehazeConfig, associative: bool, lanes: bool):
     else:
         scan = ema_scan_associative if associative else ema_scan
 
-    def step(frames, frame_ids, state: AtmoState) -> DehazeOutput:
+    def step(frames, frame_ids, state: AtmoState, out=None) -> DehazeOutput:
         x, odt = _ingest(frames, cfg)
         # Component 1: transmission from the *saved* shared A (§3.3).
         t_raw = t_est(x, state.A, cfg)
@@ -182,9 +273,10 @@ def _make_staged_step(cfg: DehazeConfig, associative: bool, lanes: bool):
         if cfg.recompute_t_with_final_a and cfg.algorithm == "dcp":
             t_raw = t_est(x, a_seq, cfg)
         t = alg.refine_transmission(x, t_raw, cfg)
-        # Component 3: haze-free generation.
-        out = alg.generate_haze_free(x, t, a_seq, cfg)
-        return DehazeOutput(out.to(odt), t.to(odt), a_seq.to(odt), new_state)
+        # Component 3: haze-free generation (into ``out``, a buffer of
+        # J's dtype: the recovery runs in x's, which is then the same).
+        J = alg.generate_haze_free(x, t, a_seq, cfg, out=out)
+        return DehazeOutput(J.to(odt), t.to(odt), a_seq.to(odt), new_state)
 
     return step
 
@@ -228,10 +320,11 @@ def _make_lane_step(cfg: DehazeConfig, associative: bool = True,
                 "lane_native=True requires kernel_mode='fused' and a config "
                 "the megakernel covers (algorithms.supports_fused)")
 
-        def lane_step(frames, frame_ids, state: AtmoState) -> DehazeOutput:
-            out, t, a_seq, new_state = alg.fused_dehaze_lanes(
-                frames, frame_ids, state, cfg)
-            return DehazeOutput(out, t, a_seq.to(out.dtype), new_state)
+        def lane_step(frames, frame_ids, state: AtmoState,
+                      out=None) -> DehazeOutput:
+            J, t, a_seq, new_state = alg.fused_dehaze_lanes(
+                frames, frame_ids, state, cfg, out=out)
+            return DehazeOutput(J, t, a_seq.to(J.dtype), new_state)
         return lane_step
 
     if not _fused_covers(cfg):
@@ -241,11 +334,14 @@ def _make_lane_step(cfg: DehazeConfig, associative: bool = True,
     # megakernel's single-stream view, lane by lane.
     single = _make_single_step(cfg, associative=associative)
 
-    def per_lane_step(frames, frame_ids, state: AtmoState) -> DehazeOutput:
-        outs = [single(frames[i], frame_ids[i], get_lane_state(state, i))
+    def per_lane_step(frames, frame_ids, state: AtmoState,
+                      out=None) -> DehazeOutput:
+        outs = [single(frames[i], frame_ids[i], get_lane_state(state, i),
+                       out=None if out is None else out[i])
                 for i in range(frames.shape[0])]
         return DehazeOutput(
-            frames=torch.stack([o.frames for o in outs]),
+            frames=(torch.stack([o.frames for o in outs]) if out is None
+                    else out),
             transmission=torch.stack([o.transmission for o in outs]),
             atmo_light=torch.stack([o.atmo_light for o in outs]),
             state=pack_atmo_states([o.state for o in outs]))
@@ -500,6 +596,7 @@ def make_sharded_dehaze_step(cfg: DehazeConfig, mesh,
 
 
 __all__ = ["DehazeOutput", "PlacementSpec", "resolve_device", "make_step",
+           "donation_spec",
            "make_dehaze_step", "make_multi_stream_step",
            "make_sharded_dehaze_step", "resolve_lane_native",
            "spatial_shard_stage"]

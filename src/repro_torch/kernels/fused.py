@@ -321,6 +321,25 @@ def _check_cuda(*tensors: torch.Tensor) -> None:
             raise ValueError("kernel inputs must be contiguous")
 
 
+def _j_out(s: Static, device, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """J's (L, B, H, W, 3) buffer: ``out`` where given (checked: the shape,
+    the output dtype, contiguous, on ``device``; it may be the wire frames
+    themselves, each element read before it is written), else a new one."""
+    shape = (s.L, s.B, s.H, s.W, 3)
+    if out is None:
+        return torch.empty(shape, dtype=s.out_dtype, device=device)
+    if (tuple(out.shape) != shape or out.dtype != s.out_dtype
+            or out.device != torch.device(device) or not out.is_contiguous()):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on {out.device} "
+                         f"is not a contiguous {shape} {s.out_dtype} on {device}")
+    return out
+
+
+def _out_kw(out: Optional[torch.Tensor]) -> dict:
+    """``out=`` for a pass only where J has a given buffer."""
+    return {} if out is None else {"out": out}
+
+
 def _plane(s: Static, n: int = 0, dtype=torch.float32, device=None):
     shape = (s.n_frames, s.H, s.W) if n == 0 else (n, s.n_frames, s.H, s.W)
     return torch.empty(shape, dtype=dtype, device=device)
@@ -436,10 +455,11 @@ def cuda_box_rows2(ab, s: Static, counts=launches):
     return out
 
 
-def cuda_recover(img, t_raw, g, rows2, a_seq, s: Static, counts=launches):
+def cuda_recover(img, t_raw, g, rows2, a_seq, s: Static, counts=launches,
+                 out=None):
     _check_cuda(img, t_raw, a_seq)
     dev = img.device
-    J = torch.empty((s.L, s.B, s.H, s.W, 3), dtype=s.out_dtype, device=dev)
+    J = _j_out(s, dev, out)
     t = torch.empty((s.L, s.B, s.H, s.W), dtype=s.out_dtype, device=dev)
     p = s.params()
     _launch("recover", counts, img.data_ptr(), t_raw.data_ptr(), _ptr(g), _ptr(rows2),
@@ -591,11 +611,13 @@ def cuda_guided_ab(g, t_raw, s: Static, counts=launches):
     return ab
 
 
-def cuda_refine_recover(img, t_raw, g, ab, a_seq, s: Static, counts=launches):
-    """-> ``(J, t)`` in the output dtype; t is t_raw without refine."""
+def cuda_refine_recover(img, t_raw, g, ab, a_seq, s: Static, counts=launches,
+                        out=None):
+    """-> ``(J, t)`` in the output dtype; t is t_raw without refine. J goes
+    into ``out`` where given (:func:`_j_out`)."""
     _check_cuda(img, t_raw, a_seq)
     dev = img.device
-    J = torch.empty((s.L, s.B, s.H, s.W, 3), dtype=s.out_dtype, device=dev)
+    J = _j_out(s, dev, out)
     t = torch.empty((s.L, s.B, s.H, s.W), dtype=s.out_dtype, device=dev)
     p = s.params()
     _launch("refine_recover", counts, img.data_ptr(), t_raw.data_ptr(), _ptr(g),
@@ -727,7 +749,8 @@ def _refined_t(t_raw, g, rows2, s: Static):
     return torch.clamp(mean_a * g + mean_b, 0.0, 1.0)
 
 
-def plain_recover(img, t_raw, g, rows2, a_seq, s: Static):
+def plain_recover(img, t_raw, g, rows2, a_seq, s: Static, out=None):
+    J_out = None if out is None else _j_out(s, img.device, out)
     x = _frames(img, s)
     t = _refined_t(t_raw, g, rows2, s)
     tt = torch.clamp_min(t, s.t0)[..., None]
@@ -736,8 +759,10 @@ def plain_recover(img, t_raw, g, rows2, a_seq, s: Static):
     if s.gamma != 1.0:
         J = J ** s.gamma
     shape = (s.L, s.B, s.H, s.W)
-    return (J.reshape(shape + (3,)).to(s.out_dtype),
-            t.reshape(shape).to(s.out_dtype))
+    J = J.reshape(shape + (3,)).to(s.out_dtype)
+    if J_out is not None:
+        J = J_out.copy_(J)
+    return J, t.reshape(shape).to(s.out_dtype)
 
 
 def plain_tmap(t_raw, g, rows2, s: Static):
@@ -779,9 +804,9 @@ def plain_guided_ab(g, t_raw, s: Static):
     return plain_box_cols_ab(plain_box_rows4(g, t_raw, s), s)
 
 
-def plain_refine_recover(img, t_raw, g, ab, a_seq, s: Static):
+def plain_refine_recover(img, t_raw, g, ab, a_seq, s: Static, out=None):
     rows2 = plain_box_rows2(ab, s) if s.refine else None
-    return plain_recover(img, t_raw, g, rows2, a_seq, s)
+    return plain_recover(img, t_raw, g, rows2, a_seq, s, out=out)
 
 
 def plain_refine_tmap(t_raw, g, ab, s: Static):
@@ -813,21 +838,23 @@ TILED_TRANSMISSION_PLAIN_PASSES: Passes = {
 
 
 def run_tiled_passes(img, frame_ids, carry_f, carry_i, s: Static,
-                     passes: Passes = CUDA_PASSES):
+                     passes: Passes = CUDA_PASSES, out=None):
     """The megakernel's pass sequence, through ``passes``. Returns
-    ``(J, t, a_seq, carry_f', carry_i')``."""
+    ``(J, t, a_seq, carry_f', carry_i')``; J goes into ``out`` where given
+    (the wire frames too, where their dtype is J's: the last pass reads
+    each frame element before it writes J's)."""
     t_raw, g, keys = passes["tmap_tile"](img, carry_f, s)
     if s.topk > 1:
         keys = passes["topk_block"](t_raw, s)
     a_seq, cf, ci = passes["select_ema"](keys, img, frame_ids, carry_f,
                                          carry_i, s)
     ab = passes["guided_ab"](g, t_raw, s) if s.refine else None
-    J, t = passes["refine_recover"](img, t_raw, g, ab, a_seq, s)
+    J, t = passes["refine_recover"](img, t_raw, g, ab, a_seq, s, **_out_kw(out))
     return J, t, a_seq, cf, ci
 
 
 def run_passes(img, frame_ids, carry_f, carry_i, s: Static,
-               passes: Passes = CUDA_PASSES):
+               passes: Passes = CUDA_PASSES, out=None):
     """The ten-pass sequence the tiled passes replaced, through ``passes``:
     the same outputs as :func:`run_tiled_passes`, bit for bit."""
     pre, g = passes["premap"](img, carry_f, s)
@@ -838,7 +865,7 @@ def run_passes(img, frame_ids, carry_f, carry_i, s: Static,
     if s.refine:
         ab = passes["box_cols_ab"](passes["box_rows4"](g, t_raw, s), s)
         rows2 = passes["box_rows2"](ab, s)
-    J, t = passes["recover"](img, t_raw, g, rows2, a_seq, s)
+    J, t = passes["recover"](img, t_raw, g, rows2, a_seq, s, **_out_kw(out))
     return J, t, a_seq, cf, ci
 
 
@@ -1325,11 +1352,14 @@ def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
                        cap_w: Sequence[float] = ref.CAP_COEFFS,
                        refine: bool, gf_radius: int, gf_eps: float,
                        t0: float, gamma: float, period: int, lam: float,
-                       topk: int = 1, out_dtype: Optional[str] = None):
+                       topk: int = 1, out_dtype: Optional[str] = None,
+                       out: Optional[torch.Tensor] = None):
     """Lane-native dehaze of L streams: (L, B, H, W, 3) wire frames, (L, B)
     ids (< 0 = padding), carry rows ``carry_f (L, 3)`` f32 / ``carry_i
     (L, 2)`` int32 -> ``(J, t, a_seq (L, B, 3) f32, carry_f', carry_i')``
-    with J/t in ``ref.resolve_out_dtype(img.dtype, out_dtype)``.
+    with J/t in ``ref.resolve_out_dtype(img.dtype, out_dtype)``. J goes
+    into ``out`` where given, which may be ``img`` itself where the dtypes
+    agree (buffer donation).
 
     CPU tensors run the plain version; CUDA tensors run the kernels (built
     at first use) or raise: the tiled passes, or the ten passes where a
@@ -1345,7 +1375,9 @@ def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
     if carry_f.shape != (s.L, 3) or carry_i.shape != (s.L, 2):
         raise ValueError("carry rows must be (L, 3) and (L, 2)")
     if img.device.type == "cpu":
-        return ref.fused_dehaze_lanes(img, frame_ids, carry_f, carry_i, **kw)
+        return ref.fused_dehaze_lanes(img, frame_ids, carry_f, carry_i,
+                                      out=None if out is None
+                                      else _j_out(s, img.device, out), **kw)
     if img.device.type != "cuda":
         raise ValueError(f"unsupported device {img.device}")
     _check_cuda(img)
@@ -1354,12 +1386,12 @@ def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
     cf = carry_f.to(device=dev, dtype=torch.float32).contiguous()
     ci = carry_i.to(device=dev, dtype=torch.int32).contiguous()
     run = run_tiled_passes if tiled_fits(s) else run_passes
-    return run(img, ids, cf, ci, s)
+    return run(img, ids, cf, ci, s, out=out)
 
 
 def fused_dehaze(img: torch.Tensor, frame_ids: torch.Tensor,
                  A_saved: torch.Tensor, last_update: torch.Tensor,
-                 initialized: torch.Tensor, **kw):
+                 initialized: torch.Tensor, out=None, **kw):
     """Single stream, the L=1 view of :func:`fused_dehaze_lanes`:
     (B, H, W, 3) -> ``(J, t, a_seq (B, 3), A_fin (3,), k_fin ())``."""
     dev = img.device
@@ -1368,7 +1400,8 @@ def fused_dehaze(img: torch.Tensor, frame_ids: torch.Tensor,
                            initialized.to(device=dev, dtype=torch.int32)]
                           ).reshape(1, 2)
     J, t, a_seq, cf, ci = fused_dehaze_lanes(
-        img[None], frame_ids.reshape(1, -1), carry_f, carry_i, **kw)
+        img[None], frame_ids.reshape(1, -1), carry_f, carry_i,
+        out=None if out is None else out[None], **kw)
     return J[0], t[0], a_seq[0], cf[0], ci[0, 0]
 
 

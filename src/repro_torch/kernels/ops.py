@@ -208,18 +208,21 @@ def per_frame(A: torch.Tensor, lead: Tuple[int, ...]) -> torch.Tensor:
 
 
 def recover(img, t, A, t0: float = 0.1, gamma: float = 1.0,
-            mode: Mode = "auto"):
-    """(..., H, W, 3), (..., H, W), A per frame, lane or stream -> J."""
+            mode: Mode = "auto", out=None):
+    """(..., H, W, 3), (..., H, W), A per frame, lane or stream -> J in the
+    frames' dtype, into ``out`` where given (which may be ``img``)."""
     lead = tuple(img.shape[:-3])
     A = per_frame(A, lead)
     if resolve_mode(mode) == "ref":
-        out = _ref.recover(img, t, A, t0)
-        return out ** gamma if gamma != 1.0 else out
+        J = _ref.recover(img, t, A, t0)
+        J = J ** gamma if gamma != 1.0 else J
+        return J if out is None else out.copy_(J)
     flat_i, _ = _batched(img, 3)
     flat_t, _ = _batched(t, 2)
-    out = _staged.recover_op(flat_i, flat_t,
-                             A.reshape(-1, 3).contiguous(), t0, gamma)
-    return out.reshape(img.shape)
+    kw = {} if out is None else {"out": out.view(flat_i.shape)}
+    J = _staged.recover_op(flat_i, flat_t, A.reshape(-1, 3).contiguous(), t0,
+                           gamma, **kw)
+    return J.reshape(img.shape)
 
 
 def cap_depth(img, w0: float, w1: float, w2: float):
@@ -239,15 +242,18 @@ def fused_dehaze(img: torch.Tensor, frame_ids: torch.Tensor,
                  gf_radius: int, gf_eps: float, t0: float, gamma: float,
                  period: int, lam: float, topk: int = 1,
                  out_dtype: Optional[str] = "auto",
-                 mode: Mode = "auto") -> Tuple[torch.Tensor, ...]:
-    """Whole DCP/CAP chain: (..., H, W, 3) -> (J, t, a_seq, A, k)."""
+                 mode: Mode = "auto",
+                 out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """Whole DCP/CAP chain: (..., H, W, 3) -> (J, t, a_seq, A, k); J into
+    ``out`` where given (which may be ``img`` where the dtypes agree)."""
     m = resolve_mode(mode)
     flat, lead = _batched(img, 3)
     flat_ids = frame_ids.reshape(-1)
     kw = dict(algorithm=algorithm, radius=radius, omega=omega, beta=beta,
               cap_w=tuple(cap_w), refine=refine, gf_radius=gf_radius,
               gf_eps=gf_eps, t0=t0, gamma=gamma, period=period, lam=lam,
-              topk=topk, out_dtype=out_dtype)
+              topk=topk, out_dtype=out_dtype,
+              out=None if out is None else out.view(flat.shape))
     fn = _ref.fused_dehaze if m == "ref" else _fused.fused_dehaze
     j, t, a_seq, a_fin, k_fin = fn(flat, flat_ids, A_saved, last_update,
                                    initialized, **kw)
@@ -264,18 +270,21 @@ def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
                        gf_radius: int, gf_eps: float, t0: float,
                        gamma: float, period: int, lam: float, topk: int = 1,
                        out_dtype: Optional[str] = "auto",
-                       mode: Mode = "auto") -> Tuple[torch.Tensor, ...]:
+                       mode: Mode = "auto",
+                       out: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, ...]:
     """Lane-native fused dehaze: (L, B, H, W, 3), (L, B) ids and the
     (L, 3)/(L, 2) carry rows -> ``(J, t, a_seq (L, B, 3), carry_f',
     carry_i')``; per lane identical to :func:`fused_dehaze` on that lane,
-    padding lanes (all ids < 0) untouched."""
+    padding lanes (all ids < 0) untouched. J goes into ``out`` where given
+    (which may be ``img`` where the dtypes agree)."""
     if img.dim() != 5:
         raise ValueError(f"expected (L, B, H, W, 3) frames, got {tuple(img.shape)}")
     m = resolve_mode(mode)
     kw = dict(algorithm=algorithm, radius=radius, omega=omega, beta=beta,
               cap_w=tuple(cap_w), refine=refine, gf_radius=gf_radius,
               gf_eps=gf_eps, t0=t0, gamma=gamma, period=period, lam=lam,
-              topk=topk, out_dtype=out_dtype)
+              topk=topk, out_dtype=out_dtype, out=out)
     fn = _ref.fused_dehaze_lanes if m == "ref" else _fused.fused_dehaze_lanes
     return fn(img, frame_ids, carry_f, carry_i, **kw)
 

@@ -356,13 +356,15 @@ def fused_dehaze(img: torch.Tensor, frame_ids: torch.Tensor,
                  cap_w: Sequence[float] = CAP_COEFFS, refine: bool,
                  gf_radius: int, gf_eps: float, t0: float, gamma: float,
                  period: int, lam: float, topk: int = 1,
-                 out_dtype: Optional[str] = None):
+                 out_dtype: Optional[str] = None,
+                 out: Optional[torch.Tensor] = None):
     """Plain version of the single-stream megakernel: (B, H, W, 3) ->
     ``(J, t, a_seq (B, 3) f32, A_fin (3,), k_fin ())``.
 
     The pre-map of every frame uses the batch-entry saved A (§3.3);
     recovery uses the per-frame EMA output. J/t are cast to
-    :func:`resolve_out_dtype`."""
+    :func:`resolve_out_dtype`; J is copied into ``out`` where given (which
+    may be ``img`` itself: nothing reads the frames after J)."""
     odt = resolve_out_dtype(img.dtype, out_dtype)
     x = upcast_frames(img)
     t, _, cand = fused_transmission(
@@ -384,12 +386,13 @@ def fused_dehaze(img: torch.Tensor, frame_ids: torch.Tensor,
     J = torch.clamp((x - A_b) / tt + A_b, 0.0, 1.0)
     if gamma != 1.0:
         J = J ** gamma
-    return J.to(odt), t.to(odt), a_seq, A, k
+    J = J.to(odt) if out is None else out.copy_(J)
+    return J, t.to(odt), a_seq, A, k
 
 
 def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
                        carry_f: torch.Tensor, carry_i: torch.Tensor,
-                       **kw):
+                       out: Optional[torch.Tensor] = None, **kw):
     """Lane form of :func:`fused_dehaze`: (L, B, H, W, 3) frames, (L, B)
     ids, carry rows ``carry_f (L, 3)`` f32 / ``carry_i (L, 2)`` int32
     (last_update, initialized) -> ``(J, t, a_seq (L, B, 3), carry_f',
@@ -400,8 +403,9 @@ def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
         ci = carry_i[lane].to(torch.int32)
         j, t, a_seq, a_fin, k_fin = fused_dehaze(
             img[lane], frame_ids[lane], carry_f[lane], ci[0],
-            ci[1] != 0, **kw)
+            ci[1] != 0, out=None if out is None else out[lane], **kw)
         ids = frame_ids[lane].to(ci.device)
         inited = torch.maximum(ci[1], (ids >= 0).any().to(torch.int32))
         outs.append((j, t, a_seq, a_fin, torch.stack([k_fin, inited])))
-    return tuple(torch.stack(o) for o in zip(*outs))
+    res = tuple(torch.stack(o) for o in zip(*outs))
+    return res if out is None else (out,) + res[1:]

@@ -591,12 +591,27 @@ def _check_recover(img, t, A) -> None:
     _dtype_code(A)
 
 
+def _recover_out(img: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """J's buffer: ``out`` where given (the frames' shape and dtype,
+    contiguous, on their device; it may be the frames themselves, each
+    element read before it is written), else a new one."""
+    if out is None:
+        return torch.empty_like(img)
+    if (out.shape != img.shape or out.dtype != img.dtype
+            or out.device != img.device or not out.is_contiguous()):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on {out.device} "
+                         f"is not a contiguous {tuple(img.shape)} {img.dtype} "
+                         f"on {img.device}")
+    return out
+
+
 def cuda_recover(img: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
-                 t0: float = 0.1, gamma: float = 1.0) -> torch.Tensor:
+                 t0: float = 0.1, gamma: float = 1.0,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     _check_recover(img, t, A)
     _check_cuda(img, t, A)
     n, h, w, _ = img.shape
-    out = torch.empty_like(img)
+    out = _recover_out(img, out)
     # ctypes rounds t0 and gamma to float32, as PyTorch rounds a scalar
     # operand of a float32 operation.
     _launch("recover", img.data_ptr(), t.data_ptr(), A.data_ptr(),
@@ -606,24 +621,30 @@ def cuda_recover(img: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
 
 
 def plain_recover(img: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
-                  t0: float = 0.1, gamma: float = 1.0) -> torch.Tensor:
+                  t0: float = 0.1, gamma: float = 1.0,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Eq. 8 in float32, ``clip((I - A)/max(t, t0) + A, 0, 1) ** gamma``,
-    cast once to the frames' dtype."""
+    cast once to the frames' dtype (into ``out`` where given)."""
     _check_recover(img, t, A)
+    J_out = None if out is None else _recover_out(img, out)
     x = img.to(torch.float32)
     tt = torch.clamp_min(t.to(torch.float32), t0)[..., None]
     a = A.to(torch.float32)[:, None, None, :]
     out = torch.clamp((x - a) / tt + a, 0.0, 1.0)
     if gamma != 1.0:
         out = out ** gamma
-    return out.to(img.dtype)
+    return out.to(img.dtype) if J_out is None else J_out.copy_(out)
 
 
 def recover_op(img: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
-               t0: float = 0.1, gamma: float = 1.0) -> torch.Tensor:
-    """(N, H, W, 3), (N, H, W), (N, 3) -> (N, H, W, 3) in the frames' dtype."""
+               t0: float = 0.1, gamma: float = 1.0,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, H, W, 3), (N, H, W), (N, 3) -> (N, H, W, 3) in the frames' dtype,
+    into ``out`` where given (the frames themselves under buffer
+    donation)."""
+    kw = {} if out is None else {"out": out}
     return (cuda_recover if _on_kernel(img) else plain_recover)(
-        img, t, A, t0, gamma)
+        img, t, A, t0, gamma, **kw)
 
 
 # ---------------------------------------------------------------------------

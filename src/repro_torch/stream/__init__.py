@@ -1,16 +1,21 @@
 """Host-side streaming runtime (paper §3.2), PyTorch port: spout →
 dispatcher → monitor for one stream, and the multi-tenant lane scheduler
-(continuous batching across videos) behind ``ElasticServer``."""
+(continuous batching across videos) behind ``ElasticServer``, with the
+zero-copy overlapped tick I/O of ``iobuf``."""
 from repro_torch.stream.dispatcher import DispatchStats, StreamDispatcher
 from repro_torch.stream.elastic import ElasticServer
+from repro_torch.stream.iobuf import (CopyStreams, LaneTickStep,
+                                      TickBufferPool, donation_supported,
+                                      fetch_valid, is_overlap_step)
 from repro_torch.stream.monitor import DEADLINE_CLOCK, Monitor, MonitorStats
 from repro_torch.stream.scheduler import (MultiStreamScheduler, ServeReport,
-                                          StreamReport, StreamRequest,
-                                          fetch_valid)
+                                          StreamReport, StreamRequest)
 from repro_torch.stream.spout import FrameBatch, Spout, wire_frame
 from repro_torch.stream.state import StreamStateStore
 
 __all__ = ["Monitor", "MonitorStats", "DEADLINE_CLOCK", "Spout",
            "FrameBatch", "wire_frame", "StreamDispatcher", "DispatchStats",
            "ElasticServer", "ServeReport", "StreamReport", "StreamRequest",
-           "StreamStateStore", "MultiStreamScheduler", "fetch_valid"]
+           "StreamStateStore", "MultiStreamScheduler", "fetch_valid",
+           "CopyStreams", "LaneTickStep", "TickBufferPool",
+           "donation_supported", "is_overlap_step"]

@@ -9,9 +9,14 @@ by everything that shapes them. The server runs
 on CUDA unless it is built with ``device="cpu"``; without a card a CUDA
 server raises when it is built.
 
+``tick_overlap=True`` (or ``REPRO_TICK_OVERLAP=1``) takes the zero-copy
+tick path of ``stream.iobuf`` (README, "Tick I/O & overlap"): donated
+steps, uploads from pinned memory on a side stream, valid-only fetches on
+another. Its outputs equal the blocking path's bit for bit.
+
 Not ported yet (ROADMAP.md queue A): ``autoscale=True`` and eviction
-policies, ``n_hosts > 1`` (the fleet tier) and ``tick_overlap=True`` (the
-zero-copy tick path) raise ``NotImplementedError``.
+policies, and ``n_hosts > 1`` (the fleet tier) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from repro_torch.core.config import DehazeConfig
 from repro_torch.core.pipeline import (DeviceLike, make_step, resolve_device,
                                        resolve_lane_native)
 from repro_torch.core.placement import PlacementSpec
+from repro_torch.stream import iobuf
 from repro_torch.stream.dispatcher import StreamDispatcher
 from repro_torch.stream.monitor import DEADLINE_CLOCK, Monitor
 from repro_torch.stream.scheduler import (MultiStreamScheduler, ServeReport,
@@ -60,27 +66,32 @@ class _LRUStepCache:
 _STEP_CACHE = _LRUStepCache(maxsize=_env.step_cache_size())
 
 
-def _cached_step(cfg: DehazeConfig, device: torch.device):
+def _cached_step(cfg: DehazeConfig, device: torch.device, donate=False):
+    """Keyed by the donation contract too (``make_step``'s ``donate``): a
+    donating step is never handed to a caller that reuses its inputs."""
     return _STEP_CACHE.get(
-        ("single", cfg, str(device)),
-        lambda: make_step(cfg, PlacementSpec.single(), device=device))
+        ("single", cfg, str(device), donate),
+        lambda: make_step(cfg, PlacementSpec.single(), device=device,
+                          donate=donate))
 
 
 def _cached_multi_step(cfg: DehazeConfig, n_lanes: int, lane_native: bool,
-                       device: torch.device):
-    """Keyed by lane count and path too: a resize or a
-    ``REPRO_LANE_NATIVE`` toggle never reuses a stale step."""
+                       device: torch.device, donate=False):
+    """Keyed by lane count, path and donation contract too: a resize, a
+    ``REPRO_LANE_NATIVE`` toggle or the overlapped path never reuses a
+    stale step."""
     return _STEP_CACHE.get(
-        ("multi", cfg, n_lanes, lane_native, str(device)),
+        ("multi", cfg, n_lanes, lane_native, str(device), donate),
         lambda: make_step(cfg, PlacementSpec.lane_batched(), device=device,
-                          lane_native=lane_native))
+                          lane_native=lane_native, donate=donate))
 
 
-def _no_overlap(tick_overlap: Optional[bool]) -> None:
-    if tick_overlap:
-        raise NotImplementedError(
-            "the zero-copy overlapped tick path is not ported yet "
-            "(ROADMAP.md queue A, overlap/iobuf)")
+def _resolve_overlap(tick_overlap: Optional[bool]) -> bool:
+    """Does this serve call take the zero-copy overlapped tick path? The
+    explicit argument first, then ``REPRO_TICK_OVERLAP``; off when neither
+    is set (the blocking path is the default and the parity oracle)."""
+    req = tick_overlap if tick_overlap is not None else _env.tick_overlap()
+    return bool(req) and iobuf.donation_supported()
 
 
 class ElasticServer:
@@ -104,21 +115,25 @@ class ElasticServer:
               sink: Optional[Callable[[int, torch.Tensor], None]] = None,
               tick_overlap: Optional[bool] = None) -> ServeReport:
         """Serve one stream; ``sink(frame_id, frame)`` sees its frames in
-        order, each a CPU tensor."""
-        _no_overlap(tick_overlap)
+        order, each a CPU tensor. ``tick_overlap`` (``None``: follow
+        ``REPRO_TICK_OVERLAP``, default off) takes the zero-copy path: a
+        fully donated step, uploads and valid-only fetches on side
+        streams; the frames are bit-identical either way."""
+        overlap = _resolve_overlap(tick_overlap)
 
         def write(fid: int, payload: torch.Tensor) -> None:
             if sink is not None:
                 sink(fid, payload)
 
-        step = _cached_step(self.cfg, self.device)
+        step = _cached_step(self.cfg, self.device, donate=overlap)
         start = self.store.cursor(stream_id)
         monitor = Monitor(write, timeout_s=self.timeout_s, start_frame=start)
         spout = Spout(frames, batch=self.batch, start_frame=start,
                       stream_id=stream_id)
         dispatcher = StreamDispatcher(
             step, monitor, max_in_flight=self.max_in_flight,
-            n_workers=self.n_workers, worker_delay_s=self._worker_delay)
+            n_workers=self.n_workers, worker_delay_s=self._worker_delay,
+            overlap=overlap, device=self.device)
         mon_thread = threading.Thread(target=monitor.run, daemon=True)
         mon_thread.start()
         t0 = time.perf_counter()
@@ -136,6 +151,7 @@ class ElasticServer:
             per_stream={stream_id: rep}, frames=rep.frames,
             skipped=rep.skipped, wall_s=wall, n_lanes=self.n_workers,
             ticks=dispatcher.stats.batches,
+            overlap_ticks=dispatcher.stats.overlap_batches,
             d2h_bytes=dispatcher.stats.d2h_bytes,
             phases=dict(dispatcher.stats.phases))
 
@@ -153,12 +169,19 @@ class ElasticServer:
         dtype; ``n_lanes`` defaults to one lane per stream, and with fewer
         lanes the surplus queues in ``(priority, deadline, arrival)`` order
         and takes lanes as they free up. Per stream the outputs, EMA
-        trajectories and cursors match sequential :meth:`serve` calls."""
+        trajectories and cursors match sequential :meth:`serve` calls.
+
+        ``tick_overlap`` (``None``: follow ``REPRO_TICK_OVERLAP``, default
+        off) serves through one :class:`~repro_torch.stream.iobuf.
+        TickBufferPool` for this call: live lanes staged into a
+        device-resident buffer, the state donated tick to tick, valid-only
+        fetches on a side stream. Outputs and final states are
+        bit-identical to the blocking path's."""
         if autoscale or policy is not None:
             raise NotImplementedError(
                 "lane autoscaling and eviction policies are not ported yet "
                 "(ROADMAP.md queue A, autoscale/eviction)")
-        _no_overlap(tick_overlap)
+        overlap = _resolve_overlap(tick_overlap)
         if placement is None:
             placement = PlacementSpec(lanes=True, n_hosts=n_hosts)
         placement.validate()                 # n_hosts > 1 raises
@@ -174,8 +197,14 @@ class ElasticServer:
             return ServeReport(per_stream={}, frames=0, skipped=0,
                                wall_s=0.0, n_lanes=0, ticks=0)
         lanes = n_lanes if n_lanes is not None else len(streams)
-        step = _cached_multi_step(self.cfg, lanes,
-                                  resolve_lane_native(self.cfg), self.device)
+        lane_native = resolve_lane_native(self.cfg)
+
+        def step_for(n: int):
+            return _cached_multi_step(self.cfg, n, lane_native, self.device,
+                                      donate="state" if overlap else False)
+
+        step = (iobuf.TickBufferPool(step_for, device=self.device).adapter(
+            lanes) if overlap else step_for(lanes))
         scheduler = MultiStreamScheduler(
             step, self.store, n_lanes=lanes, batch=self.batch,
             timeout_s=self.timeout_s, max_in_flight=self.max_in_flight,

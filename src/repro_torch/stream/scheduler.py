@@ -17,8 +17,16 @@ A stream is admitted into the first free lane the moment one is free, in
 ``(priority, deadline, arrival)`` order; an exhausted stream is evicted at
 the tick it ends (state + cursor written back to the store) and its lane
 is reused in the same tick. Unoccupied lanes carry ``frame_id = -1``
-padding, which the masked EMA treats as identity. Completions copy only
-the valid frames of live lanes to the host (:func:`fetch_valid`).
+padding, which the masked EMA treats as identity.
+
+Two tick paths (README, "Tick I/O & overlap"). The blocking path, the
+parity oracle, stacks the lanes on the host, steps the whole batch, and
+fetches the whole of ``out.frames``, padding included, on the compute
+stream. The overlapped path (a step with ``stage``/``tick``,
+``stream.iobuf.LaneTickStep``) uploads only live lanes into a
+device-resident buffer before it waits for the in-flight window, runs the
+state-donated step on it, and fetches only the valid frames of live lanes
+on a side stream.
 
 This port serves at a fixed lane count: the reference's ``autoscaler=``
 and ``evict_tardy_after=`` raise ``NotImplementedError``.
@@ -36,17 +44,10 @@ import torch
 
 from repro_torch.core.normalize import (AtmoState, get_lane_state,
                                         init_atmo_state_lanes, set_lane_state)
+from repro_torch.stream.iobuf import is_overlap_step
 from repro_torch.stream.monitor import DEADLINE_CLOCK, Monitor
 from repro_torch.stream.spout import FrameBatch, Spout
 from repro_torch.stream.state import StreamStateStore
-
-
-def fetch_valid(frames: torch.Tensor, n_valid: int,
-                lane: Optional[int] = None) -> torch.Tensor:
-    """Valid-only device-to-host copy: ``frames[lane, :n_valid]`` (or
-    ``frames[:n_valid]``) as a CPU tensor; padding never crosses."""
-    view = frames if lane is None else frames[lane]
-    return view[:n_valid].cpu()
 
 
 @dataclasses.dataclass
@@ -92,16 +93,27 @@ class ServeReport:
     n_lanes: int
     ticks: int           # step calls issued
     admissions: int = 0
+    # Ticks that took the zero-copy overlapped path; a serve that expects
+    # overlap treats overlap_ticks < ticks as a failure
+    # (launch/serve.py --expect-overlap).
+    overlap_ticks: int = 0
     stragglers: int = 0  # completion threads still alive at shutdown
-    d2h_bytes: int = 0   # valid frames copied device -> host
-    # Serve-loop seconds by phase: "host_stage_s" (batch assembly),
-    # "device_step_s" (step dispatch), "deliver_s" (completions).
+    # Bytes copied device -> host by completions: valid-only slices on the
+    # overlapped path, whole batches (padding included) on the blocking
+    # path of serve_many, valid-only on serve's.
+    d2h_bytes: int = 0
+    # Serve-loop seconds by phase: "host_stage_s" (lane uploads or batch
+    # assembly), "device_step_s" (step dispatch), "deliver_s" (completions'
+    # D2H and monitor delivery, summed over their threads).
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def fps(self) -> float:
         """Throughput: total frames across streams per wall second."""
         return self.frames / self.wall_s if self.wall_s > 0 else 0.0
+
+    # The fleet-level name of the same number.
+    aggregate_fps = fps
 
 
 class _Lane:
@@ -244,6 +256,7 @@ class MultiStreamScheduler:
         self._reports: Dict[str, StreamReport] = {}
         self._report_lock = threading.Lock()
         self._admissions = 0
+        self._overlap_ticks = 0
         self._stragglers = 0
         self._d2h_bytes = 0
         self._phases: Dict[str, float] = {
@@ -272,8 +285,9 @@ class MultiStreamScheduler:
             frames=sum(r.frames for r in reports.values()),
             skipped=sum(r.skipped for r in reports.values()),
             wall_s=wall, n_lanes=self.n_lanes, ticks=ticks,
-            admissions=self._admissions, stragglers=self._stragglers,
-            d2h_bytes=self._d2h_bytes, phases=dict(self._phases))
+            admissions=self._admissions, overlap_ticks=self._overlap_ticks,
+            stragglers=self._stragglers, d2h_bytes=self._d2h_bytes,
+            phases=dict(self._phases))
 
     def _tick_loop(self, sink: Optional[MultiSink]) -> int:
         ticks = 0
@@ -300,9 +314,20 @@ class MultiStreamScheduler:
                         f"{tuple(pad_frames.shape)} {pad_frames.dtype}; all "
                         "multiplexed streams share (H, W), dtype and batch")
 
+            overlap = is_overlap_step(self._step)
             t_stage = self._clock()
-            frames = torch.stack([fb.frames if fb is not None else pad_frames
-                                  for fb in fbs])
+            if overlap:
+                # Upload only the live lanes into the device buffer (padding
+                # lanes keep stale rows: id-masked, never fetched). The
+                # copies run on the upload stream and the splices queue on
+                # the compute stream, so this overlaps the tick in flight,
+                # which is why it comes before the window's acquire.
+                for i, fb in enumerate(fbs):
+                    if fb is not None:
+                        self._step.stage(i, fb.frames)
+            else:
+                frames = torch.stack([fb.frames if fb is not None
+                                      else pad_frames for fb in fbs])
             ids = torch.stack([fb.frame_ids if fb is not None else pad_ids
                                for fb in fbs])
             self._phases["host_stage_s"] += self._clock() - t_stage
@@ -314,11 +339,21 @@ class MultiStreamScheduler:
 
             self._sem.acquire()
             t_step = self._clock()
-            out = self._step(frames, ids, packed)
+            if overlap:
+                # The state is donated into this tick: every read of
+                # `packed` (eviction snapshots, admissions) was enqueued
+                # on the compute stream before it.
+                out = self._step.tick(ids, packed)
+                done = self._step.copies.tick_done()
+                self._overlap_ticks += 1
+            else:
+                out = self._step(frames, ids, packed)
+                done = None
             packed = out.state                 # on the device, maybe in flight
             self._packed = packed
             self._phases["device_step_s"] += self._clock() - t_step
-            th = threading.Thread(target=self._complete, args=(metas, out),
+            th = threading.Thread(target=self._complete,
+                                  args=(metas, out, overlap, done),
                                   daemon=True)
             th.start()
             self._inflight.append(th)
@@ -326,15 +361,27 @@ class MultiStreamScheduler:
             ticks += 1
         return ticks
 
-    def _complete(self, metas, out) -> None:
+    def _complete(self, metas, out, overlap: bool, done) -> None:
+        """Deliver one tick; ``done`` is the overlapped tick's event."""
         try:
             t0 = self._clock()
             d2h = 0
-            for lane_idx, monitor, frame_ids, n_valid in metas:
-                lane_frames = fetch_valid(out.frames, n_valid, lane=lane_idx)
-                d2h += lane_frames.numel() * lane_frames.element_size()
-                for b in range(n_valid):
-                    monitor.put(int(frame_ids[b]), lane_frames[b])
+            if overlap:
+                # Valid-only fetches of the live lanes on the fetch stream.
+                fetched = self._step.copies.fetch(
+                    out.frames, [(m[0], m[3]) for m in metas], done)
+                for (_, monitor, frame_ids, n_valid), lane_frames in zip(
+                        metas, fetched):
+                    d2h += lane_frames.numel() * lane_frames.element_size()
+                    for b in range(n_valid):
+                        monitor.put(int(frame_ids[b]), lane_frames[b])
+            else:
+                # The oracle's fetch: the whole batch, padding included.
+                frames = out.frames.cpu()
+                d2h += frames.numel() * frames.element_size()
+                for lane_idx, monitor, frame_ids, n_valid in metas:
+                    for b in range(n_valid):
+                        monitor.put(int(frame_ids[b]), frames[lane_idx, b])
             with self._report_lock:
                 self._d2h_bytes += d2h
                 self._phases["deliver_s"] += self._clock() - t0

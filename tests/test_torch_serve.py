@@ -230,10 +230,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         srv.serve_many(reqs, n_hosts=2)
     with pytest.raises(NotImplementedError):
-        srv.serve_many(reqs, tick_overlap=True)
-    with pytest.raises(NotImplementedError):
-        srv.serve(iter(_videos([1])[0]), tick_overlap=True)
-    with pytest.raises(NotImplementedError):
         PlacementSpec(lanes=True, n_hosts=2).validate()
     # A mesh-sharded placement is a step over a mesh, not a serving tier.
     with pytest.raises(ValueError, match="make_step"):

@@ -1,0 +1,83 @@
+"""PyTorch port, the serve CLI and what it serves: the port's synthetic hazy
+video (``repro_torch.data``) equal to the JAX package's bit for bit, the
+scattering model (``repro_torch.core.physics``) within 1e-6 of the
+reference's, and ``repro_torch.launch.serve.main`` on the CPU: the
+overlapped multi-stream serve passes its ``--expect-overlap`` gate and the
+options not ported yet exit non-zero."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import physics as jax_physics
+from repro.data import HazeVideoSpec as JaxSpec
+from repro.data import generate_haze_video as jax_generate
+from repro_torch.core import physics
+from repro_torch.data import HazeVideoSpec, generate_haze_video
+from repro_torch.launch import serve
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("seed", [0, 101])
+def test_haze_video_matches_reference(seed):
+    kw = dict(height=24, width=32, n_frames=5, seed=seed, a_noise=0.01)
+    got, want = generate_haze_video(HazeVideoSpec(**kw)), jax_generate(JaxSpec(**kw))
+    for name in ("hazy", "clear", "t", "A"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    assert np.array_equal(np.stack(list(got)), want.hazy)
+
+
+def test_physics_matches_reference():
+    rng = np.random.default_rng(3)
+    clear = rng.random((2, 8, 10, 3)).astype(np.float32)
+    depth = (3 * rng.random((2, 8, 10))).astype(np.float32)
+    A = (0.6 + 0.4 * rng.random((2, 3))).astype(np.float32)
+    t = physics.transmission_from_depth(torch.from_numpy(depth), 1.3)
+    jt = jax_physics.transmission_from_depth(jnp.asarray(depth), 1.3)
+    np.testing.assert_allclose(t.numpy(), np.asarray(jt), atol=1e-6, rtol=0)
+    hazy = physics.synthesize_haze(torch.from_numpy(clear), t,
+                                   torch.from_numpy(A))
+    jhazy = jax_physics.synthesize_haze(jnp.asarray(clear), jt, jnp.asarray(A))
+    np.testing.assert_allclose(hazy.numpy(), np.asarray(jhazy), atol=1e-6,
+                               rtol=0)
+    for t0 in (physics.DEFAULT_T0, 0.3):
+        got = physics.recover(hazy, t, torch.from_numpy(A), t0)
+        want = jax_physics.recover(jhazy, jt, jnp.asarray(A), t0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                                   rtol=0)
+    # A shared (3,) light broadcasts over the frames.
+    one = physics.synthesize_haze(torch.from_numpy(clear), t,
+                                  torch.from_numpy(A[0]))
+    jone = jax_physics.synthesize_haze(jnp.asarray(clear), jt,
+                                       jnp.asarray(A[0]))
+    np.testing.assert_allclose(one.numpy(), np.asarray(jone), atol=1e-6,
+                               rtol=0)
+
+
+def test_cli_serves_overlapped_and_gates(monkeypatch, capsys):
+    monkeypatch.setenv("REPRO_TICK_OVERLAP", "1")
+    rc = serve.main(["--device", "cpu", "--resolution", "120p",
+                     "--streams", "2", "--lanes", "2", "--frames", "16",
+                     "--io-dtype", "uint8", "--expect-overlap",
+                     "--fail-on-skipped"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "tick_io: overlap_ticks=2/2 " in out
+    assert "parity(cam0): frames=16 maxerr=0.00e+00" in out
+    # The blocking path fails the gate.
+    monkeypatch.setenv("REPRO_TICK_OVERLAP", "0")
+    rc = serve.main(["--device", "cpu", "--resolution", "120p",
+                     "--frames", "8", "--expect-overlap"])
+    captured = capsys.readouterr()
+    assert rc == 1 and "tick_io: overlap_ticks=0/1 " in captured.out
+    assert "silent fallback" in captured.err
+
+
+@pytest.mark.parametrize("flags", [["--autoscale"], ["--hosts", "2"],
+                                   ["--tune"]])
+def test_cli_unported_options_exit_nonzero(flags, capsys):
+    rc = serve.main(["--device", "cpu"] + flags)
+    assert rc != 0
+    assert "not ported yet (ROADMAP.md queue A)" in capsys.readouterr().err
