@@ -177,14 +177,42 @@ any error:
    python -m repro_torch.launch.serve --resolution 480p --streams 4
    --lanes 4 --frames 64 --io-dtype uint8 --expect-overlap
    --fail-on-skipped``, which must exit 0;
-16. print ``{"kernels": [...]}`` (each kernel's launches on the path it
+16. the elastic serving tier on the fused and the default (staged) path,
+   blocking and overlapped, at the serving config (4 streams' uint8
+   480x640 frames, batch 8): an autoscaled ``serve_many`` (ladder (2, 4),
+   cap 4, ``dwell_up=1``, ``dwell_down=2``) of a ramp of 7 streams (5 of
+   48 frames, 2 of 192) bit-equal to a fixed 4-lane serve of the same
+   streams (every J by its digest, the final states, the cursors), with 2
+   or more switches, no warm failure, every frame once in order, no skip
+   or straggler, the warm-ups on a thread other than the serve thread,
+   and launches equal to (ticks + warm-up calls) x the launches a tick of
+   phases 3 and 7; a rung switch (grow and shrink, the scheduler's own
+   ``_maybe_autoscale`` over warmed adapters) making no synchronising
+   call; deadline-aware eviction on 1 lane (a tardy stream of 96 frames
+   whose deadline has passed, a waiter of 32, ``evict_tardy_after=2``):
+   one eviction, three admissions, every frame once in order, the waiter
+   done before the tardy stream's last frame, and the tardy stream's
+   final state bit-equal to an uninterrupted serve's; the fleet (8
+   streams of 48 frames on 2 hosts x 2 lanes, first-fit and hash) each
+   bit-equal to a one-host serve on 2 lanes, no migration, a spillover
+   under first-fit; then, printed and not gated, the aggregate fps of the
+   autoscaled serve beside the fixed-cap serve and of the 2 x 2 fleet
+   beside 1 x 4 in turns (fused, overlapped), the serve thread's seconds
+   in each switch and each rung's warm-up seconds; and the serve CLI as
+   two subprocesses that must exit 0, ``--resolution 480p --streams 6
+   --lanes 4 --autoscale --ladder 2,4 --ramp --expect-switches 2
+   --io-dtype uint8 --fail-on-skipped`` and ``--resolution 480p --streams
+   8 --hosts 2 --lanes 4 --frames 32 --expect-spillover 1
+   --fail-on-skipped``;
+17. print ``{"kernels": [...]}`` (each kernel's launches on the path it
    names: the megakernel's tiled passes on the fused serving path, the
    transmission stage's tiled passes on the sharded steps, the halo
    stage's on the spatial steps, B8a and B8b on the staged sharded and
    spatial steps, and the ten passes and the staged kernels' routes past
    their limits, ``staged.wide.*``, which run on none of them at the
    serving shape; the fused and staged serving kernels also with their
-   launches on phase 15's overlapped ``serve_many``), the card line, and
+   launches on phase 15's overlapped ``serve_many`` and on phase 16's
+   overlapped autoscaled and first-fit fleet serves), the card line, and
    last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -197,7 +225,9 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2789,6 +2819,280 @@ def phase_overlap(vids, paths) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the elastic serving tier (autoscale, eviction, fleet)
+# ---------------------------------------------------------------------------
+
+def recording_autoscalers():
+    """Make ``serve_many`` build autoscalers that record themselves (for
+    their warm-up logs and switches); returns the list they go into."""
+    from repro_torch.stream import autoscale, elastic
+    made = []
+
+    class Recording(autoscale.LaneAutoscaler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    elastic.LaneAutoscaler = Recording
+    return made
+
+
+def elastic_serve(cfg, streams, per_tick: dict, label: str, warm_calls=None,
+                  digests: bool = True, **kw):
+    """``serve_many`` of ``streams`` ((sid, frames, request kwargs)), the
+    launch counters zeroed just before and read just after: every frame
+    once and in order, float32 (H, W, 3) in the sink, no skip or
+    straggler, every tick on the tick path asked for (frames are compared
+    by their CRC-32, which every bit of a frame enters). ``warm_calls()``
+    gives the warm-up calls the run made, which launch the kernels of a
+    tick each. Returns the report, each frame's digest by (sid, fid), the
+    order of (sid, fid) deliveries, the final store states and cursors,
+    the launch counts and the server."""
+    from repro_torch.stream import ElasticServer, StreamRequest
+    outs, seq, bad = {}, [], []
+    lock = threading.Lock()
+
+    def sink(sid, fid, frame):
+        if tuple(frame.shape) != (H, W, 3) or frame.dtype != torch.float32:
+            bad.append(f"{sid}:{fid} output {tuple(frame.shape)} {frame.dtype}")
+        digest = zlib.crc32(frame.numpy()) if digests else None
+        with lock:
+            seq.append((sid, fid))
+            outs[(sid, fid)] = digest
+
+    srv = ElasticServer(cfg, batch=8, timeout_s=2.0)
+    reset_launches()
+    rep = srv.serve_many([StreamRequest(sid, iter(f), **rkw)
+                          for sid, f, rkw in streams], sink=sink, **kw)
+    extra = warm_calls() if warm_calls else 0
+    counts = path_launches(f"{label} ({rep.ticks} ticks, {extra} warm-ups)",
+                           rep.ticks + extra, per_tick)
+    check(not bad, f"{label}: " + "; ".join(bad[:5]))
+    check(rep.skipped == 0 and rep.stragglers == 0,
+          f"{label}: {rep.skipped} skipped, {rep.stragglers} stragglers")
+    overlap = bool(kw.get("tick_overlap"))
+    check(rep.overlap_ticks == (rep.ticks if overlap else 0),
+          f"{label}: {rep.overlap_ticks} of {rep.ticks} ticks overlapped")
+    lengths = {}
+    for sid, frames, _ in streams:
+        lengths[sid] = len(frames)
+        got = [fid for s, fid in seq if s == sid]
+        check(got == list(range(len(frames))),
+              f"{label}: {sid} frames not exactly once in order")
+    check(rep.frames == sum(lengths.values()), f"{label}: {rep.frames} frames")
+    finals = {sid: (srv.store.get(sid), srv.store.cursor(sid)) for sid in lengths}
+    return rep, outs, seq, finals, counts, srv
+
+
+def check_same_elastic(label: str, got, want) -> None:
+    """Two serves' frames (digests) and final states and cursors: equal."""
+    _, outs_g, _, fin_g, _, _ = got
+    _, outs_w, _, fin_w, _, _ = want
+    check(outs_g.keys() == outs_w.keys(), f"{label}: other frames delivered")
+    diff = [k for k in outs_w if outs_g[k] != outs_w[k]]
+    check(not diff, f"{label}: {len(diff)} frames differ, first {diff[:3]}")
+    for sid, (st, cur) in fin_w.items():
+        st_g, cur_g = fin_g[sid]
+        check(cur_g == cur, f"{label}: {sid} cursor {cur_g} != {cur}")
+        for f in ("A", "last_update", "initialized"):
+            check(torch.equal(getattr(st_g, f), getattr(st, f)),
+                  f"{label}: final {sid}.{f} differs")
+
+
+def check_switch_sync_free(cfg, lane_native: bool) -> None:
+    """The scheduler's rung switch on the overlapped path (``_maybe_autoscale``:
+    the lookup of the warmed rung's adapter, the state gathered into the
+    new rung's, the commit), grow then shrink, makes no synchronising CUDA
+    call and moves the live lanes' state rows bit for bit."""
+    from repro_torch.core import init_atmo_state_lanes
+    from repro_torch.stream import (LaneAutoscaler, MultiStreamScheduler,
+                                    ScalePolicy, StreamStateStore,
+                                    TickBufferPool)
+    from repro_torch.stream.elastic import _cached_multi_step
+    dev = torch.device("cuda")
+    pool = TickBufferPool(lambda n: _cached_multi_step(
+        cfg, n, lane_native, dev, donate="state"), device=dev)
+    scaler = LaneAutoscaler(pool.adapter, (2, 4), policy=ScalePolicy(
+        rungs=(2, 4), dwell_up=1, dwell_down=1))
+    sched = MultiStreamScheduler(scaler.acquire_initial(), StreamStateStore(),
+                                 n_lanes=2, autoscaler=scaler)
+    scaler.ensure_warming((B, H, W, 3), torch.uint8)
+    scaler.wait_warm(timeout=120.0, raise_on_error=True)
+    packed = init_atmo_state_lanes(2, dev)
+    packed.A.copy_(torch.tensor([[0.5, 0.6, 0.7], [0.8, 0.9, 1.0]]))
+    packed.last_update.copy_(torch.tensor([16, 24], dtype=torch.int32))
+    packed.initialized.fill_(True)
+    rows = packed.clone()
+    sched._lanes, sched._pending = ["a", "b"], ["queued"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grown = sched._maybe_autoscale(packed)
+        sched._lanes, sched._pending = [None, "b", None, None], []
+        shrunk = sched._maybe_autoscale(grown)
+    except RuntimeError as e:
+        fail(f"a rung switch synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check([(x["from"], x["to"]) for x in scaler.switches] == [(2, 4), (4, 2)],
+          f"switch check: switches {scaler.switches}")
+    check(sched._step is pool.adapter(2) and sched.n_lanes == 2,
+          "switch check: the shrink did not return to rung 2's adapter")
+    for f in ("A", "last_update", "initialized"):
+        check(torch.equal(getattr(grown, f)[:2], getattr(rows, f))
+              and torch.equal(getattr(shrunk, f)[0], getattr(rows, f)[1]),
+              f"switch check: {f} rows not moved bit for bit")
+
+
+def phase_elastic(vids, paths) -> dict:
+    """Phase 16 (module docstring): ``paths`` maps a path's name to its
+    config and its per-tick launches. Returns launch counts, switch and
+    warm-up times, the fps turns and the CLI lines."""
+    from repro_torch.core.pipeline import resolve_lane_native
+    from repro_torch.stream import DEADLINE_CLOCK, ScalePolicy
+    scalers = recording_autoscalers()
+    main_thread = threading.get_ident()
+    ramp = [(f"r{i}", vids[i % 4], {}) for i in range(5)] + [
+        (f"r{i}", np.concatenate([vids[i % 4]] * 4), {}) for i in (5, 6)]
+    policy = ScalePolicy(rungs=(2, 4), dwell_up=1, dwell_down=2,
+                         evict_tardy_after=None)
+    fleet = [(f"f{i}", vids[i % 4], {}) for i in range(8)]
+    res = {"launches": {}, "switches": [], "warm": [], "turns": {}}
+    t_lap = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"phase 16: {what} took {now - t_lap[0]:.1f} s", flush=True)
+        t_lap[0] = now
+
+    def warm_calls():
+        return sum(len(sc.warm_log) for sc in scalers)
+
+    for name, (cfg, per_tick) in paths.items():
+        for ov in (False, True):
+            tag = f"{name} {'overlap' if ov else 'blocking'}"
+            # The autoscaled ramp against the fixed-cap serve.
+            fixed = elastic_serve(cfg, ramp, per_tick, f"{tag} fixed 4-lane ramp",
+                                  n_lanes=4, tick_overlap=ov)
+            scalers.clear()
+            auto = elastic_serve(cfg, ramp, per_tick, f"{tag} autoscaled ramp",
+                                 warm_calls=warm_calls, n_lanes=4,
+                                 autoscale=True, policy=policy, tick_overlap=ov)
+            rep = auto[0]
+            check(rep.ladder_switches >= 2 and rep.warm_failures == 0
+                  and rep.n_lanes == 2,
+                  f"{tag}: {rep.ladder_switches} switches, {rep.warm_failures} "
+                  f"warm failures, {rep.n_lanes} lanes at the end")
+            logs = [e for sc in scalers for e in sc.warm_log]
+            check(logs and all(e["thread"] != main_thread for e in logs),
+                  f"{tag}: warm-ups {logs} not off the serve thread")
+            check_same_elastic(f"{tag} autoscaled vs fixed", auto, fixed)
+            res["switches"] += [dict(x, path=tag) for sc in scalers
+                                for x in sc.switches]
+            res["warm"] += [{"path": tag, "rung": e["rung"], "s": e["s"]}
+                            for e in logs]
+            if ov:
+                res["launches"][name, "autoscale"] = auto[4]
+            del fixed, auto
+            # Deadline-aware eviction on one lane.
+            tardy = np.concatenate([vids[0], vids[0]])
+            ev = elastic_serve(
+                cfg, [("tardy", tardy, {"deadline": DEADLINE_CLOCK() - 1.0}),
+                      ("waiter", vids[1][:32], {})], per_tick,
+                f"{tag} eviction", digests=False, n_lanes=1,
+                policy=ScalePolicy(evict_tardy_after=2), tick_overlap=ov)
+            rep, _, seq = ev[:3]
+            check(rep.evictions == 1 and rep.admissions == 3,
+                  f"{tag} eviction: {rep.evictions} evictions, "
+                  f"{rep.admissions} admissions")
+            check(seq.index(("waiter", 31)) < seq.index(("tardy", 95)),
+                  f"{tag} eviction: the waiter finished after the tardy stream")
+            solo = elastic_serve(cfg, [("tardy", tardy, {})], per_tick,
+                                 f"{tag} uninterrupted", digests=False,
+                                 n_lanes=1, tick_overlap=ov)
+            for f in ("A", "last_update", "initialized"):
+                check(torch.equal(getattr(ev[3]["tardy"][0], f),
+                                  getattr(solo[3]["tardy"][0], f)),
+                      f"{tag} eviction: the tardy stream's final {f} differs")
+            # The fleet against one host.
+            one = elastic_serve(cfg, fleet, per_tick, f"{tag} 1 host x 2 lanes",
+                                n_lanes=2, tick_overlap=ov)
+            for pol in ("first-fit", "hash"):
+                got = elastic_serve(cfg, fleet, per_tick,
+                                    f"{tag} fleet 2 x 2 ({pol})", n_lanes=2,
+                                    n_hosts=2, placement_policy=pol,
+                                    tick_overlap=ov)
+                rep = got[0]
+                check(rep.n_hosts == 2 and rep.migrations == 0
+                      and (pol != "first-fit" or rep.spillovers >= 1),
+                      f"{tag} fleet ({pol}): {rep.migrations} migrations, "
+                      f"{rep.spillovers} spillovers")
+                check_same_elastic(f"{tag} fleet ({pol}) vs 1 host", got, one)
+                if ov and pol == "first-fit":
+                    res["launches"][name, "fleet"] = got[4]
+            del one, got
+            lap(tag)
+        check_switch_sync_free(cfg, resolve_lane_native(cfg))
+        print(f"{name}: autoscaled ramps equal fixed 4-lane serves, eviction "
+              "resumes bit-exactly, 2 x 2 fleets equal 1 x 2 serves, blocking "
+              "and overlapped; a rung switch makes no synchronising call",
+              flush=True)
+
+    # Printed, not gated: fps in turns on the fused overlapped path.
+    cfg, per_tick = paths["fused"]
+    runs = {"autoscaled": dict(streams=ramp, n_lanes=4, autoscale=True,
+                               policy=policy),
+            "fixed 4 lanes": dict(streams=ramp, n_lanes=4),
+            "fleet 2 x 2": dict(streams=fleet, n_lanes=2, n_hosts=2),
+            "1 host x 4": dict(streams=fleet, n_lanes=4)}
+    for pair in (("autoscaled", "fixed 4 lanes"), ("fleet 2 x 2", "1 host x 4")):
+        for run in (pair[0], pair[1], pair[1], pair[0]):
+            kw = dict(runs[run])
+            scalers.clear()
+            r = elastic_serve(cfg, kw.pop("streams"), per_tick,
+                              f"fused overlap {run} (throughput)",
+                              warm_calls=warm_calls, digests=False,
+                              tick_overlap=True, **kw)[0]
+            res["turns"].setdefault(run, []).append(r.fps)
+
+    lap("fps turns")
+
+    # The CLI's two gates, as two processes at once (their own fps lines
+    # are printed, not compared).
+    env = {k: v for k, v in os.environ.items() if k != "REPRO_TICK_OVERLAP"}
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src")] + [
+        p for p in [os.environ.get("PYTHONPATH")] if p])
+    procs = [(args, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--resolution",
+         "480p"] + args, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+        for args in (["--streams", "6", "--lanes", "4", "--autoscale",
+                      "--ladder", "2,4", "--ramp", "--expect-switches", "2",
+                      "--io-dtype", "uint8", "--fail-on-skipped"],
+                     ["--streams", "8", "--hosts", "2", "--lanes", "4",
+                      "--frames", "32", "--expect-spillover", "1",
+                      "--fail-on-skipped"])]
+    res["cli"] = []
+    for args, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        print(out, end="", flush=True)
+        check(proc.returncode == 0,
+              f"serve CLI {' '.join(args)} exited {proc.returncode}: "
+              f"{err[-2000:]}")
+        res["cli"] += [line for line in out.splitlines()
+                       if line.startswith(("ladder_switches=", "spillovers=",
+                                           "frames="))]
+    lap("serve CLI")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2855,9 +3159,12 @@ def main() -> int:
     stamp("phase 13")
     sp_times = phase_spatial_times()
     stamp("phase 14")
-    ov = phase_overlap(vids, {"fused": (cfg, fused_per_tick()),
-                              "staged": (cfg_staged, STAGED_PER_TICK)})
+    serving_paths = {"fused": (cfg, fused_per_tick()),
+                     "staged": (cfg_staged, STAGED_PER_TICK)}
+    ov = phase_overlap(vids, serving_paths)
     stamp("phase 15")
+    el = phase_elastic(vids, serving_paths)
+    stamp("phase 16")
 
     kernels = []
 
@@ -2988,6 +3295,30 @@ def main() -> int:
     print("launches on the overlapped serve_many (phase 15): " + json.dumps(
         {e["name"]: e["launches_overlap"] for e in kernels
          if "launches_overlap" in e}), flush=True)
+    # Phase 16's overlapped autoscaled ramp and first-fit 2 x 2 fleet.
+    for e in kernels:
+        name = {"fused serve_many / serve": "fused",
+                "staged serve_many / serve": "staged"}.get(e["path"])
+        if name is not None:
+            key = e["name"].replace("fused_dehaze_lanes.", "") \
+                if name == "fused" else e["name"]
+            for run in ("autoscale", "fleet"):
+                e[f"launches_{run}"] = el["launches"][name, run][key]
+    print("launches on the autoscaled ramp and the 2 x 2 fleet (phase 16): "
+          + json.dumps({e["name"]: [e["launches_autoscale"], e["launches_fleet"]]
+                        for e in kernels if "launches_autoscale" in e}),
+          flush=True)
+    for x in el["switches"]:
+        print(f"ladder switch {x['path']}: {x['from']} -> {x['to']} lanes, "
+              f"{x['wall_s'] * 1e3} ms on the serve thread", flush=True)
+    for x in el["warm"]:
+        print(f"rung warm-up {x['path']}: {x['rung']} lanes, {x['s']} s",
+              flush=True)
+    for run, fps in el["turns"].items():
+        print(f"phase 16 turns (fused, overlapped): {run} aggregate fps {fps}",
+              flush=True)
+    for line in el["cli"]:
+        print(f"serve CLI (phase 16): {line}", flush=True)
     for name, turns in ov["turns"].items():
         print(f"serve_many turns ({name}; blocking, overlap, overlap, blocking): "
               f"fps {[t['fps'] for t in turns]}, ms per tick "

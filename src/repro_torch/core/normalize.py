@@ -167,8 +167,13 @@ def pack_atmo_states(states: Sequence[AtmoState]) -> AtmoState:
 
 
 def init_atmo_state_lanes(n_lanes: int, device="cpu") -> AtmoState:
-    """``n_lanes`` independent bootstrap states on a leading lane axis."""
-    return pack_atmo_states([init_atmo_state(device) for _ in range(n_lanes)])
+    """``n_lanes`` independent bootstrap states on a leading lane axis,
+    made by fills on ``device`` (no host-to-device copy)."""
+    return AtmoState(
+        A=torch.ones((n_lanes, 3), dtype=torch.float32, device=device),
+        last_update=torch.full((n_lanes,), BOOTSTRAP_ID, dtype=torch.int32,
+                               device=device),
+        initialized=torch.zeros((n_lanes,), dtype=torch.bool, device=device))
 
 
 def get_lane_state(state: AtmoState, lane: int) -> AtmoState:
@@ -195,6 +200,25 @@ def set_lane_state(packed: AtmoState, lane: int,
         dst = getattr(out, name)
         dst[lane] = getattr(state, name).to(dst.device, dst.dtype,
                                             non_blocking=True)
+    return out
+
+
+def repack_lanes(packed: AtmoState, lanes: Sequence[int],
+                 n_lanes: int) -> AtmoState:
+    """A new ``n_lanes``-lane state on ``packed``'s device whose first
+    ``len(lanes)`` rows are ``packed``'s rows ``lanes`` (one gather a
+    field, bit-exact) and whose other rows are fresh. The index goes up
+    from pinned memory without waiting, so on CUDA nothing synchronises
+    with the host; ``packed`` is not modified."""
+    dev = packed.A.device
+    out = init_atmo_state_lanes(n_lanes, dev)
+    if lanes:
+        idx = torch.tensor(list(lanes), dtype=torch.int64)
+        if dev.type == "cuda":
+            idx = idx.pin_memory().to(dev, non_blocking=True)
+        for name in _FIELDS:
+            getattr(out, name)[:len(lanes)] = \
+                getattr(packed, name).index_select(0, idx)
     return out
 
 
@@ -227,5 +251,5 @@ def ema_scan_lanes(a_cand: torch.Tensor, frame_ids: torch.Tensor,
 __all__ = ["AtmoState", "BOOTSTRAP_ID", "init_atmo_state", "ema_scan",
            "ema_scan_associative", "init_atmo_state_lanes",
            "pack_atmo_states", "unpack_atmo_states", "get_lane_state",
-           "set_lane_state", "lane_carry", "state_from_lane_carry",
+           "set_lane_state", "repack_lanes", "lane_carry", "state_from_lane_carry",
            "ema_scan_lanes"]

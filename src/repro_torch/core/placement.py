@@ -18,8 +18,9 @@ The port realizes the placements without a mesh (``single()``,
 (``launch.mesh.make_host_mesh``, or any mesh with the named axes). A height
 or width axis of size > 1 splits each frame into tiles whose halos are
 exchanged over that axis's process group (``core.spatial``); of size 1 it
-changes nothing. ``validate()`` raises ``NotImplementedError`` for more than
-one host (the fleet tier).
+changes nothing. ``n_hosts`` sizes the fleet tier (``stream.fleet``),
+which schedules hosts above the step: the step itself does not depend on
+it.
 """
 from __future__ import annotations
 
@@ -62,10 +63,6 @@ class PlacementSpec:
         named = self.mesh_axes
         if len(set(named)) != len(named):
             raise ValueError(f"mesh axes must be distinct, got {named}")
-        if self.n_hosts > 1:
-            raise NotImplementedError(
-                "multi-host fleet serving is not ported yet (ROADMAP.md "
-                "queue A, fleet)")
         return self
 
     @property

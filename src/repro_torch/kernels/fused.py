@@ -70,7 +70,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ref
 from repro_torch.kernels.staged import (KEY_LAST, MAX_SMEM, TOPK_MAX_TILES,
                                         TOPK_TILE, flip_key_order, key_index,
-                                        key_t, topk_keys_signed, topk_mean,
+                                        key_t, launch_lock, topk_keys_signed,
+                                        topk_mean,
                                         validity_bytes, window_counts,
                                         window_sum)
 
@@ -132,9 +133,10 @@ _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    for counts in (launches, transmission_launches, halo_launches):
-        for k in counts:
-            counts[k] = 0
+    with launch_lock:
+        for counts in (launches, transmission_launches, halo_launches):
+            for k in counts:
+                counts[k] = 0
 
 
 class _Params(ctypes.Structure):
@@ -310,7 +312,8 @@ def _launch(name: str, counts: Dict[str, int], *args,
     rc = getattr(_lib(), fn)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed: cudaError_t {rc}")
-    counts[name] += 1
+    with launch_lock:       # staged.launch_lock: one lock for every counter
+        counts[name] += 1
 
 
 def _check_cuda(*tensors: torch.Tensor) -> None:

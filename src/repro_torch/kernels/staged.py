@@ -34,6 +34,7 @@ one to the other.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -96,10 +97,17 @@ WARP_TOPK_MAX = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+#: Taken around every update of the counters: serve, warm-up and fleet
+#: host threads launch at once, and ``+= 1`` on a dict entry is a read and
+#: a write that two threads can interleave.
+launch_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for counts in (launches, wide_launches):
-        for k in counts:
-            counts[k] = 0
+    with launch_lock:
+        for counts in (launches, wide_launches):
+            for k in counts:
+                counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -169,9 +177,10 @@ def _launch(name: str, *args, wide: bool = False) -> None:
     rc = getattr(_lib(), entry)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {entry} failed: cudaError_t {rc}")
-    launches[name] += 1
-    if wide:
-        wide_launches[name] += 1
+    with launch_lock:
+        launches[name] += 1
+        if wide:
+            wide_launches[name] += 1
 
 
 def _check_cuda(*tensors: torch.Tensor) -> None:

@@ -15,10 +15,26 @@ blocking path:
       --streams 4 --lanes 4 --resolution 480p --frames 64 --io-dtype uint8 \\
       --expect-overlap --fail-on-skipped
 
+Elastic autoscaling (the lane count walks a ladder of warmed rungs under
+load; ``--ramp`` makes a burst of short clips and two long tails, so the
+burst forces a grow and the tail a shrink; the rungs are primed first):
+  PYTHONPATH=src python -m repro_torch.launch.serve --resolution 480p \\
+      --streams 6 --lanes 4 --autoscale --ladder 2,4 --ramp \\
+      --expect-switches 2 --io-dtype uint8 --fail-on-skipped
+
+Fleet serving (2 hosts x 4 lanes behind one global-EDF front door, threads
+over one card; sticky placement keeps each stream's EMA on one host, and
+overflow spills to the other):
+  PYTHONPATH=src python -m repro_torch.launch.serve --resolution 480p \\
+      --streams 8 --hosts 2 --lanes 4 --frames 32 --expect-spillover 1 \\
+      --fail-on-skipped
+
 A non-float32 ``--io-dtype`` with ``--streams > 1`` also replays cam0
 alone through a fresh single-stream server and fails on a drift above
-1e-5. ``--autoscale``, ``--hosts > 1`` and ``--tune`` are not ported yet
-(ROADMAP.md queue A) and exit non-zero.
+1e-5. ``--expect-switches`` fails on fewer switches or on any rung that
+failed to warm, ``--expect-spillover`` on fewer spillovers, and a fleet
+on any migration. ``--tune`` is not ported yet (ROADMAP.md queue A) and
+exits non-zero.
 """
 from __future__ import annotations
 
@@ -33,21 +49,23 @@ import torch
 from repro_torch.core import DehazeConfig
 from repro_torch.data import HazeVideoSpec, generate_haze_video
 from repro_torch.kernels import ref as kref
-from repro_torch.stream import ElasticServer, StreamRequest
+from repro_torch.stream import (ElasticServer, ScalePolicy, StreamRequest,
+                                ladder_rungs)
 
 RESOLUTIONS = {"120p": (120, 160), "240p": (240, 320), "480p": (480, 640),
                "576p": (576, 1024)}
 
 
-def _make_videos(n: int, h: int, w: int, frames: int, seed0: int = 100):
+def _make_videos(n: int, h: int, w: int, frames, seed0: int = 100):
     """N synthetic videos with distinct scenes and base atmospheric lights,
     so each lane follows its own coherence trajectory (the reference's
-    recipe, bit for bit)."""
+    recipe, bit for bit). ``frames`` is a length or one per stream."""
+    lengths = frames if isinstance(frames, (list, tuple)) else [frames] * n
     vids = []
     for i in range(n):
         base = 0.75 + 0.05 * (i % 4)
         vids.append(generate_haze_video(HazeVideoSpec(
-            height=h, width=w, n_frames=frames, seed=seed0 + i,
+            height=h, width=w, n_frames=lengths[i], seed=seed0 + i,
             a_noise=0.0, a_base=(base, base, min(1.0, base + 0.02)))))
     return vids
 
@@ -110,8 +128,50 @@ def _serve_single(args, cfg, h: int, w: int):
     return (1 if _overlap_failed(args, rep) else 0), rep.skipped
 
 
+def _ramp_lengths(args) -> list:
+    """``--ramp``: a burst of short clips, then two long tails (the
+    reference's lengths)."""
+    if not args.ramp:
+        return [args.frames] * args.streams
+    n_long = min(2, args.streams)
+    return [max(args.batch, args.frames // 4)] * (args.streams - n_long) \
+        + [args.frames] * n_long
+
+
+def _gates(args, rep) -> int:
+    """The fleet's and the ladder's report lines and gates: 1 on a
+    migration, on a rung that failed to warm when switches are expected,
+    on fewer switches or spillovers than expected."""
+    rc = 0
+    if args.hosts > 1:
+        print(f"spillovers={rep.spillovers} migrations={rep.migrations}")
+        if rep.migrations != 0:
+            print(f"FAIL: sticky placement violated: {rep.migrations} EMA "
+                  f"migration(s)", file=sys.stderr)
+            rc = 1
+    if args.autoscale:
+        print(f"ladder_switches={rep.ladder_switches} "
+              f"switch_wall={rep.switch_wall_s * 1e3:.1f}ms "
+              f"evictions={rep.evictions} final_lanes={rep.n_lanes} "
+              f"warm_failures={rep.warm_failures}")
+        if args.expect_switches and rep.warm_failures:
+            print(f"FAIL: {rep.warm_failures} ladder rung(s) failed to warm "
+                  f"(retried once); the expected switches cannot be "
+                  f"trusted", file=sys.stderr)
+            rc = 1
+    if rep.ladder_switches < args.expect_switches:
+        print(f"FAIL: expected >= {args.expect_switches} ladder switches, "
+              f"got {rep.ladder_switches}", file=sys.stderr)
+        rc = 1
+    if rep.spillovers < args.expect_spillover:
+        print(f"FAIL: expected >= {args.expect_spillover} spillover "
+              f"admission(s), got {rep.spillovers}", file=sys.stderr)
+        rc = 1
+    return rc
+
+
 def _serve_many(args, cfg, h: int, w: int):
-    vids = _make_videos(args.streams, h, w, args.frames)
+    vids = _make_videos(args.streams, h, w, _ramp_lengths(args))
     wires = [_wire_hazy(v, args.io_dtype) for v in vids]
     lanes = args.lanes if args.lanes > 0 else args.streams
     srv = _server(args, cfg)
@@ -123,20 +183,38 @@ def _serve_many(args, cfg, h: int, w: int):
         if sid == "cam0":
             cam0_out[fid] = f.float()
 
+    policy = None
+    if args.autoscale:
+        rungs = tuple(int(r) for r in args.ladder.split(","))
+        policy = ScalePolicy(rungs=rungs, dwell_up=1, dwell_down=2)
+        # Prime every rung (kernel builds, steps in the cache) so that the
+        # switches gate on load, not on build time racing short streams.
+        warm = _wire_hazy(_make_videos(1, h, w, args.batch, seed0=90)[0],
+                          args.io_dtype)
+        for r in ladder_rungs(rungs, lanes):
+            srv.serve_many([StreamRequest(f"_warm{r}", iter(warm))],
+                           n_lanes=r)
+
     rep = srv.serve_many([StreamRequest(f"cam{i}", iter(wire))
                           for i, wire in enumerate(wires)],
-                         n_lanes=lanes, sink=sink)
+                         n_lanes=lanes, sink=sink, autoscale=args.autoscale,
+                         policy=policy, n_hosts=args.hosts)
     print(f"algorithm={args.algorithm} resolution={args.resolution} "
-          f"streams={args.streams} lanes={rep.n_lanes} batch={args.batch}")
+          f"streams={args.streams} lanes={rep.n_lanes} batch={args.batch} "
+          f"hosts={rep.n_hosts}")
     print(f"frames={rep.frames} skipped={rep.skipped} ticks={rep.ticks} "
           f"aggregate_fps={rep.aggregate_fps:.2f} wall={rep.wall_s:.2f}s")
     _print_tick_io(rep)
+    rc = _gates(args, rep)
     for sid in sorted(rep.per_stream):
+        if sid.startswith("_warm"):
+            continue
         r = rep.per_stream[sid]
         a = srv.store.get(sid).A.numpy().round(3)
         print(f"  {sid}: frames={r.frames} emitted={counts.get(sid, 0)} "
               f"skipped={r.skipped} fps={r.fps:.2f} A={a}")
-    rc = 1 if _overlap_failed(args, rep) else 0
+    if _overlap_failed(args, rep):
+        rc = 1
     if args.io_dtype != "float32" and cam0_out:
         # Replay cam0 alone through a fresh server on the same quantised
         # stream: the lane path must dehaze it as the single-stream path
@@ -171,7 +249,27 @@ def _parser() -> argparse.ArgumentParser:
                     help="concurrent videos (> 1 uses the lane-batched "
                          "multi-tenant scheduler)")
     ap.add_argument("--lanes", type=int, default=0,
-                    help="lanes for --streams > 1 (0: one per stream)")
+                    help="lanes for --streams > 1 (0: one per stream; per "
+                         "host with --hosts > 1; the cap with --autoscale)")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="fleet hosts: > 1 serves through the fleet tier "
+                         "(global EDF, sticky placement, spillover)")
+    ap.add_argument("--expect-spillover", type=int, default=0,
+                    help="exit non-zero unless at least this many "
+                         "admissions spilled over to another host")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="elastic lane count: --lanes is the cap and the "
+                         "serve walks the --ladder under load")
+    ap.add_argument("--ladder", default="4,8,16,32",
+                    help="comma-separated lane-count rungs (capped by "
+                         "--lanes)")
+    ap.add_argument("--ramp", action="store_true",
+                    help="stagger the stream lengths (a burst of short "
+                         "clips, two long tails) to force a grow and a "
+                         "shrink")
+    ap.add_argument("--expect-switches", type=int, default=0,
+                    help="exit non-zero unless at least this many ladder "
+                         "switches were committed and every rung warmed")
     ap.add_argument("--workers", type=int, default=3,
                     help="logical workers of single-stream serving")
     ap.add_argument("--batch", type=int, default=8)
@@ -194,27 +292,19 @@ def _parser() -> argparse.ArgumentParser:
                          "REPRO_TICK_OVERLAP=1)")
     ap.add_argument("--fail-on-skipped", action="store_true",
                     help="exit non-zero if any frame was timeout-skipped")
-    for flag, what in (("--autoscale", "elastic lane autoscaling"),
-                       ("--tune", "the tile-tuning search")):
-        ap.add_argument(flag, action="store_true",
-                        help=f"{what}: not ported yet (exits non-zero)")
-    ap.add_argument("--hosts", type=int, default=1,
-                    help="fleet hosts; > 1 is not ported yet (exits "
+    ap.add_argument("--tune", action="store_true",
+                    help="the tile-tuning search: not ported yet (exits "
                          "non-zero)")
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``); return the exit
-    code: 0, 1 on a failed gate (overlap, parity, skips), 2 for an option
-    that is not ported yet."""
+    code: 0, 1 on a failed gate (overlap, parity, skips, switches,
+    spillover, migrations), 2 for ``--tune``, which is not ported yet."""
     args = _parser().parse_args(argv)
-    unported = [name for name, on in (("--autoscale", args.autoscale),
-                                      ("--hosts > 1", args.hosts > 1),
-                                      ("--tune", args.tune)) if on]
-    if unported:
-        print(f"{', '.join(unported)}: not ported yet (ROADMAP.md queue A)",
-              file=sys.stderr)
+    if args.tune:
+        print("--tune: not ported yet (ROADMAP.md queue A)", file=sys.stderr)
         return 2
     h, w = RESOLUTIONS[args.resolution]
     cfg = DehazeConfig(algorithm=args.algorithm,

@@ -14,9 +14,11 @@ tick path of ``stream.iobuf`` (README, "Tick I/O & overlap"): donated
 steps, uploads from pinned memory on a side stream, valid-only fetches on
 another. Its outputs equal the blocking path's bit for bit.
 
-Not ported yet (ROADMAP.md queue A): ``autoscale=True`` and eviction
-policies, and ``n_hosts > 1`` (the fleet tier) raise
-``NotImplementedError``.
+``serve_many(autoscale=True)`` walks a ladder of warmed lane counts
+(``stream.autoscale``); a ``policy`` also sets deadline-aware eviction;
+``n_hosts > 1`` serves through the fleet tier (``stream.fleet``): host
+schedulers on threads over this server's device, behind one global-EDF
+queue with sticky placement.
 """
 from __future__ import annotations
 
@@ -33,7 +35,10 @@ from repro_torch.core.pipeline import (DeviceLike, make_step, resolve_device,
                                        resolve_lane_native)
 from repro_torch.core.placement import PlacementSpec
 from repro_torch.stream import iobuf
+from repro_torch.stream.autoscale import (LaneAutoscaler, ScalePolicy,
+                                          ladder_rungs)
 from repro_torch.stream.dispatcher import StreamDispatcher
+from repro_torch.stream.fleet import FleetScheduler, PlacementPolicy
 from repro_torch.stream.monitor import DEADLINE_CLOCK, Monitor
 from repro_torch.stream.scheduler import (MultiStreamScheduler, ServeReport,
                                           StreamReport, StreamRequest)
@@ -110,6 +115,15 @@ class ElasticServer:
         self.store = StreamStateStore()
         self._worker_delay = worker_delay_s
         self.n_workers = n_workers
+        # The FleetScheduler of the last multi-host serve_many (its
+        # placements and admission log).
+        self.last_fleet: Optional[FleetScheduler] = None
+
+    def resize(self, n_workers: int) -> None:
+        """Elastic scale of single-stream serving: the worker count of the
+        next :meth:`serve` (at least 1). Stream states and cached steps
+        are kept."""
+        self.n_workers = max(1, n_workers)
 
     def serve(self, frames: Iterable, stream_id: str = "default",
               sink: Optional[Callable[[int, torch.Tensor], None]] = None,
@@ -158,33 +172,50 @@ class ElasticServer:
     def serve_many(self, streams: Sequence[StreamRequest],
                    n_lanes: Optional[int] = None,
                    sink: Optional[Callable[[str, int, torch.Tensor], None]]
-                   = None, autoscale: bool = False, policy=None,
+                   = None, autoscale: bool = False,
+                   policy: Optional[ScalePolicy] = None,
                    clock: Callable[[], float] = DEADLINE_CLOCK,
                    n_hosts: int = 1,
                    placement: Optional[PlacementSpec] = None,
+                   placement_policy: PlacementPolicy = "first-fit",
+                   host_delay_s: float = 0.0,
                    tick_overlap: Optional[bool] = None) -> ServeReport:
         """Serve N videos concurrently via lane-batched continuous batching.
 
         ``streams`` are :class:`StreamRequest` s sharing one (H, W) and wire
-        dtype; ``n_lanes`` defaults to one lane per stream, and with fewer
-        lanes the surplus queues in ``(priority, deadline, arrival)`` order
-        and takes lanes as they free up. Per stream the outputs, EMA
-        trajectories and cursors match sequential :meth:`serve` calls.
+        dtype; ``n_lanes`` defaults to one lane per stream (per host:
+        ``ceil(len(streams) / n_hosts)``), and with fewer lanes the surplus
+        queues in ``(priority, deadline, arrival)`` order and takes lanes
+        as they free up. Per stream the outputs, EMA trajectories and
+        cursors match sequential :meth:`serve` calls.
+
+        ``autoscale=True`` makes the lane count elastic: ``n_lanes`` is the
+        cap, the serve starts at the smallest rung of ``policy.rungs``
+        (capped, :func:`~repro_torch.stream.autoscale.ladder_rungs`) and
+        walks the ladder under hysteresis, the other rungs warmed off the
+        serve thread. A ``policy`` without ``autoscale`` still applies its
+        ``evict_tardy_after`` at a fixed lane count.
+
+        ``n_hosts > 1`` (or a ``placement`` with ``n_hosts > 1``) serves
+        through a :class:`~repro_torch.stream.fleet.FleetScheduler`:
+        ``n_lanes`` lanes on each host, ``placement_policy`` naming each
+        fresh stream's preferred host, ``host_delay_s`` a simulated device
+        time a tick on each host. Per-stream outputs, states and cursors
+        equal the one-host serve's; only the host that runs a stream
+        changes.
 
         ``tick_overlap`` (``None``: follow ``REPRO_TICK_OVERLAP``, default
-        off) serves through one :class:`~repro_torch.stream.iobuf.
-        TickBufferPool` for this call: live lanes staged into a
-        device-resident buffer, the state donated tick to tick, valid-only
-        fetches on a side stream. Outputs and final states are
-        bit-identical to the blocking path's."""
-        if autoscale or policy is not None:
-            raise NotImplementedError(
-                "lane autoscaling and eviction policies are not ported yet "
-                "(ROADMAP.md queue A, autoscale/eviction)")
+        off) serves through a :class:`~repro_torch.stream.iobuf.
+        TickBufferPool` of this call (one per host of a fleet): live lanes
+        staged into a device-resident buffer, the state donated tick to
+        tick, valid-only fetches on a side stream. Outputs and final
+        states are bit-identical to the blocking path's."""
         overlap = _resolve_overlap(tick_overlap)
         if placement is None:
-            placement = PlacementSpec(lanes=True, n_hosts=n_hosts)
-        placement.validate()                 # n_hosts > 1 raises
+            placement = PlacementSpec.lane_batched(n_hosts=n_hosts)
+        else:
+            placement.validate()
+            n_hosts = placement.n_hosts
         if placement.sharded:
             raise ValueError(
                 "serve_many drives local lane batches; mesh-sharded "
@@ -196,19 +227,53 @@ class ElasticServer:
         if not streams:
             return ServeReport(per_stream={}, frames=0, skipped=0,
                                wall_s=0.0, n_lanes=0, ticks=0)
-        lanes = n_lanes if n_lanes is not None else len(streams)
+        lanes = n_lanes if n_lanes is not None \
+            else max(1, -(-len(streams) // n_hosts))
         lane_native = resolve_lane_native(self.cfg)
+        pol = policy if policy is not None else ScalePolicy()
+        evict_after = (pol.evict_tardy_after
+                       if autoscale or policy is not None else None)
 
-        def step_for(n: int):
+        def base_step_for(n: int):
             return _cached_multi_step(self.cfg, n, lane_native, self.device,
                                       donate="state" if overlap else False)
 
-        step = (iobuf.TickBufferPool(step_for, device=self.device).adapter(
-            lanes) if overlap else step_for(lanes))
-        scheduler = MultiStreamScheduler(
-            step, self.store, n_lanes=lanes, batch=self.batch,
-            timeout_s=self.timeout_s, max_in_flight=self.max_in_flight,
-            clock=clock)
+        def mk_step_for(_host: int = 0) -> Callable[[int], Callable]:
+            """A host's step factory: on the overlapped path a
+            TickBufferPool of its own (a device frame buffer belongs to one
+            serve loop); the steps underneath share the step cache."""
+            if not overlap:
+                return base_step_for
+            return iobuf.TickBufferPool(base_step_for,
+                                        device=self.device).adapter
+
+        def mk_scaler(host: int = 0) -> LaneAutoscaler:
+            return LaneAutoscaler(mk_step_for(host),
+                                  ladder_rungs(pol.rungs, lanes),
+                                  policy=pol, device=self.device)
+
+        kw = dict(batch=self.batch, timeout_s=self.timeout_s,
+                  max_in_flight=self.max_in_flight,
+                  evict_tardy_after=evict_after, clock=clock,
+                  tick_delay_s=host_delay_s)
+        if n_hosts > 1:
+            fleet = FleetScheduler(
+                base_step_for(lanes), self.store, n_hosts=n_hosts,
+                n_lanes=lanes, placement_policy=placement_policy,
+                autoscaler_factory=mk_scaler if autoscale else None,
+                step_factory=((lambda h: mk_step_for(h)(lanes))
+                              if overlap else None), **kw)
+            self.last_fleet = fleet
+            return fleet.run(streams, sink=sink)
+
+        scaler = mk_scaler() if autoscale else None
+        if scaler is not None:
+            step = scaler.acquire_initial()
+            lanes = scaler.rung
+        else:
+            step = mk_step_for()(lanes)
+        scheduler = MultiStreamScheduler(step, self.store, n_lanes=lanes,
+                                         autoscaler=scaler, **kw)
         return scheduler.run(streams, sink=sink)
 
 

@@ -223,14 +223,14 @@ def test_cuda_is_the_default_and_never_falls_back(monkeypatch):
 
 
 def test_unported_options_raise():
+    """Autoscaling and the fleet are ported (tests/test_torch_autoscale.py,
+    tests/test_torch_fleet.py); a mesh-sharded placement is still refused:
+    it is a step over a mesh, not a serving tier."""
     srv = ElasticServer(DehazeConfig(**CFG), device="cpu")
     reqs = [StreamRequest("a", iter(_videos([1])[0]))]
-    with pytest.raises(NotImplementedError):
-        srv.serve_many(reqs, autoscale=True)
-    with pytest.raises(NotImplementedError):
-        srv.serve_many(reqs, n_hosts=2)
-    with pytest.raises(NotImplementedError):
-        PlacementSpec(lanes=True, n_hosts=2).validate()
-    # A mesh-sharded placement is a step over a mesh, not a serving tier.
     with pytest.raises(ValueError, match="make_step"):
         srv.serve_many(reqs, placement=PlacementSpec.lane_sharded())
+    assert PlacementSpec(lanes=True, n_hosts=2).validate().n_hosts == 2
+    rep = srv.serve_many([StreamRequest("b", iter(_videos([3])[0]))],
+                         autoscale=True, n_hosts=2)
+    assert rep.frames == 3 and rep.n_hosts == 2 and rep.warm_failures == 0

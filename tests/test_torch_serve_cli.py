@@ -2,8 +2,10 @@
 video (``repro_torch.data``) equal to the JAX package's bit for bit, the
 scattering model (``repro_torch.core.physics``) within 1e-6 of the
 reference's, and ``repro_torch.launch.serve.main`` on the CPU: the
-overlapped multi-stream serve passes its ``--expect-overlap`` gate and the
-options not ported yet exit non-zero."""
+overlapped multi-stream serve passes its ``--expect-overlap`` gate, the
+autoscaled ramp its ``--expect-switches`` gate, the 2-host fleet its
+``--expect-spillover`` gate, and ``--tune``, not ported yet, exits
+non-zero."""
 import numpy as np
 import pytest
 import torch
@@ -75,9 +77,65 @@ def test_cli_serves_overlapped_and_gates(monkeypatch, capsys):
     assert "silent fallback" in captured.err
 
 
-@pytest.mark.parametrize("flags", [["--autoscale"], ["--hosts", "2"],
-                                   ["--tune"]])
+@pytest.mark.parametrize("flags", [["--tune"]])
 def test_cli_unported_options_exit_nonzero(flags, capsys):
     rc = serve.main(["--device", "cpu"] + flags)
     assert rc != 0
     assert "not ported yet (ROADMAP.md queue A)" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("overlap", ["0", "1"])
+def test_cli_autoscale_ramp_switches(overlap, monkeypatch, capsys):
+    """``--autoscale --ladder 2,4 --ramp --expect-switches 2``: the rungs
+    primed, the ramp grows and shrinks the ladder, and the reference's
+    report lines are printed."""
+    monkeypatch.setenv("REPRO_TICK_OVERLAP", overlap)
+    # 96 frames: the burst keeps streams queued for 6 ticks at 2 lanes,
+    # time for rung 4's warm-up (one tick's work on this CPU) to land.
+    rc = serve.main(["--device", "cpu", "--resolution", "120p",
+                     "--streams", "6", "--lanes", "4", "--frames", "96",
+                     "--autoscale", "--ladder", "2,4", "--ramp",
+                     "--expect-switches", "2", "--io-dtype", "uint8",
+                     "--fail-on-skipped"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "streams=6 lanes=2 batch=8 hosts=1" in out
+    line = next(s for s in out.splitlines() if s.startswith("ladder_switches="))
+    assert int(line.split()[0].split("=")[1]) >= 2
+    assert "evictions=0 final_lanes=2 warm_failures=0" in line
+    assert "parity(cam0): frames=24 maxerr=0.00e+00" in out
+    assert all(f"  cam{i}: frames={n} emitted={n} skipped=0" in out
+               for i, n in enumerate([24, 24, 24, 24, 96, 96]))
+
+
+def test_cli_autoscale_fails_on_missing_switches(capsys):
+    """Fewer switches than expected fail the serve (no ramp: no backlog)."""
+    rc = serve.main(["--device", "cpu", "--resolution", "120p",
+                     "--streams", "2", "--lanes", "2", "--frames", "8",
+                     "--autoscale", "--ladder", "2", "--expect-switches",
+                     "1"])
+    captured = capsys.readouterr()
+    assert rc == 1 and "ladder_switches=0 " in captured.out
+    assert "expected >= 1 ladder switches, got 0" in captured.err
+
+
+def test_cli_fleet_spills_over(capsys):
+    """``--hosts 2 --lanes 4 --expect-spillover 1``: 8 streams behind one
+    front door, every frame once, no migration."""
+    rc = serve.main(["--device", "cpu", "--resolution", "120p",
+                     "--streams", "8", "--hosts", "2", "--lanes", "4",
+                     "--frames", "16", "--expect-spillover", "1",
+                     "--fail-on-skipped"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "streams=8 lanes=8 batch=8 hosts=2" in out
+    line = next(s for s in out.splitlines() if s.startswith("spillovers="))
+    assert int(line.split()[0].split("=")[1]) >= 1
+    assert line.endswith("migrations=0")
+    assert all(f"  cam{i}: frames=16 emitted=16 skipped=0" in out
+               for i in range(8))
+    rc = serve.main(["--device", "cpu", "--resolution", "120p",
+                     "--streams", "2", "--hosts", "2", "--lanes", "1",
+                     "--frames", "8", "--expect-spillover", "9"])
+    assert rc == 1
+    assert "expected >= 9 spillover admission(s)" in capsys.readouterr().err

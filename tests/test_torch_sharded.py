@@ -287,8 +287,11 @@ def test_placement_contracts(mesh):
         PlacementSpec(lanes=True, batch_axes=("data",)).validate()
     with pytest.raises(ValueError, match="distinct"):
         PlacementSpec(batch_axes=("data",), height_axis="data").validate()
-    with pytest.raises(NotImplementedError, match="fleet"):
-        PlacementSpec.lane_sharded(n_hosts=2)
+    # n_hosts sizes the fleet tier above the step, as on the reference.
+    spec = PlacementSpec.lane_sharded(n_hosts=2)
+    jspec = JaxPlacement.lane_sharded(n_hosts=2)
+    assert (spec.n_hosts, spec.lane_axis, spec.lanes) == \
+        (jspec.n_hosts, jspec.lane_axis, jspec.lanes)
     with pytest.raises(ValueError, match="no 'pod'"):
         make_step(DehazeConfig(), PlacementSpec.frame_sharded(("pod",)), mesh)
     with pytest.raises(ValueError, match="not the mesh's"):
