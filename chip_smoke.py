@@ -56,8 +56,9 @@ any error:
    limit, the launch counters showing the strips or the row window
    (``wide_launches``);
 7. phases 3 and 4 again with the default config (staged): per tick one
-   dark channel, six box filters, one atmospheric light and one recover,
-   and no megakernel pass; the aggregate fps over 4 streams x 192 frames;
+   dark channel, six box filters, one atmospheric light, one recover and
+   one state sync (``staged.merge_ema``: the candidates' EMA), and no
+   megakernel pass; the aggregate fps over 4 streams x 192 frames;
 8. time the four staged kernels as phase 5 does, with their device busy
    time and that of the PyTorch call (B3a and B4 also a call in a replayed
    CUDA graph, with their blocks an SM, B4 with its direct-sum floor, and
@@ -87,9 +88,9 @@ any error:
 10. ``serve_many`` (and ``serve``) of 4 x 48 uint8 frames with
    ``DehazeConfig(algorithm="cap", topk=4, io_dtype="uint8")`` and the
    default ``kernel_mode``: per tick one min filter (its strips), six box
-   filters, one top-k atmospheric light (the warp top-k), one recover, and
-   no row window, block rounds, dark channel, argmin atmospheric light or
-   megakernel pass;
+   filters, one top-k atmospheric light (the warp top-k), one recover, one
+   state sync, and no row window, block rounds, dark channel, argmin
+   atmospheric light or megakernel pass;
 11. the fused transmission stage (B7a, B7b): at 4 x 8 x 480x640 with
    per-lane saved A, {dcp, cap} x {topk 1, 4} x {uint8, bfloat16,
    float32} with refine, one cell without refine and a plateau cell
@@ -106,13 +107,13 @@ any error:
    lane-sharded step with ``lane_native=False`` over 4 x 8 frames (B7b),
    each two chained batches, held as the cells are, the step against the
    single-device fused step (t and J 2e-4, a_seq 1e-5), one tiled
-   transmission sequence a step (four launches) and no other kernel, no
-   synchronising call; then the same two steps with
+   transmission sequence a step (four launches), one state sync and no
+   other kernel, no synchronising call; then the same two steps with
    ``kernel_mode="pallas"``, their staged branch, two chained batches each,
    against the single-device staged steps (J and t 2e-4, a_seq 1e-5) and
    their t against the fused sharded steps' (2e-4), one masked min filter
-   (B8a) and six masked box filters (B8b) a step, their strips, and no
-   other kernel, no synchronising call;
+   (B8a) and six masked box filters (B8b) a step, their strips, one state
+   sync, and no other kernel, no synchronising call;
 12. time the min filter's strips and the warp top-k beside the kernels
    they replaced (the row window, the block rounds) in turns (old, new,
    new, old), each with its device busy time, a call in a replayed CUDA
@@ -132,19 +133,23 @@ any error:
    tk_rgb and tk_idx and no NaN, the wrapper's route from the launch
    counters, the whole against its plain version; then the step's
    per-shard function (``spatial_shard_stage``: one halo stage) on every
-   tile and the lists in rank order through the cross-shard merge (B10),
-   the stitched t against the unsharded stage's (B7a) on the same frames
-   within 2e-4, the merged candidate bit-equal to B7a's; a plateau cell
+   tile and the lists in rank order through the step's state sync
+   (``staged.merge_ema``: the cross-shard merge and the EMA, the frames as
+   one lane), held bit for bit against its plain version; the stitched t
+   against the unsharded stage's (B7a) on the same frames within 2e-4, the
+   lists' candidate through the cross-shard merge alone (B10) bit-equal to
+   B7a's and within 1e-6 of B10's plain version; a plateau cell
    (quantised frames, (2, 2), top-4) and a packed bfloat16-plane cell
    (against B9's plain version); corner tiles without refine and of
    bfloat16 frames, and a halo too wide for the tiles (gf_r 46: the ten
    masked passes), and ``halo_tiled_fits`` against the library's at each
-   limit; one B9 a tile (its tiled sequence) and one B10 a step, no
-   synchronising call; the staged branch (``spatial_shard_stage(...,
+   limit; one B9 a tile (its tiled sequence) and one state sync a step (no
+   B10), no synchronising call; the staged branch (``spatial_shard_stage(...,
    fused=False)``, ``kernel_mode="pallas"``) on the DCP top-1 and CAP
-   top-4 2x2 cells: 4 B8a, 24 B8b and 1 B10 a step, no synchronising call,
-   the stitched t within 2e-4 of the unsharded staged stage (the
-   frame-sharded step's) on the same frames, the merged candidate
+   top-4 2x2 cells: 4 B8a, 24 B8b and 1 state sync a step, no
+   synchronising call, the stitched t within 2e-4 of the unsharded staged
+   stage (the frame-sharded step's) on the same frames, the state sync
+   bit-equal to its plain version, the lists' candidate through B10
    bit-equal to that stage's picks through B10; then B8a and B8b alone
    (the masked strips) against their plain versions with error 0 and
    against the row window they replaced, value for value: both corner
@@ -204,13 +209,31 @@ any error:
    --io-dtype uint8 --fail-on-skipped`` and ``--resolution 480p --streams
    8 --hosts 2 --lanes 4 --frames 32 --expect-spillover 1
    --fail-on-skipped``;
-17. print ``{"kernels": [...]}`` (each kernel's launches on the path it
+17. the state sync (``staged.cuda_merge_ema``, one kernel for the
+   candidate rows' merge and the §3.3 EMA) alone against its plain
+   version (``staged.plain_merge_ema``, the composition it replaced), both
+   scan forms, period 8 and 1, max error 0 in a_seq and A and equal ids and
+   flags, also with the state written in place: at the serving shape (4
+   lanes x 8 frames, one row a frame; a warm lane with ids that skip, a
+   cold lane behind padding frames, an all-padding lane), on phase 13's
+   (2, 2) lists (DCP top-1, M = 4; CAP top-4, M = 16) as one lane of 32
+   frames and as 4 lanes of 8, and on a 4 x 4 tiling's top-4 lists (M =
+   64); then in turns (old, new, new, old) against the composition it
+   replaced on the card (the PyTorch scan alone at the serving shape, B10
+   and the scan on phase 13's lists), each by CUDA events, a call in a
+   replayed CUDA graph and device busy time; and the staged DCP lane step
+   back to back with the kernel and with the old composition, in turns,
+   bit-equal, with its device kernels, copies and busy time a step. It
+   runs right after phase 14: after phase 15's profiler trace of a
+   threaded serve, later traces of a lone kernel come back empty or short;
+18. print ``{"kernels": [...]}`` (each kernel's launches on the path it
    names: the megakernel's tiled passes on the fused serving path, the
    transmission stage's tiled passes on the sharded steps, the halo
    stage's on the spatial steps, B8a and B8b on the staged sharded and
-   spatial steps, and the ten passes and the staged kernels' routes past
-   their limits, ``staged.wide.*``, which run on none of them at the
-   serving shape; the fused and staged serving kernels also with their
+   spatial steps, the state sync on the staged serving path (and its
+   launches on every other path), and the ten passes, the staged kernels'
+   routes past their limits, ``staged.wide.*``, and B10, which run on
+   none of them at the serving shape; the fused and staged serving kernels also with their
    launches on phase 15's overlapped ``serve_many`` and on phase 16's
    overlapped autoscaled and first-fit fleet serves), the card line, and
    last ``{"ok": true, "device": {...}}``.
@@ -259,9 +282,11 @@ STAGED_REPLACES = {
 # Launches a tick of each counter (names as :func:`all_launches` gives
 # them) on each path; every counter not named launches no time.
 STAGED_PER_TICK = {"staged.dark_channel": 1, "staged.box_filter": 6,
-                   "staged.atmolight": 1, "staged.recover": 1}
+                   "staged.atmolight": 1, "staged.recover": 1,
+                   "staged.merge_ema": 1}
 CAP_PER_TICK = {"staged.min_filter": 1, "staged.box_filter": 6,
-                "staged.atmolight_topk": 1, "staged.recover": 1}
+                "staged.atmolight_topk": 1, "staged.recover": 1,
+                "staged.merge_ema": 1}
 
 # The fused transmission stage of the sharded step (B7a and its lane form
 # B7b): the TPU kernels it replaces.
@@ -278,6 +303,13 @@ SPATIAL_REPLACES = {
     "staged.merge_topk": "src/repro/kernels/atmolight.py:213",
     "fused_transmission_halo": "src/repro/kernels/fused.py:744",
 }
+
+# The state sync that ends every step but the lane-native megakernel's
+# (staged.cu st_merge_ema): the cross-shard merge's TPU kernel and the two
+# §3.3 scans of the JAX package (jnp ops, no Pallas kernel) it merges with.
+MERGE_EMA_SOURCE = STAGED_SOURCE
+MERGE_EMA_REPLACES = ("src/repro/kernels/atmolight.py:213; "
+                      "src/repro/core/normalize.py:68,126")
 
 # The part of the TPU kernels each tiled pass of the transmission stage and
 # of its halo form replaces (file:line).
@@ -357,6 +389,15 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
         return 0.0
     a, b = a.float(), b.float()
     return float(torch.where(a == b, 0.0, (a - b).abs()).max())
+
+
+def sync_err(got, want) -> float:
+    """The state sync's outputs (a_seq, A, last_update, initialized): the
+    largest error of the float tensors, inf where an integer or a flag
+    differs."""
+    return max(max_err(g, w) if g.dtype.is_floating_point
+               else (0.0 if torch.equal(g, w) else float("inf"))
+               for g, w in zip(got, want))
 
 
 # ---------------------------------------------------------------------------
@@ -660,11 +701,11 @@ def fused_per_tick() -> dict:
 
 def transmission_per_tick() -> dict:
     """The sharded steps' config (top-1, refine): each pass of the tiled
-    transmission sequence but ``topk_block`` once a step, and none of the
-    ten passes."""
+    transmission sequence but ``topk_block`` once a step, none of the ten
+    passes, and the state sync once."""
     return {f"fused_transmission.{name}": 1 for name in
             ("tmap_tile", "candidate", "guided_ab", "refine_tmap")} | {
-                "fused_transmission": 1}
+                "fused_transmission": 1, "staged.merge_ema": 1}
 
 
 def path_launches(path: str, ticks: int, per_tick: dict) -> dict:
@@ -1028,12 +1069,15 @@ BF16_STEP = 2.0 ** -8             # one bfloat16 step for values in [0.5, 1)
 def staged_tolerance(name: str, args) -> float:
     """Kernel against plain version: selections bit-equal; the box
     filter's means bit-equal too (the plain version adds the kernel's terms
-    in the kernel's order); the top-k mean 1e-6 in float32 for any k (the
+    in the kernel's order); the state sync bit-equal (its EMA rounds each
+    product and sum as PyTorch's ops do, and one row a frame passes
+    through); the top-k mean 1e-6 in float32 for any k (the
     kernel's compensated float32 sum and the plain float64 mean are each
     within a few float32 steps of the exact mean), one bfloat16 step in
     bfloat16; recover 1e-6 in float32 at gamma 1 (1e-5 through powf), one
     bfloat16 step in bfloat16."""
-    if name in ("dark_channel", "min_filter", "box_filter", "atmolight"):
+    if name in ("dark_channel", "min_filter", "box_filter", "atmolight",
+                "merge_ema"):
         return 0.0
     if args[0].dtype == torch.bfloat16:
         return BF16_STEP
@@ -1048,7 +1092,8 @@ def run_staged(step, frames, ids, state, ops: str, errs=None, cell=""):
     kernel and its plain version on the same inputs, holds them to
     :func:`staged_tolerance` and returns the kernel's result)."""
     from repro_torch.kernels import staged as sk
-    saved = {name: getattr(sk, f"{name}_op") for name in sk.KERNELS}
+    names = sk.KERNELS + sk.STATE_KERNELS
+    saved = {name: getattr(sk, f"{name}_op") for name in names}
 
     def checked(name):
         kernel, plain = sk.PAIRS[name]
@@ -1056,14 +1101,16 @@ def run_staged(step, frames, ids, state, ops: str, errs=None, cell=""):
         def op(*args):
             got = kernel(*args)
             want = plain(*args)
-            err, tol = max_err(got, want), staged_tolerance(name, args)
+            err = (sync_err(got, want) if isinstance(got, tuple)
+                   else max_err(got, want))
+            tol = staged_tolerance(name, args)
             check(err <= tol, f"staged {name} ({cell}): error {err} > {tol}")
             errs[name] = max(errs.get(name, 0.0), err)
             return got
         return op
 
     try:
-        for name in sk.KERNELS:
+        for name in names:
             if ops == "plain":
                 setattr(sk, f"{name}_op", sk.PAIRS[name][1])
             elif ops == "checked":
@@ -1688,7 +1735,8 @@ def check_transmission_cells(errs) -> int:
 # The staged branch of the sharded steps (kernel_mode "pallas"): one
 # masked min filter (B8a) and the guided filter's six masked means (B8b) a
 # step, their strips, and no other kernel.
-STAGED_SHARDED_PER_STEP = {"staged.masked_min_filter": 1, "staged.masked_box_filter": 6}
+STAGED_SHARDED_PER_STEP = {"staged.masked_min_filter": 1, "staged.masked_box_filter": 6,
+                           "staged.merge_ema": 1}
 
 
 def phase_sharded():
@@ -2112,23 +2160,55 @@ def spatial_step(cfg, tiles, fused: bool = True):
     """What the spatially sharded step computes after the exchange, for
     every tile in rank order: the per-shard function (its halo stage, or
     where not ``fused`` its staged branch), then the lists gathered in rank
-    order through the merge. Returns the tiles' t, the per-frame
-    candidates and the gathered lists ``(tk_t, gidx, tk_rgb)``; fails on a
-    synchronising call."""
-    from repro_torch.core import algorithms as alg
+    order through the state sync (the merge and the EMA of the
+    frame-sharded step: its frames as one lane, ids 0.., a fresh state).
+    Returns the tiles' t, ``(a_seq, new state)`` and the gathered lists
+    ``(tk_t, gidx, tk_rgb)``; fails on a synchronising call."""
+    from repro_torch.core import init_atmo_state
+    from repro_torch.core import pipeline
     from repro_torch.core.pipeline import spatial_shard_stage
+    n = tiles[0][0].shape[0]
+    ids = torch.arange(n, dtype=torch.int32, device="cuda")
+    state = init_atmo_state("cuda")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         outs = [spatial_shard_stage(cfg, *tile, W, fused=fused) for tile in tiles]
         tk_t, tk_rgb, gidx = (torch.cat([o[q] for o in outs], dim=1)
                               for q in (1, 2, 3))
-        cand = alg.merge_topk_candidates(tk_t, gidx, tk_rgb, cfg)
+        synced = pipeline._state_sync(cfg, tk_rgb, ids, state, True, tk_t, gidx)
     except RuntimeError as e:
         fail(f"spatial step: {e}")
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    return [o[0] for o in outs], cand, (tk_t, gidx, tk_rgb)
+    return [o[0] for o in outs], synced, (tk_t, gidx, tk_rgb)
+
+
+def check_spatial_sync(synced, lists, k: int, cfg, label: str, errs) -> torch.Tensor:
+    """The spatial step's state sync (``staged.merge_ema``) against its plain
+    version on the same lists, bit for bit; returns the lists' merged
+    candidate through B10 (``staged.cuda_merge_topk``), held to its plain
+    version within 1e-6."""
+    from repro_torch.core import init_atmo_state
+    from repro_torch.kernels import staged as sk
+    a_seq, st = synced
+    tk_t, gidx, tk_rgb = lists
+    n = tk_t.shape[0]
+    st0 = init_atmo_state("cuda")
+    want = sk.plain_merge_ema(
+        tk_t[None], gidx[None], tk_rgb[None], k,
+        torch.arange(n, dtype=torch.int32, device="cuda")[None], st0.A[None],
+        st0.last_update[None], st0.initialized[None], cfg.update_period, cfg.lam, True)
+    e_sync = sync_err((a_seq[None], st.A[None], st.last_update[None],
+                       st.initialized[None]), want)
+    check(e_sync == 0.0, f"{label}: the state sync vs its plain version {e_sync} != 0")
+    errs["merge_ema"] = max(errs.get("merge_ema", 0.0), e_sync)
+    cand = sk.cuda_merge_topk(tk_t, gidx, tk_rgb, k)
+    torch.cuda.synchronize()
+    e_merge = max_err(cand, sk.plain_merge_topk(tk_t, gidx, tk_rgb, k))
+    check(e_merge <= 1e-6, f"{label}: B10 vs plain version {e_merge} > 1e-6")
+    errs["merge_topk"] = max(errs.get("merge_topk", 0.0), e_merge)
+    return cand
 
 
 def stitch(parts, tiling):
@@ -2208,7 +2288,9 @@ def phase_spatial():
                False)]
     errs, vs_b7 = {}, {"t": 0.0}
     staged_launches, staged_steps = {}, 0
-    launches = {"fused_transmission_halo": 0, "staged.merge_topk": 0}
+    sync_lists = {}
+    launches = {"fused_transmission_halo": 0, "staged.merge_topk": 0,
+                "staged.merge_ema": 0}
     launches |= {f"fused_transmission_halo.{p}": 0 for p in fk.TILED_HALO_PASSES}
     corner_tiles = None
     for label, alg_, k, frames, tiling, plane_dt, against_b7 in cells:
@@ -2225,17 +2307,16 @@ def phase_spatial():
         for r, tile in enumerate(tiles):
             check_halo_tile(tile, kw, errs, f"{label} tile {r}")
         reset_launches()
-        t_parts, cand, lists = spatial_step(cfg, tiles)
+        t_parts, synced, lists = spatial_step(cfg, tiles)
         per_step = {f"fused_transmission_halo.{p}": len(tiles)
                     for p in fk.TILED_HALO_PASSES if p != "topk_block" or k > 1}
-        per_step |= {"fused_transmission_halo": len(tiles), "staged.merge_topk": 1}
+        per_step |= {"fused_transmission_halo": len(tiles), "staged.merge_ema": 1}
         counts = path_launches(f"spatial {label}", 1, per_step)
         for name in launches:
             launches[name] += counts[name]
-        torch.cuda.synchronize()
-        e_merge = max_err(cand, sk.plain_merge_topk(*lists, k))
-        check(e_merge <= 1e-6, f"{label}: B10 vs plain version {e_merge} > 1e-6")
-        errs["merge_topk"] = max(errs.get("merge_topk", 0.0), e_merge)
+        cand = check_spatial_sync(synced, lists, k, cfg, label, errs)
+        if tiling == (2, 2) and frames is ramp_u8 and against_b7:
+            sync_lists[f"{alg_}-{k}"] = (lists, k)
         if against_b7:
             t7, _, cand7 = fk.fused_transmission(frames, a_saved, **kw)
             torch.cuda.synchronize()
@@ -2250,7 +2331,7 @@ def phase_spatial():
             corner_tiles = (tiles[0], tiles[3])
         if tiling == (2, 2) and against_b7 and frames is ramp_u8:
             staged_steps += check_staged_spatial(alg_, k, frames, x, pre, guide, tiles,
-                                                 a_saved, staged_launches, vs_b7)
+                                                 a_saved, staged_launches, vs_b7, errs)
     check_halo_cells(errs, ramp_u8, a_saved)
     x = ref.upcast_frames(ramp_u8)
     cfg = DehazeConfig(kernel_mode="fused", io_dtype="uint8")
@@ -2260,35 +2341,37 @@ def phase_spatial():
     print("spatial passes " + json.dumps(errs) + " vs B7a and the unsharded staged "
           "stage " + json.dumps(vs_b7) + " launches " + json.dumps(launches)
           + " staged spatial steps " + json.dumps(staged_launches), flush=True)
-    return errs, vs_b7, launches, len(cells), staged_launches, staged_steps
+    return errs, vs_b7, launches, len(cells), staged_launches, staged_steps, sync_lists
 
 
 # A staged spatial step of a 2 x 2 tiling (kernel_mode "pallas"): per tile
 # one masked min filter and six masked box filters (their strips), and the
-# merge once a step.
+# state sync once a step.
 STAGED_SPATIAL_PER_STEP = {"staged.masked_min_filter": 4, "staged.masked_box_filter": 24,
-                           "staged.merge_topk": 1}
+                           "staged.merge_ema": 1}
 
 
 def check_staged_spatial(alg_, k, frames, x, pre, guide, tiles, a_saved, counts,
-                         vs) -> int:
+                         vs, errs) -> int:
     """The staged branch of the spatial step (``spatial_shard_stage(...,
     fused=False)`` with kernel_mode "pallas") on the 2 x 2 tiles: launches
     as :data:`STAGED_SPATIAL_PER_STEP`, no synchronising call; the
     stitched t within 2e-4 of the unsharded staged stage on the same frames
-    (the frame-sharded step's, every row valid), and the merged candidate
-    through B10 bit-equal to that stage's k picks through B10 (and within
-    1e-6 of their mean, the frame-sharded step's candidate). Adds the
-    launches to ``counts``; returns the steps run (1)."""
+    (the frame-sharded step's, every row valid), the state sync bit-equal
+    to its plain version, and the lists' merged candidate through B10
+    bit-equal to that stage's k picks through B10 (and within 1e-6 of their
+    mean, the frame-sharded step's candidate). Adds the launches to
+    ``counts``; returns the steps run (1)."""
     from repro_torch.core import DehazeConfig
     from repro_torch.core.pipeline import spatial_shard_stage
     from repro_torch.kernels import ops
     label = f"staged {alg_}-{k}-2x2"
     cfg = DehazeConfig(algorithm=alg_, topk=k, kernel_mode="pallas", io_dtype="uint8")
     reset_launches()
-    t_parts, cand, _ = spatial_step(cfg, tiles, fused=False)
+    t_parts, synced, lists = spatial_step(cfg, tiles, fused=False)
     for name, n in path_launches(f"spatial {label}", 1, STAGED_SPATIAL_PER_STEP).items():
         counts[name] = counts.get(name, 0) + n
+    cand = check_spatial_sync(synced, lists, k, cfg, label, errs)
     valid = torch.ones(H, dtype=torch.bool, device="cuda")
     t, tk_t, tk_rgb, gidx = spatial_shard_stage(cfg, frames, x, pre, guide, valid, None,
                                                 0, 0, W, fused=False)
@@ -3093,6 +3176,217 @@ def phase_elastic(vids, paths) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the state sync (st_merge_ema) alone, and timed
+# ---------------------------------------------------------------------------
+
+# The serving shape's lanes: a warm lane whose ids skip, a cold lane behind
+# padding frames, an all-padding lane and a cold consecutive lane.
+SYNC_IDS = [[9, 10, 13, 14, 15, 16, 24, 25], [-1, -1, 0, 1, 2, 3, -1, 5],
+            [-1] * 8, [40, 41, 42, 43, 44, 45, 46, 47]]
+
+
+def sync_state(lanes: int, warm: bool = True):
+    """A lane-batched state, lane 0 warm (A (0.8, 0.85, 0.9), last update
+    2) where ``warm``, the others fresh."""
+    from repro_torch.core import init_atmo_state_lanes
+    st = init_atmo_state_lanes(lanes, "cuda")
+    if warm:
+        st.A[0] = torch.tensor([0.8, 0.85, 0.9], device="cuda")
+        st.last_update[0] = 2
+        st.initialized[0] = True
+    return st
+
+
+def sync_cells(sync_lists):
+    """(label, args) of the state sync's cells, args as ``staged.
+    cuda_merge_ema`` takes them up to the period: the serving shape (4
+    lanes x 8 frames, one row a frame: the staged serve's); phase 13's
+    (2, 2) lists (DCP top-1, M = 4, k = 1; CAP top-4, M = 16, k = 4) as the
+    frame-sharded spatial step's one lane of 32 frames (ids 0..31, a fresh
+    state) and as 4 lanes x 8 frames (the lane-sharded spatial step's, the
+    serving shape's ids and states); and 4 x 8 frames of a 4 x 4 tiling's
+    top-4 lists (M = 64, k = 4, t in plateaus tied across the rows). Rows'
+    rgb are uint8 levels / 255, as frames give them."""
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(17)
+    ids = torch.tensor(SYNC_IDS, dtype=torch.int32).cuda()
+
+    def rgb(*lead):
+        return ref.upcast_frames(torch.randint(0, 256, lead + (3,), generator=g,
+                                               dtype=torch.uint8)).cuda()
+
+    def state_args(st):
+        return (st.A, st.last_update, st.initialized)
+    cells = [("serving (4 x 8, M = 1)",
+              (None, None, rgb(L, B, 1), 1, ids, *state_args(sync_state(L))))]
+    for name, ((tk_t, gidx, tk_rgb), k) in sync_lists.items():
+        n, m = tk_t.shape
+        cells.append((f"spatial {name} 2x2 (1 x {n}, M = {m})",
+                       (tk_t[None], gidx[None], tk_rgb[None], k,
+                        torch.arange(n, dtype=torch.int32, device="cuda")[None],
+                        *state_args(sync_state(1, warm=False)))))
+        cells.append((f"spatial {name} 2x2 (4 x 8, M = {m})",
+                       tuple(v.reshape(L, B, m).contiguous() for v in (tk_t, gidx))
+                       + (tk_rgb.reshape(L, B, m, 3).contiguous(), k, ids,
+                          *state_args(sync_state(L)))))
+    m = 64
+    t64 = (torch.randint(0, 8, (L, B, m), generator=g) / 8).float().cuda()
+    g64 = torch.stack([torch.randperm(H * W, generator=g)[:m]
+                       for _ in range(L * B)]).reshape(L, B, m).int().cuda()
+    cells.append(("4x4 tiling top-4 (4 x 8, M = 64)",
+                  (t64, g64, rgb(L, B, m), 4, ids, *state_args(sync_state(L)))))
+    return cells
+
+
+def phase_merge_ema(sync_lists, cfg_staged, vids):
+    """The state sync (``staged.cuda_merge_ema``) against its plain version
+    (``staged.plain_merge_ema``, the composition it replaces) on every cell
+    of :func:`sync_cells`, both forms, period 8 (the serving config's) and
+    1: max error 0 in a_seq and A, last_update and initialized equal; the
+    same with the new state written into the state read (a donated state).
+    Then, in turns (old, new, new, old), the kernel against the composition
+    it replaces on the card: at the serving shape the PyTorch associative
+    scan alone, on phase 13's lists (one lane of 32 frames) B10
+    (``cuda_merge_topk``) and the scan; each by CUDA events, a call in a
+    replayed CUDA graph and device busy time. Last the staged DCP lane step
+    (the serving config) back to back with the kernel and with the old
+    composition (``merge_ema_op`` set to the plain version), in turns, with
+    its device kernels and busy time a step from a profiler trace."""
+    from repro_torch.core import AtmoState, make_multi_stream_step
+    from repro_torch.core import normalize
+    from repro_torch.kernels import staged as sk
+    period, lam = CFG_KW["period"], CFG_KW["lam"]
+    errs = {}
+    cells = sync_cells(sync_lists)
+    for label, args in cells:
+        for per in (period, 1):
+            for assoc in (True, False):
+                got = sk.cuda_merge_ema(*args, per, lam, assoc)
+                want = sk.plain_merge_ema(*args, per, lam, assoc)
+                out = tuple(v.clone() for v in args[-3:])
+                inplace = sk.cuda_merge_ema(*args[:-3], *out, per, lam, assoc, out=out)
+                torch.cuda.synchronize()
+                e = max(sync_err(got, want), sync_err(inplace, want))
+                check(e == 0.0, f"state sync {label} period {per} "
+                      f"{'associative' if assoc else 'sequential'}: error {e} != 0")
+                errs[label] = max(errs.get(label, 0.0), e)
+    print("state sync (st_merge_ema) vs plain, max errors: " + json.dumps(errs),
+          flush=True)
+
+    def timed(new, old) -> dict:
+        order = [(q, time_ms(fn)) for q, fn in (("old", old), ("new", new),
+                                               ("new", new), ("old", old))]
+        mean = {q: sum(v for r, v in order if r == q) / 2 for q in ("new", "old")}
+        busy = {q: device_busy_ms(fn) for q, fn in (("new", new), ("old", old))}
+        return dict(ms=mean["new"], replaced_ms=mean["old"],
+                    turns_ms=[v for _, v in order], device_busy_ms=busy["new"],
+                    replaced_busy_ms=busy["old"], graph_ms=graph_ms(new),
+                    replaced_graph_ms=graph_ms(old))
+
+    times = {}
+    for key, (label, args) in (("serving", cells[0]),
+                               *((f"spatial {name}", cells[1 + 2 * i])
+                                 for i, name in enumerate(sync_lists))):
+        tk_t, gidx, tk_rgb, k, ids, A, lu, init = args
+        l_, b_, m = tk_rgb.shape[:3]
+        st = AtmoState(A, lu, init)
+        new = (lambda a=args: sk.cuda_merge_ema(*a, period, lam, True))
+        if m == 1:
+            def old(r=tk_rgb[:, :, 0], i=ids, s_=st):
+                return normalize.ema_scan_associative(r, i, s_, period, lam)
+        else:
+            def old(a=(tk_t[0], gidx[0], tk_rgb[0], k), i=ids, s_=st):
+                cand = sk.cuda_merge_topk(*a)
+                return normalize.ema_scan_associative(cand[None], i, s_, period, lam)
+        r = timed(new, old)
+        res = new()
+        r["plain_ms"] = time_ms(lambda a=args: sk.plain_merge_ema(*a, period, lam, True),
+                                reps=5, warmup=1)
+        r["library_ms"] = None
+        # Bytes: the lists, ids and state read once, a_seq and the state
+        # written once; operations: the M^2 key compares a frame.
+        times[key] = rates(r, nbytes(*(v for v in args if isinstance(v, torch.Tensor)),
+                                     *res), l_ * b_ * m * m)
+        times[key]["shape"] = [l_, b_, m, k]
+    card = card_line()
+    for key, r in times.items():
+        print(f"state sync {key} (L, B, M, k = {r['shape']}), turns old/new/new/old "
+              f"{r['turns_ms']} ms: st_merge_ema {r['ms']} ms, graph {r['graph_ms']}, "
+              f"device busy {r['device_busy_ms']}; replaced {r['replaced_ms']} ms, graph "
+              f"{r['replaced_graph_ms']}, device busy {r['replaced_busy_ms']}; plain "
+              f"{r['plain_ms']} ms; bound {r['bound_ms']} ms ({r['bound_by']}); {card}",
+              flush=True)
+
+    # The staged DCP lane step at the serving config, back to back on
+    # device-resident uint8 frames, with the kernel and with the old
+    # composition (the plain version: the merge's identity at M = 1 and the
+    # PyTorch scan), in turns.
+    step = make_multi_stream_step(cfg_staged, device="cuda")
+    u8 = torch.from_numpy(np.stack([v[:B] for v in vids])).cuda()
+    ids = torch.arange(B, dtype=torch.int32).repeat(L, 1).cuda()
+    state = sync_state(L)
+    kernel_op = sk.merge_ema_op
+
+    def run(route):
+        sk.merge_ema_op = kernel_op if route == "new" else sk.plain_merge_ema
+        try:
+            return step(u8, ids, state)
+        finally:
+            sk.merge_ema_op = kernel_op
+
+    def with_route(route):
+        return lambda: run(route)
+    new_out, old_out = run("new"), run("old")
+    torch.cuda.synchronize()
+    e = max(max_err(new_out.atmo_light, old_out.atmo_light),
+            max_err(new_out.frames, old_out.frames), max_err(new_out.state.A, old_out.state.A))
+    check(e == 0.0, f"staged step with the state sync kernel vs the old composition: {e}")
+    order = [(q, time_ms(with_route(q))) for q in ("old", "new", "new", "old")]
+    mean = {q: sum(v for r, v in order if r == q) / 2 for q in ("new", "old")}
+    step_r = {"ms": mean["new"], "replaced_ms": mean["old"],
+              "turns_ms": [v for _, v in order]}
+    for q in ("new", "old"):
+        busy, kern, copies = busy_and_kernels(with_route(q))
+        step_r["device_busy_ms" if q == "new" else "replaced_busy_ms"] = busy
+        step_r["kernels_per_step" if q == "new" else "replaced_kernels_per_step"] = kern
+        step_r["copies_per_step" if q == "new" else "replaced_copies_per_step"] = copies
+    print(f"staged DCP lane step ({L} x {B} x {H}x{W} uint8, back to back), turns "
+          f"old/new/new/old {step_r['turns_ms']} ms: with st_merge_ema {step_r['ms']} ms "
+          f"a step, device busy {step_r['device_busy_ms']} ms, "
+          f"{step_r['kernels_per_step']} kernels and {step_r['copies_per_step']} copies "
+          f"a step; with the old composition {step_r['replaced_ms']} ms, device busy "
+          f"{step_r['replaced_busy_ms']} ms, {step_r['replaced_kernels_per_step']} "
+          f"kernels and {step_r['replaced_copies_per_step']} copies a step; {card}",
+          flush=True)
+    return {"errs": errs, "err": max(errs.values()), "times": times, "step": step_r}
+
+
+def busy_and_kernels(fn, reps: int = 5):
+    """Device busy ms, device kernels and device copies (memcpy, memset) a
+    call of ``fn`` from a ``torch.profiler`` trace of ``reps`` calls; None
+    for each where the trace shows nothing or the profiler fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except Exception as e:       # a measurement only: report, go on
+        print(f"device time not measured: {e!r}", flush=True)
+        return None, None, None
+    if not evs:
+        return None, None, None
+    copies = sum(1 for e in evs if e.name.startswith(("Memcpy", "Memset")))
+    return (sum(e.device_time_total for e in evs) / reps / 1e3,
+            (len(evs) - copies) / reps, copies / reps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -3155,10 +3449,15 @@ def main() -> int:
     stamp("phase 11")
     c_times = phase_slice3_times()
     stamp("phase 12")
-    sp_errs, sp_vs_b7, sp_launches, sp_steps, st_launches, st_steps = phase_spatial()
+    (sp_errs, sp_vs_b7, sp_launches, sp_steps, st_launches, st_steps,
+     sync_lists) = phase_spatial()
     stamp("phase 13")
     sp_times = phase_spatial_times()
     stamp("phase 14")
+    # Phase 17 runs here: after phase 15's profiler trace of a threaded
+    # serve, traces of a lone kernel come back empty or short.
+    me = phase_merge_ema(sync_lists, cfg_staged, vids)
+    stamp("phase 17")
     serving_paths = {"fused": (cfg, fused_per_tick()),
                      "staged": (cfg_staged, STAGED_PER_TICK)}
     ov = phase_overlap(vids, serving_paths)
@@ -3268,7 +3567,12 @@ def main() -> int:
                   *(v for kk, v in sp_errs.items() if kk in fk.halo_launches))}
     for name in SPATIAL_REPLACES:
         source = SOURCE if name == "fused_transmission_halo" else STAGED_SOURCE
-        if name.startswith("staged.masked"):
+        if name == "staged.merge_topk":
+            entry(name, source, SPATIAL_REPLACES[name], sp_times[name], sp_err[name],
+                  sp_launches, None, sp_steps, "none: ops.merge_topk_candidates (the "
+                  "JAX op's counterpart, phases 13-14) only; every step merges its "
+                  "rows in staged.merge_ema")
+        elif name.startswith("staged.masked"):
             entry(name, source, SPATIAL_REPLACES[name], sp_times[name], sp_err[name],
                   b8, None, b8_steps, b8_path)
             wide = name.replace("staged.", "staged.wide.")
@@ -3284,6 +3588,24 @@ def main() -> int:
         entry(full, SOURCE, TILED_HALO_REPLACES[name], sp_times[full],
               sp_errs[name], sp_launches, None, sp_steps,
               "spatial steps (virtual tilings)")
+    # The state sync: timed at the serving shape (phase 17); one launch a
+    # tick of the staged serves and a step of the sharded and spatial steps.
+    name = "staged.merge_ema"
+    entry(name, MERGE_EMA_SOURCE, MERGE_EMA_REPLACES, me["times"]["serving"],
+          max(me["err"], staged_errs["merge_ema"], cap_errs["merge_ema"],
+              sp_errs["merge_ema"]), s_launches, s_launches_serve, s_ticks,
+          "staged serve_many / serve")
+    kernels[-1].update(
+        launches_other_paths={
+            "staged CAP top-4 serve_many / serve": [c_launches[name],
+                                                    c_launches_serve[name]],
+            **{f"sharded {p}": t_launches[p][name] for p in t_launches},
+            "spatial steps": sp_launches[name], "staged spatial steps": st_launches[name]},
+        replaced_ms=me["times"]["serving"]["replaced_ms"],
+        replaced_graph_ms=me["times"]["serving"]["replaced_graph_ms"],
+        replaced_busy_ms=me["times"]["serving"]["replaced_busy_ms"],
+        spatial={k: v for k, v in me["times"].items() if k != "serving"},
+        staged_step=me["step"])
     # The overlapped serve_many's launches (phase 15) beside the blocking
     # path's, on the fused and the default (staged) serving paths.
     for e in kernels:

@@ -189,15 +189,6 @@ def fused_transmission_lanes(frames: torch.Tensor, a_saved: torch.Tensor,
                                         **_transmission_kw(cfg))
 
 
-def merge_topk_candidates(tk_t: torch.Tensor, tk_gidx: torch.Tensor,
-                          tk_rgb: torch.Tensor, cfg: DehazeConfig):
-    """The spatial step's cross-shard candidate merge: gathered (B, M)
-    lists -> (B, 3), the mean rgb of the k smallest (t, global index) rows
-    (``ops.merge_topk_candidates``)."""
-    return ops.merge_topk_candidates(tk_t, tk_gidx, tk_rgb, cfg.topk,
-                                     mode=cfg.kernel_mode)
-
-
 def fused_transmission_halo(frames: torch.Tensor, pre_ext: torch.Tensor,
                             guide_ext: torch.Tensor, valid: torch.Tensor,
                             valid_w, cfg: DehazeConfig):
@@ -216,5 +207,5 @@ __all__ = ["luminance", "transmission_dcp", "transmission_cap",
            "estimate_atmospheric_light", "refine_transmission",
            "generate_haze_free", "supports_fused", "premap", "fused_dehaze",
            "fused_dehaze_lanes", "fused_transmission",
-           "fused_transmission_lanes", "merge_topk_candidates",
+           "fused_transmission_lanes",
            "fused_transmission_halo"]

@@ -31,8 +31,13 @@ A height or width axis of size > 1 splits each frame into tiles: the
 axis's group, :func:`spatial_shard_stage` computes the tile's t and its k
 best candidates with global indices (fused: the halo stage's kernels;
 staged: the masked filters' kernels), and the lists are all-gathered over the
-spatial groups and merged on every rank of the tile's frames. Recovery runs
-the plain chain, as in the reference.
+spatial groups (frame-sharded, then over the data group too) and merged on
+every rank. Recovery runs the plain chain, as in the reference.
+
+Every step but the lane-native megakernel's ends in one state sync
+(``ops.merge_ema``: the candidate rows' merge and the per-lane §3.3 EMA,
+one kernel on the card): the staged steps' one row a frame, the sharded
+steps' gathered rows, the spatial steps' gathered lists.
 
 **Buffer donation** (``make_step(..., donate=...)``, the serving tiers'
 contract; :func:`donation_spec`) is a buffer-reuse contract the port keeps
@@ -52,9 +57,8 @@ from repro_torch.core import algorithms as alg
 from repro_torch.core import env as _env
 from repro_torch.core import spatial
 from repro_torch.core.config import DehazeConfig
-from repro_torch.core.normalize import (AtmoState, ema_scan,
-                                        ema_scan_associative, ema_scan_lanes,
-                                        get_lane_state, pack_atmo_states)
+from repro_torch.core.normalize import (AtmoState, get_lane_state,
+                                        pack_atmo_states)
 from repro_torch.core.placement import PlacementSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
@@ -208,6 +212,10 @@ def make_step(cfg: DehazeConfig, placement: Optional[PlacementSpec] = None,
         return on_device
 
     frames_donated = donate is True and _ARG_FRAMES in donation_spec(cfg)
+    # The staged steps write the new state straight into the state's
+    # tensors (their state sync's kernel takes them as its output).
+    in_place = ({"donate_state": True} if getattr(step, "donates_state", False)
+                else {})
 
     def donating(frames, frame_ids, state: AtmoState) -> DehazeOutput:
         x, ids, st = _on(dev, frames, frame_ids, state)
@@ -215,7 +223,7 @@ def make_step(cfg: DehazeConfig, placement: Optional[PlacementSpec] = None,
         if (frames_donated and x.is_contiguous()
                 and x.dtype == kref.resolve_out_dtype(x.dtype, cfg.out_dtype)):
             out = x
-        res = step(x, ids, st, out=out)
+        res = step(x, ids, st, out=out, **in_place)
         return dataclasses.replace(res, state=_donate_state(state, st,
                                                              res.state))
     return donating
@@ -248,27 +256,60 @@ def _make_single_step(cfg: DehazeConfig, associative: bool = True):
     return _make_staged_step(cfg, associative=associative, lanes=False)
 
 
+def _lane_view(state: AtmoState) -> AtmoState:
+    """One stream's state as a one-lane state (views of its tensors)."""
+    return AtmoState(A=state.A[None], last_update=state.last_update[None],
+                     initialized=state.initialized[None])
+
+
+def _state_sync(cfg: DehazeConfig, tk_rgb: torch.Tensor,
+                frame_ids: torch.Tensor, state: AtmoState, associative: bool,
+                tk_t: Optional[torch.Tensor] = None,
+                tk_gidx: Optional[torch.Tensor] = None,
+                state_out: Optional[AtmoState] = None):
+    """The §3.3 state sync that ends every step but the lane-native
+    megakernel's, through ``ops.merge_ema`` (one kernel on the card): each
+    frame's M candidate rows -> its candidate (the mean rgb of the k
+    smallest (t, global index) rows; the row itself at M = 1) -> the EMA.
+    ``tk_rgb`` (L, B, M, 3) with (L, B) ids and a lane-batched state, or
+    (B, M, 3) with (B,) ids and one stream's state; ``tk_t``/``tk_gidx``
+    the rows' t and global indices (None at M = 1). -> ``(a_seq (..., B, 3)
+    float32, new state)``; where ``state_out`` is given the new state goes
+    into its tensors and is returned as ``state_out`` itself."""
+    if frame_ids.dim() == 1:
+        a_seq, new = _state_sync(
+            cfg, tk_rgb[None], frame_ids[None], _lane_view(state), associative,
+            None if tk_t is None else tk_t[None],
+            None if tk_gidx is None else tk_gidx[None],
+            None if state_out is None else _lane_view(state_out))
+        if state_out is not None:
+            return a_seq[0], state_out
+        return a_seq[0], AtmoState(A=new.A[0], last_update=new.last_update[0],
+                                   initialized=new.initialized[0])
+    k = cfg.topk if tk_rgb.shape[2] > 1 else 1
+    return ops.merge_ema(tk_t, tk_gidx, tk_rgb, k, frame_ids, state,
+                         cfg.update_period, cfg.lam, associative,
+                         mode=cfg.kernel_mode, out_state=state_out)
+
+
 def _make_staged_step(cfg: DehazeConfig, associative: bool, lanes: bool):
     """The staged component chain over frames (B, H, W, 3) with one
     stream's state, or (``lanes``) over (L, B, H, W, 3) with a lane-batched
     state: every component runs once over all frames; the DCP pre-divide
-    takes each lane's saved A and the EMA runs per lane."""
+    takes each lane's saved A and the EMA runs per lane. With
+    ``donate_state`` the new state goes into ``state``'s own tensors."""
     t_est = alg.get_transmission_estimator(cfg.algorithm)
-    if lanes:
-        def scan(a_new, frame_ids, state, period, lam):
-            return ema_scan_lanes(a_new, frame_ids, state, period, lam,
-                                  associative=associative)
-    else:
-        scan = ema_scan_associative if associative else ema_scan
 
-    def step(frames, frame_ids, state: AtmoState, out=None) -> DehazeOutput:
+    def step(frames, frame_ids, state: AtmoState, out=None,
+             donate_state: bool = False) -> DehazeOutput:
         x, odt = _ingest(frames, cfg)
         # Component 1: transmission from the *saved* shared A (§3.3).
         t_raw = t_est(x, state.A, cfg)
         # Component 2: per-frame candidates, then cross-frame normalization.
         a_new = alg.estimate_atmospheric_light(x, t_raw, cfg)
-        a_seq, new_state = scan(a_new, frame_ids, state, cfg.update_period,
-                                cfg.lam)
+        a_seq, new_state = _state_sync(cfg, a_new[..., None, :], frame_ids,
+                                       state, associative,
+                                       state_out=state if donate_state else None)
         a_seq = a_seq.to(x.dtype)
         if cfg.recompute_t_with_final_a and cfg.algorithm == "dcp":
             t_raw = t_est(x, a_seq, cfg)
@@ -278,6 +319,7 @@ def _make_staged_step(cfg: DehazeConfig, associative: bool, lanes: bool):
         J = alg.generate_haze_free(x, t, a_seq, cfg, out=out)
         return DehazeOutput(J.to(odt), t.to(odt), a_seq.to(odt), new_state)
 
+    step.donates_state = True
     return step
 
 
@@ -496,9 +538,10 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
         return (alg.premap(x_ext, a_saved, cfg), alg.luminance(x_ext),
                 valid_h, valid_w)
 
-    def spatial_t_and_candidates(frames, x, a_saved):
-        """Exchange, the shard's stage, then the cross-shard merge: (t,
-        per-frame candidates (N, 3) float32)."""
+    def spatial_t_and_lists(frames, x, a_saved):
+        """Exchange, the shard's stage, then the lists' all-gathers over
+        the spatial groups: (t, tk_rgb, (tk_t, tk_gidx)), each frame's M =
+        shards x k rows in rank order, for the state sync to merge."""
         pre_ext, guide_ext, valid_h, valid_w = halo_premap_and_guide(
             x, a_saved, keep_halo_dtype=use_fused and cfg.halo_packed)
         h_loc, w_loc = frames.shape[1], frames.shape[2]
@@ -511,7 +554,7 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
             group = mesh.get_group(ax)
             tk_t, tk_rgb, tk_gidx = (_all_gather_rows(v, group)
                                      for v in (tk_t, tk_rgb, tk_gidx))
-        return t, alg.merge_topk_candidates(tk_t, tk_gidx, tk_rgb, cfg)
+        return t, tk_rgb, (tk_t, tk_gidx)
 
     def staged_t_and_candidates(x, a_saved):
         """The staged chain on whole frames (every row valid, no exchange)
@@ -536,17 +579,23 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
         def local_step(frames, frame_ids, state: AtmoState) -> DehazeOutput:
             b_loc = frames.shape[0]
             x, odt = _ingest(frames, cfg)
+            lists = ()
             if spatial_axes:
-                t, rgb = spatial_t_and_candidates(frames, x, state.A)
+                t, rows, lists = spatial_t_and_lists(frames, x, state.A)
             elif use_fused:
                 t, _, rgb = alg.fused_transmission(frames, state.A, cfg)
+                rows = rgb[:, None]
             else:
                 t, rgb = staged_t_and_candidates(x, state.A)
-            # The §3.3 state sync: every rank scans the whole batch.
-            a_all = _all_gather(rgb.to(torch.float32), group)
+                rows = rgb[:, None]
+            # The §3.3 state sync: every rank gathers the whole batch's rows
+            # (the merge is per frame, so where it runs does not matter) and
+            # merges and scans them as one lane.
+            rows_all = _all_gather(rows.to(torch.float32), group)
+            lists = [_all_gather(v, group) for v in lists]
             ids_all = _all_gather(frame_ids, group)
-            a_seq_all, new_state = ema_scan_associative(
-                a_all, ids_all, state, cfg.update_period, cfg.lam)
+            a_seq_all, new_state = _state_sync(cfg, rows_all, ids_all, state,
+                                               True, *lists)
             a_seq = a_seq_all[rank * b_loc:(rank + 1) * b_loc]
             return finish(x, t, a_seq, new_state, odt)
         return local_step
@@ -559,8 +608,10 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
                 frames, frame_ids, state, cfg)
             return DehazeOutput(out, t, a_seq.to(out.dtype), new_state)
         x, odt = _ingest(frames, cfg)
+        lists = ()
         if use_fused and not spatial_axes:
             t, _, rgb = alg.fused_transmission_lanes(frames, state.A, cfg)
+            rows = rgb[:, :, None]
         else:
             # Lanes flattened onto the frame axis, each frame with its
             # lane's saved A.
@@ -569,14 +620,15 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
             a_pf = a_pf[:, None, None, :]
             if spatial_axes:
                 flat = frames.reshape((l_loc * b,) + tuple(frames.shape[2:]))
-                t, rgb = spatial_t_and_candidates(flat, flat_x, a_pf)
+                t, rows, lists = spatial_t_and_lists(flat, flat_x, a_pf)
             else:
                 t, rgb = staged_t_and_candidates(flat_x, a_pf)
+                rows = rgb[:, None]
             t = t.reshape((l_loc, b) + tuple(t.shape[1:]))
-            rgb = rgb.reshape(l_loc, b, 3)
-        a_seq, new_state = ema_scan_lanes(rgb, frame_ids, state,
-                                          cfg.update_period, cfg.lam,
-                                          associative=associative)
+            rows = rows.reshape((l_loc, b) + tuple(rows.shape[1:]))
+            lists = [v.reshape(l_loc, b, -1) for v in lists]
+        a_seq, new_state = _state_sync(cfg, rows, frame_ids, state,
+                                       associative, *lists)
         return finish(x, t, a_seq, new_state, odt)
     return lane_local_step
 

@@ -8,9 +8,10 @@
 // staged dark channel and box filter (B3a, B4) share, and the two top-k
 // kernels built on the key (per-tile key lists, then a per-frame merge),
 // which the megakernel's candidate passes (B1, B7) and the staged top-k
-// atmospheric light (B6b) all launch. Each source is built into a library
-// of its own, so every helper lives in this header's own namespace and is
-// compiled once per library.
+// atmospheric light (B6b) all launch, and Eq. 9's step, which the
+// megakernel's EMA (B1) and the staged state sync (st_merge_ema) share.
+// Each source is built into a library of its own, so every helper lives
+// in this header's own namespace and is compiled once per library.
 
 #pragma once
 
@@ -246,6 +247,33 @@ __device__ __forceinline__ void comp_add(float& s, float& c, float x) {
                                             : __fadd_rn(__fsub_rn(x, t), s);
     c = __fadd_rn(c, lost);
     s = t;
+}
+
+// One step of Eq. 9 (exactly kernels/ref.py::ema_step's semantics, the
+// reference's _ema_step) for frame id fid with candidate cand[0..3):
+// updates the lane's A, last update k and inited; a_out[0..3) = A after the
+// step. lam and one_minus_lam are float32(lam) and float32(1 - lam), the
+// latter taken in double, as PyTorch rounds a scalar operand. The
+// megakernel's select_ema, the ten passes' ema pass and the staged state
+// sync (staged.cu, st_merge_ema) all run this copy.
+__device__ __forceinline__ void ema_step(float (&A)[3], int& k, int& inited,
+                                         const float* __restrict__ cand, int fid,
+                                         float* __restrict__ a_out, int period, float lam,
+                                         float one_minus_lam) {
+    const bool valid = fid >= 0;
+    const bool bootstrap = valid && inited == 0;
+    // int32 difference wraps, as in the reference.
+    const int gap = static_cast<int>(static_cast<unsigned>(fid) - static_cast<unsigned>(k));
+    const bool upd = valid && (bootstrap || gap >= period);
+    for (int c = 0; c < 3; ++c) {
+        const float cv = cand[c];
+        const float target = bootstrap ? cv
+            : __fadd_rn(__fmul_rn(lam, cv), __fmul_rn(one_minus_lam, A[c]));
+        if (upd) A[c] = target;
+        a_out[c] = A[c];
+    }
+    if (upd) k = fid;
+    inited = max(inited, valid ? 1 : 0);
 }
 
 // Keys a tile keeps: a tile holds no more than kTopkTile pixels.

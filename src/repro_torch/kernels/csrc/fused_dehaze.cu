@@ -251,28 +251,6 @@ __device__ __forceinline__ float tmap_of(float m, const Params& p) {
                             : expf(__fmul_rn(p.neg_beta, m));
 }
 
-// One step of Eq. 9 (exactly _ema_step's semantics) for frame id fid with
-// candidate cand[0..3): updates the lane's A, last update k and inited;
-// a_out[0..3) = A after the step.
-__device__ __forceinline__ void ema_step(float (&A)[3], int& k, int& inited,
-                                         const float* __restrict__ cand, int fid,
-                                         float* __restrict__ a_out, const DehazeParams& p) {
-    const bool valid = fid >= 0;
-    const bool bootstrap = valid && inited == 0;
-    // int32 difference wraps, as in the reference.
-    const int gap = static_cast<int>(static_cast<unsigned>(fid) - static_cast<unsigned>(k));
-    const bool upd = valid && (bootstrap || gap >= p.period);
-    for (int c = 0; c < 3; ++c) {
-        const float cv = cand[c];
-        const float target = bootstrap ? cv
-            : __fadd_rn(__fmul_rn(p.lam, cv), __fmul_rn(p.one_minus_lam, A[c]));
-        if (upd) A[c] = target;
-        a_out[c] = A[c];
-    }
-    if (upd) k = fid;
-    inited = max(inited, valid ? 1 : 0);
-}
-
 __global__ void premap_kernel(const void* __restrict__ img,
                               const float* __restrict__ carry_f,
                               float* __restrict__ pre, float* __restrict__ g,
@@ -328,7 +306,8 @@ __global__ void ema_kernel(const float* __restrict__ cand, const int* __restrict
     int inited = carry_i[2 * lane + 1];
     for (int b = 0; b < p.B; ++b) {
         const long long n = static_cast<long long>(lane) * p.B + b;
-        ema_step(A, k, inited, cand + 3 * n, ids[n], a_seq + 3 * n, p);
+        ema_step(A, k, inited, cand + 3 * n, ids[n], a_seq + 3 * n, p.period, p.lam,
+                 p.one_minus_lam);
     }
     for (int c = 0; c < 3; ++c) carry_f_out[3 * lane + c] = A[c];
     carry_i_out[2 * lane] = k;
@@ -1294,7 +1273,8 @@ __global__ void select_ema_kernel(const unsigned long long* __restrict__ keys, i
     int inited = carry_i[2 * lane + 1];
     for (int b = 0; b < p.B; ++b) {
         const long long n = static_cast<long long>(lane) * p.B + b;
-        ema_step(A, k, inited, cand + 3 * b, ids[n], a_seq + 3 * n, p);
+        ema_step(A, k, inited, cand + 3 * b, ids[n], a_seq + 3 * n, p.period, p.lam,
+                 p.one_minus_lam);
     }
     for (int c = 0; c < 3; ++c) carry_f_out[3 * lane + c] = A[c];
     carry_i_out[2 * lane] = k;

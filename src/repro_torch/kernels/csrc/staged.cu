@@ -13,6 +13,11 @@
 //   st_masked_min_filter  src/repro/kernels/dark_channel.py::masked_min_filter_2d_pallas
 //   st_masked_box_filter  src/repro/kernels/boxfilter.py::masked_box_filter_2d_pallas
 //   st_merge_topk         src/repro/kernels/atmolight.py::merge_topk_pallas
+// and, merged into one kernel with the Section 3.3 EMA that consumes its
+// output, the state sync of every step whose EMA ran in PyTorch ops:
+//   st_merge_ema          src/repro/kernels/atmolight.py::merge_topk_pallas and
+//                         src/repro/core/normalize.py::ema_scan,
+//                         ::ema_scan_associative (no Pallas kernel: jnp ops)
 // Each computes what its Pallas kernel computes: it reads float32 or
 // bfloat16, computes in float32 and writes its Pallas kernel's output dtype.
 //
@@ -140,6 +145,30 @@
 // top-k merge. Ranking costs M^2 compares a frame: nothing for M = shards
 // x k (16 at four shards and k = 4), and the merge moves 20 bytes a row.
 //
+// State sync (st_merge_ema). Every step but the lane-native megakernel
+// ends in the same seam: each frame's candidate rows (M = shards x k after
+// a spatial step's all-gathers, M = 1 where the stage already gave one row
+// a frame), then the lane's EMA over its B frames. As separate calls that
+// seam was B10's launch (M > 1) and about 60 PyTorch launches of the
+// associative scan at B = 8, each a few hundred bytes: launch-bound, on
+// the device and on the host. One block a lane does
+// all of it in one launch: a warp a frame ranks its M rows as
+// merge_topk_kernel does (the same keys, M^2 compares, ties to the lower
+// row), lanes 0-2 sum the k picks' rgb in ascending order with the
+// compensated sum and divide by k into a_seq (a row passes through
+// untouched at M = 1), then thread 0 runs the B steps of Eq. 9 in order,
+// in the form the caller names: sequential (ema_step, as ema_scan) or the
+// associative scan's own order of operations (the closed-form update
+// positions u0 = max(fid0, k0 + period), or fid0 uninitialized, then every
+// period ids; the bootstrap at the first valid frame; c_i = 1 - lam*m_i
+// (0 at the bootstrap), d_i = lam*m_i*cand_i (cand_i there);
+// cc_i = c_i*cc_{i-1}, dd_i = c_i*dd_{i-1} + d_i; a_i = cc_i*A0 + dd_i;
+// last_update the largest updating id), each product and sum rounded
+// alone as PyTorch's eager ops round them, so both forms equal their
+// PyTorch versions bit for bit. The two forms differ where ids skip.
+// Bound: the lists, ids, state and a_seq read or written once, a few
+// hundred bytes: what is left is the launch.
+//
 // Recovery. One elementwise pass: J = clip((I - A)/max(t, t0) + A, 0, 1),
 // then powf only when gamma != 1, with A per frame.
 //
@@ -176,6 +205,9 @@ constexpr int kTileX = 32;                       // output columns a block (one 
 constexpr int kTileY = 64;                       // output rows a block
 constexpr int kRowThreads = 8;                   // warps a window block
 constexpr int kReduceThreads = 1024;             // threads of a merge_topk block
+constexpr int kMergeEmaWarps = 8;                // warps of a merge_ema block at M > 1
+constexpr int kMergeEmaMaxK = 1024;              // picks a frame (k ints a warp of scratch)
+constexpr int kBootstrapId = -(1 << 30);         // last_update of a fresh stream
 constexpr int kTop1Threads = 256;                // threads of an atmolight tile block
 constexpr int kTop1Items = 16;                   // pixels a thread
 constexpr int kTop1Tile = kTop1Threads * kTop1Items;   // pixels a tile
@@ -926,6 +958,108 @@ __global__ void merge_topk_kernel(const float* __restrict__ t,
     }
 }
 
+// grid (L,), block 32 (M = 1) or 32 * kMergeEmaWarps, dynamic shared
+// memory kMergeEmaWarps * k ints at M > 1. Lane l: frames n = l*B + b with
+// ids[n] (< 0 padding) and M rows each (t, gidx unread at M = 1); the state
+// (A (L, 3), last_update (L,), initialized (L,) bytes) in, a_seq (L, B, 3)
+// and the new state out. The state out may be the state in (a donated
+// state): each lane reads its row before it writes it. At M > 1 a_seq
+// holds the candidates until the EMA overwrites each with its A.
+__global__ void merge_ema_kernel(const float* __restrict__ t, const int* __restrict__ gidx,
+                                 const float* __restrict__ rgb, const int* __restrict__ ids,
+                                 const float* A_in, const int* lu_in, const uint8_t* init_in,
+                                 float* a_seq, float* A_out, int* lu_out, uint8_t* init_out,
+                                 int B, int M, int k, int period, float lam,
+                                 float one_minus_lam, int associative) {
+    extern __shared__ int sel[];                 // [kMergeEmaWarps][k]
+    const int l = blockIdx.x;
+    const long long base = static_cast<long long>(l) * B;
+    float* out = a_seq + 3 * base;
+    if (M > 1) {
+        const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+        int* sw = sel + warp * k;
+        for (int b = warp; b < B; b += kMergeEmaWarps) {
+            const long long n = base + b;
+            const float* tn = t + n * M;
+            const int* gn = gidx + n * M;
+            for (int i = ln; i < M; i += 32) {
+                const unsigned long long key =
+                    make_key(tn[i], static_cast<unsigned>(gn[i]) ^ 0x80000000u);
+                int rank = 0;
+                for (int j = 0; j < M && rank < k; ++j) {
+                    const unsigned long long other =
+                        make_key(tn[j], static_cast<unsigned>(gn[j]) ^ 0x80000000u);
+                    rank += (other < key || (other == key && j < i)) ? 1 : 0;
+                }
+                if (rank < k) sw[rank] = i;      // ranks are distinct
+            }
+            __syncwarp();
+            if (ln < 3) {                        // one channel a lane
+                float s = 0.0f, c = 0.0f;
+                for (int q = 0; q < k; ++q) comp_add(s, c, rgb[3 * (n * M + sw[q]) + ln]);
+                out[3 * b + ln] = __fdiv_rn(__fadd_rn(s, c), static_cast<float>(k));
+            }
+            __syncwarp();                        // sw[] read before the next frame
+        }
+        __syncthreads();                         // every candidate in a_seq
+    }
+    if (threadIdx.x != 0) return;
+    const float* cand = M > 1 ? out : rgb + 3 * base;
+    const int* id = ids + base;
+    const float A0[3] = {A_in[3 * l], A_in[3 * l + 1], A_in[3 * l + 2]};
+    const int k0 = lu_in[l];
+    const int inited0 = init_in[l] != 0 ? 1 : 0;
+    if (!associative) {
+        float A[3] = {A0[0], A0[1], A0[2]};
+        int kk = k0, inited = inited0;
+        for (int b = 0; b < B; ++b) {
+            const float cv[3] = {cand[3 * b], cand[3 * b + 1], cand[3 * b + 2]};
+            ema_step(A, kk, inited, cv, id[b], out + 3 * b, period, lam, one_minus_lam);
+        }
+        for (int q = 0; q < 3; ++q) A_out[3 * l + q] = A[q];
+        lu_out[l] = kk;
+        init_out[l] = static_cast<uint8_t>(inited);
+        return;
+    }
+    int first = 0;                               // argmax of valid: 0 if none
+    while (first < B && id[first] < 0) ++first;
+    if (first == B) first = 0;
+    const int fid0 = id[first];
+    // int32 sums and differences wrap, as in the reference.
+    const int after = static_cast<int>(static_cast<unsigned>(k0) + static_cast<unsigned>(period));
+    const int u0 = inited0 ? max(fid0, after) : fid0;
+    float cc = 0.0f, dd[3] = {0.0f, 0.0f, 0.0f};
+    int last = kBootstrapId;
+    bool any_upd = false, any_valid = false;
+    for (int b = 0; b < B; ++b) {
+        const int fid = id[b];
+        const bool valid = fid >= 0;
+        const int d = static_cast<int>(static_cast<unsigned>(fid) - static_cast<unsigned>(u0));
+        const bool mask = valid && d >= 0 && d % period == 0;
+        const bool boot = !inited0 && valid && b == first;
+        const float lm = __fmul_rn(lam, mask ? 1.0f : 0.0f);
+        const float c = boot ? 0.0f : __fsub_rn(1.0f, lm);
+        float dv[3];
+        for (int q = 0; q < 3; ++q) dv[q] = boot ? cand[3 * b + q] : __fmul_rn(lm, cand[3 * b + q]);
+        if (b == 0) {
+            cc = c;
+            for (int q = 0; q < 3; ++q) dd[q] = dv[q];
+        } else {
+            cc = __fmul_rn(c, cc);
+            for (int q = 0; q < 3; ++q) dd[q] = __fadd_rn(__fmul_rn(c, dd[q]), dv[q]);
+        }
+        for (int q = 0; q < 3; ++q) out[3 * b + q] = __fadd_rn(__fmul_rn(cc, A0[q]), dd[q]);
+        if (mask || boot) {
+            last = max(last, fid);
+            any_upd = true;
+        }
+        any_valid = any_valid || valid;
+    }
+    for (int q = 0; q < 3; ++q) A_out[3 * l + q] = out[3 * (B - 1) + q];
+    lu_out[l] = any_upd ? last : k0;
+    init_out[l] = static_cast<uint8_t>(inited0 || any_valid ? 1 : 0);
+}
+
 template <int kMode>
 int launch_window(const void* x, void* out, int N, int H, int W, int r, int dt,
                   void* stream, const uint8_t* vh = nullptr,
@@ -1067,6 +1201,7 @@ int st_band_rows() { return kBandRows; }
 int st_dark_band_rows() { return kDarkBandRows; }
 int st_min_band_rows() { return kMinBandRows; }
 int st_warp_topk_max() { return kWarpTopkMax; }
+int st_merge_ema_max_k() { return kMergeEmaMaxK; }
 
 // 1 where the strips take the box filter (kind 0), the dark channel (1),
 // the min filter (2), the masked box filter (3) or the masked min filter
@@ -1195,6 +1330,28 @@ int st_merge_topk(const float* t, const int* gidx, const float* rgb, int* sel,
     if (k < 1 || k > M) return static_cast<int>(cudaErrorInvalidValue);
     merge_topk_kernel<<<N, kReduceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         t, gidx, rgb, sel, out, M, k);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Per lane l < L: (B, M) float32 t and int32 global index (unread at
+// M = 1), (B, M, 3) float32 rgb, (B,) int32 ids (< 0 padding) and the
+// state row (A float32 x 3, last_update int32, initialized byte) -> a_seq
+// (B, 3) float32 (the A of each frame after Eq. 9) and the new state row
+// (which may be the state row read). Each frame's candidate is the mean rgb
+// of its k smallest (t, index) rows, 1 <= k <= min(M, st_merge_ema_max_k());
+// the scan is sequential or, where associative != 0, the associative
+// scan's order of operations; period >= 1.
+int st_merge_ema(const float* t, const int* gidx, const float* rgb, const int* ids,
+                 const float* A_in, const int* lu_in, const uint8_t* init_in, float* a_seq,
+                 float* A_out, int* lu_out, uint8_t* init_out, int L, int B, int M, int k,
+                 int period, float lam, float one_minus_lam, int associative, void* stream) {
+    if (L < 1 || B < 1 || k < 1 || k > M || k > kMergeEmaMaxK || period < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = M > 1 ? 32 * kMergeEmaWarps : 32;
+    const size_t smem = M > 1 ? static_cast<size_t>(kMergeEmaWarps) * k * sizeof(int) : 0;
+    merge_ema_kernel<<<L, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        t, gidx, rgb, ids, A_in, lu_in, init_in, a_seq, A_out, lu_out, init_out, B, M, k,
+        period, lam, one_minus_lam, associative);
     return static_cast<int>(cudaGetLastError());
 }
 

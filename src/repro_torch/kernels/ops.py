@@ -32,8 +32,10 @@ the staged branch of the sharded steps (frame-sharded, lane-sharded
 without the lane-native megakernel, and spatial, under ``"auto"``,
 ``"pallas"`` and the ``"fused"`` configs the megakernel does not cover)
 calls the masked filters once a step (a tile) for the min and six times
-for the guided filter's means, and the spatial steps the merge once a
-step. The TPU tiling knobs
+for the guided filter's means. Every step but the lane-native
+megakernel's ends in :func:`merge_ema`, the candidate rows' merge and the
+§3.3 EMA as one kernel under any mode but ``"ref"``: once a step (a tick
+of the staged serve); the spatial steps no longer call the merge alone. The TPU tiling knobs
 (``frames_per_block``, ``lane_major``, ``buffer_depth``, the tuning
 table) have no counterpart.
 """
@@ -193,6 +195,67 @@ def merge_topk_candidates(tk_t, tk_idx, tk_rgb, k: int,
         return _ref.merge_topk_candidates(tk_t, tk_idx, tk_rgb, k)
     return _staged.merge_topk_op(tk_t, tk_idx.to(torch.int32).contiguous(),
                                  tk_rgb, k)
+
+
+def _as(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` contiguous in ``dtype``, with no call where it already is (the
+    state sync runs once a tick on the host's critical path)."""
+    if x.dtype != dtype:
+        x = x.to(dtype)
+    return x if x.is_contiguous() else x.contiguous()
+
+
+def merge_ema(tk_t, tk_idx, tk_rgb, k: int, frame_ids, state, period: int,
+              lam: float, associative: bool = True, mode: Mode = "auto",
+              out_state=None):
+    """The §3.3 state sync that ends a step: per lane, each frame's
+    candidate from its M rows (the mean rgb of the k smallest (t, global
+    index) rows, as :func:`merge_topk_candidates`; the row itself at
+    M = 1), then the lane's EMA over its B frames
+    (``core.normalize.ema_scan_associative`` where ``associative``, else
+    ``ema_scan``). (L, B, M) t and global indices (None at M = 1), (L, B,
+    M, 3) rgb, (L, B) ids, a lane-batched ``AtmoState`` -> ``(a_seq (L, B,
+    3) float32, new state)``. Where ``out_state`` is given (a donated
+    state; it may be ``state`` itself) the new state goes into its tensors
+    and the state returned holds them. Under ``"ref"`` the plain chain's
+    merge (``kernels.ref``) and the scan; otherwise ``kernels.staged``'s
+    merge-and-EMA kernel on CUDA tensors and its plain version (the same
+    composition through the staged merge's plain version) on CPU ones."""
+    from repro_torch.core.normalize import (AtmoState, ema_scan,
+                                            ema_scan_associative)
+    rgb = _as(tk_rgb, torch.float32)
+    l, b, m = rgb.shape[:3]
+    fields = (_as(state.A, torch.float32), _as(state.last_update, torch.int32),
+              _as(state.initialized, torch.bool))
+    ids = _as(frame_ids, torch.int32)
+    if ids.device != rgb.device:
+        ids = ids.to(rgb.device)
+    out = None if out_state is None else (
+        out_state.A, out_state.last_update, out_state.initialized)
+    direct = out is not None and all(
+        v.is_contiguous() and v.dtype == f.dtype and v.shape == f.shape
+        for v, f in zip(out, fields))
+    if b == 0:                      # an empty batch passes the state through
+        a_seq, new = rgb.new_empty((l, 0, 3)), fields
+    elif resolve_mode(mode) == "ref":
+        cand = rgb[:, :, 0] if m == 1 else _ref.merge_topk_candidates(
+            tk_t.reshape(l * b, m), tk_idx.reshape(l * b, m),
+            rgb.reshape(l * b, m, 3), k).reshape(l, b, 3)
+        scan = ema_scan_associative if associative else ema_scan
+        a_seq, st = scan(cand, ids, AtmoState(*fields), period, lam)
+        new = (st.A, st.last_update, st.initialized)
+    else:
+        lists = (None, None) if tk_t is None else (
+            _as(tk_t, torch.float32), _as(tk_idx, torch.int32))
+        a_seq, *new = _staged.merge_ema_op(
+            *lists, rgb, k, ids, *fields, period, lam, associative,
+            out if direct else None)
+    if out is not None:
+        for dst, src in zip(out, new):
+            if dst is not src:
+                dst.copy_(src)
+        new = out
+    return a_seq, AtmoState(*new)
 
 
 def per_frame(A: torch.Tensor, lead: Tuple[int, ...]) -> torch.Tensor:
@@ -362,7 +425,7 @@ def fused_transmission_halo(img: torch.Tensor, pre_ext: torch.Tensor,
 __all__ = ["MODES", "resolve_mode", "dark_channel", "min_filter_2d",
            "box_filter_2d", "masked_min_filter_2d", "masked_box_filter_2d",
            "guided_filter", "masked_guided_filter", "atmospheric_light",
-           "merge_topk_candidates",
+           "merge_topk_candidates", "merge_ema",
            "per_frame", "recover",
            "cap_depth", "fused_dehaze", "fused_dehaze_lanes",
            "fused_transmission", "fused_transmission_lanes",

@@ -18,6 +18,11 @@ and the spatially sharded step's kernels:
   masked box filter ``kernels/boxfilter.py::masked_box_filter_2d_pallas``
   top-k merge       ``kernels/atmolight.py::merge_topk_pallas``
 
+and the state sync of every step whose §3.3 EMA ran in PyTorch ops:
+
+  merge and EMA     ``kernels/atmolight.py::merge_topk_pallas`` with
+                    ``core/normalize.py::ema_scan`` / ``ema_scan_associative``
+
 For each, ``cuda_<name>`` launches the hand-written kernel on CUDA tensors
 (built at first use; a failed build or launch raises) and adds one to
 :data:`launches`; the window kernels (the dark channel, the min and box
@@ -46,9 +51,14 @@ SOURCE = "staged.cu"
 KERNELS = ("dark_channel", "min_filter", "box_filter", "atmolight",
            "atmolight_topk", "recover")
 SPATIAL_KERNELS = ("masked_min_filter", "masked_box_filter", "merge_topk")
+#: The state sync (the candidate rows' merge and the §3.3 EMA in one
+#: kernel), which ends the staged chain's steps, the sharded steps and the
+#: spatial steps alike.
+STATE_KERNELS = ("merge_ema",)
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
-launches: Dict[str, int] = {name: 0 for name in KERNELS + SPATIAL_KERNELS}
+launches: Dict[str, int] = {name: 0 for name in
+                            KERNELS + SPATIAL_KERNELS + STATE_KERNELS}
 
 #: Of those, the launches of the route past the new kernels' limits: the
 #: window kernels' row window, for radii the strips do not take
@@ -93,6 +103,10 @@ TOP1_TILE = 4096
 #: each lane keeps its pixels' k smallest keys in registers (lists of 2, 4,
 #: 8 or 16), so k is bounded by the registers a lane can give them.
 WARP_TOPK_MAX = 16
+
+#: The largest k the merge-and-EMA kernel takes (``kMergeEmaMaxK``, checked
+#: at load): each warp keeps a frame's k picks in shared memory.
+MERGE_EMA_MAX_K = 1024
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -140,6 +154,7 @@ def _lib() -> ctypes.CDLL:
             "st_masked_box_filter": [vp, vp, vp, vp, i, i, i, i, i, vp],
             "st_masked_box_filter_wide": [vp, vp, vp, vp, i, i, i, i, i, vp],
             "st_merge_topk": [vp, vp, vp, vp, vp, i, i, i, vp],
+            "st_merge_ema": [vp] * 11 + [i, i, i, i, i, f, f, i, vp],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -156,14 +171,14 @@ def _lib() -> ctypes.CDLL:
         consts = ("st_tile_x", "st_tile_y", "st_max_smem", "st_topk_tile",
                   "st_topk_max_tiles", "st_top1_tile", "st_strip_w",
                   "st_piece_rows", "st_band_rows", "st_dark_band_rows",
-                  "st_min_band_rows", "st_warp_topk_max")
+                  "st_min_band_rows", "st_warp_topk_max", "st_merge_ema_max_k")
         for name in consts:
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         got = tuple(getattr(lib, name)() for name in consts)
         want = (TILE_X, TILE_Y, MAX_SMEM, TOPK_TILE, TOPK_MAX_TILES, TOP1_TILE,
                 STRIP_W, PIECE_ROWS, BAND_ROWS, DARK_BAND_ROWS, MIN_BAND_ROWS,
-                WARP_TOPK_MAX)
+                WARP_TOPK_MAX, MERGE_EMA_MAX_K)
         if got != want:
             raise RuntimeError(f"{SOURCE} constants {got}, expected {want}")
         _lib_handle = lib
@@ -185,7 +200,7 @@ def _launch(name: str, *args, wide: bool = False) -> None:
 
 def _check_cuda(*tensors: torch.Tensor) -> None:
     for t in tensors:
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
@@ -836,12 +851,146 @@ def merge_topk_op(tk_t: torch.Tensor, tk_idx: torch.Tensor,
         tk_t, tk_idx, tk_rgb, k)
 
 
+# ---------------------------------------------------------------------------
+# The §3.3 state sync: the candidate rows' merge and the EMA in one kernel
+# (atmolight.py::merge_topk_pallas, core/normalize.py::ema_scan and
+# ::ema_scan_associative)
+# ---------------------------------------------------------------------------
+
+#: The call shapes :func:`_check_merge_ema` has passed: each is checked
+#: once, not on every step.
+_merge_ema_shapes: set = set()
+
+
+def _check_merge_ema(tk_t, tk_idx, tk_rgb, k, frame_ids, A, last_update,
+                     initialized, period, out) -> None:
+    key = (None if out is None else tuple((v.shape, v.dtype) for v in out),
+           tk_rgb.shape, tk_rgb.dtype,
+           None if tk_t is None else (tk_t.shape, tk_t.dtype),
+           None if tk_idx is None else (tk_idx.shape, tk_idx.dtype),
+           k, frame_ids.shape, frame_ids.dtype, A.shape, A.dtype,
+           last_update.shape, last_update.dtype, initialized.shape,
+           initialized.dtype, period)
+    if key in _merge_ema_shapes:
+        return
+    if tk_rgb.dim() != 4 or tk_rgb.shape[-1] != 3 or \
+            tk_rgb.dtype != torch.float32:
+        raise ValueError(f"expected (L, B, M, 3) float32 rgb rows, got "
+                         f"{tuple(tk_rgb.shape)} {tk_rgb.dtype}")
+    l, b, m = tk_rgb.shape[:3]
+    for name, v, dt in (("t", tk_t, torch.float32),
+                        ("index", tk_idx, torch.int32)):
+        if v is None and m == 1:
+            continue
+        if v is None or tuple(v.shape) != (l, b, m) or v.dtype != dt:
+            raise ValueError(f"the {name} lists must be (L, B, M) = "
+                             f"{(l, b, m)} {dt} (None only at M = 1)")
+    if not 1 <= k <= min(m, MERGE_EMA_MAX_K):
+        raise ValueError(f"k={k} outside [1, min(M={m}, {MERGE_EMA_MAX_K})]")
+    if tuple(frame_ids.shape) != (l, b) or frame_ids.dtype != torch.int32:
+        raise ValueError(f"frame ids {tuple(frame_ids.shape)} "
+                         f"{frame_ids.dtype} are not (L, B) = {(l, b)} int32")
+    for name, v, shape, dt in (("A", A, (l, 3), torch.float32),
+                               ("last_update", last_update, (l,), torch.int32),
+                               ("initialized", initialized, (l,), torch.bool)):
+        if tuple(v.shape) != shape or v.dtype != dt:
+            raise ValueError(f"state {name} {tuple(v.shape)} {v.dtype} is not "
+                             f"{shape} {dt}")
+    if out is not None and [(v.shape, v.dtype) for v in out] != [
+            (v.shape, v.dtype) for v in (A, last_update, initialized)]:
+        raise ValueError("out must hold the state's three tensors' shapes and "
+                         "dtypes")
+    if min(l, b) < 1 or period < 1:
+        raise ValueError(f"L={l}, B={b} and period={period} must be >= 1")
+    _merge_ema_shapes.add(key)
+
+
+def _merge_ema_outputs(l: int, b: int, device, out):
+    """a_seq (L, B, 3) float32 and the new state's rows (``out``'s where
+    given). Four plain allocations: carving them from one buffer takes
+    more view calls on the host than it saves."""
+    a_seq = torch.empty((l, b, 3), dtype=torch.float32, device=device)
+    if out is not None:
+        return (a_seq, *out)
+    return (a_seq, torch.empty((l, 3), dtype=torch.float32, device=device),
+            torch.empty(l, dtype=torch.int32, device=device),
+            torch.empty(l, dtype=torch.bool, device=device))
+
+
+def cuda_merge_ema(tk_t, tk_idx, tk_rgb: torch.Tensor, k: int,
+                   frame_ids: torch.Tensor, A: torch.Tensor,
+                   last_update: torch.Tensor, initialized: torch.Tensor,
+                   period: int, lam: float, associative: bool, out=None):
+    _check_merge_ema(tk_t, tk_idx, tk_rgb, k, frame_ids, A, last_update,
+                     initialized, period, out)
+    lists = () if tk_t is None else (tk_t, tk_idx)
+    _check_cuda(tk_rgb, frame_ids, A, last_update, initialized, *lists,
+                *(out or ()))
+    l, b, m = tk_rgb.shape[:3]
+    res = _merge_ema_outputs(l, b, tk_rgb.device, out)
+    t_ptr, idx_ptr = (None, None) if tk_t is None else (tk_t.data_ptr(),
+                                                        tk_idx.data_ptr())
+    _launch("merge_ema", t_ptr, idx_ptr, tk_rgb.data_ptr(),
+            frame_ids.data_ptr(), A.data_ptr(), last_update.data_ptr(),
+            initialized.data_ptr(), *(v.data_ptr() for v in res), l, b, m, k,
+            period, lam, 1.0 - lam, int(associative))
+    return res
+
+
+def plain_merge_ema(tk_t, tk_idx, tk_rgb: torch.Tensor, k: int,
+                    frame_ids: torch.Tensor, A: torch.Tensor,
+                    last_update: torch.Tensor, initialized: torch.Tensor,
+                    period: int, lam: float, associative: bool, out=None):
+    """The composition the kernel replaces: each frame's candidate by
+    :func:`plain_merge_topk` (the row itself at M = 1), then
+    ``core.normalize.ema_scan_associative`` (``associative``) or
+    ``ema_scan`` over each lane. The kernel equals it bit for bit where the
+    compensated sum of the k picks is exact (rgb in [0, 1] within a factor
+    2**21 of each other, as frames give them)."""
+    from repro_torch.core import normalize
+    _check_merge_ema(tk_t, tk_idx, tk_rgb, k, frame_ids, A, last_update,
+                     initialized, period, out)
+    l, b, m = tk_rgb.shape[:3]
+    if m == 1:
+        cand = tk_rgb[:, :, 0]
+    else:
+        cand = plain_merge_topk(tk_t.reshape(l * b, m),
+                                tk_idx.reshape(l * b, m),
+                                tk_rgb.reshape(l * b, m, 3), k).reshape(l, b, 3)
+    scan = normalize.ema_scan_associative if associative else normalize.ema_scan
+    a_seq, st = scan(cand, frame_ids,
+                     normalize.AtmoState(A, last_update, initialized),
+                     period, lam)
+    new = (st.A, st.last_update, st.initialized)
+    if out is None:
+        return (a_seq, *new)
+    for dst, src in zip(out, new):
+        dst.copy_(src)
+    return (a_seq, *out)
+
+
+def merge_ema_op(tk_t, tk_idx, tk_rgb: torch.Tensor, k: int,
+                 frame_ids: torch.Tensor, A: torch.Tensor,
+                 last_update: torch.Tensor, initialized: torch.Tensor,
+                 period: int, lam: float, associative: bool, out=None):
+    """(L, B, M) float32 t and int32 global indices (None at M = 1), (L, B,
+    M, 3) float32 rgb, (L, B) int32 ids (< 0 padding) and the lane-batched
+    state (A (L, 3) float32, last_update (L,) int32, initialized (L,) bool)
+    -> ``(a_seq (L, B, 3) float32, A, last_update, initialized)``, the new
+    state in ``out``'s three tensors where given (they may be the state
+    read)."""
+    return (cuda_merge_ema if _on_kernel(tk_rgb) else plain_merge_ema)(
+        tk_t, tk_idx, tk_rgb, k, frame_ids, A, last_update, initialized,
+        period, lam, associative, out)
+
+
 #: Kernel name -> (CUDA wrapper, plain version): what ``chip_smoke.py``
 #: holds against each other.
 PAIRS = {name: (globals()[f"cuda_{name}"], globals()[f"plain_{name}"])
-         for name in KERNELS + SPATIAL_KERNELS}
+         for name in KERNELS + SPATIAL_KERNELS + STATE_KERNELS}
 
-__all__ = ["SOURCE", "KERNELS", "SPATIAL_KERNELS", "launches",
+__all__ = ["SOURCE", "KERNELS", "SPATIAL_KERNELS", "STATE_KERNELS",
+           "MERGE_EMA_MAX_K", "launches",
            "wide_launches", "reset_launches", "PAIRS", "STRIP_KINDS",
            "strip_smem", "strips_fit", "strips_occupancy", "window_occupancy",
            "topk_occupancy", "WARP_TOPK_MAX", "warp_topk_fits", "window_sum",
@@ -857,4 +1006,5 @@ __all__ = ["SOURCE", "KERNELS", "SPATIAL_KERNELS", "launches",
            "cuda_masked_min_filter", "plain_masked_min_filter",
            "masked_min_filter_op", "cuda_masked_box_filter",
            "plain_masked_box_filter", "masked_box_filter_op",
-           "cuda_merge_topk", "plain_merge_topk", "merge_topk_op"]
+           "cuda_merge_topk", "plain_merge_topk", "merge_topk_op",
+           "cuda_merge_ema", "plain_merge_ema", "merge_ema_op"]
