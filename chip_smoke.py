@@ -226,7 +226,23 @@ any error:
    bit-equal, with its device kernels, copies and busy time a step. It
    runs right after phase 14: after phase 15's profiler trace of a
    threaded serve, later traces of a lone kernel come back empty or short;
-18. print ``{"kernels": [...]}`` (each kernel's launches on the path it
+18. frames over several batch axes, the single-rank path only: on a
+   one-rank NCCL mesh of shape (1, 1, 1) ``("pod", "data", "model")``, the
+   frame-sharded step with ``batch_axes=("pod", "data")``, fused and
+   staged (``kernel_mode="pallas"``), without and with
+   ``height_axis="model"``. Every axis has size 1 on one card, so the
+   state sync gathers over one axis's group (no group over several axes
+   is made, no block reordered) and no tile is cut: the check is that
+   such a placement builds and runs the one-axis path. Two chained batches of 32 uint8 frames each,
+   equal bit for bit to the one-axis step of phases 11 and 13 on
+   ``make_host_mesh(1, 1)``, no synchronising call; ``ops.launch_count``
+   of each step call equal to phase 11's launches a step, and of one
+   fused and one staged ``serve_many`` tick (4 streams x 8 frames) equal
+   to phases 3 and 7's launches a tick; ``ops.fused_dehaze_dcp`` bit-equal
+   to ``ops.fused_dehaze(..., algorithm="dcp")`` on the card, and a
+   nonzero ``frames_per_block`` refused; each multi-axis step's ms back to
+   back beside the one-axis step's, in turns;
+19. print ``{"kernels": [...]}`` (each kernel's launches on the path it
    names: the megakernel's tiled passes on the fused serving path, the
    transmission stage's tiled passes on the sharded steps, the halo
    stage's on the spatial steps, B8a and B8b on the staged sharded and
@@ -235,8 +251,9 @@ any error:
    routes past their limits, ``staged.wide.*``, and B10, which run on
    none of them at the serving shape; the fused and staged serving kernels also with their
    launches on phase 15's overlapped ``serve_many`` and on phase 16's
-   overlapped autoscaled and first-fit fleet serves), the card line, and
-   last ``{"ok": true, "device": {...}}``.
+   overlapped autoscaled and first-fit fleet serves; the sharded steps'
+   kernels also with their launches on phase 18's multi-axis steps), the
+   card line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -676,17 +693,12 @@ def all_launches() -> dict:
     ``fused_transmission``, the stage's whole runs), and
     ``fused_transmission_halo.<pass>`` (and ``fused_transmission_halo``,
     the halo stage's whole runs)."""
-    from repro_torch.kernels import fused as fk, staged as sk
-    counts = dict(fk.launches)
+    from repro_torch.kernels import fused as fk, ops, staged as sk
+    counts = ops.launch_counters()
     counts["fused_dehaze_lanes"] = counts["tmap_tile"]
-    counts.update({f"staged.{k}": n for k, n in sk.launches.items()})
     counts.update({f"staged.wide.{k}": n for k, n in sk.wide_launches.items()})
-    counts.update({f"fused_transmission.{k}": n
-                   for k, n in fk.transmission_launches.items()})
     counts["fused_transmission"] = (fk.transmission_launches["tmap_tile"]
                                     + fk.transmission_launches["premap"])
-    counts.update({f"fused_transmission_halo.{k}": n
-                   for k, n in fk.halo_launches.items()})
     counts["fused_transmission_halo"] = (fk.halo_launches["tmap_tile"]
                                          + fk.halo_launches["min_rows"])
     return counts
@@ -3177,6 +3189,157 @@ def phase_elastic(vids, paths) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 18: frames over several batch axes, ops.launch_count, the aliases
+# ---------------------------------------------------------------------------
+
+# all_launches' names that sum other counters (a stage's whole runs) or
+# split one (the routes past the strips' limits): ops.launch_count has
+# neither.
+DERIVED_COUNTERS = ("fused_dehaze_lanes", "fused_transmission",
+                    "fused_transmission_halo")
+
+
+def per_call(counts: dict, calls: int) -> dict:
+    """``counts`` (all_launches' names, over ``calls`` calls) as
+    ``ops.launch_count`` gives one call's: the kernels that launched, a
+    call's share each, and the total."""
+    out = {}
+    for name, n in counts.items():
+        if n and name not in DERIVED_COUNTERS and not name.startswith("staged.wide."):
+            check(n % calls == 0, f"{name}: {n} launches over {calls} calls")
+            out[name] = n // calls
+    out["total"] = sum(out.values())
+    return out
+
+
+def phase_multiaxis(vids, serve_counts) -> dict:
+    """The frame-sharded step over two batch axes, ``("pod", "data")``, on
+    a one-rank NCCL mesh of shape (1, 1, 1) ``("pod", "data", "model")``:
+    a check of the single-rank path only, since every axis has size 1 (the
+    gather takes one axis's group, no group over several axes is made and
+    no tile is cut). Fused and staged (``kernel_mode="pallas"``), without
+    and with ``height_axis="model"``, each two
+    chained batches of 32 uint8 frames equal bit for bit to the one-axis
+    step of phases 11 and 13 (``("data",)`` on ``make_host_mesh(1, 1)``),
+    no synchronising call; ``ops.launch_count`` of every step call equal to
+    phase 11's launches a step, and of one fused and one staged
+    ``serve_many`` tick (4 streams x 8 frames) equal to phases 3 and 7's
+    launches a tick (``serve_counts``: path -> (counts, ticks, config));
+    ``ops.fused_dehaze_dcp`` on the card bit-equal to ``ops.fused_dehaze(...,
+    algorithm="dcp")``; then each multi-axis step's ms back to back beside
+    the one-axis step's, in turns (one, multi, multi, one)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import (DehazeConfig, PlacementSpec, init_atmo_state,
+                                  make_sharded_dehaze_step, make_step)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import batch_axes_for, make_host_mesh
+    from repro_torch.stream import ElasticServer, StreamRequest
+    card = card_line()
+    # launches: the multi-axis steps' kernels over their 8 checked calls.
+    res = {"steps": {}, "serve": {}, "launches": {}}
+    frames = to_wire(ramps(18, 2 * L * B).reshape(-1, 3), torch.uint8).reshape(
+        2, L * B, H, W, 3).cuda()
+    one = make_host_mesh(1, 1)
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        pod = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+        check(batch_axes_for(pod, L * B) == ("pod", "data"),
+              f"batch_axes_for: {batch_axes_for(pod, L * B)}")
+        for mode, per_step in (("fused", transmission_per_tick()),
+                               ("pallas", STAGED_SHARDED_PER_STEP)):
+            cfg = DehazeConfig(kernel_mode=mode, io_dtype="uint8")
+            want_counts = per_call(per_step, 1)
+            for height in (None, "model"):
+                label = f"{mode} ('pod', 'data')" + (" height 'model'" if height else "")
+                multi = make_step(cfg, PlacementSpec.frame_sharded(
+                    ("pod", "data"), height, None), pod)
+                single = make_sharded_dehaze_step(cfg, one, height_axis=height)
+                st_m = st_1 = init_atmo_state("cuda")
+                for batch in range(2):
+                    ids = torch.arange(L * B, dtype=torch.int32, device="cuda") + L * B * batch
+                    outs = []
+                    got_counts = ops.launch_count(
+                        lambda: outs.append(multi(frames[batch], ids, st_m)))
+                    check(got_counts == want_counts, f"{label} b{batch}: launch_count "
+                          f"{got_counts}, phase 11 a step {want_counts}")
+                    for name, n in got_counts.items():
+                        if name != "total":
+                            res["launches"][name] = res["launches"].get(name, 0) + n
+                    out = outs[0]
+                    want = single(frames[batch], ids, st_1)
+                    torch.cuda.synchronize()
+                    for k in ("frames", "transmission", "atmo_light"):
+                        check(torch.equal(getattr(out, k), getattr(want, k)),
+                              f"{label} b{batch}: {k} differs from the one-axis step")
+                    for k in ("A", "last_update", "initialized"):
+                        check(torch.equal(getattr(out.state, k), getattr(want.state, k)),
+                              f"{label} b{batch}: state.{k} differs from the one-axis step")
+                    st_m, st_1 = out.state, want.state
+                check(not hasattr(pod, "_batch_groups"),
+                      f"{label}: a group over several axes on a one-rank mesh")
+                check_no_sync(multi, frames[1], ids, st_m, label)
+                turns = [time_ms(lambda f=fn: f(frames[1], ids, st_m))
+                         for fn in (single, multi, multi, single)]
+                res["steps"][label] = {"ms": (turns[1] + turns[2]) / 2,
+                                       "one_axis_ms": (turns[0] + turns[3]) / 2,
+                                       "turns_ms": turns, "launch_count": got_counts}
+                print(f"phase 18 {label} step (32 x {H}x{W} uint8, back to back), turns "
+                      f"one-axis/multi/multi/one-axis {turns} ms: multi-axis "
+                      f"{res['steps'][label]['ms']} ms, one-axis "
+                      f"{res['steps'][label]['one_axis_ms']} ms; bit-equal "
+                      f"(single-rank path, every axis of size 1); "
+                      f"launch_count {got_counts}; {card}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    # One serve tick on each serving path through ops.launch_count.
+    for path, (counts, ticks, cfg) in serve_counts.items():
+        srv = ElasticServer(cfg, batch=B, timeout_s=2.0)
+        reps = []
+        got = ops.launch_count(lambda: reps.append(srv.serve_many(
+            [StreamRequest(f"cam{i}", iter(v[:B])) for i, v in enumerate(vids)],
+            n_lanes=L)))
+        check(reps[0].ticks == 1 and reps[0].frames == L * B and reps[0].skipped == 0,
+              f"{path} serve_many tick: {reps[0].ticks} ticks, {reps[0].frames} frames")
+        want = per_call(counts, ticks)
+        check(got == want, f"{path} serve tick: launch_count {got}, phases 3/7 "
+              f"a tick {want}")
+        res["serve"][path] = got
+        print(f"phase 18 {path} serve_many tick: launch_count {got} == phases 3/7 "
+              f"a tick", flush=True)
+
+    # The back-compat alias against its entry point on the card.
+    st = init_atmo_state("cuda")
+    kw = dict(radius=CFG_KW["radius"], omega=CFG_KW["omega"], refine=True,
+              gf_radius=CFG_KW["gf_radius"], gf_eps=CFG_KW["gf_eps"], t0=CFG_KW["t0"],
+              gamma=CFG_KW["gamma"], period=CFG_KW["period"], lam=CFG_KW["lam"],
+              mode="fused")
+    ids = torch.arange(B, dtype=torch.int32, device="cuda")
+    outs = []
+    alias_counts = ops.launch_count(lambda: outs.append(ops.fused_dehaze_dcp(
+        frames[0][:B], ids, st.A, st.last_update, st.initialized, **kw)))
+    got = outs[0]
+    want = ops.fused_dehaze(frames[0][:B], ids, st.A, st.last_update,
+                            st.initialized, algorithm="dcp", **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "ops.fused_dehaze_dcp differs from ops.fused_dehaze(algorithm='dcp')")
+    want_alias = per_call(fused_per_tick(), 1)
+    check(alias_counts == want_alias,
+          f"ops.fused_dehaze_dcp launch_count {alias_counts}, expected {want_alias}")
+    try:
+        ops.fused_dehaze_dcp(frames[0][:B], ids, st.A, st.last_update,
+                             st.initialized, frames_per_block=2, **kw)
+        fail("ops.fused_dehaze_dcp took frames_per_block=2")
+    except ValueError:
+        pass
+    print(f"phase 18 ops.fused_dehaze_dcp == ops.fused_dehaze(algorithm='dcp') bit "
+          f"for bit on {B} uint8 frames; launch_count {alias_counts}", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 17: the state sync (st_merge_ema) alone, and timed
 # ---------------------------------------------------------------------------
 
@@ -3464,6 +3627,9 @@ def main() -> int:
     stamp("phase 15")
     el = phase_elastic(vids, serving_paths)
     stamp("phase 16")
+    ma = phase_multiaxis(vids, {
+        "fused": (launches, ticks, cfg), "staged": (s_launches, s_ticks, cfg_staged)})
+    stamp("phase 18")
 
     kernels = []
 
@@ -3636,6 +3802,13 @@ def main() -> int:
     for x in el["warm"]:
         print(f"rung warm-up {x['path']}: {x['rung']} lanes, {x['s']} s",
               flush=True)
+    # Phase 18's multi-axis steps (their 8 checked calls).
+    for e in kernels:
+        if e["name"] in ma["launches"]:
+            e["launches_multiaxis"] = ma["launches"][e["name"]]
+    print("launches on the multi-axis sharded steps (phase 18): " + json.dumps(
+        {e["name"]: e["launches_multiaxis"] for e in kernels
+         if "launches_multiaxis" in e}), flush=True)
     for run, fps in el["turns"].items():
         print(f"phase 16 turns (fused, overlapped): {run} aggregate fps {fps}",
               flush=True)

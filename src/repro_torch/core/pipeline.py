@@ -22,8 +22,10 @@ every rank calls it with its own block and the replicated state.
 Frame-sharded, each rank computes t and its frames' A candidates (fused:
 the megakernel's transmission passes, one sequence; staged: the masked
 filters of ``kernels.ops`` and a stable top-k), the candidates and ids
-are all-gathered in rank order over the mesh's ``data`` group, and every
-rank scans the §3.3 EMA over the whole batch and keeps its slice.
+are all-gathered over the frame axes (``batch_axes``: one axis's group,
+or for several axes one group over them, its blocks in the reference's
+row-major order over the axes as given), and every rank scans the §3.3
+EMA over the whole batch and keeps its slice.
 Lane-sharded, every rank serves whole lanes and scans them locally.
 
 A height or width axis of size > 1 splits each frame into tiles: the
@@ -31,7 +33,7 @@ A height or width axis of size > 1 splits each frame into tiles: the
 axis's group, :func:`spatial_shard_stage` computes the tile's t and its k
 best candidates with global indices (fused: the halo stage's kernels;
 staged: the masked filters' kernels), and the lists are all-gathered over the
-spatial groups (frame-sharded, then over the data group too) and merged on
+spatial groups (frame-sharded, then over the frame axes too) and merged on
 every rank. Recovery runs the plain chain, as in the reference.
 
 Every step but the lane-native megakernel's ends in one state sync
@@ -48,6 +50,7 @@ buffer. The sharded steps take no donation.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -161,7 +164,10 @@ def make_step(cfg: DehazeConfig, placement: Optional[PlacementSpec] = None,
       its own frames and ids and the replicated (frame-sharded) or its own
       lanes' (lane-sharded) state, and gets its block's output and the new
       state. The device is the mesh's; an explicit ``device`` of another
-      type raises ``ValueError``.
+      type raises ``ValueError``. With several ``batch_axes`` of size > 1,
+      the first build on a mesh is collective: every rank of the default
+      group builds it, in the same order, since it makes the process
+      groups of the frame axes (kept on the mesh for later builds).
 
     ``donate`` is the buffer-reuse contract of the serving tiers (README,
     "Tick I/O & overlap"):
@@ -428,6 +434,54 @@ def _all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
         (x.shape[0], -1) + tuple(x.shape[2:]))
 
 
+def _batch_gather(mesh, batch_axes: Tuple[str, ...]):
+    """``(gather, index)`` for the frame axes ``batch_axes``: ``gather(x)``
+    concatenates every frame shard's ``x`` along axis 0 in the reference's
+    order (``lax.all_gather(x, batch_axes, tiled=True)``: row-major over
+    the axes in the order given) and ``index`` is this rank's place in it.
+
+    The group is the ranks that differ only in the axes of size > 1. With
+    one such axis (or none: then the first axis) it is that axis's group.
+    With several, the first call for a set of such axes makes one group for
+    each coordinate of the other mesh axes, every rank making every group
+    in the same order (``dist.new_group`` is collective), and keeps them on
+    the mesh for later calls; the gathered blocks are put in the
+    reference's order where the group's own order differs."""
+    sizes = [_mesh_axis_size(mesh, ax) for ax in batch_axes]
+    index = 0
+    for ax, n in zip(batch_axes, sizes):
+        index = index * n + (mesh.get_local_rank(ax) if n > 1 else 0)
+    live = [ax for ax, n in zip(batch_axes, sizes) if n > 1]
+    if len(live) <= 1:
+        group = mesh.get_group(live[0] if live else batch_axes[0])
+        return (lambda x: _all_gather(x, group)), index
+    names = list(mesh.mesh_dim_names)
+    dims = [names.index(ax) for ax in live]
+    others = [d for d in range(len(names)) if d not in dims]
+    n = math.prod(sizes)
+    # Each row: one group's ranks, in the reference's order.
+    rows = mesh.mesh.permute(others + dims).reshape(-1, n).tolist()
+    me = dist.get_rank()
+    (ranks,) = [r for r in rows if me in r]
+    cache = vars(mesh).setdefault("_batch_groups", {})
+    key = tuple(sorted(dims))
+    if key not in cache:
+        for row in rows:
+            g = dist.new_group(ranks=row)
+            if me in row:
+                cache[key] = g
+    group = cache[key]
+    got = dist.get_process_group_ranks(group)        # the group's order
+    order = [got.index(r) for r in ranks]
+    if order == list(range(n)):
+        return (lambda x: _all_gather(x, group)), index
+
+    def gather(x):
+        blocks = _all_gather(x, group).view((n,) + tuple(x.shape))
+        return torch.cat([blocks[i] for i in order])
+    return gather, index
+
+
 def spatial_shard_stage(cfg: DehazeConfig, frames: torch.Tensor,
                         x: torch.Tensor, pre_ext: torch.Tensor,
                         guide_ext: torch.Tensor, valid_h: torch.Tensor,
@@ -485,10 +539,6 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
                          f"{placement}")
     for ax in placement.mesh_axes:
         _mesh_axis_size(mesh, ax)                    # names a mesh axis
-    if len(placement.batch_axes) > 1:
-        raise NotImplementedError(
-            f"frames over several mesh axes {placement.batch_axes} are not "
-            "ported; shard them over one ('data')")
     height_axis, width_axis = placement.height_axis, placement.width_axis
     n_h = _mesh_axis_size(mesh, height_axis) if height_axis else 1
     n_w = _mesh_axis_size(mesh, width_axis) if width_axis else 1
@@ -572,9 +622,7 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
         return DehazeOutput(out.to(odt), t.to(odt), a_seq.to(odt), new_state)
 
     if not lanes:
-        (data_axis,) = placement.batch_axes
-        group = mesh.get_group(data_axis)
-        rank = mesh.get_local_rank(data_axis)
+        gather, rank = _batch_gather(mesh, placement.batch_axes)
 
         def local_step(frames, frame_ids, state: AtmoState) -> DehazeOutput:
             b_loc = frames.shape[0]
@@ -591,9 +639,9 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
             # The §3.3 state sync: every rank gathers the whole batch's rows
             # (the merge is per frame, so where it runs does not matter) and
             # merges and scans them as one lane.
-            rows_all = _all_gather(rows.to(torch.float32), group)
-            lists = [_all_gather(v, group) for v in lists]
-            ids_all = _all_gather(frame_ids, group)
+            rows_all = gather(rows.to(torch.float32))
+            lists = [gather(v) for v in lists]
+            ids_all = gather(frame_ids)
             a_seq_all, new_state = _state_sync(cfg, rows_all, ids_all, state,
                                                True, *lists)
             a_seq = a_seq_all[rank * b_loc:(rank + 1) * b_loc]

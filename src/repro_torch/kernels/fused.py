@@ -1408,6 +1408,10 @@ def fused_dehaze(img: torch.Tensor, frame_ids: torch.Tensor,
     return J[0], t[0], a_seq[0], cf[0], ci[0, 0]
 
 
+# Back-compat alias (the reference's first name of the DCP-only kernel).
+fused_dehaze_dcp = fused_dehaze
+
+
 def fused_transmission_lanes(img: torch.Tensor, A_saved: torch.Tensor, *,
                              algorithm: str = "dcp", radius: int,
                              omega: float = 0.95, beta: float = 1.0,

@@ -37,11 +37,19 @@ megakernel's ends in :func:`merge_ema`, the candidate rows' merge and the
 §3.3 EMA as one kernel under any mode but ``"ref"``: once a step (a tick
 of the staged serve); the spatial steps no longer call the merge alone. The TPU tiling knobs
 (``frames_per_block``, ``lane_major``, ``buffer_depth``, the tuning
-table) have no counterpart.
+table) have no counterpart: the back-compat aliases
+(:func:`fused_dehaze_dcp`, :func:`fused_transmission_dcp`) take
+``frames_per_block`` at its default of 0 only.
+
+:func:`launch_count` counts the hand-written kernel launches of one call
+from the wrappers' per-kernel counters, the counterpart of the reference's
+``pallas_launch_count``. The reference's ``dma_copy_count`` has none: the
+CUDA kernels' copies are ``cp.async`` inside a kernel, not operations of a
+traced program.
 """
 from __future__ import annotations
 
-from typing import Literal, Optional, Sequence, Tuple
+from typing import Callable, Dict, Literal, Optional, Sequence, Tuple
 
 import torch
 
@@ -422,6 +430,67 @@ def fused_transmission_halo(img: torch.Tensor, pre_ext: torch.Tensor,
             tk_rgb.reshape(lead + (topk, 3)), tk_idx.reshape(lead + (topk,)))
 
 
+def fused_dehaze_dcp(img: torch.Tensor, frame_ids: torch.Tensor,
+                     A_saved: torch.Tensor, last_update: torch.Tensor,
+                     initialized: torch.Tensor, *, frames_per_block: int = 0,
+                     **kw) -> Tuple[torch.Tensor, ...]:
+    """Back-compat entry point (the reference's first, DCP-only name) ->
+    :func:`fused_dehaze` with ``algorithm="dcp"``. ``frames_per_block`` is
+    a TPU tiling knob with no meaning here: only its default 0 is taken."""
+    if frames_per_block != 0:
+        raise ValueError(
+            f"frames_per_block={frames_per_block}: the TPU's frames-per-block "
+            "tiling has no counterpart in repro_torch; pass 0 (the default)")
+    return fused_dehaze(img, frame_ids, A_saved, last_update, initialized,
+                        algorithm="dcp", **kw)
+
+
+def fused_transmission_dcp(img: torch.Tensor, A_saved: torch.Tensor,
+                           **kw) -> Tuple[torch.Tensor, ...]:
+    """Back-compat entry point (the reference's first, DCP-only name) ->
+    :func:`fused_transmission` with ``algorithm="dcp"``."""
+    return fused_transmission(img, A_saved, algorithm="dcp", **kw)
+
+
+# ---------------------------------------------------------------------------
+# Launch counts
+# ---------------------------------------------------------------------------
+
+def launch_counters() -> Dict[str, int]:
+    """Every hand-written kernel's launches so far, by name: the
+    megakernel's passes by their own names, ``fused_transmission.<pass>``
+    and ``fused_transmission_halo.<pass>`` (the transmission stage and its
+    halo form), ``staged.<kernel>``. Of a staged kernel's launches, those
+    of the route past its limits are also in ``staged.wide_launches``."""
+    with _staged.launch_lock:
+        counts = dict(_fused.launches)
+        for prefix, table in (
+                ("fused_transmission", _fused.transmission_launches),
+                ("fused_transmission_halo", _fused.halo_launches),
+                ("staged", _staged.launches)):
+            counts.update({f"{prefix}.{k}": n for k, n in table.items()})
+    return counts
+
+
+def launch_count(fn: Callable, *args, **kwargs) -> Dict[str, int]:
+    """Call ``fn(*args, **kwargs)`` once and return the hand-written kernel
+    launches it made: ``{name: n}`` for each kernel that launched (names as
+    :func:`launch_counters` gives them) and ``"total"``.
+
+    The counterpart of the reference's ``pallas_launch_count``, but a count
+    of launches, not a trace of a program: it takes the counters before
+    and after the call and resets none, so other readers keep their
+    counts. Every launch in the process during the call counts, other
+    threads' too. On CPU tensors the plain versions run and launch no
+    kernel: the count is 0."""
+    before = launch_counters()
+    fn(*args, **kwargs)
+    after = launch_counters()
+    counts = {k: n - before[k] for k, n in after.items() if n != before[k]}
+    counts["total"] = sum(counts.values())
+    return counts
+
+
 __all__ = ["MODES", "resolve_mode", "dark_channel", "min_filter_2d",
            "box_filter_2d", "masked_min_filter_2d", "masked_box_filter_2d",
            "guided_filter", "masked_guided_filter", "atmospheric_light",
@@ -429,4 +498,5 @@ __all__ = ["MODES", "resolve_mode", "dark_channel", "min_filter_2d",
            "per_frame", "recover",
            "cap_depth", "fused_dehaze", "fused_dehaze_lanes",
            "fused_transmission", "fused_transmission_lanes",
-           "fused_transmission_halo"]
+           "fused_transmission_halo", "fused_dehaze_dcp",
+           "fused_transmission_dcp", "launch_counters", "launch_count"]

@@ -233,6 +233,12 @@ def fused_transmission(img: torch.Tensor, A_saved: torch.Tensor, *,
     return t.to(odt), t_min, cand.to(odt)
 
 
+def fused_transmission_dcp(*args, **kw):
+    """Back-compat entry point (the reference's first, DCP-only name) ->
+    :func:`fused_transmission` with ``algorithm="dcp"``."""
+    return fused_transmission(*args, algorithm="dcp", **kw)
+
+
 def fused_transmission_lanes(img: torch.Tensor, A_saved: torch.Tensor,
                              **kw):
     """Lane form of :func:`fused_transmission`: (L, B, H, W, 3) frames and
@@ -388,6 +394,12 @@ def fused_dehaze(img: torch.Tensor, frame_ids: torch.Tensor,
         J = J ** gamma
     J = J.to(odt) if out is None else out.copy_(J)
     return J, t.to(odt), a_seq, A, k
+
+
+def fused_dehaze_dcp(*args, **kw):
+    """Back-compat entry point (the reference's first, DCP-only name) ->
+    :func:`fused_dehaze` with ``algorithm="dcp"``."""
+    return fused_dehaze(*args, algorithm="dcp", **kw)
 
 
 def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,

@@ -1,0 +1,218 @@
+"""PyTorch port, the dehaze configuration registry, the back-compat aliases
+and the launch-count helper: ``repro_torch.configs`` against the JAX
+package's ``repro.configs``; ``ops.fused_dehaze_dcp``,
+``ops.fused_transmission_dcp``, ``fused.fused_dehaze_dcp``,
+``ref.fused_dehaze_dcp`` and ``ref.fused_transmission_dcp`` against the
+JAX aliases on the same numpy inputs; ``ops.launch_count``.
+
+The aliases take the port's plain route on the CPU; the JAX side runs the
+Pallas kernels in interpret mode (``ops``, ``fused``) or its ``ref``, as
+``tests/test_fused.py`` runs them. Tolerances: J/t 1e-4, a_seq and A 1e-5
+(the reference's kernel-vs-oracle level), ``last_update`` exact. The
+launch counts are shown off the CPU on meta tensors with a fake kernel
+library (as ``tests/test_torch_merge_ema.py`` shows the state sync's).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro import configs as jconfigs
+from repro.kernels import fused as jfused
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch import configs
+from repro_torch.core import DehazeConfig, PlacementSpec
+from repro_torch.core import normalize as tn
+from repro_torch.core import pipeline
+from repro_torch.kernels import fused, ops, ref, staged
+
+from _torch_common import as_np, ramp_frames
+
+torch.set_num_threads(1)
+
+DEHAZE = ("dehaze-dcp", "dehaze-cap")
+KW = dict(radius=3, omega=0.95, refine=True, gf_radius=4, gf_eps=1e-3)
+DEHAZE_KW = dict(KW, t0=0.1, gamma=1.0, period=2, lam=0.3)
+
+
+# --- the registry ------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", DEHAZE)
+@pytest.mark.parametrize("kw", [{}, dict(topk=4, io_dtype="uint8")])
+def test_dehaze_configs_match_jax(arch, kw):
+    mod, jmod = configs.get_module(arch), jconfigs.get_module(arch)
+    assert (mod.ARCH_ID, mod.FAMILY) == (jmod.ARCH_ID, jmod.FAMILY) == (
+        arch, "dehaze")
+    for name in ("config", "smoke_config"):
+        got, want = getattr(mod, name)(**kw), getattr(jmod, name)(**kw)
+        assert isinstance(got, DehazeConfig)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+        got.validate()
+    assert mod.smoke_config().kernel_mode == "ref"
+
+
+def test_shapes_and_cells_match_jax():
+    assert configs.DEHAZE_SHAPES == jconfigs.DEHAZE_SHAPES
+    assert configs.FAMILY_SHAPES == {"dehaze": jconfigs.DEHAZE_SHAPES}
+    assert sorted(configs.ARCH_MODULES) == sorted(DEHAZE)
+    for arch in DEHAZE:
+        assert configs.shapes_for(arch) == jconfigs.shapes_for(arch)
+        for shape in configs.shapes_for(arch):
+            assert configs.cell_skip_reason(arch, shape) is None
+            assert jconfigs.cell_skip_reason(arch, shape) is None
+    with pytest.raises(KeyError):
+        configs.cell_skip_reason("dehaze-dcp", "train_4k")
+
+
+def test_zoo_ids_are_not_yet_ported():
+    for arch in jconfigs.ASSIGNED_ARCHS + ("nope",):
+        with pytest.raises(KeyError, match="not yet ported") as e:
+            configs.get_module(arch)
+        assert arch in str(e.value) and "unknown" not in str(e.value)
+        assert "dehaze-dcp" in str(e.value)
+
+
+# --- the aliases ---------------------------------------------------------------
+
+def _inputs():
+    x = ramp_frames(24, 2, h=24, w=32)
+    a = np.asarray([0.9, 0.92, 0.88], np.float32)
+    return x, a, np.arange(2, dtype=np.int32)
+
+
+def _jax_state(a):
+    return (jnp.asarray(a), jnp.asarray(-(2 ** 30), jnp.int32),
+            jnp.asarray(False))
+
+
+def _torch_state(a):
+    return (torch.from_numpy(a), torch.tensor(-(2 ** 30), dtype=torch.int32),
+            torch.tensor(False))
+
+
+def _compare_dehaze(got, want):
+    for g, w in zip(got[:2], want[:2]):                      # J, t
+        np.testing.assert_allclose(as_np(g), as_np(w), atol=1e-4, rtol=0)
+    for g, w in zip(got[2:4], want[2:4]):                    # a_seq, A
+        np.testing.assert_allclose(as_np(g), as_np(w), atol=1e-5, rtol=0)
+    assert int(got[4]) == int(want[4])
+
+
+def test_fused_dehaze_dcp_aliases_match_jax():
+    x, a, ids = _inputs()
+    tx, tids = torch.from_numpy(x), torch.from_numpy(ids)
+    jx, jids = jnp.asarray(x), jnp.asarray(ids)
+    want = jops.fused_dehaze_dcp(jx, jids, *_jax_state(a), mode="interpret",
+                                 **DEHAZE_KW)
+    got = ops.fused_dehaze_dcp(tx, tids, *_torch_state(a), mode="fused",
+                               **DEHAZE_KW)
+    _compare_dehaze(got, want)
+    # The kernel alias and the plain alias against theirs.
+    j_kernel = jfused.fused_dehaze_dcp_pallas(jx, jids, *_jax_state(a),
+                                              interpret=True, **DEHAZE_KW)
+    _compare_dehaze(fused.fused_dehaze_dcp(tx, tids, *_torch_state(a),
+                                           **DEHAZE_KW), j_kernel)
+    _compare_dehaze(ref.fused_dehaze_dcp(tx, tids, *_torch_state(a),
+                                         **DEHAZE_KW),
+                    jref.fused_dehaze_dcp(jx, jids, *_jax_state(a),
+                                          **DEHAZE_KW))
+    # Each alias is its entry point with algorithm="dcp".
+    full = ops.fused_dehaze(tx, tids, *_torch_state(a), algorithm="dcp",
+                            mode="fused", **DEHAZE_KW)
+    assert all(torch.equal(g, w) for g, w in zip(got, full))
+
+
+def test_fused_transmission_dcp_aliases_match_jax():
+    x, a, _ = _inputs()
+    tx, jx = torch.from_numpy(x), jnp.asarray(x)
+    want = jops.fused_transmission_dcp(jx, jnp.asarray(a), mode="interpret",
+                                       **KW)
+    for got in (ops.fused_transmission_dcp(tx, torch.from_numpy(a),
+                                           mode="fused", **KW),
+                ref.fused_transmission_dcp(tx, torch.from_numpy(a), **KW)):
+        np.testing.assert_allclose(as_np(got[0]), as_np(want[0]), atol=1e-4,
+                                   rtol=0)
+        for g, w in zip(got[1:], want[1:]):               # t_min, candidate
+            np.testing.assert_allclose(as_np(g), as_np(w), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(
+        as_np(jref.fused_transmission_dcp(jx, jnp.asarray(a), **KW)[0]),
+        as_np(want[0]), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("fpb", [1, 4, -1])
+def test_frames_per_block_other_than_zero_raises(fpb):
+    x, a, ids = _inputs()
+    with pytest.raises(ValueError, match="frames_per_block"):
+        ops.fused_dehaze_dcp(torch.from_numpy(x), torch.from_numpy(ids),
+                             *_torch_state(a), frames_per_block=fpb,
+                             mode="fused", **DEHAZE_KW)
+
+
+# --- launch counts -------------------------------------------------------------
+
+def _counters():
+    return (dict(staged.launches), dict(staged.wide_launches),
+            dict(fused.launches), dict(fused.transmission_launches),
+            dict(fused.halo_launches))
+
+
+def _lane_step(device):
+    """A staged lane step (3 lanes x 2 frames of 8x12) and its inputs."""
+    cfg = DehazeConfig(kernel_mode="pallas", patch_radius=1, gf_radius=2,
+                       update_period=2, lam=0.3)
+    step = pipeline._make_local_step(cfg, PlacementSpec.lane_batched(), True,
+                                     None)
+    frames = torch.rand(3, 2, 8, 12, 3).to(device)
+    ids = torch.arange(6, dtype=torch.int32).reshape(3, 2).to(device)
+    return step, (frames, ids, tn.init_atmo_state_lanes(3, device))
+
+
+def test_launch_count_is_zero_on_the_cpu(monkeypatch):
+    """The plain versions launch nothing; counts set before the call stay."""
+    monkeypatch.setitem(staged.launches, "box_filter", 5)
+    monkeypatch.setitem(fused.launches, "tmap_tile", 3)
+    before = _counters()
+    step, args = _lane_step("cpu")
+    assert ops.launch_count(step, *args) == {"total": 0}
+    x, a, ids = _inputs()
+    assert ops.launch_count(
+        ops.fused_dehaze_dcp, torch.from_numpy(x), torch.from_numpy(ids),
+        *_torch_state(a), mode="fused", **DEHAZE_KW) == {"total": 0}
+    assert _counters() == before
+
+
+def test_launch_count_counts_a_staged_step_by_difference(monkeypatch):
+    """Off the CPU (meta tensors, a fake kernel library) a staged lane
+    step's count is its kernels, one tick's worth, while the counters keep
+    the counts they had before the call plus the step's."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append(name) or 0
+
+    class Stream:
+        cuda_stream = 0
+    monkeypatch.setattr(staged, "_lib", lambda: Lib())
+    monkeypatch.setattr(staged, "_check_cuda", lambda *t: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
+    monkeypatch.setitem(staged.launches, "box_filter", 5)
+    monkeypatch.setitem(staged.launches, "merge_topk", 2)
+    step, args = _lane_step("meta")
+    before = _counters()
+    counts = ops.launch_count(step, *args)
+    assert counts == {"staged.dark_channel": 1, "staged.box_filter": 6,
+                      "staged.atmolight": 1, "staged.recover": 1,
+                      "staged.merge_ema": 1, "total": 10}
+    assert len(calls) == 10
+    assert staged.launches["box_filter"] == 11
+    assert staged.launches["merge_topk"] == 2
+    assert _counters()[2:] == before[2:]
+    names = ops.launch_counters()
+    assert {f"staged.{k}" for k in staged.launches} <= set(names)
+    assert {f"fused_transmission_halo.{k}" for k in fused.halo_launches} \
+        <= set(names)

@@ -545,9 +545,9 @@ class _Mesh:
 
 def test_spatial_step_contracts():
     cfg = DehazeConfig()
-    with pytest.raises(NotImplementedError, match="several mesh axes"):
-        make_step(cfg, PlacementSpec.frame_sharded(("data", "width"), "model",
-                                                   None), _Mesh(1, 2, 1))
+    # Frames over several mesh axes (once NotImplementedError) build a step.
+    assert callable(make_step(cfg, PlacementSpec.frame_sharded(
+        ("data", "width"), "model", None), _Mesh(1, 2, 1)))
     with pytest.raises(ValueError, match="no 'pod'"):
         make_step(cfg, PlacementSpec.frame_sharded(("data",), "pod"),
                   _Mesh(1, 2, 1))
