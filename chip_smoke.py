@@ -242,7 +242,33 @@ any error:
    to ``ops.fused_dehaze(..., algorithm="dcp")`` on the card, and a
    nonzero ``frames_per_block`` refused; each multi-axis step's ms back to
    back beside the one-axis step's, in turns;
-19. print ``{"kernels": [...]}`` (each kernel's launches on the path it
+19. the tuning registry (``kernels.tuning``). Phases 2-18 run with no
+   table (``REPRO_TORCH_KERNEL_TUNING`` names a path that does not
+   exist), so they drive the default knobs as before. Every library
+   variant of the megakernel (tile 32x64 or 64x32 x ``guided_ab``'s
+   minimum blocks an SM 3 or 2, built with phase 2's builds) and both grid
+   orders, bit-equal to the default on phase 2's 16 serving-shape cells
+   (two chained batches, the plateau cells), the counters showing the
+   tiled passes; each variant's shared-memory mirrors against its
+   library's fits tests on both sides of the limits; B9's variants
+   bit-equal on phase 13's corner tiles; B6a and B6b at every
+   ``tile_pixels`` bit-equal on phase 6's and 9's frames; ``tuning
+   --search --no-persist`` at the serving shapes, with fewer timed runs
+   than the exhaustive sweep and no candidate skipped; ``--validate
+   --require-kind <this card>`` on the committed
+   ``results/kernel_tuning_torch.json``, and each of its entries for this
+   card timed against the default knobs in turns, a replayed CUDA graph
+   by the card's clock (``tuning.against_default``), failing where an entry is slower by more
+   than the turns' spread; the serve CLI with
+   ``REPRO_TUNE_REQUIRE_TABLE=1`` and an empty table exiting non-zero, and
+   with ``--tune`` (its table in a temporary directory) exiting 0; a
+   fused and a staged ``serve_many`` on that table running its winners
+   (the statics the megakernel ran, the tiles the atmospheric light took)
+   with no table lookup or read in a serve after the first; each
+   candidate's ms beside the default's in turns (default, candidate,
+   candidate, default) by CUDA events and a call in a replayed CUDA graph,
+   printed, not gated;
+20. print ``{"kernels": [...]}`` (each kernel's launches on the path it
    names: the megakernel's tiled passes on the fused serving path, the
    transmission stage's tiled passes on the sharded steps, the halo
    stage's on the spatial steps, B8a and B8b on the staged sharded and
@@ -252,8 +278,9 @@ any error:
    none of them at the serving shape; the fused and staged serving kernels also with their
    launches on phase 15's overlapped ``serve_many`` and on phase 16's
    overlapped autoscaled and first-fit fleet serves; the sharded steps'
-   kernels also with their launches on phase 18's multi-axis steps), the
-   card line, and last ``{"ok": true, "device": {...}}``.
+   kernels also with their launches on phase 18's multi-axis steps; the
+   knobs' kernels with their variants' launches and times in phase 19),
+   the card line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3525,6 +3552,519 @@ def phase_merge_ema(sync_lists, cfg_staged, vids):
     return {"errs": errs, "err": max(errs.values()), "times": times, "step": step_r}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the tuning registry (the kernels' knobs)
+# ---------------------------------------------------------------------------
+
+def fused_variants():
+    """Every knob set of the megakernel's tiled passes but the default:
+    ``(tile, blocks_per_sm, lane_major)``."""
+    from repro_torch.kernels import fused as fk
+    default = (fk.DEFAULT_TILE, fk.BLOCKS_PER_SM[0], True)
+    return [(t, b, lm) for t in fk.TILES for b in fk.BLOCKS_PER_SM
+            for lm in (True, False) if (t, b, lm) != default]
+
+
+def variant_name(tile: str, bps: int, lane_major: bool = True) -> str:
+    return f"{tile}/{bps}" + ("" if lane_major else "/frame_major")
+
+
+def variant_builds():
+    """(source, defines) of every library variant but the defaults: built
+    with phase 2's sources, all at once."""
+    from repro_torch.kernels import fused as fk
+    return [("fused_dehaze.cu", fk.variant_defines(t, b))
+            for t in fk.TILES for b in fk.BLOCKS_PER_SM
+            if fk.variant_defines(t, b)]
+
+
+def add_counts(total: dict, name: str, counts: dict) -> None:
+    into = total.setdefault(name, {})
+    for k, n in counts.items():
+        if n:
+            into[k] = into.get(k, 0) + n
+
+
+def check_variant_fits() -> None:
+    """Each variant's shared-memory mirrors (``tiled_smem_fits``,
+    ``transmission_tiled_fits``, ``halo_tiled_fits``) against its library's
+    fits tests on both sides of the limits, and its library's constants."""
+    from repro_torch.kernels import fused as fk
+    img = {dt: torch.empty((1, 2, 50, 70, 3), dtype=dt, device="cuda")
+           for dt in (torch.float32, torch.bfloat16, torch.uint8)}
+    agree = 0
+    for tile in fk.TILES:
+        for bps in fk.BLOCKS_PER_SM:
+            lib = fk.lib_for(fk.make_static(img[torch.uint8], radius=1, refine=True,
+                                            gf_radius=1, gf_eps=1e-3, t0=0.1, gamma=1.0,
+                                            period=1, lam=0.0, tile=tile,
+                                            blocks_per_sm=bps))
+            check((lib.fd_tile_h(), lib.fd_tile_w(), lib.fd_guided_min_blocks())
+                  == (*fk.TILES[tile], bps), f"variant {tile}/{bps}: library constants")
+            for dt, x in img.items():
+                for r in (7, 20, 30, 36, 37, 52, 53, 66, 67):
+                    for gr in (16, 17, 20, 32, 33, 45, 46):
+                        s = fk.make_static(x, radius=r, refine=True, gf_radius=gr,
+                                           gf_eps=1e-3, t0=0.1, gamma=1.0, period=1,
+                                           lam=0.0, tile=tile, blocks_per_sm=bps)
+                        p = ctypes.byref(s.params())
+                        check(fk.tiled_smem_fits(s) == fk.tiled_fits(s)
+                              and fk.transmission_tiled_fits(s)
+                              == bool(lib.fd_transmission_tiled_fits(p)),
+                              f"variant {tile}/{bps} {dt} r={r} gf_r={gr}: "
+                              "mirror != library fits")
+                        agree += 1
+            for r, gr in ((88, 20), (89, 20), (7, 44), (7, 45), (7, 46)):
+                plane = torch.empty((1, 40 + 2 * (r + 2 * gr), 50 + 2 * (r + 2 * gr)),
+                                    device="cuda")
+                s = fk.make_halo_static(img[torch.uint8][0, :1, :40, :50], plane, plane,
+                                        radius=r, refine=True, gf_radius=gr,
+                                        gf_eps=1e-3, tile=tile, blocks_per_sm=bps)
+                check(fk.halo_tiled_fits(s)
+                      == bool(lib.fd_halo_tiled_fits(ctypes.byref(s.params()))),
+                      f"variant {tile}/{bps} halo r={r} gf_r={gr}: mirror != library")
+                agree += 1
+    print(f"variant fits: {agree} shapes, every mirror equal to its library's "
+          "fits test", flush=True)
+
+
+def check_b1_variants(launches: dict) -> None:
+    """Every megakernel variant bit-equal to the default on phase 2's
+    serving-shape cells (two chained batches, an all-padding lane, the
+    plateau cells), through the wrapper; the counters must show the tiled
+    passes (the ten where a variant's tiles do not fit)."""
+    from repro_torch.kernels import fused as fk
+    cells = [(alg, k, dt, True, 1.0, False)
+             for alg in ("dcp", "cap") for k in (1, 4)
+             for dt in (torch.float32, torch.uint8, torch.bfloat16)]
+    cells += [("dcp", 1, torch.float32, False, 1.0, False),
+              ("cap", 1, torch.uint8, False, 1.0 / 2.2, False)]
+    cells += [("dcp", k, torch.uint8, True, 1.0, True) for k in (1, 4)]
+    ramp = ramps(0, 2 * L * B).reshape(2, L, B, H, W, 3)
+    plateau = plateau_frames(2 * L * B).reshape(2, L, B, H, W, 3)
+    variants = fused_variants()
+    runs = 0
+    for alg, k, dt, refine, gamma, flat in cells:
+        kw = dict(CFG_KW, algorithm=alg, topk=k, refine=refine, gamma=gamma)
+        carries = {v: (torch.ones(L, 3, device="cuda"),
+                       torch.tensor([[-(2 ** 30), 0]] * L, dtype=torch.int32,
+                                    device="cuda"))
+                   for v in [None] + variants}
+        frames = plateau if flat else ramp
+        for batch in range(2):
+            img = to_wire(frames[batch].reshape(-1, 3), dt).reshape(
+                L, B, H, W, 3).cuda()
+            ids = (torch.arange(B, dtype=torch.int32) + B * batch).repeat(L, 1)
+            ids[L - 1] = -1
+            ids = ids.cuda()
+            want = fk.fused_dehaze_lanes(img, ids, *carries[None], **kw)
+            carries[None] = want[3:]
+            for tile, bps, lm in variants:
+                s = fk.make_static(img, tile=tile, blocks_per_sm=bps,
+                                   lane_major=lm, **kw)
+                fk.reset_launches()
+                got = fk.fused_dehaze_lanes(img, ids, *carries[tile, bps, lm],
+                                            tile=tile, blocks_per_sm=bps,
+                                            lane_major=lm, **kw)
+                torch.cuda.synchronize()
+                cell = (f"{variant_name(tile, bps, lm)} {alg} k={k} {dt} "
+                        f"refine={refine}{' plateau' if flat else ''} b{batch}")
+                ran = {n: c for n, c in fk.launches.items() if c}
+                fits = fk.tiled_fits(s)
+                route = dict.fromkeys(fk.TILED_PASSES if fits else fk.PASSES, 1)
+                if fits and k > 1:
+                    route["topk_block"] = 1
+                if fits and not refine:
+                    del route["guided_ab"]
+                check(ran == route, f"{cell}: launches {ran}, expected {route}")
+                check(fk.variant_launches == {s.variant: sum(ran.values())},
+                      f"{cell}: variant launches {fk.variant_launches}")
+                e = max(max_err(g, w) for g, w in zip(got, want))
+                check(e == 0.0 and all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"{cell}: not bit-equal to the default variant (max error {e})")
+                add_counts(launches, variant_name(tile, bps, lm),
+                           {"fused_dehaze_lanes": ran.get("tmap_tile", 0)}
+                           | {f"fused_dehaze_lanes.{n}": c for n, c in ran.items()})
+                carries[tile, bps, lm] = got[3:]
+                runs += 1
+    fk.reset_launches()
+    print(f"B1 variants {[variant_name(*v) for v in variants]}: {runs} runs on "
+          f"{len(cells)} serving-shape cells x 2 batches, bit-equal to the "
+          "default (J, t, a_seq, both carries), the tiled passes launched",
+          flush=True)
+
+
+def b9_cells():
+    """Phase 13's corner tiles: a 2 x 2 tiling of 32 uint8 frames, tiles 0
+    and 3 (two corners), DCP top-1 and CAP top-4 on ramps and DCP top-4 on
+    plateaus, the serving configuration."""
+    from repro_torch.core import DehazeConfig
+    from repro_torch.core import algorithms as alg
+    from repro_torch.kernels import ref
+    n = L * B
+    a_saved = torch.tensor([0.9, 0.85, 0.8], device="cuda")
+    ramp_u8 = to_wire(ramps(7, n).reshape(-1, 3), torch.uint8).reshape(
+        n, H, W, 3).cuda()
+    plateau = to_wire(plateau_frames(n).reshape(-1, 3), torch.uint8).reshape(
+        n, H, W, 3).cuda()
+    out = []
+    for label, alg_, k, frames in (("dcp-1", "dcp", 1, ramp_u8),
+                                   ("cap-4", "cap", 4, ramp_u8),
+                                   ("plateau-dcp-4", "dcp", 4, plateau)):
+        cfg = DehazeConfig(algorithm=alg_, topk=k, kernel_mode="fused",
+                           io_dtype="uint8")
+        kw = dict(algorithm=alg_, radius=cfg.patch_radius, omega=cfg.omega,
+                  beta=cfg.beta, refine=cfg.refine, gf_radius=cfg.gf_radius,
+                  gf_eps=cfg.gf_eps, topk=k, out_dtype=cfg.out_dtype)
+        x = ref.upcast_frames(frames)
+        tiles = spatial_tiles(frames, x, alg.premap(x, a_saved, cfg),
+                              alg.luminance(x),
+                              cfg.patch_radius + 2 * cfg.gf_radius, (2, 2))
+        out += [(f"{label} tile {i}", tiles[i], kw) for i in (0, 3)]
+    return out
+
+
+def check_b9_variants(cells, launches: dict) -> None:
+    """Every (tile, blocks an SM) of the halo stage bit-equal to the default
+    on phase 13's corner tiles, the counters showing the masked tiled
+    passes."""
+    from repro_torch.kernels import fused as fk
+    variants = [(t, b) for t, b, lm in fused_variants() if lm]
+    for label, tile, kw in cells:
+        img, _, pre, guide, vr, vc = tile[:6]
+        want = fk.fused_transmission_halo(img, pre, guide, vr, vc, **kw)
+        for t, b in variants:
+            s = fk.make_halo_static(img, pre, guide, tile=t, blocks_per_sm=b, **kw)
+            check(fk.halo_tiled_fits(s), f"B9 {t}/{b} {label}: must fit")
+            fk.reset_launches()
+            got = fk.fused_transmission_halo(img, pre, guide, vr, vc, tile=t,
+                                             blocks_per_sm=b, **kw)
+            torch.cuda.synchronize()
+            ran = {n: c for n, c in fk.halo_launches.items() if c}
+            route = {n: 1 for n in fk.TILED_HALO_PASSES
+                     if n != "topk_block" or kw["topk"] > 1}
+            check(ran == route, f"B9 {t}/{b} {label}: launches {ran}, expected {route}")
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"B9 {t}/{b} {label}: not bit-equal to the default "
+                  f"({max(max_err(g, w) for g, w in zip(got, want))})")
+            add_counts(launches, variant_name(t, b),
+                       {"fused_transmission_halo": ran["tmap_tile"]}
+                       | {f"fused_transmission_halo.{n}": c for n, c in ran.items()})
+    fk.reset_launches()
+    print(f"B9 variants {[variant_name(*v) for v in variants]} on phase 13's corner "
+          "tiles (DCP-1, CAP-4, plateau DCP-4; tiles 0 and 3): bit-equal to the "
+          "default, the masked tiled passes launched", flush=True)
+
+
+def check_b6_variants(launches: dict) -> None:
+    """B6a at every ``tile_pixels`` bit-equal to the default on phase 6's
+    frames (ramp and plateau, 32 and 1 frames of 480x640, 32 of 481x643,
+    float32 and bfloat16) and B6b on phase 9's (ramp, all-ties and
+    signed-zero t, k 1, 2, 4 and the warp limit, 480x640 and 481x643)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import staged as sk
+    others = sk.TOP1_TILES[1:]
+    cases = []
+    for n, h, w in ((L * B, H, W), (1, H, W), (L * B, 481, 643)):
+        for x_np in (ramps(10, n, h, w), plateau_frames(n, h, w)):
+            x = ref.upcast_frames(to_wire(x_np.reshape(-1, 3), torch.uint8)).reshape(
+                n, h, w, 3).cuda()
+            cases.append((x, 1.0 - 0.95 * sk.cuda_dark_channel(x, 7), (1,)))
+    rng = np.random.default_rng(16)
+    for n, h, w in ((L * B, H, W), (4, 481, 643)):
+        u8 = to_wire(ramps(17, n, h, w).reshape(-1, 3), torch.uint8).reshape(n, h, w, 3)
+        x = ref.upcast_frames(u8).cuda()
+        ramp_t = 1.0 - 0.95 * sk.cuda_dark_channel(x, 7)
+        zeros = torch.from_numpy(rng.random((n, h, w)) < 0.5).cuda()
+        signs = torch.from_numpy(rng.random((n, h, w)) < 0.5).cuda()
+        for t in (ramp_t, torch.full_like(ramp_t, 0.375),
+                  torch.where(zeros, torch.where(signs, -0.0, 0.0), ramp_t)):
+            cases.append((x, t, (1, 2, 4, sk.WARP_TOPK_MAX)))
+    calls = 0
+    for x, t, ks in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            xd, td = x.to(dt), t.to(dt)
+            for k in ks:
+                name = "atmolight_topk" if k > 1 else "atmolight"
+                fn = (lambda p: sk.cuda_atmolight_topk(xd, td, k, p)) if k > 1 \
+                    else (lambda p: sk.cuda_atmolight(xd, td, p))
+                want = fn(sk.TOP1_TILE)
+                for p in others:
+                    sk.reset_launches()
+                    got = fn(p)
+                    torch.cuda.synchronize()
+                    check(torch.equal(bits(got), bits(want)),
+                          f"staged {name} tile_pixels={p} {tuple(x.shape)} {dt} "
+                          f"k={k}: not bit-equal to the default tile")
+                    check(sk.launches[name] == 1 and not any(sk.wide_launches.values()),
+                          f"staged {name} tile_pixels={p}: route")
+                    add_counts(launches, f"tile_pixels={p}", {f"staged.{name}": 1})
+                    calls += 1
+    sk.reset_launches()
+    print(f"B6a/B6b at tile_pixels {list(others)}: {calls} calls on phase 6's and "
+          "9's frames, bit-equal to the default tile", flush=True)
+
+
+def knob_turns(default, candidate) -> dict:
+    """A default call and a candidate's in turns (default, candidate,
+    candidate, default) by CUDA events, and each a call in a replayed
+    CUDA graph."""
+    order = [(n, time_ms(fn)) for n, fn in (("default", default), ("candidate", candidate),
+                                            ("candidate", candidate), ("default", default))]
+    mean = {n: sum(v for m, v in order if m == n) / 2 for n in ("default", "candidate")}
+    return {"ms": mean["candidate"], "default_ms": mean["default"],
+            "graph_ms": graph_ms(candidate), "default_graph_ms": graph_ms(default),
+            "turns_ms": [v for _, v in order]}
+
+
+def knob_times(b9_cell) -> dict:
+    """Every candidate's ms beside the default's at the search's shapes:
+    B1 at 4 x 8 and 1 x 8 x 480x640 uint8 (DCP top-1, refine), B9 on phase
+    13's 2 x 2 corner tile, B6a and B6b (k = 4) on 32 float32 frames of
+    480x640."""
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import staged as sk
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.integers(0, 256, (L, B, H, W, 3), dtype=np.uint8)).cuda()
+    ids = torch.arange(B, dtype=torch.int32, device="cuda").repeat(L, 1)
+    cf = torch.ones(L, 3, device="cuda")
+    ci = torch.tensor([[-(2 ** 30), 0]] * L, dtype=torch.int32, device="cuda")
+    kw = dict(CFG_KW, algorithm="dcp", topk=1, refine=True)
+    out = {}
+    for t, b, lm in fused_variants():
+        out[f"B1 {L}x{B} {variant_name(t, b, lm)}"] = knob_turns(
+            lambda: fk.fused_dehaze_lanes(img, ids, cf, ci, **kw),
+            lambda: fk.fused_dehaze_lanes(img, ids, cf, ci, tile=t, blocks_per_sm=b,
+                                          lane_major=lm, **kw))
+    # One stream of 8 frames: the fused_dcp bucket the search tunes.
+    one = (img[:1], ids[:1], cf[:1], ci[:1])
+    for t, b, lm in fused_variants():
+        if lm:
+            out[f"B1 1x{B} {variant_name(t, b)}"] = knob_turns(
+                lambda: fk.fused_dehaze_lanes(*one, **kw),
+                lambda: fk.fused_dehaze_lanes(*one, tile=t, blocks_per_sm=b, **kw))
+    label, tile, hkw = b9_cell
+    himg, _, pre, guide, vr, vc = tile[:6]
+    for t, b, lm in fused_variants():
+        if lm:
+            out[f"B9 {variant_name(t, b)}"] = knob_turns(
+                lambda: fk.fused_transmission_halo(himg, pre, guide, vr, vc, **hkw),
+                lambda: fk.fused_transmission_halo(himg, pre, guide, vr, vc, tile=t,
+                                                   blocks_per_sm=b, **hkw))
+    x = torch.from_numpy(rng.random((L * B, H, W, 3), np.float32)).cuda()
+    tt = torch.from_numpy(rng.random((L * B, H, W), np.float32)).cuda()
+    for p in sk.TOP1_TILES[1:]:
+        out[f"B6a tile_pixels={p}"] = knob_turns(
+            lambda: sk.cuda_atmolight(x, tt), lambda: sk.cuda_atmolight(x, tt, p))
+        out[f"B6b k=4 tile_pixels={p}"] = knob_turns(
+            lambda: sk.cuda_atmolight_topk(x, tt, 4),
+            lambda: sk.cuda_atmolight_topk(x, tt, 4, p))
+    card = card_line()
+    for name, r in out.items():
+        print(f"knob {name}: {r['ms']} ms (default {r['default_ms']} ms; turns "
+              f"{r['turns_ms']}), graph {r['graph_ms']} ms (default "
+              f"{r['default_graph_ms']} ms); {card}", flush=True)
+    return out
+
+
+def run_cli(module: str, args, env_extra: dict, timeout: int = 300):
+    """``python -m <module> <args>`` from the checkout, ``env_extra`` over
+    the environment; returns the completed process (output printed)."""
+    env = dict(os.environ, **env_extra)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src")] + [
+        p for p in [os.environ.get("PYTHONPATH")] if p])
+    proc = subprocess.run([sys.executable, "-m", module] + list(args), cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=timeout)
+    print(proc.stdout[-6000:], end="", flush=True)
+    return proc
+
+
+def tuned_serves(table: Path, vids) -> dict:
+    """A fused and a staged ``serve_many`` (4 streams on 4 lanes, batch 8,
+    uint8) with ``table`` the tuning table: the statics the megakernel ran
+    and the tiles the atmospheric light took must be the table's winners
+    for this card, and after a first serve a second one may make no table
+    lookup and read no table."""
+    from repro_torch.core import DehazeConfig
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import staged as sk
+    from repro_torch.kernels import tuning
+    from repro_torch.stream import ElasticServer, StreamRequest
+    kind = torch.cuda.get_device_name(0)
+    entries = json.loads(table.read_text())["device_kinds"][kind]
+    lanes_win = entries["fused_lanes"][f"{L}x{B}x{H}x{W}xu8"]["params"]
+    atmo_win = entries["atmolight"][f"{L * B}x{H}x{W}"]["params"]
+    seen = {"statics": set(), "tiles": set()}
+    run_tiled = fk.run_tiled_passes
+    atmo = sk.cuda_atmolight
+
+    def recording_tiled(img, ids, cf, ci, s, *a, **k):
+        seen["statics"].add((s.tile, s.blocks_per_sm, s.lane_major))
+        return run_tiled(img, ids, cf, ci, s, *a, **k)
+
+    def recording_atmo(img, t, tile_pixels=sk.TOP1_TILE):
+        seen["tiles"].add(tile_pixels)
+        return atmo(img, t, tile_pixels)
+
+    res = {}
+    old = os.environ.get("REPRO_TORCH_KERNEL_TUNING")
+    os.environ["REPRO_TORCH_KERNEL_TUNING"] = str(table)
+    fk.run_tiled_passes, sk.cuda_atmolight = recording_tiled, recording_atmo
+    try:
+        for path, cfg in (("fused", DehazeConfig(kernel_mode="fused", io_dtype="uint8")),
+                          ("staged", DehazeConfig(io_dtype="uint8"))):
+            srv = ElasticServer(cfg, batch=B, timeout_s=2.0)
+            srv.serve_many([StreamRequest(f"w{i}", iter(v[:B])) for i, v in enumerate(vids)],
+                           n_lanes=L)
+            reads, lookups = tuning.table_reads, tuning.lookups
+            rep = srv.serve_many([StreamRequest(f"cam{i}", iter(v))
+                                  for i, v in enumerate(vids)], n_lanes=L)
+            res[path] = {"ticks": rep.ticks, "fps": rep.fps,
+                         "table_reads": tuning.table_reads - reads,
+                         "lookups": tuning.lookups - lookups}
+            check(rep.skipped == 0, f"tuned {path} serve skipped {rep.skipped}")
+            check(res[path]["table_reads"] == 0 and res[path]["lookups"] == 0,
+                  f"tuned {path} serve: {res[path]['lookups']} lookups and "
+                  f"{res[path]['table_reads']} table reads in {rep.ticks} ticks "
+                  "after the first serve")
+    finally:
+        fk.run_tiled_passes, sk.cuda_atmolight = run_tiled, atmo
+        if old is None:
+            del os.environ["REPRO_TORCH_KERNEL_TUNING"]
+        else:
+            os.environ["REPRO_TORCH_KERNEL_TUNING"] = old
+    want = (lanes_win["tile"], lanes_win["blocks_per_sm"],
+            lanes_win["grid_order"] == "lane_major")
+    check(seen["statics"] == {want}, f"tuned fused serve ran {seen['statics']}, "
+          f"the table's winner is {lanes_win}")
+    check(seen["tiles"] == {atmo_win["tile_pixels"]},
+          f"tuned staged serve's atmospheric light took tiles {seen['tiles']}, "
+          f"the table's winner is {atmo_win}")
+    res["winners"] = {"fused_lanes": lanes_win, "atmolight": atmo_win}
+    print("tuned serve_many (the --tune table): " + json.dumps(res), flush=True)
+    return res
+
+
+def phase_tuning(vids) -> dict:
+    """The tuning registry (see the module docstring, phase 19)."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.kernels import tuning
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+
+    def lap(what):
+        print(f"phase 19 {what}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    launches: dict = {}
+    check_variant_fits()
+    check_b1_variants(launches)
+    lap("B1 variants")
+    cells = b9_cells()
+    check_b9_variants(cells, launches)
+    check_b6_variants(launches)
+    lap("B9, B6a, B6b variants")
+    res = {"launches": launches}
+    kind = torch.cuda.get_device_name(0)
+    committed = ROOT / "results" / "kernel_tuning_torch.json"
+    old = os.environ.get("REPRO_TORCH_KERNEL_TUNING")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        try:
+            # The search at the serving shapes, measuring only.
+            os.environ["REPRO_TORCH_KERNEL_TUNING"] = str(Path(tmp) / "none.json")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = tuning.main(["--search", "--no-persist"])
+            search = json.loads(buf.getvalue())
+            stats = search["stats"]
+            check(rc == 0 and stats["timed_runs"] < stats["exhaustive_runs"],
+                  f"tuning --search: rc {rc}, timed {stats['timed_runs']} of "
+                  f"{stats['exhaustive_runs']} exhaustive runs")
+            # At the serving shapes every candidate fits: a skip is a
+            # variant that failed to build or run.
+            check(stats["skipped"] == {},
+                  f"tuning --search skipped candidates: {stats['skipped']}")
+            check(search["device_kind"] == kind and not Path(tmp, "none.json").exists(),
+                  "tuning --search: device kind or --no-persist")
+            res["search"] = {k: v for k, v in search.items()
+                             if k not in ("path", "method")}
+            print("tuning --search --no-persist (serving shapes): "
+                  + json.dumps(res["search"]), flush=True)
+            lap("search")
+            # The committed table: valid, and measured on this card.
+            os.environ["REPRO_TORCH_KERNEL_TUNING"] = str(committed)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = tuning.main(["--validate", "--require-kind", kind])
+            check(rc == 0, f"tuning --validate --require-kind {kind!r}: "
+                  f"{buf.getvalue()}")
+            # REPRO_TUNE_REQUIRE_TABLE with an empty table: the serve CLI
+            # exits non-zero.
+            empty = Path(tmp) / "empty.json"
+            empty.write_text("{}\n")
+            os.environ["REPRO_TORCH_KERNEL_TUNING"] = str(empty)
+            os.environ["REPRO_TUNE_REQUIRE_TABLE"] = "1"
+            err = io.StringIO()
+            try:
+                with contextlib.redirect_stderr(err), \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    rc = serve.main(["--resolution", "480p", "--streams", "4",
+                                     "--lanes", "4", "--frames", "16",
+                                     "--io-dtype", "uint8"])
+            finally:
+                del os.environ["REPRO_TUNE_REQUIRE_TABLE"]
+            check(rc != 0 and "REPRO_TUNE_REQUIRE_TABLE" in err.getvalue(),
+                  f"serve CLI with REPRO_TUNE_REQUIRE_TABLE=1 and no table: rc {rc}")
+            # The serve CLI's --tune, its table in the temp dir.
+            table = Path(tmp) / "tuned.json"
+            cli = run_cli("repro_torch.launch.serve",
+                          ["--tune", "--resolution", "480p", "--streams", "4",
+                           "--lanes", "4", "--frames", "64", "--io-dtype", "uint8",
+                           "--fail-on-skipped"],
+                          {"REPRO_TORCH_KERNEL_TUNING": str(table)})
+            check(cli.returncode == 0, f"serve CLI --tune exited {cli.returncode}: "
+                  f"{cli.stderr[-2000:]}")
+            check(not tuning.validate_table(tuning.load_table(table)),
+                  "serve CLI --tune: its table does not validate")
+            res["cli"] = [line for line in cli.stdout.splitlines()
+                          if line.startswith(("tune:", "frames="))]
+            lap("CLIs")
+            res["serves"] = tuned_serves(table, vids)
+            lap("tuned serves")
+        finally:
+            if old is None:
+                os.environ.pop("REPRO_TORCH_KERNEL_TUNING", None)
+            else:
+                os.environ["REPRO_TORCH_KERNEL_TUNING"] = old
+    res["times"] = knob_times(cells[0])
+    lap("times")
+    res["committed"] = held_against_default(committed, kind)
+    lap("committed entries")
+    return res
+
+
+def held_against_default(committed: Path, kind: str) -> dict:
+    """Every entry of the committed table for this card timed against the
+    default knobs at its bucket, in turns of a replayed CUDA graph by the
+    card's clock (``tuning.against_default``); fails where an entry is slower than the
+    default by more than the turns' spread."""
+    from repro_torch.kernels import tuning
+    out = {}
+    entries = json.loads(committed.read_text())["device_kinds"][kind]
+    for op, buckets in sorted(entries.items()):
+        for bucket, entry in sorted(buckets.items()):
+            params = entry["params"]
+            v = tuning.against_default(op, bucket, params, device="cuda")
+            out[f"{op} {bucket}"] = dict(v, params=params)
+            print(f"committed {op} {bucket} {params}: {v['candidate_us']} us, "
+                  f"default {v['default_us']} us, spread {v['spread_us']} us "
+                  f"({v['rounds']} rounds of turns); {card_line()}", flush=True)
+            check(not v["slower"], f"committed {op} {bucket} {params} is slower "
+                  f"than the default by more than the noise: {v}")
+    return out
+
+
 def busy_and_kernels(fn, reps: int = 5):
     """Device busy ms, device kernels and device copies (memcpy, memset) a
     call of ``fn`` from a ``torch.profiler`` trace of ``reps`` calls; None
@@ -3565,11 +4105,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    # Phases 2-18 drive the kernels' default knobs, as before the tuning
+    # registry: no table (a path that does not exist). Phase 19 drives the
+    # tables.
+    os.environ["REPRO_TORCH_KERNEL_TUNING"] = str(ROOT / "build" / "no_tuning_table.json")
+    builds = [(p.name, ()) for p in sorted(_build.CSRC.glob("*.cu"))] + variant_builds()
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(_build.build, sources))
-    print(f"built {[p.name for p in built]} in "
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        built = list(pool.map(lambda b: _build.build(*b), builds))
+    print(f"built {[p.name for p in built]} (the megakernel's tuning variants "
+          f"{[' '.join(d) for _, d in variant_builds()]} too) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(fk.TILE_PIXELS == fk._lib().fd_tile_pixels(), "tile size mismatch")
     sk._lib()                                # checks its tile constants
@@ -3630,6 +4175,8 @@ def main() -> int:
     ma = phase_multiaxis(vids, {
         "fused": (launches, ticks, cfg), "staged": (s_launches, s_ticks, cfg_staged)})
     stamp("phase 18")
+    tu = phase_tuning(vids)
+    stamp("phase 19")
 
     kernels = []
 
@@ -3809,6 +4356,25 @@ def main() -> int:
     print("launches on the multi-axis sharded steps (phase 18): " + json.dumps(
         {e["name"]: e["launches_multiaxis"] for e in kernels
          if "launches_multiaxis" in e}), flush=True)
+    # Phase 19's variants: their launches in its checks, and their times
+    # beside the default's.
+    by_kernel: dict = {}
+    for variant, counts in tu["launches"].items():
+        for name, n in counts.items():
+            by_kernel.setdefault(name, {})[variant] = n
+    knob_ms = {"fused_dehaze_lanes": "B1 ", "fused_transmission_halo": "B9 ",
+               "staged.atmolight": "B6a ", "staged.atmolight_topk": "B6b "}
+    for e in kernels:
+        if e["name"] in by_kernel:
+            e["launches_variants"] = by_kernel[e["name"]]
+        if e["name"] in knob_ms:
+            e["variant_ms"] = {k: {f: r[f] for f in ("ms", "default_ms", "graph_ms",
+                                                      "default_graph_ms")}
+                               for k, r in tu["times"].items()
+                               if k.startswith(knob_ms[e["name"]])}
+    print("launches of the knobs' variants (phase 19): " + json.dumps(
+        {e["name"]: e["launches_variants"] for e in kernels
+         if "launches_variants" in e}), flush=True)
     for run, fps in el["turns"].items():
         print(f"phase 16 turns (fused, overlapped): {run} aggregate fps {fps}",
               flush=True)

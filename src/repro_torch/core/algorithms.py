@@ -82,9 +82,12 @@ register_algorithm("cap", transmission_cap)
 # ---------------------------------------------------------------------------
 
 def estimate_atmospheric_light(frames: torch.Tensor, t_raw: torch.Tensor,
-                               cfg: DehazeConfig) -> torch.Tensor:
-    """Eq. 5/6: A = I at the pixel(s) of minimum raw transmission."""
-    return ops.atmospheric_light(frames, t_raw, cfg.topk, cfg.kernel_mode)
+                               cfg: DehazeConfig,
+                               tuned: Optional[dict] = None) -> torch.Tensor:
+    """Eq. 5/6: A = I at the pixel(s) of minimum raw transmission.
+    ``tuned``: the caller's resolved kernel knobs (``ops.fused_dehaze``)."""
+    return ops.atmospheric_light(frames, t_raw, cfg.topk, cfg.kernel_mode,
+                                 tuned=tuned)
 
 
 def refine_transmission(frames: torch.Tensor, t_raw: torch.Tensor,
@@ -138,13 +141,15 @@ def _fused_kw(cfg: DehazeConfig) -> dict:
 
 def fused_dehaze(frames: torch.Tensor, frame_ids: torch.Tensor,
                  state: AtmoState, cfg: DehazeConfig,
-                 out: Optional[torch.Tensor] = None):
+                 out: Optional[torch.Tensor] = None,
+                 tuned: Optional[dict] = None):
     """Components 1-3 + the §3.3 EMA as one fused op: (J, t, a_seq, new
     state). ``initialized`` flips only once a valid (id >= 0) frame was
-    folded in. J goes into ``out`` where given."""
+    folded in. J goes into ``out`` where given. ``tuned``: the caller's
+    resolved kernel knobs (``ops.fused_dehaze``)."""
     J, t, a_seq, a_fin, k_fin = ops.fused_dehaze(
         frames, frame_ids, state.A, state.last_update, state.initialized,
-        out=out, **_fused_kw(cfg))
+        out=out, tuned=tuned, **_fused_kw(cfg))
     ids = frame_ids.to(a_fin.device)
     new_state = AtmoState(
         A=a_fin, last_update=k_fin,
@@ -154,14 +159,16 @@ def fused_dehaze(frames: torch.Tensor, frame_ids: torch.Tensor,
 
 def fused_dehaze_lanes(frames: torch.Tensor, frame_ids: torch.Tensor,
                        state: AtmoState, cfg: DehazeConfig,
-                       out: Optional[torch.Tensor] = None):
+                       out: Optional[torch.Tensor] = None,
+                       tuned: Optional[dict] = None):
     """Lane-native fused path: L streams in one megakernel call.
     ``frames`` (L, B, H, W, 3), ``frame_ids`` (L, B), lane-batched
     ``state``; per lane the same as :func:`fused_dehaze` on that lane. J
-    goes into ``out`` where given."""
+    goes into ``out`` where given; ``tuned`` as in :func:`fused_dehaze`."""
     carry_f, carry_i = lane_carry(state)
     J, t, a_seq, cf, ci = ops.fused_dehaze_lanes(
-        frames, frame_ids, carry_f, carry_i, out=out, **_fused_kw(cfg))
+        frames, frame_ids, carry_f, carry_i, out=out, tuned=tuned,
+        **_fused_kw(cfg))
     return J, t, a_seq, state_from_lane_carry(cf, ci)
 
 
@@ -191,15 +198,17 @@ def fused_transmission_lanes(frames: torch.Tensor, a_saved: torch.Tensor,
 
 def fused_transmission_halo(frames: torch.Tensor, pre_ext: torch.Tensor,
                             guide_ext: torch.Tensor, valid: torch.Tensor,
-                            valid_w, cfg: DehazeConfig):
+                            valid_w, cfg: DehazeConfig,
+                            tuned: Optional[dict] = None):
     """Fused transmission stage of one spatial shard: the halo-extended
     (pre-map, luma) planes from the exchange and their row/column validity
     (``valid_w=None``: no width sharding) -> ``(t, tk_t, tk_rgb, tk_idx)``,
-    the shard-local top-k lists (``ops.fused_transmission_halo``)."""
+    the shard-local top-k lists (``ops.fused_transmission_halo``);
+    ``tuned`` as in :func:`fused_dehaze`."""
     kw = _transmission_kw(cfg)
     del kw["cap_w"]                      # the pre-map is an input here
     return ops.fused_transmission_halo(frames, pre_ext, guide_ext, valid,
-                                       valid_w, **kw)
+                                       valid_w, tuned=tuned, **kw)
 
 
 __all__ = ["luminance", "transmission_dcp", "transmission_cap",

@@ -41,6 +41,13 @@ Every step but the lane-native megakernel's ends in one state sync
 one kernel on the card): the staged steps' one row a frame, the sharded
 steps' gathered rows, the spatial steps' gathered lists.
 
+Each step resolves its kernels' tuning knobs (``kernels.tuning``) at its
+first call at a shape and keeps them for its life (``ops``' ``tuned``):
+a tick makes no lookup. A step built before a table or an override
+changed keeps the knobs it had; the serving tiers key their cached steps
+by ``tuning.state_token()`` too, so a serve after such a change builds
+new ones.
+
 **Buffer donation** (``make_step(..., donate=...)``, the serving tiers'
 contract; :func:`donation_spec`) is a buffer-reuse contract the port keeps
 itself, where the reference asks ``jax.jit`` for it: a donated state's
@@ -253,10 +260,12 @@ def _make_single_step(cfg: DehazeConfig, associative: bool = True):
     """``step(frames, frame_ids, state, out=None)``: J goes into ``out``
     where given (so do the lane steps')."""
     if _fused_covers(cfg):
+        tuned: dict = {}                     # the knobs, once a shape
+
         def fused_step(frames, frame_ids, state: AtmoState,
                        out=None) -> DehazeOutput:
-            J, t, a_seq, new_state = alg.fused_dehaze(frames, frame_ids,
-                                                      state, cfg, out=out)
+            J, t, a_seq, new_state = alg.fused_dehaze(
+                frames, frame_ids, state, cfg, out=out, tuned=tuned)
             return DehazeOutput(J, t, a_seq.to(J.dtype), new_state)
         return fused_step
     return _make_staged_step(cfg, associative=associative, lanes=False)
@@ -305,6 +314,7 @@ def _make_staged_step(cfg: DehazeConfig, associative: bool, lanes: bool):
     takes each lane's saved A and the EMA runs per lane. With
     ``donate_state`` the new state goes into ``state``'s own tensors."""
     t_est = alg.get_transmission_estimator(cfg.algorithm)
+    tuned: dict = {}                         # the knobs, once a shape
 
     def step(frames, frame_ids, state: AtmoState, out=None,
              donate_state: bool = False) -> DehazeOutput:
@@ -312,7 +322,7 @@ def _make_staged_step(cfg: DehazeConfig, associative: bool, lanes: bool):
         # Component 1: transmission from the *saved* shared A (§3.3).
         t_raw = t_est(x, state.A, cfg)
         # Component 2: per-frame candidates, then cross-frame normalization.
-        a_new = alg.estimate_atmospheric_light(x, t_raw, cfg)
+        a_new = alg.estimate_atmospheric_light(x, t_raw, cfg, tuned)
         a_seq, new_state = _state_sync(cfg, a_new[..., None, :], frame_ids,
                                        state, associative,
                                        state_out=state if donate_state else None)
@@ -367,11 +377,12 @@ def _make_lane_step(cfg: DehazeConfig, associative: bool = True,
             raise ValueError(
                 "lane_native=True requires kernel_mode='fused' and a config "
                 "the megakernel covers (algorithms.supports_fused)")
+        tuned: dict = {}                     # the knobs, once a shape
 
         def lane_step(frames, frame_ids, state: AtmoState,
                       out=None) -> DehazeOutput:
             J, t, a_seq, new_state = alg.fused_dehaze_lanes(
-                frames, frame_ids, state, cfg, out=out)
+                frames, frame_ids, state, cfg, out=out, tuned=tuned)
             return DehazeOutput(J, t, a_seq.to(J.dtype), new_state)
         return lane_step
 
@@ -486,7 +497,8 @@ def spatial_shard_stage(cfg: DehazeConfig, frames: torch.Tensor,
                         x: torch.Tensor, pre_ext: torch.Tensor,
                         guide_ext: torch.Tensor, valid_h: torch.Tensor,
                         valid_w: Optional[torch.Tensor], row0: int, col0: int,
-                        width: int, fused: bool):
+                        width: int, fused: bool,
+                        tuned: Optional[dict] = None):
     """What one spatial shard computes after the halo exchange.
 
     ``frames`` (N, h, w, 3) is the shard's core block in the wire dtype
@@ -501,11 +513,12 @@ def spatial_shard_stage(cfg: DehazeConfig, frames: torch.Tensor,
     for the guided filter). Returns
     ``(t (N, h, w), tk_t (N, k), tk_rgb (N, k, 3) float32, tk_gidx (N, k)
     int32)``: the refined t and the shard's k smallest (t_raw, index) rows,
-    ascending, each index the pixel's flat index in the whole frame."""
+    ascending, each index the pixel's flat index in the whole frame.
+    ``tuned``: the caller's resolved kernel knobs (``ops.fused_dehaze``)."""
     h_loc, w_loc = frames.shape[1], frames.shape[2]
     if fused:
         t, tk_t, tk_rgb, tk_idx = alg.fused_transmission_halo(
-            frames, pre_ext, guide_ext, valid_h, valid_w, cfg)
+            frames, pre_ext, guide_ext, valid_h, valid_w, cfg, tuned)
     else:
         hh = (pre_ext.shape[1] - h_loc) // 2
         hw = (pre_ext.shape[2] - w_loc) // 2
@@ -554,6 +567,7 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
         lane_native = resolve_lane_native(cfg) and not spatial_axes
     ref_cfg = dataclasses.replace(cfg, kernel_mode="ref")
     halo_dtype = kref.as_torch_dtype(cfg.halo_dtype)
+    tuned: dict = {}                         # the knobs, once a shape
 
     def halo_premap_and_guide(x, a_saved, keep_halo_dtype: bool):
         """The halo-extended (pre-map, luma) planes and the row and column
@@ -599,7 +613,7 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
         col0 = mesh.get_local_rank(width_axis) * w_loc if shard_w else 0
         t, tk_t, tk_rgb, tk_gidx = spatial_shard_stage(
             cfg, frames, x, pre_ext, guide_ext, valid_h, valid_w, row0, col0,
-            w_loc * n_w, use_fused)
+            w_loc * n_w, use_fused, tuned)
         for ax in spatial_axes:
             group = mesh.get_group(ax)
             tk_t, tk_rgb, tk_gidx = (_all_gather_rows(v, group)
@@ -653,7 +667,7 @@ def _make_sharded_step(cfg: DehazeConfig, mesh, placement: PlacementSpec,
         l_loc, b = frames.shape[:2]
         if use_fused and lane_native and not spatial_axes:
             out, t, a_seq, new_state = alg.fused_dehaze_lanes(
-                frames, frame_ids, state, cfg)
+                frames, frame_ids, state, cfg, tuned=tuned)
             return DehazeOutput(out, t, a_seq.to(out.dtype), new_state)
         x, odt = _ingest(frames, cfg)
         lists = ()

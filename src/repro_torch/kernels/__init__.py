@@ -8,7 +8,11 @@ Modules:
   staged  — the staged component kernels (``csrc/staged.cu``): dark
             channel, box filter, atmospheric light, recover; CUDA wrappers
             and plain versions
-  ops     — dispatch wrappers (ref | pallas | fused)
+  ops     — dispatch wrappers (ref | pallas | fused), resolving the
+            kernels' tuning knobs
+  tuning  — the knobs' device-kind-keyed table, layered lookup and
+            measured search (``python -m repro_torch.kernels.tuning``;
+            not imported here, so that ``-m`` runs it as ``__main__``)
   _build  — nvcc build + ctypes load of ``csrc/*.cu`` at first use
 """
 from repro_torch.kernels import fused, ops, ref, staged  # noqa: F401

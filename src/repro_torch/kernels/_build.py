@@ -6,8 +6,9 @@ no PyTorch headers, so a build takes seconds. Libraries go to
 ``build/repro_torch_kernels/`` at the root of the checkout (an installed
 copy, which has no checkout around it, uses
 ``$XDG_CACHE_HOME/repro_torch_kernels``, by default under ``~/.cache``),
-named by a hash of the source, the headers and the flags, so an edited
-``.cu`` or ``.cuh`` rebuilds and an unchanged one loads the library already
+named by a hash of the source, the headers, the flags and a variant's
+``-D`` defines, so an edited ``.cu`` or ``.cuh`` rebuilds, each variant is
+a library of its own, and an unchanged one loads the library already
 there.
 A missing ``nvcc`` or a failed build raises; nothing falls back.
 
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -43,7 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -64,40 +65,56 @@ def find_nvcc() -> str:
         "kernels of repro_torch cannot be built")
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless its library exists; return its path.
+def _define_flags(defines: Sequence[str]) -> Tuple[str, ...]:
+    """``-D`` flags of a variant, in a fixed order (``NAME=VALUE`` each)."""
+    for d in defines:
+        if not d or any(c.isspace() for c in d) or d.startswith("-"):
+            raise ValueError(f"malformed define {d!r}: expected NAME or NAME=VALUE")
+    return tuple(f"-D{d}" for d in sorted(defines))
 
-    The library is written under a temporary name and renamed into place,
-    so a concurrent build never loads a half-written file. A failed build
-    raises ``RuntimeError`` carrying nvcc's output. The library's name
-    carries a hash of the source text, the shared headers (``csrc/*.cuh``)
-    and :data:`NVCC_FLAGS`."""
+
+def build(source: str, defines: Sequence[str] = ()) -> Path:
+    """Compile ``csrc/<source>`` with ``-D`` ``defines`` unless its library
+    exists; return its path.
+
+    Each set of defines is a library of its own (a variant: the tiled
+    passes' tile, say): the library's name carries a hash of the source
+    text, the shared headers (``csrc/*.cuh``), :data:`NVCC_FLAGS` and the
+    defines, so variants never collide and ``defines=()`` names the
+    library a build without them always had. The library is written under
+    a temporary name and renamed into place, so a concurrent build never
+    loads a half-written file. A failed build raises ``RuntimeError``
+    carrying nvcc's output."""
+    flags = _define_flags(defines)
     text = (CSRC / source).read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    key = hashlib.sha256(text + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
+    salt = repr(NVCC_FLAGS) + (repr(flags) if flags else "")
+    key = hashlib.sha256(text + salt.encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{Path(source).stem}-{key}.so"
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{source}:\n{proc.stderr}{proc.stdout}")
+                           f"{source} {' '.join(flags)}:\n{proc.stderr}{proc.stdout}")
     os.replace(tmp, out)
     return out
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<source>``, once per process."""
+def load(source: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<source>`` with ``defines``, once
+    per process and set of defines."""
+    key = (source, _define_flags(defines))
     with _lock:
-        lib: Optional[ctypes.CDLL] = _loaded.get(source)
+        lib: Optional[ctypes.CDLL] = _loaded.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
-            _loaded[source] = lib
+            lib = ctypes.CDLL(str(build(source, defines)))
+            _loaded[key] = lib
         return lib
 
 

@@ -87,6 +87,13 @@
 // ten passes' bit for bit. A thread keeps a run of outputs' sums in
 // registers and fetches each input once for the run (window_run).
 //
+// The tuning knobs (kernels/tuning.py) change none of that: the tile (32 x
+// 64 or 64 x 32, FD_TILE_H/FD_TILE_W), guided_ab's minimum blocks an SM
+// (FD_GUIDED_MIN_BLOCKS) and the order of the grid's planes (lane_major)
+// decide where and when an output is computed, never its terms or their
+// order, and the top-1 keys are a frame's smallest over its tiles in any
+// tiling; so every variant's outputs equal the default's bit for bit.
+//
 // What bounds it on the H100. The whole function must read 29.5 MB and
 // write 118.0 MB (J) + 39.3 MB (t) = 186.8 MB at L=4, B=8, 480x640, uint8
 // in and float32 out, >= 56 us at 3.35 TB/s (f32 in: 275 MB, >= 82 us).
@@ -188,6 +195,7 @@ struct DehazeParams {
     int gf_radius;
     int period;
     int topk;
+    int lane_major;      // the tiled passes' plane order: 1 lane x B + frame, 0 frame x L + lane
     float omega, neg_beta, w0, w1, w2;
     float luma0, luma1, luma2;
     float a_floor, gf_eps, t0, gamma, lam, one_minus_lam, u8_scale;
@@ -681,8 +689,23 @@ __global__ void halo_tmap_kernel(const float* __restrict__ t_core,
 // them is the same code for B1, B7 and B9.
 // ---------------------------------------------------------------------------
 
-constexpr int kTileH = 32;                       // output rows of a tile
-constexpr int kTileW = 64;                       // output columns of a tile
+// The tile and the guided pass's minimum blocks an SM are the tuning knobs
+// of kernels/tuning.py (ops fused_*, fused_halo_2d): each set of values is
+// a library of its own, built with -D FD_TILE_H=.. -D FD_TILE_W=.. -D
+// FD_GUIDED_MIN_BLOCKS=.. (kernels/_build.py); these defaults are the
+// library built without them. 32 x 64 and 64 x 32 both keep 256 threads.
+#ifndef FD_TILE_H
+#define FD_TILE_H 32
+#endif
+#ifndef FD_TILE_W
+#define FD_TILE_W 64
+#endif
+#ifndef FD_GUIDED_MIN_BLOCKS
+#define FD_GUIDED_MIN_BLOCKS 3
+#endif
+constexpr int kTileH = FD_TILE_H;                // output rows of a tile
+constexpr int kTileW = FD_TILE_W;                // output columns of a tile
+constexpr int kGuidedMinBlocks = FD_GUIDED_MIN_BLOCKS;   // guided_ab's __launch_bounds__
 constexpr int kTileThreads = 256;
 constexpr int kRunV = 16;                        // vertical window outputs a thread
 constexpr int kRunVMin = 8;                      // the same for tmap_tile's narrower window
@@ -691,6 +714,7 @@ static_assert(kTileH % kRunV == 0 && kTileH % kRunVMin == 0 && kTileW % kRunH ==
               "whole runs a tile");
 static_assert(kTileH * (kTileW / kRunH) == kTileThreads, "one horizontal run a thread");
 static_assert(kTileH % 32 == 0, "a warp's lanes are 32 rows of a tile in the horizontal runs");
+static_assert(kGuidedMinBlocks >= 1, "at least one block an SM");
 
 // Shared memory of the tiled passes. A tile's inputs span (kTileH + 2r) x
 // (kTileW + 2r) of its plane; regions are reused once spent.
@@ -835,9 +859,17 @@ __device__ __forceinline__ Tile region_tile(int H, int W, const Region& rg, int 
             rg.y1, rg.x0, rg.x1, y0, x0, y0 - r, x0 - r};
 }
 
-// B1 and B7: the outputs are the whole frame.
+// B1 and B7: the outputs are the whole frame. The grid's planes run in
+// the order p.lane_major names (the fused_lanes tuning knob grid_order):
+// plane z is frame z (lane z / B) lane-major, frame (z % L) x B + z / L
+// frame-major, so the lanes interleave block by block.
 __device__ __forceinline__ Tile this_tile(const DehazeParams& p, int r) {
-    return region_tile(p.H, p.W, {0, p.H, 0, p.W, 0}, r);
+    Tile t = region_tile(p.H, p.W, {0, p.H, 0, p.W, 0}, r);
+    if (!p.lane_major) {
+        const int z = static_cast<int>(blockIdx.z);
+        t.n = static_cast<long long>(z % p.L) * p.B + z / p.L;
+    }
+    return t;
 }
 
 // B9: the extended plane, and the part of it that a pass writes: the core
@@ -1333,7 +1365,7 @@ struct HaloGuided {
 // grid as tmap_tile over the pass's region, Io's shared memory
 // (guided_smem, halo_guided_smem); a and b written to ab (2, planes).
 template <class Io>
-__global__ void __launch_bounds__(kTileThreads, 3) guided_ab_kernel(const Io io) {
+__global__ void __launch_bounds__(kTileThreads, kGuidedMinBlocks) guided_ab_kernel(const Io io) {
     extern __shared__ __align__(16) float smem[];
     const int r = io.p.gf_radius;
     const Tile t = io.tile(r);
@@ -1802,6 +1834,7 @@ int fd_tmap(const float* t_raw, const float* g, const float* ab_rows, void* t_ou
 
 int fd_tile_h() { return kTileH; }
 int fd_tile_w() { return kTileW; }
+int fd_guided_min_blocks() { return kGuidedMinBlocks; }
 
 // 1 where every tiled pass that p runs fits a block's shared memory, else
 // 0: from radius 37 with float32 frames (53 bfloat16, 67 uint8), or with

@@ -209,9 +209,14 @@ constexpr int kMergeEmaWarps = 8;                // warps of a merge_ema block a
 constexpr int kMergeEmaMaxK = 1024;              // picks a frame (k ints a warp of scratch)
 constexpr int kBootstrapId = -(1 << 30);         // last_update of a fresh stream
 constexpr int kTop1Threads = 256;                // threads of an atmolight tile block
-constexpr int kTop1Items = 16;                   // pixels a thread
-constexpr int kTop1Tile = kTop1Threads * kTop1Items;   // pixels a tile
-static_assert(kTop1Items % 4 == 0, "whole 4-pixel vector loads");
+constexpr int kTop1Items = 16;                   // pixels a thread, by default
+constexpr int kTop1Tile = kTop1Threads * kTop1Items;   // pixels a tile, by default
+// The tile is B6a's and B6b's tuning knob (kernels/tuning.py, ops atmolight
+// and atmolight_topk: tile_pixels), a template parameter of their tile
+// kernels: kItems pixels a thread, kTop1Threads * kItems a tile, each
+// 4-pixel loads (with_top1_items: 2048, 4096 or 8192 pixels). Keys are
+// unique and a frame's picks are its smallest keys over all its tiles, summed
+// in key order, so no tile changes an output bit.
 
 // What a window kernel computes: kDark, (N, H, W, 3) -> the channel min,
 // then the windowed min (+inf border); kMin, (N, H, W) -> the windowed min;
@@ -646,20 +651,23 @@ strip_window_kernel(const void* __restrict__ x, void* __restrict__ out, int H, i
     else body(std::false_type{});
 }
 
-constexpr int kTop1Loads = kTop1Items / 4;       // 4-pixel loads a thread
-
-// Whether a tile of `count` pixels at `first` takes load_tile: whole and
-// aligned to 4 pixels (16 bytes of float32, 8 of bfloat16).
+// Whether a tile of `count` pixels at `first` takes load_tile: whole (of
+// kTop1Threads * kItems pixels) and aligned to 4 pixels (16 bytes of
+// float32, 8 of bfloat16).
+template <int kItems>
 __device__ __forceinline__ bool tile_vector(const char* first, long long count, int t_dt) {
-    return count == kTop1Tile && reinterpret_cast<uintptr_t>(first) % (t_dt == 0 ? 16 : 8) == 0;
+    static_assert(kItems % 4 == 0, "whole 4-pixel vector loads");
+    return count == kTop1Threads * kItems &&
+           reinterpret_cast<uintptr_t>(first) % (t_dt == 0 ? 16 : 8) == 0;
 }
 
-// The calling thread's pixels of such a tile, every load in flight first:
-// v[j][c] = pixel 4 (j * kTop1Threads + threadIdx.x) + c.
-__device__ __forceinline__ void load_tile(const char* first, int t_dt,
-                                          float (&v)[kTop1Loads][4]) {
+// The calling thread's pixels of such a tile, every load in flight first
+// (kLoads = kItems / 4 of them): v[j][c] = pixel 4 (j * kTop1Threads +
+// threadIdx.x) + c.
+template <int kLoads>
+__device__ __forceinline__ void load_tile(const char* first, int t_dt, float (&v)[kLoads][4]) {
 #pragma unroll
-    for (int j = 0; j < kTop1Loads; ++j) {
+    for (int j = 0; j < kLoads; ++j) {
         const int q = j * kTop1Threads + threadIdx.x;
         if (t_dt == 0) {
             const float4 f = reinterpret_cast<const float4*>(first)[q];
@@ -678,23 +686,25 @@ __device__ __forceinline__ void load_tile(const char* first, int t_dt,
 }
 
 // grid (tiles, N), block kTop1Threads: keys[n * tiles + j] = the smallest
-// key of pixels [j * kTop1Tile, (j + 1) * kTop1Tile) of frame n of t
-// (P pixels a frame, t_dt).
+// key of pixels [j * tile, (j + 1) * tile) of frame n of t (P pixels a
+// frame, t_dt), tile = kTop1Threads * kItems.
+template <int kItems>
 __global__ void __launch_bounds__(kTop1Threads)
 top1_tile_kernel(const void* __restrict__ t, int t_dt, unsigned long long* __restrict__ keys,
                  long long P) {
+    constexpr int kTile = kTop1Threads * kItems, kLoads = kItems / 4;
     __shared__ unsigned long long red[kTop1Threads / 32 + 1];
     const long long n = blockIdx.y;
-    const long long start = static_cast<long long>(blockIdx.x) * kTop1Tile;
-    const long long count = min(static_cast<long long>(kTop1Tile), P - start);
+    const long long start = static_cast<long long>(blockIdx.x) * kTile;
+    const long long count = min(static_cast<long long>(kTile), P - start);
     const long long base = n * P + start;        // element of the tile's first pixel
     const char* first = static_cast<const char*>(t) + base * (t_dt == 0 ? 4 : 2);
     unsigned long long best = kNoKey;
-    if (tile_vector(first, count, t_dt)) {
-        float v[kTop1Loads][4];
+    if (tile_vector<kItems>(first, count, t_dt)) {
+        float v[kLoads][4];
         load_tile(first, t_dt, v);
 #pragma unroll
-        for (int j = 0; j < kTop1Loads; ++j)
+        for (int j = 0; j < kLoads; ++j)
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
                 const long long i = start + 4LL * (j * kTop1Threads + threadIdx.x) + c;
@@ -816,31 +826,33 @@ struct KeyList {
 };
 
 // grid (tiles, N), block kTop1Threads: lists[(n * tiles + j) * k + s] = the
-// s-th smallest key of pixels [j * kTop1Tile, (j + 1) * kTop1Tile) of frame
-// n of t (P pixels a frame, t_dt), kNoKey past the tile's pixels; k <= K.
+// s-th smallest key of pixels [j * tile, (j + 1) * tile) of frame n of t (P
+// pixels a frame, t_dt, tile = kTop1Threads * kItems), kNoKey past the
+// tile's pixels; k <= K.
 // The loads are top1_tile_kernel's (load_tile); each lane keeps its
 // pixels' K smallest keys (its 16 pixels arrive in index order, so by
 // insert_after), each warp takes its k smallest from its lanes' lists, and
 // warp 0 the tile's from the warps': one barrier a tile, not 2k.
-template <int K>
+template <int K, int kItems>
 __global__ void __launch_bounds__(kTop1Threads)
 topk_tile_kernel(const void* __restrict__ t, int t_dt, unsigned long long* __restrict__ lists,
                  long long P, int k) {
     constexpr int kWarps = kTop1Threads / 32;
+    constexpr int kTile = kTop1Threads * kItems, kLoads = kItems / 4;
     __shared__ unsigned long long warp_keys[kWarps * K];
     const long long n = blockIdx.y;
-    const long long start = static_cast<long long>(blockIdx.x) * kTop1Tile;
-    const long long count = min(static_cast<long long>(kTop1Tile), P - start);
+    const long long start = static_cast<long long>(blockIdx.x) * kTile;
+    const long long count = min(static_cast<long long>(kTile), P - start);
     const long long base = n * P + start;
     const char* first = static_cast<const char*>(t) + base * (t_dt == 0 ? 4 : 2);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     KeyList<K> mine;
-    if (tile_vector(first, count, t_dt)) {
-        float v[kTop1Loads][4];
+    if (tile_vector<kItems>(first, count, t_dt)) {
+        float v[kLoads][4];
         load_tile(first, t_dt, v);
         const unsigned i0 = static_cast<unsigned>(start) + 4u * threadIdx.x;
 #pragma unroll
-        for (int j = 0; j < kTop1Loads; ++j)
+        for (int j = 0; j < kLoads; ++j)
 #pragma unroll
             for (int c = 0; c < 4; ++c)
                 mine.insert_after(key_hi(v[j][c]), i0 + 4u * (j * kTop1Threads) + c, 4 * j + c);
@@ -1104,15 +1116,27 @@ size_t strips_opt_in(int H, int r, int& band, cudaError_t& e) {
     return smem;
 }
 
-template <int K>
+template <int K, int kItems>
 int launch_warp_topk(const void* img, const void* t, unsigned long long* lists, void* out,
                      int N, long long P, int k, int img_dt, int t_dt, cudaStream_t s) {
-    const int tiles = static_cast<int>((P + kTop1Tile - 1) / kTop1Tile);
-    topk_tile_kernel<K><<<dim3(tiles, N), kTop1Threads, 0, s>>>(t, t_dt, lists, P, k);
+    constexpr int kTile = kTop1Threads * kItems;
+    const int tiles = static_cast<int>((P + kTile - 1) / kTile);
+    topk_tile_kernel<K, kItems><<<dim3(tiles, N), kTop1Threads, 0, s>>>(t, t_dt, lists, P, k);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     topk_gather_kernel<K><<<N, 32, 0, s>>>(lists, tiles * k, k, img, img_dt, P, out);
     return static_cast<int>(cudaGetLastError());
+}
+
+// f(std::integral_constant<int, kItems>{}) for B6a's and B6b's tile of
+// `tile` pixels: 2048, 4096 or 8192 (8, 16 or 32 pixels a thread);
+// cudaErrorInvalidValue, calling nothing, for any other.
+template <class F>
+int with_top1_items(int tile, const F& f) {
+    if (tile == kTop1Threads * 8) return f(std::integral_constant<int, 8>{});
+    if (tile == kTop1Threads * 16) return f(std::integral_constant<int, 16>{});
+    if (tile == kTop1Threads * 32) return f(std::integral_constant<int, 32>{});
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // f(std::integral_constant<int, K>{}) for the warp top-k's list size K of
@@ -1247,7 +1271,7 @@ int st_topk_occupancy(int k, int* blocks) {
             blocks, topk_block_kernel, kTopkThreads, 0));
     return with_list_size(k, [&](auto K) {
         return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks, topk_tile_kernel<decltype(K)::value>, kTop1Threads, 0));
+            blocks, topk_tile_kernel<decltype(K)::value, kTop1Items>, kTop1Threads, 0));
     });
 }
 
@@ -1356,32 +1380,39 @@ int st_merge_ema(const float* t, const int* gidx, const float* rgb, const int* i
 }
 
 // (N, H, W, 3) img_dt, (N, H, W) t_dt -> (N, 3) img_dt, I at the smallest
-// (t, flat index) key of each frame; keys is scratch for N x
-// ceil(H*W / st_top1_tile()) keys.
+// (t, flat index) key of each frame, over tiles of tile_pixels (2048, 4096
+// = st_top1_tile() or 8192; cudaErrorInvalidValue for another); keys is
+// scratch for N x ceil(H*W / tile_pixels) keys.
 int st_atmolight(const void* img, const void* t, unsigned long long* keys, void* out,
-                 int N, int H, int W, int img_dt, int t_dt, void* stream) {
+                 int N, int H, int W, int img_dt, int t_dt, int tile_pixels, void* stream) {
     const long long P = static_cast<long long>(H) * W;
-    const int tiles = static_cast<int>((P + kTop1Tile - 1) / kTop1Tile);
+    const int tiles = static_cast<int>((P + tile_pixels - 1) / tile_pixels);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    top1_tile_kernel<<<dim3(tiles, N), kTop1Threads, 0, s>>>(t, t_dt, keys, P);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    top1_gather_kernel<<<N, 32, 0, s>>>(keys, tiles, img, out, P, img_dt);
-    return static_cast<int>(cudaGetLastError());
+    return with_top1_items(tile_pixels, [&](auto items) {
+        top1_tile_kernel<decltype(items)::value><<<dim3(tiles, N), kTop1Threads, 0, s>>>(
+            t, t_dt, keys, P);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+        top1_gather_kernel<<<N, 32, 0, s>>>(keys, tiles, img, out, P, img_dt);
+        return static_cast<int>(cudaGetLastError());
+    });
 }
 
 // (N, H, W, 3) img_dt, (N, H, W) t_dt -> (N, 3) img_dt, the mean of I over
 // the k smallest (t, flat index) keys of each frame, 1 <= k <= min(H*W,
-// st_warp_topk_max()), by the warp top-k; lists is scratch for N x
-// ceil(H*W / st_top1_tile()) x k keys.
+// st_warp_topk_max()), by the warp top-k over tiles of tile_pixels (as
+// st_atmolight's); lists is scratch for N x ceil(H*W / tile_pixels) x k
+// keys.
 int st_atmolight_topk(const void* img, const void* t, unsigned long long* lists,
                       void* out, int N, int H, int W, int k, int img_dt, int t_dt,
-                      void* stream) {
+                      int tile_pixels, void* stream) {
     const long long P = static_cast<long long>(H) * W;
     if (k < 1 || k > P || k > kWarpTopkMax) return static_cast<int>(cudaErrorInvalidValue);
-    return with_list_size(k, [&](auto K) {
-        return launch_warp_topk<decltype(K)::value>(img, t, lists, out, N, P, k, img_dt, t_dt,
-                                                   static_cast<cudaStream_t>(stream));
+    return with_top1_items(tile_pixels, [&](auto items) {
+        return with_list_size(k, [&](auto K) {
+            return launch_warp_topk<decltype(K)::value, decltype(items)::value>(
+                img, t, lists, out, N, P, k, img_dt, t_dt, static_cast<cudaStream_t>(stream));
+        });
     });
 }
 

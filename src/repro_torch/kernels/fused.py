@@ -56,6 +56,12 @@ part of the extended plane that the core needs (:meth:`HaloStatic.region`).
 Windows too wide for a block (:func:`halo_tiled_fits`) run the ten masked
 passes, :data:`HALO_PASSES` by :func:`run_halo_passes`, also the tiled
 sequence's comparator. Both count their launches in :data:`halo_launches`.
+
+The tiled passes take the tuning knobs of ``kernels.tuning`` through their
+static (:class:`Static`, :class:`HaloStatic`): the tile and ``guided_ab``'s
+minimum blocks an SM pick a library variant (:func:`lib_for`), the grid
+order is an argument. Every tile-shaped mirror here (the tile keys, the
+shared-memory sums that decide the route) follows the static's tile.
 """
 from __future__ import annotations
 
@@ -81,19 +87,54 @@ SOURCE = "fused_dehaze.cu"
 #: (checked at load).
 TILE_PIXELS = TOPK_TILE
 
-#: Output tile of a tiled pass's block, rows x columns (``kTileH`` x
-#: ``kTileW`` in ``csrc/fused_dehaze.cu``, checked at load). A tiled pass
-#: whose halo needs more shared memory than a block has refuses to launch
-#: and its wrapper raises: with refine from gf_radius 46, and from radius
-#: 37 with float32 frames (53 bfloat16, 67 uint8). :func:`tiled_fits`
-#: says so beforehand, and :func:`fused_dehaze_lanes` then runs the ten
-#: passes, which take any radius.
-TILE_H, TILE_W = 32, 64
+#: The tiled passes' tuning knobs (``kernels.tuning``), default first: the
+#: tile, rows x columns (each a library variant, built with ``-D
+#: FD_TILE_H/FD_TILE_W``; both keep 256 threads a block), ``guided_ab``'s
+#: minimum blocks an SM in its ``__launch_bounds__`` (``-D
+#: FD_GUIDED_MIN_BLOCKS``), and the order of the grid's planes (a run-time
+#: argument: lane x B + frame, or frame x L + lane). No knob changes an
+#: output bit.
+TILES = {"32x64": (32, 64), "64x32": (64, 32)}
+DEFAULT_TILE = "32x64"
+BLOCKS_PER_SM = (3, 2)
+GRID_ORDERS = ("lane_major", "frame_major")
+
+#: Output tile of a tiled pass's block by default, rows x columns
+#: (``kTileH`` x ``kTileW`` in ``csrc/fused_dehaze.cu``, checked at load).
+#: A tiled pass whose halo needs more shared memory than a block has
+#: refuses to launch and its wrapper raises: at this tile with refine from
+#: gf_radius 46, and from radius 37 with float32 frames (53 bfloat16, 67
+#: uint8). :func:`tiled_fits` says so beforehand, and
+#: :func:`fused_dehaze_lanes` then runs the ten passes, which take any
+#: radius.
+TILE_H, TILE_W = TILES[DEFAULT_TILE]
 
 
-def tile_count(h: int, w: int) -> int:
-    """:data:`TILE_H` x :data:`TILE_W` tiles over h x w pixels."""
-    return -(-h // TILE_H) * -(-w // TILE_W)
+def tile_count(h: int, w: int, tile: str = DEFAULT_TILE) -> int:
+    """``tile``'s tiles over h x w pixels."""
+    th, tw = TILES[tile]
+    return -(-h // th) * -(-w // tw)
+
+
+def check_knobs(tile: str, blocks_per_sm: int) -> None:
+    """Raise ``ValueError`` naming a tile or a minimum of blocks an SM that
+    the tiled passes do not take."""
+    if tile not in TILES:
+        raise ValueError(f"tile={tile!r}: the tiled passes take {sorted(TILES)}")
+    if blocks_per_sm not in BLOCKS_PER_SM:
+        raise ValueError(f"blocks_per_sm={blocks_per_sm!r}: the tiled passes "
+                         f"take {list(BLOCKS_PER_SM)}")
+
+
+def variant_defines(tile: str, blocks_per_sm: int) -> Tuple[str, ...]:
+    """The ``-D`` defines of the library variant for these knobs: none for
+    the defaults, so the default is the library built without them."""
+    check_knobs(tile, blocks_per_sm)
+    th, tw = TILES[tile]
+    defines = () if tile == DEFAULT_TILE else (f"FD_TILE_H={th}", f"FD_TILE_W={tw}")
+    if blocks_per_sm != BLOCKS_PER_SM[0]:
+        defines += (f"FD_GUIDED_MIN_BLOCKS={blocks_per_sm}",)
+    return defines
 
 
 #: The megakernel's tiled passes and the ten passes they replaced (the
@@ -127,6 +168,10 @@ transmission_launches: Dict[str, int] = dict.fromkeys(
     TILED_TRANSMISSION_PASSES + TRANSMISSION_PASSES, 0)
 halo_launches: Dict[str, int] = dict.fromkeys(
     TILED_HALO_PASSES + HALO_PASSES, 0)
+#: Launches of every pass above by library variant, ``"<tile>/<blocks an
+#: SM>"`` (the default ``"32x64/3"`` too); kept apart from the per-pass
+#: counts, which are the same whatever the variant.
+variant_launches: Dict[str, int] = {}
 
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -137,13 +182,14 @@ def reset_launches() -> None:
         for counts in (launches, transmission_launches, halo_launches):
             for k in counts:
                 counts[k] = 0
+        variant_launches.clear()
 
 
 class _Params(ctypes.Structure):
     """Mirror of ``DehazeParams`` in ``csrc/fused_dehaze.cu``."""
     _fields_ = ([(n, ctypes.c_int) for n in (
         "L", "B", "H", "W", "in_dtype", "out_dtype", "algorithm", "radius",
-        "refine", "gf_radius", "period", "topk")]
+        "refine", "gf_radius", "period", "topk", "lane_major")]
         + [(n, ctypes.c_float) for n in (
             "omega", "neg_beta", "w0", "w1", "w2", "luma0", "luma1", "luma2",
             "a_floor", "gf_eps", "t0", "gamma", "lam", "one_minus_lam",
@@ -152,8 +198,9 @@ class _Params(ctypes.Structure):
 
 @dataclasses.dataclass(frozen=True)
 class Static:
-    """Every static argument of one megakernel call (shapes, dtypes and
-    the algorithm's constants)."""
+    """Every static argument of one megakernel call (shapes, dtypes, the
+    algorithm's constants and the tiled passes' knobs: the library variant
+    ``tile``/``blocks_per_sm`` and the grid's plane order)."""
     L: int
     B: int
     H: int
@@ -173,10 +220,17 @@ class Static:
     period: int
     lam: float
     topk: int
+    tile: str = DEFAULT_TILE
+    blocks_per_sm: int = BLOCKS_PER_SM[0]
+    lane_major: bool = True
 
     @property
     def n_frames(self) -> int:
         return self.L * self.B
+
+    @property
+    def variant(self) -> str:
+        return f"{self.tile}/{self.blocks_per_sm}"
 
     @functools.lru_cache(maxsize=64)
     def params(self) -> _Params:
@@ -190,7 +244,8 @@ class Static:
             out_dtype=_OUT_CODES[self.out_dtype],
             algorithm=0 if self.algorithm == "dcp" else 1, radius=self.radius,
             refine=int(self.refine), gf_radius=self.gf_radius,
-            period=self.period, topk=self.topk, omega=self.omega,
+            period=self.period, topk=self.topk,
+            lane_major=int(self.lane_major), omega=self.omega,
             neg_beta=-self.beta, w0=self.cap_w[0], w1=self.cap_w[1],
             w2=self.cap_w[2], luma0=ref.LUMA_WEIGHTS[0],
             luma1=ref.LUMA_WEIGHTS[1], luma2=ref.LUMA_WEIGHTS[2],
@@ -204,9 +259,12 @@ def make_static(img: torch.Tensor, *, algorithm: str = "dcp", radius: int,
                 cap_w: Sequence[float] = ref.CAP_COEFFS, refine: bool,
                 gf_radius: int, gf_eps: float, t0: float, gamma: float,
                 period: int, lam: float, topk: int = 1,
-                out_dtype: Optional[str] = None) -> Static:
+                out_dtype: Optional[str] = None, tile: str = DEFAULT_TILE,
+                blocks_per_sm: int = BLOCKS_PER_SM[0],
+                lane_major: bool = True) -> Static:
     """Validate a (L, B, H, W, 3) wire-dtype batch and the static
     arguments; raise ``ValueError`` on anything the kernel does not take."""
+    check_knobs(tile, blocks_per_sm)
     if img.dim() != 5 or img.shape[-1] != 3:
         raise ValueError(f"expected (L, B, H, W, 3) frames, got {tuple(img.shape)}")
     if img.dtype not in _IN_CODES:
@@ -226,18 +284,23 @@ def make_static(img: torch.Tensor, *, algorithm: str = "dcp", radius: int,
                   algorithm=algorithm, radius=radius, omega=omega, beta=beta,
                   cap_w=tuple(float(c) for c in cap_w), refine=bool(refine),
                   gf_radius=gf_radius, gf_eps=gf_eps, t0=t0, gamma=gamma,
-                  period=period, lam=lam, topk=topk)
+                  period=period, lam=lam, topk=topk, tile=tile,
+                  blocks_per_sm=blocks_per_sm, lane_major=bool(lane_major))
 
 
 # ---------------------------------------------------------------------------
 # The CUDA passes
 # ---------------------------------------------------------------------------
 
+#: The default variant's library (bound at first use) and the others',
+#: by ``(tile, blocks_per_sm)``.
 _lib_handle: Optional[ctypes.CDLL] = None
+_variant_handles: Dict[Tuple[str, int], ctypes.CDLL] = {}
 
 
 def _lib() -> ctypes.CDLL:
-    """Build (first use) and bind ``csrc/fused_dehaze.cu``."""
+    """Build (first use) and bind ``csrc/fused_dehaze.cu``, the default
+    variant."""
     global _lib_handle
     if _lib_handle is None:
         from repro_torch.kernels import _build
@@ -245,9 +308,27 @@ def _lib() -> ctypes.CDLL:
     return _lib_handle
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def lib_for(s=None) -> ctypes.CDLL:
+    """The library variant that the static ``s`` (a :class:`Static` or
+    :class:`HaloStatic`; None: the default) names, built and bound at first
+    use. A variant that fails to build raises."""
+    tile = DEFAULT_TILE if s is None else s.tile
+    bps = BLOCKS_PER_SM[0] if s is None else s.blocks_per_sm
+    if (tile, bps) == (DEFAULT_TILE, BLOCKS_PER_SM[0]):
+        return _lib()
+    lib = _variant_handles.get((tile, bps))
+    if lib is None:
+        from repro_torch.kernels import _build
+        lib = bind(_build.load(SOURCE, variant_defines(tile, bps)), tile, bps)
+        _variant_handles[tile, bps] = lib
+    return lib
+
+
+def bind(lib: ctypes.CDLL, tile: str = DEFAULT_TILE,
+         blocks_per_sm: int = BLOCKS_PER_SM[0]) -> ctypes.CDLL:
     """Declare the entry points of a build of ``csrc/fused_dehaze.cu`` and
-    check its tile constants against this module's; returns ``lib``."""
+    check its tile constants against the variant asked for (``tile``,
+    ``blocks_per_sm``); returns ``lib``."""
     vp, pp, ci = ctypes.c_void_p, ctypes.POINTER(_Params), ctypes.c_int
     hp, ip = ctypes.POINTER(_HaloParams), ctypes.POINTER(ci)
     sigs = {
@@ -289,12 +370,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    consts = ("fd_tile_pixels", "fd_max_tiles", "fd_tile_h", "fd_tile_w")
+    consts = ("fd_tile_pixels", "fd_max_tiles", "fd_tile_h", "fd_tile_w",
+              "fd_guided_min_blocks")
     for name in consts:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     got = tuple(getattr(lib, name)() for name in consts)
-    want = (TILE_PIXELS, TOPK_MAX_TILES, TILE_H, TILE_W)
+    want = (TILE_PIXELS, TOPK_MAX_TILES, *TILES[tile], blocks_per_sm)
     if got != want:
         raise RuntimeError(f"{SOURCE} tiles {got}, expected {want}")
     return lib
@@ -304,16 +386,18 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, counts: Dict[str, int], *args,
+def _launch(name: str, counts: Dict[str, int], s, *args,
             kernel: Optional[str] = None) -> None:
-    """Call ``fd_<kernel or name>`` on the current stream; count it as
-    ``counts[name]``; raise on a non-zero cudaError_t."""
+    """Call ``fd_<kernel or name>`` of the static ``s``'s library variant on
+    the current stream; count it as ``counts[name]`` and under the
+    variant; raise on a non-zero cudaError_t."""
     fn = f"fd_{kernel or name}"
-    rc = getattr(_lib(), fn)(*args, torch.cuda.current_stream().cuda_stream)
+    rc = getattr(lib_for(s), fn)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed: cudaError_t {rc}")
     with launch_lock:       # staged.launch_lock: one lock for every counter
         counts[name] += 1
+        variant_launches[s.variant] = variant_launches.get(s.variant, 0) + 1
 
 
 def _check_cuda(*tensors: torch.Tensor) -> None:
@@ -353,7 +437,7 @@ def cuda_premap(img, carry_f, s: Static, counts=launches):
     pre = _plane(s, device=img.device)
     g = _plane(s, device=img.device) if s.refine else None
     p = s.params()
-    _launch("premap", counts, img.data_ptr(), carry_f.data_ptr(), pre.data_ptr(),
+    _launch("premap", counts, s, img.data_ptr(), carry_f.data_ptr(), pre.data_ptr(),
             _ptr(g), ctypes.byref(p))
     return pre, g
 
@@ -362,7 +446,7 @@ def cuda_min_rows(pre, s: Static, counts=launches):
     _check_cuda(pre)
     out = torch.empty_like(pre)
     p = s.params()
-    _launch("min_rows", counts, pre.data_ptr(), out.data_ptr(), ctypes.byref(p))
+    _launch("min_rows", counts, s, pre.data_ptr(), out.data_ptr(), ctypes.byref(p))
     return out
 
 
@@ -370,7 +454,7 @@ def cuda_min_cols_tmap(rows, s: Static, counts=launches):
     _check_cuda(rows)
     t_raw = torch.empty_like(rows)
     p = s.params()
-    _launch("min_cols_tmap", counts, rows.data_ptr(), t_raw.data_ptr(), ctypes.byref(p))
+    _launch("min_cols_tmap", counts, s, rows.data_ptr(), t_raw.data_ptr(), ctypes.byref(p))
     return t_raw
 
 
@@ -387,7 +471,7 @@ def cuda_topk_block(t_raw, s: Static, counts=launches):
     keys = torch.empty((s.n_frames, n_tiles, _tile_keep(s)),
                        dtype=torch.int64, device=t_raw.device)
     p = s.params()
-    _launch("topk_block", counts, t_raw.data_ptr(), keys.data_ptr(), ctypes.byref(p))
+    _launch("topk_block", counts, s, t_raw.data_ptr(), keys.data_ptr(), ctypes.byref(p))
     return keys
 
 
@@ -401,7 +485,7 @@ def cuda_topk_merge(keys, img, s: Static, counts=launches):
     _check_cuda(keys, img)
     cand = torch.empty((s.n_frames, 3), dtype=torch.float32, device=img.device)
     p = s.params()
-    _launch("topk_merge", counts, keys.data_ptr(), *_lists(keys), img.data_ptr(),
+    _launch("topk_merge", counts, s, keys.data_ptr(), *_lists(keys), img.data_ptr(),
             cand.data_ptr(), _OUT_CODES[torch.float32], None, ctypes.byref(p))
     return cand
 
@@ -414,7 +498,7 @@ def cuda_candidate(keys, img, s: Static, counts=transmission_launches):
     t_min = torch.empty((s.n_frames,), dtype=torch.float32, device=img.device)
     cand = torch.empty((s.n_frames, 3), dtype=s.out_dtype, device=img.device)
     p = s.params()
-    _launch("candidate", counts, keys.data_ptr(), *_lists(keys), img.data_ptr(),
+    _launch("candidate", counts, s, keys.data_ptr(), *_lists(keys), img.data_ptr(),
             cand.data_ptr(), _OUT_CODES[s.out_dtype], t_min.data_ptr(),
             ctypes.byref(p), kernel="topk_merge")
     return t_min, cand
@@ -427,7 +511,7 @@ def cuda_ema(cand, ids, carry_f, carry_i, s: Static, counts=launches):
     cf = torch.empty((s.L, 3), dtype=torch.float32, device=dev)
     ci = torch.empty((s.L, 2), dtype=torch.int32, device=dev)
     p = s.params()
-    _launch("ema", counts, cand.data_ptr(), ids.data_ptr(), carry_f.data_ptr(),
+    _launch("ema", counts, s, cand.data_ptr(), ids.data_ptr(), carry_f.data_ptr(),
             carry_i.data_ptr(), a_seq.data_ptr(), cf.data_ptr(), ci.data_ptr(),
             ctypes.byref(p))
     return a_seq, cf, ci
@@ -437,7 +521,7 @@ def cuda_box_rows4(g, t_raw, s: Static, counts=launches):
     _check_cuda(g, t_raw)
     out = _plane(s, 4, device=g.device)
     p = s.params()
-    _launch("box_rows4", counts, g.data_ptr(), t_raw.data_ptr(), out.data_ptr(),
+    _launch("box_rows4", counts, s, g.data_ptr(), t_raw.data_ptr(), out.data_ptr(),
             ctypes.byref(p))
     return out
 
@@ -446,7 +530,7 @@ def cuda_box_cols_ab(rows4, s: Static, counts=launches):
     _check_cuda(rows4)
     ab = _plane(s, 2, device=rows4.device)
     p = s.params()
-    _launch("box_cols_ab", counts, rows4.data_ptr(), ab.data_ptr(), ctypes.byref(p))
+    _launch("box_cols_ab", counts, s, rows4.data_ptr(), ab.data_ptr(), ctypes.byref(p))
     return ab
 
 
@@ -454,7 +538,7 @@ def cuda_box_rows2(ab, s: Static, counts=launches):
     _check_cuda(ab)
     out = torch.empty_like(ab)
     p = s.params()
-    _launch("box_rows2", counts, ab.data_ptr(), out.data_ptr(), ctypes.byref(p))
+    _launch("box_rows2", counts, s, ab.data_ptr(), out.data_ptr(), ctypes.byref(p))
     return out
 
 
@@ -465,7 +549,7 @@ def cuda_recover(img, t_raw, g, rows2, a_seq, s: Static, counts=launches,
     J = _j_out(s, dev, out)
     t = torch.empty((s.L, s.B, s.H, s.W), dtype=s.out_dtype, device=dev)
     p = s.params()
-    _launch("recover", counts, img.data_ptr(), t_raw.data_ptr(), _ptr(g), _ptr(rows2),
+    _launch("recover", counts, s, img.data_ptr(), t_raw.data_ptr(), _ptr(g), _ptr(rows2),
             a_seq.data_ptr(), J.data_ptr(), t.data_ptr(), ctypes.byref(p))
     return J, t
 
@@ -476,7 +560,7 @@ def cuda_tmap(t_raw, g, rows2, s: Static, counts=transmission_launches):
     t = torch.empty((s.L, s.B, s.H, s.W), dtype=s.out_dtype,
                     device=t_raw.device)
     p = s.params()
-    _launch("tmap", counts, t_raw.data_ptr(), _ptr(g), _ptr(rows2),
+    _launch("tmap", counts, s, t_raw.data_ptr(), _ptr(g), _ptr(rows2),
             t.data_ptr(), ctypes.byref(p))
     return t
 
@@ -485,57 +569,90 @@ def tiled_fits(s: Static) -> bool:
     """Whether every tiled pass that ``s`` runs fits a block's shared
     memory (``fd_tiled_fits``; launches nothing). Where it does not,
     :func:`fused_dehaze_lanes` runs the ten passes."""
-    return bool(_lib().fd_tiled_fits(ctypes.byref(s.params())))
+    return bool(lib_for(s).fd_tiled_fits(ctypes.byref(s.params())))
 
 
 # The tiled passes' shared memory as the CUDA source reckons it
-# (``tmap_smem``, ``guided_smem``, ``refine_tmap_smem``, ``halo_*_smem``),
-# which decides from the static shape alone which sequence a transmission
-# stage runs; ``chip_smoke.py`` holds these against the library's fits tests.
-_TILE_THREADS, _RUN_V, _STAGE_STRIDE = 256, 16, TILE_W + 1
+# (``tmap_smem``, ``guided_smem``, ``recover_smem``, ``refine_tmap_smem``,
+# ``halo_*_smem``) for a static's tile, which decides from the static
+# shape alone which sequence a transmission stage runs; ``chip_smoke.py``
+# holds these against each library variant's fits tests.
+_TILE_THREADS, _RUN_V = 256, 16
 
 
-def _halo_rows(r: int) -> int:
-    return TILE_H + 2 * r
+@dataclasses.dataclass(frozen=True)
+class _Geometry:
+    """One tile's shared-memory arithmetic (``halo_rows`` .. ``count_ints``
+    in the CUDA source), in floats or ints."""
+    th: int
+    tw: int
+
+    @property
+    def stage_stride(self) -> int:          # a staged output row
+        return self.tw + 1
+
+    def halo_rows(self, r: int) -> int:
+        return self.th + 2 * r
+
+    def halo_cols(self, r: int) -> int:
+        return self.tw + 2 * r
+
+    def run_stride(self, r: int) -> int:
+        return self.halo_cols(r) | 1
+
+    def in_floats(self, planes: int, r: int) -> int:
+        return planes * max(self.halo_rows(r) * self.halo_cols(r),
+                            self.th * self.stage_stride)
+
+    def planes_and_runs(self, planes: int, sums: int, r: int) -> int:
+        runs = sums * self.th * self.run_stride(r)
+        if self.halo_cols(r) * (self.th // _RUN_V) <= _TILE_THREADS:   # sums overwrite
+            return max(self.in_floats(planes, r), runs)
+        return self.in_floats(planes, r) + runs
+
+    def refine_floats(self, refine: bool, r: int) -> int:
+        return self.th * self.tw + (self.planes_and_runs(2, 2, r) if refine
+                                    else self.th * self.stage_stride)
+
+    def count_ints(self, r: int) -> int:
+        return self.halo_rows(r) + self.halo_cols(r) + 2
 
 
-def _halo_cols(r: int) -> int:
-    return TILE_W + 2 * r
+def _geometry(s) -> _Geometry:
+    return _Geometry(*TILES[s.tile])
 
 
-def _run_stride(r: int) -> int:
-    return _halo_cols(r) | 1
-
-
-def _in_floats(planes: int, r: int) -> int:
-    return planes * max(_halo_rows(r) * _halo_cols(r), TILE_H * _STAGE_STRIDE)
-
-
-def _planes_and_runs(planes: int, sums: int, r: int) -> int:
-    runs = sums * TILE_H * _run_stride(r)
-    if _halo_cols(r) * (TILE_H // _RUN_V) <= _TILE_THREADS:   # sums overwrite
-        return max(_in_floats(planes, r), runs)
-    return _in_floats(planes, r) + runs
-
-
-def _refine_floats(refine: bool, r: int) -> int:
-    return TILE_H * TILE_W + (_planes_and_runs(2, 2, r) if refine
-                              else TILE_H * _STAGE_STRIDE)
-
-
-def _count_ints(r: int) -> int:
-    return _halo_rows(r) + _halo_cols(r) + 2
+def _wire_row_bytes(n: int, es: int) -> int:
+    return ((3 * n * es + 15) // 16 + 1) * 16
 
 
 def transmission_smem(s: Static) -> Tuple[int, int, int]:
     """Shared memory (bytes) of a block of the tiled transmission sequence's
-    ``tmap_tile``, ``guided_ab`` and ``refine_tmap``."""
-    r, es = s.radius, s.in_dtype.itemsize
-    wire = max(_halo_rows(r) * ((3 * _halo_cols(r) * es + 15) // 16 + 1) * 16,
-               4 * TILE_H * _run_stride(r))
-    return (wire + 4 * _in_floats(1, r) + 4 * _halo_rows(r),
-            4 * _planes_and_runs(2, 4, s.gf_radius),
-            4 * _refine_floats(s.refine, s.gf_radius))
+    ``tmap_tile``, ``guided_ab`` and ``refine_tmap`` at ``s``'s tile."""
+    g, r, es = _geometry(s), s.radius, s.in_dtype.itemsize
+    wire = max(g.halo_rows(r) * _wire_row_bytes(g.halo_cols(r), es),
+               4 * g.th * g.run_stride(r))
+    return (wire + 4 * g.in_floats(1, r) + 4 * g.halo_rows(r),
+            4 * g.planes_and_runs(2, 4, s.gf_radius),
+            4 * g.refine_floats(s.refine, s.gf_radius))
+
+
+def tiled_smem(s: Static) -> Tuple[int, int, int]:
+    """Shared memory (bytes) of a block of the megakernel's ``tmap_tile``,
+    ``guided_ab`` and ``refine_recover`` at ``s``'s tile: the transmission
+    sequence's, ``refine_recover`` with the tile's wire rows."""
+    tmap, guided, refine = transmission_smem(s)
+    g = _geometry(s)
+    return tmap, guided, refine + g.th * _wire_row_bytes(g.tw, s.in_dtype.itemsize)
+
+
+def tiled_smem_fits(s: Static) -> bool:
+    """:func:`tiled_fits` from :func:`tiled_smem` (launches and loads
+    nothing; ``chip_smoke.py`` holds it against ``fd_tiled_fits`` of each
+    library variant)."""
+    tmap, guided, recover = tiled_smem(s)
+    return (tmap <= MAX_SMEM and (not s.refine or guided <= MAX_SMEM)
+            and recover <= MAX_SMEM and 4 * 3 * s.B <= MAX_SMEM)
 
 
 def transmission_tiled_fits(s: Static) -> bool:
@@ -548,12 +665,12 @@ def transmission_tiled_fits(s: Static) -> bool:
     tmap, guided, refine = transmission_smem(s)
     return (tmap <= MAX_SMEM and (not s.refine or guided <= MAX_SMEM)
             and refine <= MAX_SMEM
-            and (s.topk > 1 or tile_count(s.H, s.W) <= TOPK_MAX_TILES))
+            and (s.topk > 1 or tile_count(s.H, s.W, s.tile) <= TOPK_MAX_TILES))
 
 
-def _occupancy(fn: str, params) -> Tuple[int, int, int]:
+def _occupancy(fn: str, s) -> Tuple[int, int, int]:
     blocks = (ctypes.c_int * 3)()
-    rc = getattr(_lib(), fn)(ctypes.byref(params), blocks)
+    rc = getattr(lib_for(s), fn)(ctypes.byref(s.params()), blocks)
     if rc != 0:
         raise RuntimeError(f"{fn} failed: cudaError_t {rc}")
     return tuple(blocks)
@@ -562,13 +679,13 @@ def _occupancy(fn: str, params) -> Tuple[int, int, int]:
 def tiled_occupancy(s: Static) -> Tuple[int, int, int]:
     """Blocks an SM of ``tmap_tile``, ``guided_ab`` and ``refine_recover``
     for ``s``, from the card's occupancy calculator (launches nothing)."""
-    return _occupancy("fd_tiled_occupancy", s.params())
+    return _occupancy("fd_tiled_occupancy", s)
 
 
 def transmission_occupancy(s: Static) -> Tuple[int, int, int]:
     """Blocks an SM of the transmission stage's ``tmap_tile``,
     ``guided_ab`` and ``refine_tmap`` for ``s`` (launches nothing)."""
-    return _occupancy("fd_transmission_occupancy", s.params())
+    return _occupancy("fd_transmission_occupancy", s)
 
 
 def cuda_tmap_tile(img, carry_f, s: Static, counts=launches):
@@ -580,10 +697,10 @@ def cuda_tmap_tile(img, carry_f, s: Static, counts=launches):
     g = _plane(s, device=img.device) if s.refine else None
     keys = None
     if s.topk == 1:
-        keys = torch.empty((s.n_frames, tile_count(s.H, s.W)), dtype=torch.int64,
-                           device=img.device)
+        keys = torch.empty((s.n_frames, tile_count(s.H, s.W, s.tile)),
+                           dtype=torch.int64, device=img.device)
     p = s.params()
-    _launch("tmap_tile", counts, img.data_ptr(), carry_f.data_ptr(),
+    _launch("tmap_tile", counts, s, img.data_ptr(), carry_f.data_ptr(),
             t_raw.data_ptr(), _ptr(g), _ptr(keys), ctypes.byref(p))
     return t_raw, g, keys
 
@@ -598,7 +715,7 @@ def cuda_select_ema(keys, img, ids, carry_f, carry_i, s: Static,
     cf = torch.empty((s.L, 3), dtype=torch.float32, device=dev)
     ci = torch.empty((s.L, 2), dtype=torch.int32, device=dev)
     p = s.params()
-    _launch("select_ema", counts, keys.data_ptr(), img.data_ptr(),
+    _launch("select_ema", counts, s, keys.data_ptr(), img.data_ptr(),
             ids.data_ptr(), carry_f.data_ptr(), carry_i.data_ptr(),
             a_seq.data_ptr(), cf.data_ptr(), ci.data_ptr(), ctypes.byref(p))
     return a_seq, cf, ci
@@ -609,7 +726,7 @@ def cuda_guided_ab(g, t_raw, s: Static, counts=launches):
     _check_cuda(g, t_raw)
     ab = _plane(s, 2, device=g.device)
     p = s.params()
-    _launch("guided_ab", counts, g.data_ptr(), t_raw.data_ptr(), ab.data_ptr(),
+    _launch("guided_ab", counts, s, g.data_ptr(), t_raw.data_ptr(), ab.data_ptr(),
             ctypes.byref(p))
     return ab
 
@@ -623,7 +740,7 @@ def cuda_refine_recover(img, t_raw, g, ab, a_seq, s: Static, counts=launches,
     J = _j_out(s, dev, out)
     t = torch.empty((s.L, s.B, s.H, s.W), dtype=s.out_dtype, device=dev)
     p = s.params()
-    _launch("refine_recover", counts, img.data_ptr(), t_raw.data_ptr(), _ptr(g),
+    _launch("refine_recover", counts, s, img.data_ptr(), t_raw.data_ptr(), _ptr(g),
             _ptr(ab), a_seq.data_ptr(), J.data_ptr(), t.data_ptr(),
             ctypes.byref(p))
     return J, t
@@ -635,7 +752,7 @@ def cuda_refine_tmap(t_raw, g, ab, s: Static, counts=transmission_launches):
     _check_cuda(t_raw)
     t = torch.empty((s.L, s.B, s.H, s.W), dtype=s.out_dtype, device=t_raw.device)
     p = s.params()
-    _launch("refine_tmap", counts, t_raw.data_ptr(), _ptr(g), _ptr(ab),
+    _launch("refine_tmap", counts, s, t_raw.data_ptr(), _ptr(g), _ptr(ab),
             t.data_ptr(), ctypes.byref(p))
     return t
 
@@ -773,30 +890,30 @@ def plain_tmap(t_raw, g, rows2, s: Static):
         s.L, s.B, s.H, s.W).to(s.out_dtype)
 
 
-def _tile_min_keys(keys: torch.Tensor) -> torch.Tensor:
-    """(N, h, w) signed-order keys -> each :data:`TILE_H` x :data:`TILE_W`
-    tile's smallest, (N, tiles) in row-major tile order (unsigned bits)."""
+def _tile_min_keys(keys: torch.Tensor, tile: str = DEFAULT_TILE) -> torch.Tensor:
+    """(N, h, w) signed-order keys -> each ``tile``'s smallest, (N, tiles)
+    in row-major tile order (unsigned bits)."""
+    th, tw = TILES[tile]
     n, h, w = keys.shape
-    ty, tx = -(-h // TILE_H), -(-w // TILE_W)
-    padded = torch.full((n, ty * TILE_H, tx * TILE_W), KEY_LAST,
+    ty, tx = -(-h // th), -(-w // tw)
+    padded = torch.full((n, ty * th, tx * tw), KEY_LAST,
                         dtype=torch.int64, device=keys.device)
     padded[:, :h, :w] = keys
-    best = padded.reshape(n, ty, TILE_H, tx, TILE_W).amin(dim=(2, 4))
+    best = padded.reshape(n, ty, th, tx, tw).amin(dim=(2, 4))
     return flip_key_order(best.reshape(n, ty * tx))
 
 
-def tile2d_keys(t_raw: torch.Tensor) -> torch.Tensor:
-    """(N, H, W) t -> each :data:`TILE_H` x :data:`TILE_W` tile's smallest
-    key, (N, tiles) in row-major tile order: bit for bit what
-    ``tmap_tile`` writes at top-1."""
+def tile2d_keys(t_raw: torch.Tensor, tile: str = DEFAULT_TILE) -> torch.Tensor:
+    """(N, H, W) t -> each ``tile``'s smallest key, (N, tiles) in row-major
+    tile order: bit for bit what ``tmap_tile`` writes at top-1."""
     n, h, w = t_raw.shape
-    return _tile_min_keys(topk_keys_signed(t_raw).reshape(n, h, w))
+    return _tile_min_keys(topk_keys_signed(t_raw).reshape(n, h, w), tile)
 
 
 def plain_tmap_tile(img, carry_f, s: Static):
     pre, g = plain_premap(img, carry_f, s)
     t_raw = plain_min_cols_tmap(plain_min_rows(pre, s), s)
-    return t_raw, g, (tile2d_keys(t_raw) if s.topk == 1 else None)
+    return t_raw, g, (tile2d_keys(t_raw, s.tile) if s.topk == 1 else None)
 
 
 def plain_select_ema(keys, img, ids, carry_f, carry_i, s: Static):
@@ -939,6 +1056,12 @@ class HaloStatic:
     gf_radius: int
     gf_eps: float
     topk: int
+    tile: str = DEFAULT_TILE
+    blocks_per_sm: int = BLOCKS_PER_SM[0]
+
+    @property
+    def variant(self) -> str:
+        return f"{self.tile}/{self.blocks_per_sm}"
 
     @property
     def h_ext(self) -> int:
@@ -987,11 +1110,13 @@ def make_halo_static(img: torch.Tensor, pre_ext: torch.Tensor,
                      guide_ext: torch.Tensor, *, algorithm: str = "dcp",
                      radius: int, omega: float = 0.95, beta: float = 1.0,
                      refine: bool, gf_radius: int, gf_eps: float,
-                     topk: int = 1, out_dtype: Optional[str] = None
-                     ) -> HaloStatic:
+                     topk: int = 1, out_dtype: Optional[str] = None,
+                     tile: str = DEFAULT_TILE,
+                     blocks_per_sm: int = BLOCKS_PER_SM[0]) -> HaloStatic:
     """Validate (N, h, w, 3) core frames, (N, h_ext, w_ext) planes and the
     static arguments; raise ``ValueError`` on anything the kernels do not
     take."""
+    check_knobs(tile, blocks_per_sm)
     if img.dim() != 4 or img.shape[-1] != 3:
         raise ValueError(f"expected (N, h, w, 3) frames, got {tuple(img.shape)}")
     if img.dtype not in _IN_CODES:
@@ -1025,11 +1150,12 @@ def make_halo_static(img: torch.Tensor, pre_ext: torch.Tensor,
                       out_dtype=ref.resolve_out_dtype(img.dtype, out_dtype),
                       algorithm=algorithm, radius=radius, omega=omega,
                       beta=beta, refine=bool(refine), gf_radius=gf_radius,
-                      gf_eps=gf_eps, topk=topk)
+                      gf_eps=gf_eps, topk=topk, tile=tile,
+                      blocks_per_sm=blocks_per_sm)
 
 
-def _halo_launch(name: str, *args) -> None:
-    _launch(name, halo_launches, *args, kernel=f"halo_{name}")
+def _halo_launch(name: str, s, *args) -> None:
+    _launch(name, halo_launches, s, *args, kernel=f"halo_{name}")
 
 
 def _ext_planes(s: HaloStatic, n: int, device) -> torch.Tensor:
@@ -1041,7 +1167,7 @@ def cuda_halo_min_rows(pre_ext, vh, vw, s: HaloStatic):
     _check_cuda(pre_ext, vh, vw)
     out = _ext_planes(s, 1, pre_ext.device)[0]
     p = s.params()
-    _halo_launch("min_rows", pre_ext.data_ptr(), vh.data_ptr(), vw.data_ptr(),
+    _halo_launch("min_rows", s, pre_ext.data_ptr(), vh.data_ptr(), vw.data_ptr(),
                  out.data_ptr(), ctypes.byref(p))
     return out
 
@@ -1053,7 +1179,7 @@ def cuda_halo_min_cols_tmap(rows, s: HaloStatic):
     t_core = torch.empty((s.N, s.h, s.w), dtype=torch.float32,
                          device=rows.device)
     p = s.params()
-    _halo_launch("min_cols_tmap", rows.data_ptr(), t_ext.data_ptr(),
+    _halo_launch("min_cols_tmap", s, rows.data_ptr(), t_ext.data_ptr(),
                  t_core.data_ptr(), ctypes.byref(p))
     return t_ext, t_core
 
@@ -1064,7 +1190,7 @@ def cuda_halo_topk_block(t_core, s: HaloStatic):
                         min(s.topk, TILE_PIXELS)), dtype=torch.int64,
                        device=t_core.device)
     p = s.params()
-    _halo_launch("topk_block", t_core.data_ptr(), keys.data_ptr(),
+    _halo_launch("topk_block", s, t_core.data_ptr(), keys.data_ptr(),
                  ctypes.byref(p))
     return keys
 
@@ -1079,7 +1205,7 @@ def cuda_halo_topk_list(keys, img, s: HaloStatic):
     tk_rgb = torch.empty((s.N, s.topk, 3), dtype=s.out_dtype, device=dev)
     tk_idx = torch.empty((s.N, s.topk), dtype=torch.int32, device=dev)
     p = s.params()
-    _halo_launch("topk_list", keys.data_ptr(), *_lists(keys), img.data_ptr(),
+    _halo_launch("topk_list", s, keys.data_ptr(), *_lists(keys), img.data_ptr(),
                  tk_t.data_ptr(), tk_rgb.data_ptr(), tk_idx.data_ptr(),
                  ctypes.byref(p))
     return tk_t, tk_rgb, tk_idx
@@ -1089,7 +1215,7 @@ def cuda_halo_box_rows4(guide_ext, t_ext, vh, vw, s: HaloStatic):
     _check_cuda(guide_ext, t_ext, vh, vw)
     out = _ext_planes(s, 4, t_ext.device)
     p = s.params()
-    _halo_launch("box_rows4", guide_ext.data_ptr(), t_ext.data_ptr(),
+    _halo_launch("box_rows4", s, guide_ext.data_ptr(), t_ext.data_ptr(),
                  vh.data_ptr(), vw.data_ptr(), out.data_ptr(), ctypes.byref(p))
     return out
 
@@ -1098,7 +1224,7 @@ def cuda_halo_box_cols_ab(rows4, vh, vw, s: HaloStatic):
     _check_cuda(rows4, vh, vw)
     ab = _ext_planes(s, 2, rows4.device)
     p = s.params()
-    _halo_launch("box_cols_ab", rows4.data_ptr(), vh.data_ptr(), vw.data_ptr(),
+    _halo_launch("box_cols_ab", s, rows4.data_ptr(), vh.data_ptr(), vw.data_ptr(),
                  ab.data_ptr(), ctypes.byref(p))
     return ab
 
@@ -1107,7 +1233,7 @@ def cuda_halo_box_rows2(ab, vh, vw, s: HaloStatic):
     _check_cuda(ab, vh, vw)
     out = torch.empty_like(ab)
     p = s.params()
-    _halo_launch("box_rows2", ab.data_ptr(), vh.data_ptr(), vw.data_ptr(),
+    _halo_launch("box_rows2", s, ab.data_ptr(), vh.data_ptr(), vw.data_ptr(),
                  out.data_ptr(), ctypes.byref(p))
     return out
 
@@ -1117,7 +1243,7 @@ def cuda_halo_tmap(t_core, guide_ext, rows2, vh, vw, s: HaloStatic):
     _check_cuda(t_core, guide_ext, vh, vw)
     t = torch.empty((s.N, s.h, s.w), dtype=s.out_dtype, device=t_core.device)
     p = s.params()
-    _halo_launch("tmap", t_core.data_ptr(), guide_ext.data_ptr(), _ptr(rows2),
+    _halo_launch("tmap", s, t_core.data_ptr(), guide_ext.data_ptr(), _ptr(rows2),
                  vh.data_ptr(), vw.data_ptr(), t.data_ptr(), ctypes.byref(p))
     return t
 
@@ -1126,11 +1252,11 @@ def halo_smem(s: HaloStatic) -> Tuple[int, int, int]:
     """Shared memory (bytes) of a block of the masked tiled sequence's
     ``tmap_tile``, ``guided_ab`` and ``refine_tmap`` (no wire rows; the
     sums' passes hold the mask counts)."""
-    r, gr = s.radius, s.gf_radius
-    counts = 4 * _count_ints(gr)
-    return (4 * (TILE_H * _run_stride(r) + _in_floats(1, r) + _count_ints(r)),
-            4 * _planes_and_runs(2, 4, gr) + counts,
-            4 * _refine_floats(s.refine, gr) + (counts if s.refine else 0))
+    g, r, gr = _geometry(s), s.radius, s.gf_radius
+    counts = 4 * g.count_ints(gr)
+    return (4 * (g.th * g.run_stride(r) + g.in_floats(1, r) + g.count_ints(r)),
+            4 * g.planes_and_runs(2, 4, gr) + counts,
+            4 * g.refine_floats(s.refine, gr) + (counts if s.refine else 0))
 
 
 def halo_tiled_fits(s: HaloStatic) -> bool:
@@ -1142,13 +1268,14 @@ def halo_tiled_fits(s: HaloStatic) -> bool:
     tmap, guided, refine = halo_smem(s)
     return (tmap <= MAX_SMEM and (not s.refine or guided <= MAX_SMEM)
             and refine <= MAX_SMEM
-            and (s.topk > 1 or tile_count(*s.region_shape("tmap_tile")) <= TOPK_MAX_TILES))
+            and (s.topk > 1
+                 or tile_count(*s.region_shape("tmap_tile"), s.tile) <= TOPK_MAX_TILES))
 
 
 def halo_occupancy(s: HaloStatic) -> Tuple[int, int, int]:
     """Blocks an SM of the halo stage's ``tmap_tile``, ``guided_ab`` and
     ``refine_tmap`` for ``s`` (launches nothing)."""
-    return _occupancy("fd_halo_occupancy", s.params())
+    return _occupancy("fd_halo_occupancy", s)
 
 
 def cuda_halo_tmap_tile(pre_ext, vh, vw, s: HaloStatic):
@@ -1161,10 +1288,10 @@ def cuda_halo_tmap_tile(pre_ext, vh, vw, s: HaloStatic):
     t_core = torch.empty((s.N, s.h, s.w), dtype=torch.float32, device=dev)
     keys = None
     if s.topk == 1:
-        keys = torch.empty((s.N, tile_count(*s.region_shape("tmap_tile"))),
+        keys = torch.empty((s.N, tile_count(*s.region_shape("tmap_tile"), s.tile)),
                            dtype=torch.int64, device=dev)
     p = s.params()
-    _halo_launch("tmap_tile", pre_ext.data_ptr(), vh.data_ptr(), vw.data_ptr(),
+    _halo_launch("tmap_tile", s, pre_ext.data_ptr(), vh.data_ptr(), vw.data_ptr(),
                  t_ext.data_ptr(), t_core.data_ptr(), _ptr(keys), ctypes.byref(p))
     return t_ext, t_core, keys
 
@@ -1175,7 +1302,7 @@ def cuda_halo_guided_ab(guide_ext, t_ext, vh, vw, s: HaloStatic):
     _check_cuda(guide_ext, t_ext, vh, vw)
     ab = _ext_planes(s, 2, t_ext.device)
     p = s.params()
-    _halo_launch("guided_ab", guide_ext.data_ptr(), t_ext.data_ptr(),
+    _halo_launch("guided_ab", s, guide_ext.data_ptr(), t_ext.data_ptr(),
                  vh.data_ptr(), vw.data_ptr(), ab.data_ptr(), ctypes.byref(p))
     return ab
 
@@ -1185,7 +1312,7 @@ def cuda_halo_refine_tmap(t_core, guide_ext, ab, vh, vw, s: HaloStatic):
     _check_cuda(t_core, guide_ext, vh, vw)
     t = torch.empty((s.N, s.h, s.w), dtype=s.out_dtype, device=t_core.device)
     p = s.params()
-    _halo_launch("refine_tmap", t_core.data_ptr(), guide_ext.data_ptr(), _ptr(ab),
+    _halo_launch("refine_tmap", s, t_core.data_ptr(), guide_ext.data_ptr(), _ptr(ab),
                  vh.data_ptr(), vw.data_ptr(), t.data_ptr(), ctypes.byref(p))
     return t
 
@@ -1282,7 +1409,7 @@ def halo_tile_keys(t_core: torch.Tensor, s: HaloStatic) -> torch.Tensor:
     y0, x0 = s.halo_h - ys.start, s.halo_w - xs.start
     plane[:, y0:y0 + s.h, x0:x0 + s.w] = topk_keys_signed(t_core).reshape(
         s.N, s.h, s.w)
-    return _tile_min_keys(plane)
+    return _tile_min_keys(plane, s.tile)
 
 
 def plain_halo_tmap_tile(pre_ext, vh, vw, s: HaloStatic):
@@ -1356,22 +1483,29 @@ def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
                        refine: bool, gf_radius: int, gf_eps: float,
                        t0: float, gamma: float, period: int, lam: float,
                        topk: int = 1, out_dtype: Optional[str] = None,
-                       out: Optional[torch.Tensor] = None):
+                       out: Optional[torch.Tensor] = None,
+                       tile: str = DEFAULT_TILE,
+                       blocks_per_sm: int = BLOCKS_PER_SM[0],
+                       lane_major: bool = True):
     """Lane-native dehaze of L streams: (L, B, H, W, 3) wire frames, (L, B)
     ids (< 0 = padding), carry rows ``carry_f (L, 3)`` f32 / ``carry_i
     (L, 2)`` int32 -> ``(J, t, a_seq (L, B, 3) f32, carry_f', carry_i')``
     with J/t in ``ref.resolve_out_dtype(img.dtype, out_dtype)``. J goes
     into ``out`` where given, which may be ``img`` itself where the dtypes
-    agree (buffer donation).
+    agree (buffer donation). ``tile``, ``blocks_per_sm`` and
+    ``lane_major`` are the tiled passes' knobs (:data:`TILES`,
+    :data:`BLOCKS_PER_SM`; the plane order), checked on any device.
 
     CPU tensors run the plain version; CUDA tensors run the kernels (built
-    at first use) or raise: the tiled passes, or the ten passes where a
-    window's halo does not fit a block (:func:`tiled_fits`)."""
+    at first use, the knobs' library variant) or raise: the tiled passes,
+    or the ten passes where a window's halo does not fit a block
+    (:func:`tiled_fits`)."""
     kw = dict(algorithm=algorithm, radius=radius, omega=omega, beta=beta,
               cap_w=cap_w, refine=refine, gf_radius=gf_radius, gf_eps=gf_eps,
               t0=t0, gamma=gamma, period=period, lam=lam, topk=topk,
               out_dtype=out_dtype)
-    s = make_static(img, **kw)
+    s = make_static(img, tile=tile, blocks_per_sm=blocks_per_sm,
+                    lane_major=lane_major, **kw)
     if frame_ids.shape != (s.L, s.B):
         raise ValueError(f"frame_ids {tuple(frame_ids.shape)} != (L, B) = "
                          f"{(s.L, s.B)}")
@@ -1466,21 +1600,25 @@ def fused_transmission_halo(img: torch.Tensor, pre_ext: torch.Tensor,
                             algorithm: str = "dcp", radius: int,
                             omega: float = 0.95, beta: float = 1.0,
                             refine: bool, gf_radius: int, gf_eps: float,
-                            topk: int = 1, out_dtype: Optional[str] = None):
+                            topk: int = 1, out_dtype: Optional[str] = None,
+                            tile: str = DEFAULT_TILE,
+                            blocks_per_sm: int = BLOCKS_PER_SM[0]):
     """One spatial shard's transmission stage: (N, h, w, 3) core frames in
     any wire dtype, (N, h_ext, w_ext) pre-map and luma planes (float32 or
     bfloat16), (h_ext,) row validity and (w_ext,) column validity (None:
     all valid) -> ``(t (N, h, w), tk_t (N, k) float32, tk_rgb (N, k, 3),
     tk_idx (N, k) int32)``, the k smallest (t_raw, local flat index) of the
     core, ascending; t and tk_rgb in ``ref.resolve_out_dtype(img.dtype,
-    out_dtype)``.
+    out_dtype)``. ``tile`` and ``blocks_per_sm`` are the tiled passes'
+    knobs, as for :func:`fused_dehaze_lanes`.
 
     CPU tensors run the plain version (``kernels.ref``); CUDA tensors run
     the kernels (built at first use) or raise: :func:`run_halo`."""
     kw = dict(algorithm=algorithm, radius=radius, omega=omega, beta=beta,
               refine=refine, gf_radius=gf_radius, gf_eps=gf_eps, topk=topk,
               out_dtype=out_dtype)
-    s = make_halo_static(img, pre_ext, guide_ext, **kw)
+    s = make_halo_static(img, pre_ext, guide_ext, tile=tile,
+                         blocks_per_sm=blocks_per_sm, **kw)
     if img.device.type == "cpu":
         return ref.fused_transmission_halo(img, pre_ext, guide_ext, valid,
                                            valid_w, **kw)

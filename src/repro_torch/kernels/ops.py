@@ -35,9 +35,25 @@ calls the masked filters once a step (a tile) for the min and six times
 for the guided filter's means. Every step but the lane-native
 megakernel's ends in :func:`merge_ema`, the candidate rows' merge and the
 §3.3 EMA as one kernel under any mode but ``"ref"``: once a step (a tick
-of the staged serve); the spatial steps no longer call the merge alone. The TPU tiling knobs
-(``frames_per_block``, ``lane_major``, ``buffer_depth``, the tuning
-table) have no counterpart: the back-compat aliases
+of the staged serve); the spatial steps no longer call the merge alone.
+
+The kernels' own tuning knobs (``kernels.tuning``) are keyword arguments
+of :func:`fused_dehaze` (``tile``, ``blocks_per_sm``; op ``fused_<alg>``
+or ``fused_<alg>_topk`` at (B, H, W)), :func:`fused_dehaze_lanes` (and
+``grid_order``; ``fused_lanes`` at (L, B, H, W)),
+:func:`fused_transmission_halo` (``fused_halo_2d`` at (N, h, w)) and
+:func:`atmospheric_light` (``tile_pixels``; ``atmolight`` or
+``atmolight_topk`` at (N, H, W)). ``None``, the default, resolves a knob
+with ``tuning.resolve`` (env override, the card's table entry, the
+default), once per op, bucket, dtype and device kind while the table
+holds; under every mode but ``"ref"`` and on any device, so a bad table
+entry or override raises ``ValueError`` wherever it would be used, and a
+variant that fails to build raises too. A caller that passes ``tuned``,
+a dict of its own (each step of ``core.pipeline`` keeps one), resolves a
+shape once and then reads the knobs from it. Nothing falls back to a default.
+The fused transmission stage (B7) stays on the default knobs, as the
+reference does not tune it. The TPU's knobs (``frames_per_block``,
+``buffer_depth``) have no counterpart: the back-compat aliases
 (:func:`fused_dehaze_dcp`, :func:`fused_transmission_dcp`) take
 ``frames_per_block`` at its default of 0 only.
 
@@ -81,6 +97,33 @@ def resolve_mode(mode: Mode = "auto") -> str:
         raise ValueError("kernel_mode 'interpret' runs Pallas kernel bodies "
                          "on the CPU and has no counterpart in repro_torch")
     return m
+
+
+def _knobs(op: str, shape, dtype, device, tuned: Optional[dict] = None,
+           **given) -> Dict[str, object]:
+    """The knobs ``given`` of ``op``, each ``None`` resolved: from
+    ``tuned`` (a dict that a caller keeps across its calls, keyed by op,
+    shape, dtype and device) where it holds them, else with
+    ``tuning.resolve``, whose answer ``tuned`` then keeps. Values given
+    are checked (``tuning.check_params``); resolved ones were checked when
+    they were resolved. The dict returned may be shared: do not modify
+    it."""
+    explicit = {k: v for k, v in given.items() if v is not None}
+    key = (op, shape, dtype, device)
+    params = tuned.get(key) if tuned is not None and not explicit else None
+    if params is not None:
+        return params
+    # Imported here: ``python -m repro_torch.kernels.tuning`` runs the
+    # module as ``__main__``, which an import at load would shadow.
+    from repro_torch.kernels import tuning as _tuning
+    if explicit:
+        _tuning.check_params(op, explicit)
+        if len(explicit) == len(given):
+            return explicit
+    params = _tuning.resolve(op, shape, dtype, device)
+    if tuned is not None:
+        tuned[key] = params
+    return {**params, **explicit} if explicit else params
 
 
 def _batched(x: torch.Tensor, rank: int):
@@ -180,15 +223,23 @@ def masked_guided_filter(guide, src, valid, radius: int, eps: float,
         v, valid, radius, valid_w, mode))
 
 
-def atmospheric_light(img, t_raw, k: int = 1, mode: Mode = "auto"):
+def atmospheric_light(img, t_raw, k: int = 1, mode: Mode = "auto",
+                      tile_pixels: Optional[int] = None,
+                      tuned: Optional[dict] = None):
     """(..., H, W, 3), (..., H, W) -> (..., 3): I at the argmin of t
-    (``k == 1``), or the mean of I over the k smallest t."""
+    (``k == 1``), or the mean of I over the k smallest t. ``tile_pixels``
+    is the kernels' tile (None: op ``atmolight`` or ``atmolight_topk`` of
+    the tuning table at the flat (N, H, W); ``tuned`` as in
+    :func:`fused_dehaze`)."""
     if resolve_mode(mode) == "ref":
         return _ref.atmospheric_light(img, t_raw, k)
     flat_i, lead = _batched(img, 3)
     flat_t, _ = _batched(t_raw, 2)
-    out = (_staged.atmolight_topk_op(flat_i, flat_t, k) if k > 1
-           else _staged.atmolight_op(flat_i, flat_t))
+    op = "atmolight_topk" if k > 1 else "atmolight"
+    tile = _knobs(op, flat_t.shape, None, img.device, tuned,
+                  tile_pixels=tile_pixels)["tile_pixels"]
+    out = (_staged.atmolight_topk_op(flat_i, flat_t, k, tile) if k > 1
+           else _staged.atmolight_op(flat_i, flat_t, tile))
     return out.reshape(lead + (3,))
 
 
@@ -314,9 +365,17 @@ def fused_dehaze(img: torch.Tensor, frame_ids: torch.Tensor,
                  period: int, lam: float, topk: int = 1,
                  out_dtype: Optional[str] = "auto",
                  mode: Mode = "auto",
-                 out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+                 out: Optional[torch.Tensor] = None,
+                 tile: Optional[str] = None,
+                 blocks_per_sm: Optional[int] = None,
+                 tuned: Optional[dict] = None) -> Tuple[torch.Tensor, ...]:
     """Whole DCP/CAP chain: (..., H, W, 3) -> (J, t, a_seq, A, k); J into
-    ``out`` where given (which may be ``img`` where the dtypes agree)."""
+    ``out`` where given (which may be ``img`` where the dtypes agree).
+    ``tile`` and ``blocks_per_sm`` are the tiled passes' knobs (None: op
+    ``fused_<algorithm>``, ``_topk`` at k > 1, of the tuning table at the
+    flat (B, H, W) and wire dtype). ``tuned``, a dict the caller keeps
+    across calls (a step keeps one), holds the knobs resolved at each
+    shape: a later call there resolves nothing."""
     m = resolve_mode(mode)
     flat, lead = _batched(img, 3)
     flat_ids = frame_ids.reshape(-1)
@@ -325,7 +384,12 @@ def fused_dehaze(img: torch.Tensor, frame_ids: torch.Tensor,
               gf_eps=gf_eps, t0=t0, gamma=gamma, period=period, lam=lam,
               topk=topk, out_dtype=out_dtype,
               out=None if out is None else out.view(flat.shape))
-    fn = _ref.fused_dehaze if m == "ref" else _fused.fused_dehaze
+    fn = _ref.fused_dehaze
+    if m != "ref":
+        fn = _fused.fused_dehaze
+        kw.update(_knobs(f"fused_{algorithm}" + ("_topk" if topk > 1 else ""),
+                         flat.shape[:3], flat.dtype, img.device, tuned,
+                         tile=tile, blocks_per_sm=blocks_per_sm))
     j, t, a_seq, a_fin, k_fin = fn(flat, flat_ids, A_saved, last_update,
                                    initialized, **kw)
     return (j.reshape(lead + tuple(j.shape[1:])),
@@ -342,13 +406,20 @@ def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
                        gamma: float, period: int, lam: float, topk: int = 1,
                        out_dtype: Optional[str] = "auto",
                        mode: Mode = "auto",
-                       out: Optional[torch.Tensor] = None
+                       out: Optional[torch.Tensor] = None,
+                       tile: Optional[str] = None,
+                       blocks_per_sm: Optional[int] = None,
+                       grid_order: Optional[str] = None,
+                       tuned: Optional[dict] = None
                        ) -> Tuple[torch.Tensor, ...]:
     """Lane-native fused dehaze: (L, B, H, W, 3), (L, B) ids and the
     (L, 3)/(L, 2) carry rows -> ``(J, t, a_seq (L, B, 3), carry_f',
     carry_i')``; per lane identical to :func:`fused_dehaze` on that lane,
     padding lanes (all ids < 0) untouched. J goes into ``out`` where given
-    (which may be ``img`` where the dtypes agree)."""
+    (which may be ``img`` where the dtypes agree). ``tile``,
+    ``blocks_per_sm`` and ``grid_order`` are the tiled passes' knobs (None:
+    op ``fused_lanes`` of the tuning table at (L, B, H, W) and the wire
+    dtype; ``tuned`` as in :func:`fused_dehaze`)."""
     if img.dim() != 5:
         raise ValueError(f"expected (L, B, H, W, 3) frames, got {tuple(img.shape)}")
     m = resolve_mode(mode)
@@ -356,7 +427,14 @@ def fused_dehaze_lanes(img: torch.Tensor, frame_ids: torch.Tensor,
               cap_w=tuple(cap_w), refine=refine, gf_radius=gf_radius,
               gf_eps=gf_eps, t0=t0, gamma=gamma, period=period, lam=lam,
               topk=topk, out_dtype=out_dtype, out=out)
-    fn = _ref.fused_dehaze_lanes if m == "ref" else _fused.fused_dehaze_lanes
+    fn = _ref.fused_dehaze_lanes
+    if m != "ref":
+        fn = _fused.fused_dehaze_lanes
+        knobs = _knobs("fused_lanes", img.shape[:4], img.dtype, img.device,
+                       tuned, tile=tile, blocks_per_sm=blocks_per_sm,
+                       grid_order=grid_order)
+        kw.update(tile=knobs["tile"], blocks_per_sm=knobs["blocks_per_sm"],
+                  lane_major=knobs["grid_order"] == "lane_major")
     return fn(img, frame_ids, carry_f, carry_i, **kw)
 
 
@@ -411,21 +489,32 @@ def fused_transmission_halo(img: torch.Tensor, pre_ext: torch.Tensor,
                             omega: float = 0.95, beta: float = 1.0,
                             refine: bool, gf_radius: int, gf_eps: float,
                             topk: int = 1, out_dtype: Optional[str] = "auto",
-                            mode: Mode = "auto") -> Tuple[torch.Tensor, ...]:
+                            mode: Mode = "auto", tile: Optional[str] = None,
+                            blocks_per_sm: Optional[int] = None,
+                            tuned: Optional[dict] = None
+                            ) -> Tuple[torch.Tensor, ...]:
     """One spatial shard's fused transmission stage: (..., h, w, 3) core
     frames, (..., h_ext, w_ext) halo-extended pre-map and luma planes,
     (h_ext,) row and optional (w_ext,) column validity -> ``(t, tk_t
     (..., k), tk_rgb (..., k, 3), tk_idx (..., k))``, the shard's k
-    smallest (t_raw, local flat index), ascending."""
+    smallest (t_raw, local flat index), ascending. ``tile`` and
+    ``blocks_per_sm`` are the tiled passes' knobs (None: op
+    ``fused_halo_2d`` of the tuning table at the flat (N, h, w) and wire
+    dtype; ``tuned`` as in :func:`fused_dehaze`)."""
     flat, lead = _batched(img, 3)
     flat_pre, _ = _batched(pre_ext, 2)
     flat_guide, _ = _batched(guide_ext, 2)
-    fn = (_ref.fused_transmission_halo if resolve_mode(mode) == "ref"
-          else _fused.fused_transmission_halo)
-    t, tk_t, tk_rgb, tk_idx = fn(
-        flat, flat_pre, flat_guide, valid, valid_w, algorithm=algorithm,
-        radius=radius, omega=omega, beta=beta, refine=refine,
-        gf_radius=gf_radius, gf_eps=gf_eps, topk=topk, out_dtype=out_dtype)
+    kw = dict(algorithm=algorithm, radius=radius, omega=omega, beta=beta,
+              refine=refine, gf_radius=gf_radius, gf_eps=gf_eps, topk=topk,
+              out_dtype=out_dtype)
+    fn = _ref.fused_transmission_halo
+    if resolve_mode(mode) != "ref":
+        fn = _fused.fused_transmission_halo
+        kw.update(_knobs("fused_halo_2d", flat.shape[:3], flat.dtype,
+                         img.device, tuned, tile=tile,
+                         blocks_per_sm=blocks_per_sm))
+    t, tk_t, tk_rgb, tk_idx = fn(flat, flat_pre, flat_guide, valid, valid_w,
+                                 **kw)
     return (t.reshape(lead + tuple(t.shape[1:])), tk_t.reshape(lead + (topk,)),
             tk_rgb.reshape(lead + (topk, 3)), tk_idx.reshape(lead + (topk,)))
 

@@ -95,9 +95,15 @@ STRIP_KINDS = {"box_filter": 0, "dark_channel": 1, "min_filter": 2,
 TOPK_TILE, TOPK_MAX_TILES = 2048, 8192
 
 #: Contiguous pixels a tile of the top-1 atmospheric light reduces to one
-#: key, and of the warp top-k to its k smallest (``kTop1Tile`` in the CUDA
-#: source, checked at load).
+#: key, and of the warp top-k to its k smallest, by default (``kTop1Tile``
+#: in the CUDA source, checked at load).
 TOP1_TILE = 4096
+
+#: The tiles the two take, default first: their tuning knob
+#: ``tile_pixels`` (``kernels.tuning``, ops ``atmolight`` and
+#: ``atmolight_topk``), a template parameter of their tile kernels. No tile
+#: changes an output bit.
+TOP1_TILES = (TOP1_TILE, 2048, 8192)
 
 #: The largest k the warp top-k takes (``kWarpTopkMax``, checked at load):
 #: each lane keeps its pixels' k smallest keys in registers (lists of 2, 4,
@@ -145,8 +151,8 @@ def _lib() -> ctypes.CDLL:
             "st_min_filter_wide": [vp, vp, i, i, i, i, i, vp],
             "st_box_filter": [vp, vp, i, i, i, i, i, vp],
             "st_box_filter_wide": [vp, vp, i, i, i, i, i, vp],
-            "st_atmolight": [vp, vp, vp, vp, i, i, i, i, i, vp],
-            "st_atmolight_topk": [vp, vp, vp, vp, i, i, i, i, i, i, vp],
+            "st_atmolight": [vp, vp, vp, vp, i, i, i, i, i, i, vp],
+            "st_atmolight_topk": [vp, vp, vp, vp, i, i, i, i, i, i, i, vp],
             "st_atmolight_topk_wide": [vp, vp, vp, vp, i, i, i, i, i, i, vp],
             "st_recover": [vp, vp, vp, vp, i, i, i, f, f, i, i, i, vp],
             "st_masked_min_filter": [vp, vp, vp, vp, i, i, i, i, i, vp],
@@ -514,30 +520,47 @@ def _check_pair(img: torch.Tensor, t: torch.Tensor) -> None:
     _dtype_code(t)
 
 
-def cuda_atmolight(img: torch.Tensor, t_raw: torch.Tensor) -> torch.Tensor:
+def check_tile_pixels(tile_pixels: int) -> None:
+    """Raise ``ValueError`` naming a tile the atmospheric light's kernels do
+    not take (:data:`TOP1_TILES`)."""
+    if tile_pixels not in TOP1_TILES:
+        raise ValueError(f"tile_pixels={tile_pixels!r}: the atmospheric "
+                         f"light's tiles are {list(TOP1_TILES)}")
+
+
+def cuda_atmolight(img: torch.Tensor, t_raw: torch.Tensor,
+                   tile_pixels: int = TOP1_TILE) -> torch.Tensor:
     _check_pair(img, t_raw)
+    check_tile_pixels(tile_pixels)
     _check_cuda(img, t_raw)
     n, h, w, _ = img.shape
-    keys = torch.empty((n, -(-(h * w) // TOP1_TILE)), dtype=torch.int64,
+    keys = torch.empty((n, -(-(h * w) // tile_pixels)), dtype=torch.int64,
                        device=img.device)
     out = torch.empty((n, 3), dtype=img.dtype, device=img.device)
     _launch("atmolight", img.data_ptr(), t_raw.data_ptr(), keys.data_ptr(),
-            out.data_ptr(), n, h, w, _dtype_code(img), _dtype_code(t_raw))
+            out.data_ptr(), n, h, w, _dtype_code(img), _dtype_code(t_raw),
+            tile_pixels)
     return out
 
 
-def plain_atmolight(img: torch.Tensor, t_raw: torch.Tensor) -> torch.Tensor:
-    """I at the per-frame argmin of t (first index on ties; -0.0 == +0.0)."""
+def plain_atmolight(img: torch.Tensor, t_raw: torch.Tensor,
+                    tile_pixels: int = TOP1_TILE) -> torch.Tensor:
+    """I at the per-frame argmin of t (first index on ties; -0.0 == +0.0),
+    which no tile changes (``tile_pixels`` is checked, as the kernel's)."""
     _check_pair(img, t_raw)
+    check_tile_pixels(tile_pixels)
     n = img.shape[0]
     j = t_raw.to(torch.float32).reshape(n, -1).argmin(-1)
     x = img.to(torch.float32).reshape(n, -1, 3)
     return x[torch.arange(n, device=img.device), j].to(img.dtype)
 
 
-def atmolight_op(img: torch.Tensor, t_raw: torch.Tensor) -> torch.Tensor:
-    """(N, H, W, 3), (N, H, W) -> (N, 3) in the frames' dtype."""
-    return (cuda_atmolight if _on_kernel(img) else plain_atmolight)(img, t_raw)
+def atmolight_op(img: torch.Tensor, t_raw: torch.Tensor,
+                 tile_pixels: int = TOP1_TILE) -> torch.Tensor:
+    """(N, H, W, 3), (N, H, W) -> (N, 3) in the frames' dtype; the kernel
+    reduces tiles of ``tile_pixels``."""
+    return (cuda_atmolight if _on_kernel(img) else plain_atmolight)(
+        img, t_raw, tile_pixels)
 
 
 # ---------------------------------------------------------------------------
@@ -563,34 +586,38 @@ def warp_topk_fits(k: int) -> bool:
 
 
 def cuda_atmolight_topk(img: torch.Tensor, t_raw: torch.Tensor,
-                        k: int) -> torch.Tensor:
-    """The warp top-k where :func:`warp_topk_fits`, else the block
-    rounds."""
-    return _atmolight_topk(img, t_raw, k, not warp_topk_fits(k))
+                        k: int, tile_pixels: int = TOP1_TILE) -> torch.Tensor:
+    """The warp top-k over tiles of ``tile_pixels`` where
+    :func:`warp_topk_fits`, else the block rounds (their own tiles)."""
+    return _atmolight_topk(img, t_raw, k, not warp_topk_fits(k), tile_pixels)
 
 
 def _atmolight_topk(img: torch.Tensor, t_raw: torch.Tensor, k: int,
-                    wide: bool) -> torch.Tensor:
+                    wide: bool, tile_pixels: int = TOP1_TILE) -> torch.Tensor:
     """The top-k light by the route named: the block rounds (``wide``, any
     k) or the warp top-k; each takes its key lists' scratch."""
     _check_topk(img, t_raw, k)
+    check_tile_pixels(tile_pixels)
     _check_cuda(img, t_raw)
     n, h, w, _ = img.shape
     lists = ((n, -(-(h * w) // TOPK_TILE), min(k, TOPK_TILE)) if wide
-             else (n, -(-(h * w) // TOP1_TILE), k))
+             else (n, -(-(h * w) // tile_pixels), k))
     keys = torch.empty(lists, dtype=torch.int64, device=img.device)
     out = torch.empty((n, 3), dtype=img.dtype, device=img.device)
-    _launch("atmolight_topk", img.data_ptr(), t_raw.data_ptr(),
-            keys.data_ptr(), out.data_ptr(), n, h, w, k, _dtype_code(img),
-            _dtype_code(t_raw), wide=wide)
+    args = (img.data_ptr(), t_raw.data_ptr(), keys.data_ptr(), out.data_ptr(),
+            n, h, w, k, _dtype_code(img), _dtype_code(t_raw))
+    _launch("atmolight_topk", *args, *(() if wide else (tile_pixels,)),
+            wide=wide)
     return out
 
 
 def plain_atmolight_topk(img: torch.Tensor, t_raw: torch.Tensor,
-                         k: int) -> torch.Tensor:
+                         k: int, tile_pixels: int = TOP1_TILE) -> torch.Tensor:
     """The mean of I over the k smallest (t, flat index) of each frame
-    (-0.0 == +0.0; :func:`topk_mean`), cast to the frames' dtype."""
+    (-0.0 == +0.0; :func:`topk_mean`), cast to the frames' dtype, which no
+    tile changes (``tile_pixels`` is checked, as the kernel's)."""
     _check_topk(img, t_raw, k)
+    check_tile_pixels(tile_pixels)
     n = img.shape[0]
     idx = key_index(topk_select(t_raw, k))
     x = img.to(torch.float32).reshape(n, -1, 3)
@@ -598,10 +625,11 @@ def plain_atmolight_topk(img: torch.Tensor, t_raw: torch.Tensor,
 
 
 def atmolight_topk_op(img: torch.Tensor, t_raw: torch.Tensor,
-                      k: int) -> torch.Tensor:
-    """(N, H, W, 3), (N, H, W) -> (N, 3) in the frames' dtype."""
+                      k: int, tile_pixels: int = TOP1_TILE) -> torch.Tensor:
+    """(N, H, W, 3), (N, H, W) -> (N, 3) in the frames' dtype; the warp
+    top-k reduces tiles of ``tile_pixels``."""
     return (cuda_atmolight_topk if _on_kernel(img)
-            else plain_atmolight_topk)(img, t_raw, k)
+            else plain_atmolight_topk)(img, t_raw, k, tile_pixels)
 
 
 # ---------------------------------------------------------------------------
@@ -994,6 +1022,7 @@ __all__ = ["SOURCE", "KERNELS", "SPATIAL_KERNELS", "STATE_KERNELS",
            "wide_launches", "reset_launches", "PAIRS", "STRIP_KINDS",
            "strip_smem", "strips_fit", "strips_occupancy", "window_occupancy",
            "topk_occupancy", "WARP_TOPK_MAX", "warp_topk_fits", "window_sum",
+           "TOP1_TILE", "TOP1_TILES", "check_tile_pixels",
            "ascending_window_sum", "window_counts",
            "validity_bytes", "KEY_LAST", "topk_keys_signed",
            "flip_key_order", "key_index", "key_t", "topk_select", "topk_mean",

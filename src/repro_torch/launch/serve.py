@@ -33,8 +33,18 @@ A non-float32 ``--io-dtype`` with ``--streams > 1`` also replays cam0
 alone through a fresh single-stream server and fails on a drift above
 1e-5. ``--expect-switches`` fails on fewer switches or on any rung that
 failed to warm, ``--expect-spillover`` on fewer spillovers, and a fleet
-on any migration. ``--tune`` is not ported yet (ROADMAP.md queue A) and
-exits non-zero.
+on any migration.
+
+Tuned serving (a measured search of the kernels' knobs at this serve's
+shapes into the port's tuning table, ``REPRO_TORCH_KERNEL_TUNING``,
+default ``results/kernel_tuning_torch.json``, under this card's name; then
+the serve resolves the winners):
+  PYTHONPATH=src python -m repro_torch.launch.serve --tune \
+      --resolution 480p --streams 4 --lanes 4 --frames 64 --io-dtype uint8 \
+      --fail-on-skipped
+
+With ``REPRO_TUNE_REQUIRE_TABLE=1`` a serve whose knobs have neither a
+table entry for this card nor a ``REPRO_TUNE_<OP>`` override exits 1.
 """
 from __future__ import annotations
 
@@ -236,6 +246,42 @@ def _serve_many(args, cfg, h: int, w: int):
     return rc, rep.skipped
 
 
+def _tune_for_serve(args, h: int, w: int) -> int:
+    """``--tune``: measured-search the kernels' knobs at this serve's
+    shapes (the megakernel's ``fused_<alg>`` at (batch, H, W), with
+    ``--streams > 1`` ``fused_lanes`` at (lanes, batch, H, W), and the
+    staged path's atmospheric light at its flat (frames, H, W)) into the
+    tuning table under this card's name, so the serve resolves freshly
+    measured winners instead of the defaults or a stale table. Returns 1
+    where a candidate was skipped for any reason but not fitting a block
+    (a variant that failed to build or run), else 0."""
+    from repro_torch.kernels import tuning
+
+    device = torch.device(args.device or "cuda")
+    stats = tuning.TuneStats()
+    kw = dict(method="search", persist=True, stats=stats, device=device)
+    tuning.autotune_fused(shapes=((args.batch, h, w),),
+                          algorithms=(args.algorithm,), topks=(1,),
+                          io_dtypes=(args.io_dtype,), **kw)
+    lanes = 1
+    if args.streams > 1:
+        lanes = args.lanes if args.lanes > 0 else args.streams
+        tuning.autotune_fused_lanes(shapes=((lanes, args.batch, h, w),),
+                                    io_dtype=args.io_dtype, **kw)
+    tuning.autotune_atmolight(shapes=((lanes * args.batch, h, w),), ks=(1,),
+                              **kw)
+    print(f"tune: device_kind={tuning.device_kind(device)} "
+          f"table={tuning.table_path()} timed_runs={stats.timed_runs} "
+          f"(exhaustive would be {stats.exhaustive_runs}) "
+          f"skipped={stats.skipped}", flush=True)
+    failed = {k: n for k, n in stats.skipped.items() if k != "TileDoesNotFit"}
+    if failed:
+        print(f"FAIL: --tune skipped candidates that fit: {failed}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
@@ -293,25 +339,34 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--fail-on-skipped", action="store_true",
                     help="exit non-zero if any frame was timeout-skipped")
     ap.add_argument("--tune", action="store_true",
-                    help="the tile-tuning search: not ported yet (exits "
-                         "non-zero)")
+                    help="run the successive-halving measured search of "
+                         "the kernels' knobs for this serve's shapes and "
+                         "wire dtype first (winners persist under this "
+                         "card's name in the tuning table), then serve "
+                         "with them")
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``); return the exit
     code: 0, 1 on a failed gate (overlap, parity, skips, switches,
-    spillover, migrations), 2 for ``--tune``, which is not ported yet."""
+    spillover, migrations), on a ``--tune`` candidate that failed to build
+    or run, or on a knob that ``REPRO_TUNE_REQUIRE_TABLE`` found
+    unmeasured."""
+    from repro_torch.kernels.tuning import AutotuneError
     args = _parser().parse_args(argv)
-    if args.tune:
-        print("--tune: not ported yet (ROADMAP.md queue A)", file=sys.stderr)
-        return 2
     h, w = RESOLUTIONS[args.resolution]
     cfg = DehazeConfig(algorithm=args.algorithm,
                        update_period=args.update_period, lam=args.lam,
                        kernel_mode=args.kernel_mode, io_dtype=args.io_dtype)
+    if args.tune and _tune_for_serve(args, h, w):
+        return 1
     serve = _serve_many if args.streams > 1 else _serve_single
-    rc, skipped = serve(args, cfg, h, w)
+    try:
+        rc, skipped = serve(args, cfg, h, w)
+    except AutotuneError as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
     if args.fail_on_skipped and skipped > 0:
         print(f"FAIL: {skipped} frame(s) timeout-skipped", file=sys.stderr)
         rc = 1

@@ -71,22 +71,32 @@ class _LRUStepCache:
 _STEP_CACHE = _LRUStepCache(maxsize=_env.step_cache_size())
 
 
+def _tuning_token() -> tuple:
+    """The tuning table's and overrides' state (``tuning.state_token``): a
+    step resolves its knobs once a shape, so a step cached under another
+    state is not reused."""
+    from repro_torch.kernels import tuning
+    return tuning.state_token()
+
+
 def _cached_step(cfg: DehazeConfig, device: torch.device, donate=False):
     """Keyed by the donation contract too (``make_step``'s ``donate``): a
-    donating step is never handed to a caller that reuses its inputs."""
+    donating step is never handed to a caller that reuses its inputs; and
+    by the tuning state (:func:`_tuning_token`)."""
     return _STEP_CACHE.get(
-        ("single", cfg, str(device), donate),
+        ("single", cfg, str(device), donate, _tuning_token()),
         lambda: make_step(cfg, PlacementSpec.single(), device=device,
                           donate=donate))
 
 
 def _cached_multi_step(cfg: DehazeConfig, n_lanes: int, lane_native: bool,
                        device: torch.device, donate=False):
-    """Keyed by lane count, path and donation contract too: a resize, a
-    ``REPRO_LANE_NATIVE`` toggle or the overlapped path never reuses a
-    stale step."""
+    """Keyed by lane count, path, donation contract and tuning state too:
+    a resize, a ``REPRO_LANE_NATIVE`` toggle, the overlapped path or a
+    changed tuning table never reuses a stale step."""
     return _STEP_CACHE.get(
-        ("multi", cfg, n_lanes, lane_native, str(device), donate),
+        ("multi", cfg, n_lanes, lane_native, str(device), donate,
+         _tuning_token()),
         lambda: make_step(cfg, PlacementSpec.lane_batched(), device=device,
                           lane_native=lane_native, donate=donate))
 

@@ -4,8 +4,9 @@ scattering model (``repro_torch.core.physics``) within 1e-6 of the
 reference's, and ``repro_torch.launch.serve.main`` on the CPU: the
 overlapped multi-stream serve passes its ``--expect-overlap`` gate, the
 autoscaled ramp its ``--expect-switches`` gate, the 2-host fleet its
-``--expect-spillover`` gate, and ``--tune``, not ported yet, exits
-non-zero."""
+``--expect-spillover`` gate, and a serve that ``REPRO_TUNE_REQUIRE_TABLE``
+finds without a measured table exits non-zero until ``--tune`` has
+measured one."""
 import numpy as np
 import pytest
 import torch
@@ -78,10 +79,26 @@ def test_cli_serves_overlapped_and_gates(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--tune"]])
-def test_cli_unported_options_exit_nonzero(flags, capsys):
-    rc = serve.main(["--device", "cpu"] + flags)
-    assert rc != 0
-    assert "not ported yet (ROADMAP.md queue A)" in capsys.readouterr().err
+def test_cli_unported_options_exit_nonzero(flags, tmp_path, monkeypatch,
+                                           capsys):
+    """``--tune``, once the one option not ported, runs now (its search is
+    held to the reference in ``test_torch_tuning.py``). What exits non-zero
+    is a serve whose knobs ``REPRO_TUNE_REQUIRE_TABLE=1`` finds without a
+    measurement: without ``flags`` the table stays empty and the CLI exits
+    1; with them the search fills it and the same serve runs."""
+    table = tmp_path / "tuning.json"
+    monkeypatch.setenv("REPRO_TORCH_KERNEL_TUNING", str(table))
+    monkeypatch.setenv("REPRO_TUNE_REQUIRE_TABLE", "1")
+    monkeypatch.delenv("REPRO_TUNE_DEVICE_KIND", raising=False)
+    argv = ["--device", "cpu", "--resolution", "120p", "--frames", "2",
+            "--batch", "2"]
+    assert serve.main(argv) == 1
+    assert "REPRO_TUNE_REQUIRE_TABLE" in capsys.readouterr().err
+    assert not table.exists()
+    assert serve.main(argv + flags) == 0
+    captured = capsys.readouterr()
+    assert "tune: device_kind=cpu" in captured.out
+    assert "not ported" not in captured.err
 
 
 @pytest.mark.parametrize("overlap", ["0", "1"])

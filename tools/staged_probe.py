@@ -216,6 +216,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch.kernels import staged as sk
     if len(sys.argv) > 1:                        # the variants named, in their order here
         for name in list(VARIANTS):
             if name not in sys.argv[1:]:
@@ -261,7 +262,8 @@ def main() -> int:
         lib = ctypes.CDLL(str(path))
         for entry, _ in cases.values():
             for e in (f"st_{entry}", f"st_{entry}_wide"):
-                getattr(lib, e).argtypes = argtypes.get(entry, [vp] * 2 + [i] * 5) + [vp]
+                top1 = [i] if e == "st_atmolight_topk" else []   # the warp top-k's tile
+                getattr(lib, e).argtypes = argtypes.get(entry, [vp] * 2 + [i] * 5) + top1 + [vp]
         lib.st_strips_occupancy.argtypes = [i] * 4 + [ctypes.POINTER(i)]
         loaded[name] = lib
     keys = [f"{k}{s}{t}" for k in cases for s in ("", "_wide") for t in ("", "_graph")]
@@ -275,9 +277,10 @@ def main() -> int:
                 wide = case.endswith("_wide")
                 entry, a = cases[case.removesuffix("_wide")]
                 fn = getattr(loaded[name], f"st_{entry}" + ("_wide" if wide else ""))
+                top1 = (sk.TOP1_TILE,) if entry == "atmolight_topk" and not wide else ()
 
                 def call():
-                    rc = fn(*a, torch.cuda.current_stream().cuda_stream)
+                    rc = fn(*a, *top1, torch.cuda.current_stream().cuda_stream)
                     if rc != 0:
                         raise SystemExit(f"{name} {case}: cudaError_t {rc}")
                 call()
