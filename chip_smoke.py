@@ -268,7 +268,25 @@ any error:
    candidate's ms beside the default's in turns (default, candidate,
    candidate, default) by CUDA events and a call in a replayed CUDA graph,
    printed, not gated;
-20. print ``{"kernels": [...]}`` (each kernel's launches on the path it
+20. the vision zoo's serving path, which no hand-written kernel runs
+   (every conv, pool, norm, attention and matmul is a PyTorch op): for
+   each of ``resnet-50``, ``convnext-b``, ``efficientnet-b7`` and
+   ``vit-l16`` at its published ``config()`` (full width and depth, its
+   published dtype), the params initialised on the card from a seed, and
+   the ``serve_b1`` and ``serve_b128`` cells (``(B, 224, 224, 3)`` float32
+   images from the port's ``ImageStream`` through ``prefetch_to_device``):
+   logits of shape ``(B, 1000)``, finite; ms a forward by CUDA events (3
+   warm-up and 10 timed calls on one batch), images/s, the peak of
+   ``torch.cuda.max_memory_allocated`` less the bytes earlier phases
+   hold, and the ms of the conv weights'
+   relayout copies a forward (HWIO to the channels-last OIHW the
+   convolution takes; timed alone). At the published dtype ``serve_b128``'s
+   row 0 has ``serve_b1``'s top-1 on the same image. ``config(dtype=
+   "float32")``'s ``serve_b1`` forward on the card (TF32 off) against the
+   same params and image on the CPU within 1e-3 x max |logit|. ResNet-50's
+   params saved with ``CheckpointManager`` and restored into a ``like`` on
+   the card, bit-equal, with the save and restore seconds;
+21. print ``{"kernels": [...]}`` (each kernel's launches on the path it
    names: the megakernel's tiled passes on the fused serving path, the
    transmission stage's tiled passes on the sharded steps, the halo
    stage's on the spatial steps, B8a and B8b on the staged sharded and
@@ -290,6 +308,7 @@ import dataclasses
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -4065,6 +4084,169 @@ def held_against_default(committed: Path, kind: str) -> dict:
     return out
 
 
+VISION_IDS = ("resnet-50", "convnext-b", "efficientnet-b7", "vit-l16")
+VISION_TOL = 1e-3        # card vs CPU, float32, x max |logit|
+
+
+def vision_model(arch: str, cfg):
+    """``(param table, forward(params, images) -> logits)`` of a vision id."""
+    from repro_torch.models import convnext, efficientnet, resnet, vit
+    if arch == "vit-l16":
+        return vit.vit_param_table(cfg), vit.make_forward(cfg)
+    if arch == "convnext-b":
+        return convnext.convnext_param_table(cfg), convnext.make_forward(cfg)
+    mod, table = {"resnet-50": (resnet, resnet.resnet_param_table),
+                  "efficientnet-b7": (efficientnet,
+                                      efficientnet.efficientnet_param_table)}[arch]
+    fwd = mod.make_forward(cfg, training=False)
+    return table(cfg), lambda p, x: fwd(p, x)[0]
+
+
+def conv_weights(params) -> list:
+    """Every conv weight a forward hands ``F.conv2d``, in HWIO: the 4-D
+    leaves (ViT's 4-D attention weights under ``layers`` are dense) and
+    each layer of the 5-D stacked ones."""
+    from repro_torch.tree import tree_flatten_with_path
+    out = []
+    for path, t in tree_flatten_with_path(params)[0]:
+        if t.ndim == 5:
+            out.extend(t.unbind(0))
+        elif t.ndim == 4 and not path.startswith("['layers']"):
+            out.append(t)
+    return out
+
+
+def phase_vision() -> dict:
+    """Phase 20 (module docstring): the four vision ids' serving cells."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import ImageStream, prefetch_to_device
+    from repro_torch.models import common as cm
+    from repro_torch.tree import tree_leaves, tree_map
+    out = {"serve": {}, "check": {}}
+    torch.set_num_threads(os.cpu_count() or 1)
+    with torch.inference_mode():
+        for k, arch in enumerate(VISION_IDS):
+            mod = configs.get_module(arch)
+            cfg = mod.config()
+            table, fwd = vision_model(arch, cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()     # earlier phases' tensors
+            t0 = time.perf_counter()
+            params = cm.init_params(table, 20 + k)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            weights = conv_weights(params)
+            relayout_ms = time_ms(lambda: [w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last) for w in weights], reps=10)
+            batches = {}
+            for shape in ("serve_b1", "serve_b128"):
+                cell = configs.VISION_SHAPES[shape]
+                n, res = cell["batch"], cell["img_res"]
+                stream = ImageStream(n, res, res, cfg.n_classes, seed=k)
+                got = list(prefetch_to_device(itertools.islice(stream, 2), size=2))
+                check(len(got) == 2, f"{arch} {shape}: prefetch gave {len(got)} batches")
+                for b in got:
+                    img = b["images"]
+                    check(img.is_cuda and img.dtype == torch.float32
+                          and tuple(img.shape) == (n, res, res, 3),
+                          f"{arch} {shape}: batch {tuple(img.shape)} {img.dtype}")
+                    logits = fwd(params, img)
+                    check(tuple(logits.shape) == (n, 1000),
+                          f"{arch} {shape}: logits {tuple(logits.shape)}")
+                    check(bool(torch.isfinite(logits).all()),
+                          f"{arch} {shape}: non-finite logits")
+                img = got[0]["images"]
+                batches[shape] = img
+                ms = time_ms(lambda: fwd(params, img), reps=10)
+                out["serve"][arch, shape] = {
+                    "ms": ms, "images_per_s": n / ms * 1e3,
+                    "dtype": cfg.dtype, "batch": n}
+            out["serve"][arch, "peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            out["serve"][arch, "relayout_ms"] = relayout_ms
+            out["serve"][arch, "conv_weights"] = len(weights)
+            out["serve"][arch, "init_s"] = init_s
+            # serve_b128's row 0 against serve_b1 on the same image.
+            big = batches["serve_b128"]
+            one = fwd(params, big[:1]).float()
+            row0 = fwd(params, big)[:1].float()
+            top2 = one.topk(2, dim=-1).values[0]
+            out["check"][arch, "top1"] = {
+                "b1": int(one.argmax()), "b128_row0": int(row0.argmax()),
+                "margin": float(top2[0] - top2[1]),
+                "max_diff": float((one - row0).abs().max())}
+            check(int(one.argmax()) == int(row0.argmax()),
+                  f"{arch}: serve_b128 row 0 top-1 {int(row0.argmax())} != serve_b1 "
+                  f"{int(one.argmax())} (margin {float(top2[0] - top2[1])})")
+            del params, weights
+            # float32 on the card (TF32 off) against the CPU.
+            cfg32 = mod.config(dtype="float32")
+            table32, fwd32 = vision_model(arch, cfg32)
+            p32 = cm.init_params(table32, 40 + k)
+            img1 = batches["serve_b1"]
+            card = fwd32(p32, img1).float().cpu()
+            host = fwd32(tree_map(lambda t: t.cpu(), p32), img1.cpu()).float()
+            scale = float(host.abs().max())
+            err = float((card - host).abs().max())
+            out["check"][arch, "float32"] = {"max_abs_err": err, "max_abs_logit": scale,
+                                             "rel": err / scale}
+            check(err <= VISION_TOL * scale,
+                  f"{arch}: float32 card vs CPU {err} > {VISION_TOL} x {scale}")
+            del p32, batches
+            torch.cuda.empty_cache()
+        # ResNet-50's params through the checkpoint manager.
+        table, _ = vision_model("resnet-50", configs.get_module("resnet-50").config())
+        params = cm.init_params(table, 60)
+        ck_dir = ROOT / "build" / "vision_checkpoint"
+        mgr = CheckpointManager(str(ck_dir), keep=1)
+        t0 = time.perf_counter()
+        mgr.save(0, params)
+        save_s = time.perf_counter() - t0
+        like = tree_map(torch.empty_like, params)
+        t0 = time.perf_counter()
+        restored, _, step = mgr.restore(like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        leaves, want = tree_leaves(restored), tree_leaves(params)
+        check(step == 0 and len(leaves) == len(want), "checkpoint: leaves")
+        for a, b in zip(leaves, want):
+            check(a.is_cuda and a.dtype == b.dtype and torch.equal(a, b),
+                  "checkpoint: a leaf differs after the round trip")
+        nbytes_ = sum(t.numel() * t.element_size() for t in want)
+        out["checkpoint"] = {"save_s": save_s, "restore_s": restore_s,
+                             "bytes": nbytes_, "leaves": len(want)}
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    return out
+
+
+def print_vision(vi: dict, card: str) -> None:
+    """Phase 20's lines (module docstring)."""
+    for arch in VISION_IDS:
+        for shape in ("serve_b1", "serve_b128"):
+            r = vi["serve"][arch, shape]
+            print(f"phase 20 {arch} {shape} ({r['dtype']}, TF32 off): {r['ms']} ms a "
+                  f"forward (CUDA events, 3 warm-up + 10 timed), {r['images_per_s']} "
+                  f"images/s", flush=True)
+        print(f"phase 20 {arch}: peak memory {vi['serve'][arch, 'peak_bytes']} bytes "
+              f"(max_memory_allocated over init and both cells, less what earlier "
+              f"phases hold); conv weight relayout "
+              f"{vi['serve'][arch, 'relayout_ms']} ms a forward "
+              f"({vi['serve'][arch, 'conv_weights']} weights, timed alone); init "
+              f"{vi['serve'][arch, 'init_s']} s", flush=True)
+        f32, t1 = vi["check"][arch, "float32"], vi["check"][arch, "top1"]
+        print(f"phase 20 {arch}: float32 card vs CPU max |diff| {f32['max_abs_err']} = "
+              f"{f32['rel']} x max |logit| {f32['max_abs_logit']} (tolerance "
+              f"{VISION_TOL}); top-1 serve_b1 {t1['b1']} serve_b128 row 0 "
+              f"{t1['b128_row0']} (margin {t1['margin']}, max |diff| {t1['max_diff']})",
+              flush=True)
+    c = vi["checkpoint"]
+    print(f"phase 20 checkpoint (resnet-50, {c['leaves']} leaves, {c['bytes']} bytes): "
+          f"save {c['save_s']} s, restore to the card {c['restore_s']} s, bit-equal",
+          flush=True)
+    print(f"phase 20 card: {card}", flush=True)
+
+
 def busy_and_kernels(fn, reps: int = 5):
     """Device busy ms, device kernels and device copies (memcpy, memset) a
     call of ``fn`` from a ``torch.profiler`` trace of ``reps`` calls; None
@@ -4177,6 +4359,8 @@ def main() -> int:
     stamp("phase 18")
     tu = phase_tuning(vids)
     stamp("phase 19")
+    vi = phase_vision()
+    stamp("phase 20")
 
     kernels = []
 
@@ -4389,6 +4573,7 @@ def main() -> int:
           f"{rep.wall_s} s), staged {s_rep.fps} ({s_rep.frames} frames, "
           f"{s_rep.wall_s} s); total {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    print_vision(vi, card)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,33 @@
 """Configuration registry of the PyTorch port: ``--arch <id>`` resolution
-and the shape cells, the dehaze half of the JAX package's ``configs``.
+and the shape cells, the port's copy of the JAX package's ``configs``.
 
 Each registered id is a module exposing ``ARCH_ID``, ``FAMILY``,
 ``config()`` (the published configuration) and ``smoke_config()`` (a
-reduced same-family configuration for CPU tests). The dehaze shapes
+reduced same-family configuration for CPU tests). Ported: the dehaze ids
+(the paper's own pipeline) and the vision family (``vit-l16``,
+``efficientnet-b7``, ``resnet-50``, ``convnext-b``). The dehaze shapes
 mirror the paper's Table 1 resolutions plus a high-resolution stress
-shape for spatial sharding. The model zoo's ids are not ported yet:
+shape for spatial sharding; the vision shapes are the zoo's training and
+serving cells. The LM and diffusion ids are not ported yet:
 :func:`get_module` says so.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
-from repro_torch.configs import dehaze_cap, dehaze_dcp
+from repro_torch.configs import (convnext_b, dehaze_cap, dehaze_dcp,
+                                 efficientnet_b7, resnet_50, vit_l16)
 
-ARCH_MODULES = {m.ARCH_ID: m for m in (dehaze_dcp, dehaze_cap)}
+ARCH_MODULES = {m.ARCH_ID: m for m in (vit_l16, efficientnet_b7, resnet_50,
+                                       convnext_b, dehaze_dcp, dehaze_cap)}
 
-# shape name -> dict of shape parameters
+# shape name -> dict of shape parameters (per family)
+VISION_SHAPES = {
+    "cls_224": dict(kind="train", img_res=224, batch=256),
+    "cls_384": dict(kind="train", img_res=384, batch=64),
+    "serve_b1": dict(kind="serve", img_res=224, batch=1),
+    "serve_b128": dict(kind="serve", img_res=224, batch=128),
+}
 DEHAZE_SHAPES = {
     "stream_240p": dict(kind="dehaze", height=240, width=320, batch=256),
     "stream_480p": dict(kind="dehaze", height=480, width=640, batch=256),
@@ -24,12 +35,12 @@ DEHAZE_SHAPES = {
     "stream_2160p": dict(kind="dehaze", height=2160, width=3840, batch=32),
 }
 
-FAMILY_SHAPES = {"dehaze": DEHAZE_SHAPES}
+FAMILY_SHAPES = {"vision": VISION_SHAPES, "dehaze": DEHAZE_SHAPES}
 
 
 def get_module(arch_id: str):
-    """The module of ``arch_id``. Only the dehaze ids are ported: any
-    other id (the model zoo's wait for its port) raises ``KeyError``."""
+    """The module of ``arch_id``. Any id not ported (the LM and diffusion
+    ids wait for their port) raises ``KeyError``."""
     try:
         return ARCH_MODULES[arch_id]
     except KeyError:
@@ -42,11 +53,12 @@ def shapes_for(arch_id: str) -> Dict[str, dict]:
 
 
 def cell_skip_reason(arch_id: str, shape_name: str) -> Optional[str]:
-    """Why the (arch, shape) cell is skipped, or None. Every dehaze cell
-    runs: only the zoo's long-context cells have a reason."""
+    """Why the (arch, shape) cell is skipped, or None. Every dehaze and
+    vision cell runs: only the LM family's long-context cells have a
+    reason."""
     shapes_for(arch_id)[shape_name]                  # names a cell
     return None
 
 
-__all__ = ["ARCH_MODULES", "DEHAZE_SHAPES", "FAMILY_SHAPES",
+__all__ = ["ARCH_MODULES", "VISION_SHAPES", "DEHAZE_SHAPES", "FAMILY_SHAPES",
            "get_module", "shapes_for", "cell_skip_reason"]

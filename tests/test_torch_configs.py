@@ -35,6 +35,7 @@ from _torch_common import as_np, ramp_frames
 torch.set_num_threads(1)
 
 DEHAZE = ("dehaze-dcp", "dehaze-cap")
+VISION = ("vit-l16", "efficientnet-b7", "resnet-50", "convnext-b")
 KW = dict(radius=3, omega=0.95, refine=True, gf_radius=4, gf_eps=1e-3)
 DEHAZE_KW = dict(KW, t0=0.1, gamma=1.0, period=2, lam=0.3)
 
@@ -57,8 +58,9 @@ def test_dehaze_configs_match_jax(arch, kw):
 
 def test_shapes_and_cells_match_jax():
     assert configs.DEHAZE_SHAPES == jconfigs.DEHAZE_SHAPES
-    assert configs.FAMILY_SHAPES == {"dehaze": jconfigs.DEHAZE_SHAPES}
-    assert sorted(configs.ARCH_MODULES) == sorted(DEHAZE)
+    assert configs.FAMILY_SHAPES == {"dehaze": jconfigs.DEHAZE_SHAPES,
+                                     "vision": jconfigs.VISION_SHAPES}
+    assert sorted(configs.ARCH_MODULES) == sorted(DEHAZE + VISION)
     for arch in DEHAZE:
         assert configs.shapes_for(arch) == jconfigs.shapes_for(arch)
         for shape in configs.shapes_for(arch):
@@ -69,11 +71,17 @@ def test_shapes_and_cells_match_jax():
 
 
 def test_zoo_ids_are_not_yet_ported():
-    for arch in jconfigs.ASSIGNED_ARCHS + ("nope",):
+    """The vision ids resolve (tests/test_torch_vision.py holds them to the
+    reference); the LM and diffusion ids, and unknown ones, raise."""
+    waiting = [a for a in jconfigs.ASSIGNED_ARCHS if a not in VISION]
+    assert len(waiting) == 6
+    for arch in waiting + ["nope"]:
         with pytest.raises(KeyError, match="not yet ported") as e:
             configs.get_module(arch)
         assert arch in str(e.value) and "unknown" not in str(e.value)
-        assert "dehaze-dcp" in str(e.value)
+        assert "dehaze-dcp" in str(e.value) and "vit-l16" in str(e.value)
+    for arch in VISION:
+        assert configs.get_module(arch).ARCH_ID == arch
 
 
 # --- the aliases ---------------------------------------------------------------

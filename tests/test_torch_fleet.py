@@ -154,17 +154,42 @@ def test_fleet_hash_policy_spreads_and_stays_sticky():
         _resolve_policy("round-robin", 2)
 
 
+def _gated(frames, gate: threading.Event, hold_from: int = None,
+           opens: bool = False):
+    """``frames`` one by one: from ``hold_from`` on, each waits for
+    ``gate`` (at most 30 s); ``opens`` sets it once the first frame is
+    taken."""
+    for i, f in enumerate(frames):
+        if hold_from is not None and i >= hold_from:
+            gate.wait(timeout=30.0)
+        if opens:
+            gate.set()
+        yield f
+
+
 def test_fleet_placement_and_default_lanes():
     """``n_hosts`` rides on the placement (validated, as the reference's
     ``lane_batched(n_hosts=2)`` is), and the default lanes per host are
-    ceil(streams / hosts)."""
+    ceil(streams / hosts). The spill is forced: 5 streams of two 2-frame
+    ticks on 2 hosts x 3 lanes, first-fit; the three streams host 0
+    admits hold their second tick until a stream's first frame has been
+    taken, which only host 1 can do, and only once host 0's three lanes
+    are all claimed."""
     assert PlacementSpec.lane_batched(n_hosts=2).n_hosts == 2
-    srv = ElasticServer(DehazeConfig(kernel_mode="ref", **KW), batch=4,
+    srv = ElasticServer(DehazeConfig(kernel_mode="ref", **KW), batch=2,
                         timeout_s=5.0, device="cpu")
-    rep, _, _ = _serve(srv, StreamRequest, _videos(5, 4),
-                       placement=PlacementSpec.lane_batched(n_hosts=2))
+    gate = threading.Event()
+    reqs = [StreamRequest(f"s{i}", _gated(v, gate, hold_from=2) if i < 3
+                          else _gated(v, gate, opens=True))
+            for i, v in enumerate(_videos(5, 4))]
+    rep = srv.serve_many(reqs, sink=lambda sid, fid, f: None,
+                         placement=PlacementSpec.lane_batched(n_hosts=2))
+    assert gate.is_set()
     assert rep.n_hosts == 2 and rep.n_lanes == 6 and rep.frames == 20
     assert rep.migrations == 0 and rep.spillovers >= 1     # 5 > 3 lanes
+    queue = srv.last_fleet.queue
+    assert {queue.placements[f"s{i}"] for i in range(3)} == {0}
+    assert queue.placements["s3"] == 1
 
 
 def test_fleet_autoscale_per_host_ladders():

@@ -204,7 +204,9 @@ def test_config_mirrors_the_reference():
 def test_import_pulls_in_no_jax():
     src = Path(__file__).resolve().parents[1] / "src"
     code = ("import sys, repro_torch, repro_torch.stream.elastic, "
-            "repro_torch.kernels.fused; "
+            "repro_torch.kernels.fused, repro_torch.configs, "
+            "repro_torch.models, repro_torch.checkpoint, "
+            "repro_torch.data.synthetic; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
