@@ -286,7 +286,40 @@ any error:
    same params and image on the CPU within 1e-3 x max |logit|. ResNet-50's
    params saved with ``CheckpointManager`` and restored into a ``like`` on
    the card, bit-equal, with the save and restore seconds;
-21. print ``{"kernels": [...]}`` (each kernel's launches on the path it
+21. the training path and the LM family, which no hand-written kernel
+   runs (every matmul, attention, norm, routing op and AdamW's update is a
+   PyTorch op; TF32 off): each vision id's published ``config()`` trains
+   4 steps (AdamW, the train CLI's schedule, warmup 1, lr 1e-3) on one
+   repeated ``cls_224`` batch of 32 images (the published 256 is cut;
+   ResNet-50 also at 256) from ``ImageStream`` through
+   ``prefetch_to_device``: finite losses, ``opt.step`` 4, BatchNorm's
+   running stats moved (ResNet-50, EfficientNet-B7); each LM id at its
+   published widths, heads, ``d_ff``, vocab, experts, top-k and
+   ``chunk_attn`` with its layers cut (llama3-8b, granite-20b and
+   moonshot-v1-16b-a3b at 2, llama4-scout-17b-a16e at 1) trains 4 steps
+   at lr 3e-4 (Llama 3's published peak) on one repeated batch of
+   ``train_4k``'s 4096 tokens (batch 1 of 256): the first nll within 1.5
+   of ln(vocab), step 1's lr 0, finite losses, the loss after step 4
+   below step 2's; ms a step (CUDA events, steps 2-4), images or tokens a
+   second and the peak of ``max_memory_allocated``. Then each LM id
+   serves at batch 1 (llama3-8b, granite-20b, moonshot at 2 layers and a
+   4096-token prompt; llama4-scout at 4 layers, layer 3 global, and a
+   16384-token prompt, above its 8192-token chunk): ``make_prefill`` then
+   16 greedy ``make_decode_step`` tokens, ``cache["pos"]`` the prompt plus
+   16, finite logits, no synchronising call in a decode step (the sync
+   debug mode); prefill ms and decode ms a token. At each LM id's and
+   ResNet-50's ``smoke_config()`` (float32) one train step on the card
+   against the same params and batch on the CPU: every leaf's update
+   within 1e-4 x lr plus one float32 rounding, except where the gradient
+   allows more (|g| under 1e-6, at most 0.1 % of the elements, or the
+   two gradients, each within 1e-4 x its leaf's max |g|, apart by more
+   than 1e-4 relative), counted; the LM's prefill plus a decode step
+   within 1e-4 x max |logit|. Last ``repro_torch.launch.train.run`` with
+   ``--device cuda --smoke`` for ``resnet-50`` and ``llama3-8b``: 3 steps
+   checkpointed at step 3, then ``--steps 6`` printing "resumed from step
+   3", its restored params and moments bit-equal to the saved ones,
+   ``opt.step`` 3 after the restore and 6 at the end, finite losses;
+22. print ``{"kernels": [...]}`` (each kernel's launches on the path it
    names: the megakernel's tiled passes on the fused serving path, the
    transmission stage's tiled passes on the sharded steps, the halo
    stage's on the spatial steps, B8a and B8b on the staged sharded and
@@ -307,6 +340,7 @@ import ctypes
 import dataclasses
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -4247,6 +4281,430 @@ def print_vision(vi: dict, card: str) -> None:
     print(f"phase 20 card: {card}", flush=True)
 
 
+# Phase 21: the training path and the LM family on the card. The cuts of
+# the published cells (printed with the numbers, and in PERF.md).
+VISION_TRAIN_BATCH = 32          # cls_224's global batch of 256, cut
+LM_TRAIN_LAYERS = {"llama3-8b": 2, "granite-20b": 2, "moonshot-v1-16b-a3b": 2,
+                   "llama4-scout-17b-a16e": 1}
+LM_TRAIN_TOKENS = 4096           # train_4k's sequence, batch 1 of its 256
+LM_SERVE = {"llama3-8b": (2, 4096), "granite-20b": (2, 4096),
+            "moonshot-v1-16b-a3b": (2, 4096),
+            "llama4-scout-17b-a16e": (4, 16384)}   # (layers, prompt tokens)
+TRAIN_STEPS, DECODE_TOKENS = 4, 16
+VISION_LR = 1e-3                 # the train CLI's default
+LM_LR = 3e-4                     # Llama 3's published peak lr (arXiv:2407.21783)
+UPDATE_RTOL = 1e-4               # card vs CPU: x lr, elementwise
+LOGIT_RTOL = 1e-4                # card vs CPU: x max |logit|
+TINY_G, MAX_TINY = 1e-6, 1e-3
+LM_IDS = tuple(LM_TRAIN_LAYERS)
+TRAIN_CUTS = (
+    f"vision cls_224: batch {VISION_TRAIN_BATCH} of the published 256 (ResNet-50 "
+    f"also at 256), {TRAIN_STEPS} steps on one repeated batch at lr {VISION_LR}; "
+    f"LM train_4k at lr {LM_LR}: "
+    f"{LM_TRAIN_TOKENS} tokens at batch 1 of the published 256, layers "
+    f"{LM_TRAIN_LAYERS} (widths, heads, d_ff, vocab, experts, top-k and "
+    f"chunk_attn published), {TRAIN_STEPS} steps on one repeated batch; LM "
+    f"serving: (layers, prompt) {LM_SERVE} at batch 1, {DECODE_TOKENS} decode "
+    f"tokens (llama4's 16384-token prompt is prefill_32k's 32768, cut)")
+
+
+class Clock:
+    """Milliseconds of a call: CUDA events on a card, the host clock on the
+    CPU (a rehearsal of the phase)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def __call__(self, fn):
+        if not self.cuda:
+            t0 = time.perf_counter()
+            out = fn()
+            return out, (time.perf_counter() - t0) * 1e3
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+
+def peak_reset(device) -> int:
+    """Bytes allocated now, the peak counter reset (0 off a card)."""
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_bytes(device, base: int):
+    return torch.cuda.max_memory_allocated() - base if device.type == "cuda" else None
+
+
+def first_batch(stream, device):
+    """The stream's first batch through ``prefetch_to_device``."""
+    from repro_torch.data import prefetch_to_device
+    got = list(prefetch_to_device(itertools.islice(stream, 1), size=1, device=device))
+    check(len(got) == 1, "prefetch gave no batch")
+    return got[0]
+
+
+def run_steps(loss, params, batch, has_bn: bool, clock, lr: float,
+              n: int = TRAIN_STEPS):
+    """``n`` train steps (the CLI's schedule: warmup 1, so step 1 has lr 0)
+    on one repeated batch: (params, opt, each step's scalar metrics, ms a
+    step)."""
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw_init, cosine_schedule
+    step = make_train_step(loss, cosine_schedule(lr, max(n // 10, 1), n),
+                           has_bn=has_bn)
+    opt = adamw_init(params)
+    metrics, ms = [], []
+    for _ in range(n):
+        (params, opt, m), t = clock(lambda: step(params, opt, batch))
+        metrics.append({k: float(v) for k, v in m.items()
+                        if isinstance(v, torch.Tensor) and v.ndim == 0})
+        ms.append(t)
+    return params, opt, metrics, ms
+
+
+def train_vision_cell(arch: str, batch_n: int, res: int, device, clock, seed: int,
+                      small: bool) -> dict:
+    """One vision id's train step on ``batch_n`` images of ``res`` px."""
+    from repro_torch.launch import train
+    from repro_torch.models import common as cm
+    cfg, table, loss, data, has_bn = train.build(arch, small, batch_n, 0, res)
+    base = peak_reset(device)
+    params = cm.init_params(table, seed, device=device)
+    batch = first_batch(data, device)
+    stats = ({k: params["stem_bn"][k].clone() for k in ("mean", "var")}
+             if has_bn else {})
+    params, opt, metrics, ms = run_steps(loss, params, batch, has_bn, clock,
+                                         VISION_LR)
+    losses = [m["loss"] for m in metrics]
+    print(f"[phase 21] train {arch} b{batch_n}: ms {ms}, losses {losses}", flush=True)
+    check(bool(np.isfinite(losses).all()), f"{arch} b{batch_n}: losses {losses}")
+    check(int(opt.step) == TRAIN_STEPS, f"{arch}: opt.step {int(opt.step)}")
+    for k, before in stats.items():
+        check(not torch.equal(before, params["stem_bn"][k]),
+              f"{arch}: BN running {k} did not move")
+    steady = float(np.mean(ms[1:]))
+    return {"dtype": cfg.dtype, "batch": batch_n, "res": res, "losses": losses,
+            "ms": ms, "ms_steady": steady, "images_per_s": batch_n / steady * 1e3,
+            "peak_bytes": peak_bytes(device, base), "bn_moved": bool(stats)}
+
+
+def lm_cfg(arch: str, small: bool, layers: int):
+    """The published config with ``layers`` layers (``small``: the smoke
+    config)."""
+    from repro_torch import configs
+    mod = configs.get_module(arch)
+    if small:
+        return mod.smoke_config()
+    return dataclasses.replace(mod.config(), n_layers=layers)
+
+
+def train_lm_cell(arch: str, layers: int, tokens: int, device, clock, seed: int,
+                  small: bool) -> dict:
+    """One LM id's train step at full width and ``layers`` layers, batch 1."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as T
+    cfg = lm_cfg(arch, small, layers)
+    table = T.lm_param_table(cfg)
+    base = peak_reset(device)
+    params = cm.init_params(table, seed, device=device)
+    batch = first_batch(TokenStream(1, tokens, cfg.vocab, seed=seed), device)
+    loss = T.make_loss_fn(cfg)
+    params, opt, metrics, ms = run_steps(loss, params, batch, False, clock, LM_LR)
+    with torch.no_grad():
+        after = float(loss(params, batch)[0])
+    losses = [m["loss"] for m in metrics]
+    print(f"[phase 21] train {arch} at {cfg.n_layers} layers: ms {ms}, losses "
+          f"{losses}, after {after}", flush=True)
+    nll0 = metrics[0]["nll"]
+    check(bool(np.isfinite(losses + [after]).all()), f"{arch}: losses {losses} {after}")
+    check(abs(nll0 - math.log(cfg.vocab)) < 1.5,
+          f"{arch}: first nll {nll0} vs ln(vocab) {math.log(cfg.vocab)}")
+    check(metrics[0]["lr"] == 0.0, f"{arch}: step 1's lr {metrics[0]['lr']}")
+    check(after < losses[1], f"{arch}: loss after step {TRAIN_STEPS} {after} is not "
+          f"below step 2's {losses[1]}")
+    check(int(opt.step) == TRAIN_STEPS, f"{arch}: opt.step {int(opt.step)}")
+    steady = float(np.mean(ms[1:]))
+    out = {"layers": cfg.n_layers, "params": cm.param_count(table), "tokens": tokens,
+           "dtype": cfg.dtype, "losses": losses, "loss_after": after, "nll0": nll0,
+           "ms": ms, "ms_steady": steady, "tokens_per_s": tokens / steady * 1e3,
+           "peak_bytes": peak_bytes(device, base)}
+    del params, opt, batch
+    return out
+
+
+def count_syncs(fn) -> int:
+    """Synchronising CUDA calls ``fn`` makes (``torch.cuda``'s sync debug
+    mode at its warning level)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's one-time note ("a prototype feature") is not a sync
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def serve_lm_cell(arch: str, layers: int, prompt: int, device, clock, seed: int,
+                  small: bool) -> dict:
+    """Prefill ``prompt`` tokens at batch 1, then DECODE_TOKENS greedy
+    decode steps; the second decode step runs under the sync debug mode
+    (no synchronising call: ``pos`` stays on the card), the others timed."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as T
+    cfg = lm_cfg(arch, small, layers)
+    base = peak_reset(device)
+    params = cm.init_params(T.lm_param_table(cfg), seed, device=device)
+    toks = first_batch(TokenStream(1, prompt, cfg.vocab, seed=seed), device)["tokens"]
+    prefill = T.make_prefill(cfg, max_len=prompt + DECODE_TOKENS)
+    decode = T.make_decode_step(cfg)
+    (last, cache), prefill_ms = clock(lambda: prefill(params, toks))
+    check(tuple(last.shape) == (1, cfg.vocab), f"{arch}: prefill logits {tuple(last.shape)}")
+    check(bool(torch.isfinite(last).all()), f"{arch}: non-finite prefill logits")
+    tok = last.argmax(-1)[:, None]
+    ms, syncs = [], None
+    for i in range(DECODE_TOKENS):
+        if i == 1 and device.type == "cuda":
+            out = []
+            syncs = count_syncs(lambda: out.append(decode(params, cache, tok)))
+            lg, cache = out[0]
+        else:
+            (lg, cache), t = clock(lambda: decode(params, cache, tok))
+            ms.append(t)
+        check(tuple(lg.shape) == (1, 1, cfg.vocab) and bool(torch.isfinite(lg).all()),
+              f"{arch}: decode step {i + 1} logits")
+        tok = lg[:, -1].argmax(-1)[:, None]
+    pos = int(cache["pos"])
+    print(f"[phase 21] serve {arch}: prefill {prefill_ms} ms, decode {ms}, "
+          f"syncs {syncs}", flush=True)
+    check(pos == prompt + DECODE_TOKENS, f"{arch}: cache pos {pos}")
+    check(syncs in (None, 0), f"{arch}: a decode step made {syncs} synchronising calls")
+    out = {"layers": cfg.n_layers, "prompt": prompt, "dtype": cfg.dtype,
+           "prefill_ms": prefill_ms, "decode_ms": ms,
+           "decode_ms_steady": float(np.mean(ms[1:])), "syncs": syncs, "pos": pos,
+           "cache_bytes": 2 * cache["k"].numel() * cache["k"].element_size(),
+           "peak_bytes": peak_bytes(device, base)}
+    del params, cache
+    return out
+
+
+def update_check(p0: list, got: list, want: list, g_got: list, g_want: list,
+                 paths: list, lr: float, label: str) -> dict:
+    """``got``'s update (from ``p0``) against ``want``'s elementwise within
+    UPDATE_RTOL x lr plus one float32 rounding of the new value, except
+    where the gradient allows more: ``want``'s |g| below TINY_G (AdamW's
+    division by sqrt(v) + eps can turn a rounding difference into a sign;
+    at most MAX_TINY of all such elements) or the two gradients, each
+    leaf within UPDATE_RTOL x its max |g|, apart by more than UPDATE_RTOL
+    relative (the update is a ratio of gradient sums). BN running stats
+    within 1e-4 x max(1, max |leaf|). Counts returned and printed."""
+    tiny_n = drift_n = total = 0
+    worst = 0.0
+    for path, a0, a, b, ga, gb in zip(paths, p0, got, want, g_got, g_want):
+        a0, a, b, ga, gb = (t.detach().double().cpu() for t in (a0, a, b, ga, gb))
+        check(bool(torch.isfinite(a).all()), f"{label} {path}: non-finite")
+        if path.endswith(("['mean']", "['var']")):
+            err = float((a - b).abs().max())
+            check(err <= 1e-4 * max(1.0, float(b.abs().max())),
+                  f"{label} {path}: BN stat off by {err}")
+            continue
+        gerr = (ga - gb).abs()
+        check(float(gerr.max()) <= UPDATE_RTOL * float(gb.abs().max()) + 1e-30,
+              f"{label} {path}: gradient off by {float(gerr.max())}")
+        tiny = gb.abs() < TINY_G
+        drift = gerr > UPDATE_RTOL * gb.abs()
+        ulp = torch.from_numpy(np.spacing(b.abs().float().numpy())).double()
+        diff = ((a - a0) - (b - a0)).abs()
+        bad = diff > UPDATE_RTOL * lr + ulp
+        check(not bool((bad & ~tiny & ~drift).any()),
+              f"{label} {path}: update off by {float(diff.max())} (lr {lr})")
+        tiny_n += int((bad & tiny).sum())
+        drift_n += int((bad & drift & ~tiny).sum())
+        total += a.numel()
+        worst = max(worst, float(diff.max()) / lr)
+    check(tiny_n <= MAX_TINY * total, f"{label}: {tiny_n} of {total} tiny-g exceptions")
+    return {"elements": total, "tiny_excepted": tiny_n, "drift_excepted": drift_n,
+            "max_diff_over_lr": worst}
+
+
+def card_vs_cpu_cell(arch: str, device, seed: int) -> dict:
+    """One train step of ``arch``'s smoke config (float32) on the card
+    against the same params and batch on the CPU; for an LM also a
+    prefill (max_len 32) of 8 tokens plus one decode step."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as T
+    from repro_torch.models.steps import make_train_step, value_and_grad
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
+    cpu = torch.device("cpu")
+    lm = configs.get_module(arch).FAMILY == "lm"
+    cfg, table, loss, _, has_bn = train.build(arch, True, 1, 16, 0)
+    rng = np.random.default_rng(seed)
+    if lm:
+        toks = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+        host = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+    else:
+        host = {"images": rng.random((8, cfg.img_res, cfg.img_res, 3)).astype(np.float32),
+                "labels": (np.arange(8) % cfg.n_classes).astype(np.int32)}
+    p_cpu = cm.init_params(table, seed, device=cpu)
+    sides = {}
+    for name, dev in (("card", device), ("cpu", cpu)):
+        params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+        batch = tree_map(lambda a: torch.from_numpy(a).to(dev), host)
+        grads = value_and_grad(loss, params, batch)[2]
+        step = make_train_step(loss, cosine_schedule(1e-3, 0, 10), has_bn=has_bn)
+        new, opt, m = step(params, adamw_init(params), batch)
+        sides[name] = (tree_leaves(new), tree_leaves(grads), float(m["lr"]),
+                       float(m["loss"]))
+    paths = [p for p, _ in tree_flatten_with_path(p_cpu)[0]]
+    out = update_check(tree_leaves(p_cpu), sides["card"][0], sides["cpu"][0],
+                       sides["card"][1], sides["cpu"][1], paths, sides["cpu"][2],
+                       f"{arch} card vs CPU")
+    out["loss_rel"] = abs(sides["card"][3] - sides["cpu"][3]) / abs(sides["cpu"][3])
+    check(out["loss_rel"] <= 1e-5, f"{arch}: loss card vs CPU {out['loss_rel']}")
+    if lm:
+        logits = {}
+        for name, dev in (("card", device), ("cpu", cpu)):
+            params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+            t = torch.from_numpy(host["tokens"]).to(dev)
+            last, cache = T.make_prefill(cfg, max_len=32)(params, t[:, :8])
+            lg, cache = T.make_decode_step(cfg)(params, cache, t[:, 8:9])
+            check(int(cache["pos"]) == 9, f"{arch}: pos {int(cache['pos'])}")
+            logits[name] = (last.cpu(), lg.cpu())
+        for (a, b) in zip(logits["card"], logits["cpu"]):
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            check(err <= LOGIT_RTOL * scale,
+                  f"{arch}: serve logits card vs CPU {err} > {LOGIT_RTOL} x {scale}")
+            out["serve_rel"] = max(out.get("serve_rel", 0.0), err / scale)
+    return out
+
+
+def resume_cell(arch: str, device) -> dict:
+    """``train.py --device <card> --smoke``: 3 steps checkpointed at step 3,
+    then ``--steps 6`` resuming from it."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves, tree_map
+    ck = ROOT / "build" / "train_resume" / arch
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", arch, "--smoke", "--device", str(device), "--ckpt-every", "3",
+            "--ckpt-dir", str(ck), "--log-every", "1"]
+    log1, log2 = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(log1):
+        first = train.run(argv + ["--steps", "3"])
+    saved = tree_map(torch.clone, {"params": first["params"], "opt": first["opt"]})
+    seen = {}
+
+    def on_resume(restored, step):
+        seen["step"], seen["opt_step"] = step, int(restored["opt"].step)
+        seen["equal"] = all(a.dtype == b.dtype and a.device == b.device
+                            and torch.equal(a, b)
+                            for a, b in zip(tree_leaves(restored), tree_leaves(saved)))
+        seen["leaves"] = len(tree_leaves(restored))
+
+    with contextlib.redirect_stdout(log2):
+        second = train.run(argv + ["--steps", "6"], on_resume=on_resume)
+    check("resumed from step 3" in log2.getvalue(), f"{arch}: no resume line")
+    check(seen.get("equal") is True, f"{arch}: restored state differs from the saved one")
+    check(seen["opt_step"] == 3 and int(second["opt"].step) == 6,
+          f"{arch}: opt.step {seen['opt_step']} -> {int(second['opt'].step)}")
+    losses = first["losses"] + second["losses"]
+    check(len(losses) == 6 and bool(np.isfinite(losses).all()), f"{arch}: losses {losses}")
+    shutil.rmtree(ck, ignore_errors=True)
+    return {"losses": losses, "leaves": seen["leaves"],
+            "log": log2.getvalue().strip().splitlines()}
+
+
+def phase_train(device: torch.device = None, small: bool = False) -> dict:
+    """Phase 21 (module docstring). ``small``: the smoke configs at tiny
+    sizes, a rehearsal that also runs on the CPU."""
+    from repro_torch import configs
+    device = torch.device("cuda") if device is None else device
+    clock = Clock(device)
+    out = {"vision": {}, "lm_train": {}, "lm_serve": {}, "card_vs_cpu": {},
+           "resume": {}}
+    torch.set_num_threads(os.cpu_count() or 1)
+    for k, arch in enumerate(VISION_IDS):
+        res = configs.get_module(arch).smoke_config().img_res if small else \
+            configs.VISION_SHAPES["cls_224"]["img_res"]
+        batches = [8 if small else VISION_TRAIN_BATCH]
+        if arch == "resnet-50":
+            batches.append(16 if small else configs.VISION_SHAPES["cls_224"]["batch"])
+        for n in batches:
+            out["vision"][arch, n] = train_vision_cell(arch, n, res, device, clock,
+                                                       70 + k, small)
+    for k, arch in enumerate(LM_IDS):
+        tokens = 16 if small else LM_TRAIN_TOKENS
+        out["lm_train"][arch] = train_lm_cell(arch, LM_TRAIN_LAYERS[arch], tokens,
+                                              device, clock, 80 + k, small)
+    for k, arch in enumerate(LM_IDS):
+        layers, prompt = LM_SERVE[arch]
+        if small:
+            prompt = 24 if arch.startswith("llama4") else 16
+        out["lm_serve"][arch] = serve_lm_cell(arch, layers, prompt, device, clock,
+                                              90 + k, small)
+    if device.type == "cuda":
+        for k, arch in enumerate(LM_IDS + ("resnet-50",)):
+            out["card_vs_cpu"][arch] = card_vs_cpu_cell(arch, device, 100 + k)
+    for arch in ("resnet-50", "llama3-8b"):
+        out["resume"][arch] = resume_cell(arch, device)
+    return out
+
+
+def print_train(tr: dict, card: str) -> None:
+    """Phase 21's lines (module docstring), each with the card."""
+    for (arch, n), r in tr["vision"].items():
+        print(f"phase 21 train {arch} cls_224 b{n} ({r['dtype']}, {r['res']} px, TF32 "
+              f"off; {card}): {r['ms_steady']} ms a step (steps 2-{TRAIN_STEPS}, CUDA "
+              f"events; each {r['ms']}), {r['images_per_s']} images/s, peak "
+              f"{r['peak_bytes']} bytes; losses {r['losses']}; BN stats moved "
+              f"{r['bn_moved']}", flush=True)
+    for arch, r in tr["lm_train"].items():
+        print(f"phase 21 train {arch} train_4k at {r['layers']} layers ({r['params']} "
+              f"params, {r['dtype']}, {r['tokens']} tokens, batch 1; {card}): "
+              f"{r['ms_steady']} ms a step (steps 2-{TRAIN_STEPS}; each {r['ms']}), "
+              f"{r['tokens_per_s']} tokens/s, peak {r['peak_bytes']} bytes; first nll "
+              f"{r['nll0']}; losses {r['losses']}, after step {TRAIN_STEPS} "
+              f"{r['loss_after']}", flush=True)
+    for arch, r in tr["lm_serve"].items():
+        print(f"phase 21 serve {arch} at {r['layers']} layers ({r['dtype']}, prompt "
+              f"{r['prompt']}, batch 1; {card}): prefill {r['prefill_ms']} ms, decode "
+              f"{r['decode_ms_steady']} ms a token (CUDA events, decode steps 3-"
+              f"{DECODE_TOKENS}; each {r['decode_ms']}), synchronising calls in a "
+              f"decode step {r['syncs']} (no host read of pos), pos {r['pos']}, KV "
+              f"cache {r['cache_bytes']} bytes, peak {r['peak_bytes']} bytes",
+              flush=True)
+    for arch, r in tr["card_vs_cpu"].items():
+        print(f"phase 21 card vs CPU {arch} (smoke config, float32, TF32 off): one "
+              f"step's update, max |diff| / lr {r['max_diff_over_lr']}, excepted "
+              f"{r['tiny_excepted']} (|g| < {TINY_G}) + {r['drift_excepted']} "
+              f"(gradients apart > {UPDATE_RTOL} relative) of {r['elements']}; loss "
+              f"rel {r['loss_rel']}"
+              + (f"; prefill + decode logits rel {r['serve_rel']}" if "serve_rel" in r
+                 else ""), flush=True)
+    for arch, r in tr["resume"].items():
+        print(f"phase 21 resume {arch} (train.py --smoke, 3 steps then --steps 6): "
+              f"restored {r['leaves']} leaves bit-equal, losses {r['losses']}; "
+              f"{r['log'][:2]}", flush=True)
+    print(f"phase 21 cuts: {TRAIN_CUTS}", flush=True)
+    print(f"phase 21 card: {card}", flush=True)
+
+
 def busy_and_kernels(fn, reps: int = 5):
     """Device busy ms, device kernels and device copies (memcpy, memset) a
     call of ``fn`` from a ``torch.profiler`` trace of ``reps`` calls; None
@@ -4361,6 +4819,8 @@ def main() -> int:
     stamp("phase 19")
     vi = phase_vision()
     stamp("phase 20")
+    tr = phase_train()
+    stamp("phase 21")
 
     kernels = []
 
@@ -4574,6 +5034,7 @@ def main() -> int:
           f"{s_rep.wall_s} s); total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print_vision(vi, card)
+    print_train(tr, card)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

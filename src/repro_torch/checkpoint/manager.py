@@ -31,11 +31,12 @@ from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 def _to_host(leaf: Any) -> np.ndarray:
     """A leaf as the numpy array the checkpoint stores (a copy for a
-    tensor)."""
+    tensor, also on the CPU, so a later in-place update of the tensor
+    does not reach an asynchronous save)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view("V2")
+            return t.view(torch.int16).numpy().copy().view("V2")
         return t.numpy().copy()
     return np.asarray(leaf)
 

@@ -4,11 +4,13 @@ and the shape cells, the port's copy of the JAX package's ``configs``.
 Each registered id is a module exposing ``ARCH_ID``, ``FAMILY``,
 ``config()`` (the published configuration) and ``smoke_config()`` (a
 reduced same-family configuration for CPU tests). Ported: the dehaze ids
-(the paper's own pipeline) and the vision family (``vit-l16``,
-``efficientnet-b7``, ``resnet-50``, ``convnext-b``). The dehaze shapes
-mirror the paper's Table 1 resolutions plus a high-resolution stress
-shape for spatial sharding; the vision shapes are the zoo's training and
-serving cells. The LM and diffusion ids are not ported yet:
+(the paper's own pipeline), the vision family (``vit-l16``,
+``efficientnet-b7``, ``resnet-50``, ``convnext-b``) and the LM family
+(``moonshot-v1-16b-a3b``, ``llama4-scout-17b-a16e``, ``granite-20b``,
+``llama3-8b``). The dehaze shapes mirror the paper's Table 1 resolutions
+plus a high-resolution stress shape for spatial sharding; the vision
+shapes are the zoo's training and serving cells, the LM shapes its
+training, prefill and decode cells. The diffusion ids are not ported yet:
 :func:`get_module` says so.
 """
 from __future__ import annotations
@@ -16,12 +18,22 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 from repro_torch.configs import (convnext_b, dehaze_cap, dehaze_dcp,
-                                 efficientnet_b7, resnet_50, vit_l16)
+                                 efficientnet_b7, granite_20b, llama3_8b,
+                                 llama4_scout_17b_a16e, moonshot_v1_16b_a3b,
+                                 resnet_50, vit_l16)
 
-ARCH_MODULES = {m.ARCH_ID: m for m in (vit_l16, efficientnet_b7, resnet_50,
-                                       convnext_b, dehaze_dcp, dehaze_cap)}
+ARCH_MODULES = {m.ARCH_ID: m for m in (
+    moonshot_v1_16b_a3b, llama4_scout_17b_a16e, granite_20b, llama3_8b,
+    vit_l16, efficientnet_b7, resnet_50, convnext_b, dehaze_dcp, dehaze_cap)}
 
 # shape name -> dict of shape parameters (per family)
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1,
+                      needs_subquadratic=True),
+}
 VISION_SHAPES = {
     "cls_224": dict(kind="train", img_res=224, batch=256),
     "cls_384": dict(kind="train", img_res=384, batch=64),
@@ -35,12 +47,16 @@ DEHAZE_SHAPES = {
     "stream_2160p": dict(kind="dehaze", height=2160, width=3840, batch=32),
 }
 
-FAMILY_SHAPES = {"vision": VISION_SHAPES, "dehaze": DEHAZE_SHAPES}
+FAMILY_SHAPES = {"lm": LM_SHAPES, "vision": VISION_SHAPES,
+                 "dehaze": DEHAZE_SHAPES}
+
+# Pure full-attention LM archs skip long_500k (documented; DESIGN.md §4).
+SUBQUADRATIC_LMS = {"llama4-scout-17b-a16e"}
 
 
 def get_module(arch_id: str):
-    """The module of ``arch_id``. Any id not ported (the LM and diffusion
-    ids wait for their port) raises ``KeyError``."""
+    """The module of ``arch_id``. Any id not ported (the diffusion ids
+    wait for their port) raises ``KeyError``."""
     try:
         return ARCH_MODULES[arch_id]
     except KeyError:
@@ -53,12 +69,15 @@ def shapes_for(arch_id: str) -> Dict[str, dict]:
 
 
 def cell_skip_reason(arch_id: str, shape_name: str) -> Optional[str]:
-    """Why the (arch, shape) cell is skipped, or None. Every dehaze and
-    vision cell runs: only the LM family's long-context cells have a
-    reason."""
-    shapes_for(arch_id)[shape_name]                  # names a cell
+    """Why the (arch, shape) cell is skipped, or None: a pure
+    full-attention LM skips ``long_500k``."""
+    shape = shapes_for(arch_id)[shape_name]
+    if shape.get("needs_subquadratic") and arch_id not in SUBQUADRATIC_LMS:
+        return ("pure full-attention arch: long_500k requires "
+                "sub-quadratic attention (DESIGN.md §4)")
     return None
 
 
-__all__ = ["ARCH_MODULES", "VISION_SHAPES", "DEHAZE_SHAPES", "FAMILY_SHAPES",
-           "get_module", "shapes_for", "cell_skip_reason"]
+__all__ = ["ARCH_MODULES", "LM_SHAPES", "VISION_SHAPES", "DEHAZE_SHAPES",
+           "FAMILY_SHAPES", "SUBQUADRATIC_LMS", "get_module", "shapes_for",
+           "cell_skip_reason"]

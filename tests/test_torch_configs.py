@@ -1,6 +1,9 @@
 """PyTorch port, the dehaze configuration registry, the back-compat aliases
 and the launch-count helper: ``repro_torch.configs`` against the JAX
-package's ``repro.configs``; ``ops.fused_dehaze_dcp``,
+package's ``repro.configs`` (the dehaze ids, and the LM ids with the
+checks of the reference's ``tests/test_registry.py``: the published
+configs, parameter counts, MoE active params, head dims of 128, exactly
+three documented ``long_500k`` skips); ``ops.fused_dehaze_dcp``,
 ``ops.fused_transmission_dcp``, ``fused.fused_dehaze_dcp``,
 ``ref.fused_dehaze_dcp`` and ``ref.fused_transmission_dcp`` against the
 JAX aliases on the same numpy inputs; ``ops.launch_count``.
@@ -36,6 +39,8 @@ torch.set_num_threads(1)
 
 DEHAZE = ("dehaze-dcp", "dehaze-cap")
 VISION = ("vit-l16", "efficientnet-b7", "resnet-50", "convnext-b")
+LMS = ("moonshot-v1-16b-a3b", "llama4-scout-17b-a16e", "granite-20b",
+       "llama3-8b")
 KW = dict(radius=3, omega=0.95, refine=True, gf_radius=4, gf_eps=1e-3)
 DEHAZE_KW = dict(KW, t0=0.1, gamma=1.0, period=2, lam=0.3)
 
@@ -59,8 +64,9 @@ def test_dehaze_configs_match_jax(arch, kw):
 def test_shapes_and_cells_match_jax():
     assert configs.DEHAZE_SHAPES == jconfigs.DEHAZE_SHAPES
     assert configs.FAMILY_SHAPES == {"dehaze": jconfigs.DEHAZE_SHAPES,
-                                     "vision": jconfigs.VISION_SHAPES}
-    assert sorted(configs.ARCH_MODULES) == sorted(DEHAZE + VISION)
+                                     "vision": jconfigs.VISION_SHAPES,
+                                     "lm": jconfigs.LM_SHAPES}
+    assert sorted(configs.ARCH_MODULES) == sorted(DEHAZE + VISION + LMS)
     for arch in DEHAZE:
         assert configs.shapes_for(arch) == jconfigs.shapes_for(arch)
         for shape in configs.shapes_for(arch):
@@ -71,17 +77,90 @@ def test_shapes_and_cells_match_jax():
 
 
 def test_zoo_ids_are_not_yet_ported():
-    """The vision ids resolve (tests/test_torch_vision.py holds them to the
-    reference); the LM and diffusion ids, and unknown ones, raise."""
-    waiting = [a for a in jconfigs.ASSIGNED_ARCHS if a not in VISION]
-    assert len(waiting) == 6
+    """The vision and LM ids resolve (tests/test_torch_vision.py and the
+    cases below hold them to the reference); the diffusion ids, and
+    unknown ones, raise."""
+    waiting = [a for a in jconfigs.ASSIGNED_ARCHS if a not in VISION + LMS]
+    assert sorted(waiting) == ["dit-l2", "unet-sdxl"]
     for arch in waiting + ["nope"]:
         with pytest.raises(KeyError, match="not yet ported") as e:
             configs.get_module(arch)
         assert arch in str(e.value) and "unknown" not in str(e.value)
         assert "dehaze-dcp" in str(e.value) and "vit-l16" in str(e.value)
-    for arch in VISION:
+        assert "llama3-8b" in str(e.value)
+    for arch in VISION + LMS:
         assert configs.get_module(arch).ARCH_ID == arch
+
+
+# --- the LM ids (the reference's tests/test_registry.py) -----------------------
+
+@pytest.mark.parametrize("arch", LMS)
+def test_lm_configs_match_jax(arch):
+    mod, jmod = configs.get_module(arch), jconfigs.get_module(arch)
+    assert (mod.ARCH_ID, mod.FAMILY) == (jmod.ARCH_ID, jmod.FAMILY) == (
+        arch, "lm")
+    for name in ("config", "smoke_config"):
+        got, want = getattr(mod, name)(), getattr(jmod, name)()
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+    kw = dict(remat_policy="save_sums", moe_capacity_factor=0.5)
+    assert dataclasses.asdict(mod.config(**kw)) == \
+        dataclasses.asdict(jmod.config(**kw))
+    assert mod.config().torch_dtype == torch.bfloat16
+    assert mod.smoke_config().torch_dtype == torch.float32
+    assert configs.shapes_for(arch) == jconfigs.shapes_for(arch) == \
+        jconfigs.LM_SHAPES
+    for shape in configs.LM_SHAPES:
+        assert configs.cell_skip_reason(arch, shape) == \
+            jconfigs.cell_skip_reason(arch, shape)
+
+
+def test_exact_assigned_lm_configs():
+    c = configs.get_module("moonshot-v1-16b-a3b").config()
+    assert (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.d_ff,
+            c.vocab, c.moe_experts, c.moe_topk) == \
+        (48, 2048, 16, 16, 1408, 163840, 64, 6)
+    c = configs.get_module("llama4-scout-17b-a16e").config()
+    assert (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.d_ff,
+            c.vocab, c.moe_experts, c.moe_topk, c.chunk_attn,
+            c.global_every) == (48, 5120, 40, 8, 8192, 202048, 16, 1, 8192, 4)
+    c = configs.get_module("granite-20b").config()
+    assert (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.d_ff,
+            c.vocab) == (52, 6144, 48, 1, 24576, 49152)
+    c = configs.get_module("llama3-8b").config()
+    assert (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.d_ff,
+            c.vocab) == (32, 4096, 32, 8, 14336, 128256)
+
+
+@pytest.mark.parametrize("arch,lo,hi", [("llama3-8b", 7.5e9, 8.5e9),
+                                        ("granite-20b", 26e9, 30e9),
+                                        ("moonshot-v1-16b-a3b", 26e9, 30e9),
+                                        ("llama4-scout-17b-a16e", 95e9, 110e9)])
+def test_lm_param_counts(arch, lo, hi):
+    c, jc = configs.get_module(arch).config(), jconfigs.get_module(arch).config()
+    assert lo < c.param_count() < hi
+    assert c.param_count() == jc.param_count()
+    assert c.param_count(padded=True) == jc.param_count(padded=True)
+    assert c.active_param_count() == jc.active_param_count()
+
+
+def test_active_params_moe_and_head_dims():
+    n_act = configs.get_module("moonshot-v1-16b-a3b").config().active_param_count()
+    assert 1.5e9 < n_act < 4.5e9, n_act
+    for arch in LMS:
+        c = configs.get_module(arch).config()
+        assert c.head_dim == 128 and c.d_model == c.n_heads * 128
+
+
+def test_documented_skips_are_exactly_three():
+    cells = [(a, s) for a in configs.ARCH_MODULES for s in configs.shapes_for(a)]
+    skips = [(a, s) for a, s in cells if configs.cell_skip_reason(a, s)]
+    assert sorted(skips) == [("granite-20b", "long_500k"),
+                             ("llama3-8b", "long_500k"),
+                             ("moonshot-v1-16b-a3b", "long_500k")]
+    assert configs.SUBQUADRATIC_LMS == jconfigs.SUBQUADRATIC_LMS
+    assert configs.cell_skip_reason("llama4-scout-17b-a16e", "long_500k") is None
+    assert configs.cell_skip_reason("llama3-8b", "long_500k") == \
+        jconfigs.cell_skip_reason("llama3-8b", "long_500k")
 
 
 # --- the aliases ---------------------------------------------------------------
