@@ -319,7 +319,32 @@ any error:
    checkpointed at step 3, then ``--steps 6`` printing "resumed from step
    3", its restored params and moments bit-equal to the saved ones,
    ``opt.step`` 3 after the restore and 6 at the end, finite losses;
-22. print ``{"kernels": [...]}`` (each kernel's launches on the path it
+22. the diffusion family (no kernel; TF32 off): DiT-L/2 and the
+   SDXL-class U-Net at their published ``config()`` (bfloat16, remat,
+   params from a seed on the card; latents, timesteps, labels and context
+   from ``DiffusionStream`` through ``prefetch_to_device``, noise and the
+   U-Net's pooled from a seeded generator on the card). Sampling:
+   ``gen_fast`` (512 px, batch 16) all 4 DDIM steps and ``gen_1024``
+   (batch 4) 5 of its 50, on the ``linspace(999, 1, steps + 1)`` ladder,
+   classifier-free guidance doubling the rows: finite latents of the
+   input's shape, no synchronising call in a sample step (the sync debug
+   mode), ms a denoise step (CUDA events, steps after the first),
+   denoise steps a second and the peak of ``max_memory_allocated``. Training:
+   ``make_train_step(make_loss_fn(cfg), cosine_schedule(1e-4, 1, 4))``,
+   4 steps on one repeated ``train_256`` batch (DiT at the published
+   256, the U-Net at the cut batch of ``DIFF_TRAIN``) and the U-Net's
+   ``train_1024`` (cut too): finite losses, ``opt.step`` 4, step 1's loss
+   mean(noise^2) within 1e-3 relative (both models zero-init their output
+   projection), the loss after step 4 below step 2's; ms a step, images a
+   second, peak, enqueue, busy and kernels. At each ``smoke_config()``
+   (float32, zero-init leaves filled from a seed; the U-Net's at
+   ``ch=64``, so that its GroupNorms hold two channels a group or more
+   and the timestep and pooled reach the output) the forward and one
+   sample step on the card against the CPU within 1e-4 x max |out| and
+   one train step's update by phase 21's rule, every leaf. Then
+   ``examples/sample_dit_torch.py`` on the card. The cuts are printed in
+   a ``cuts`` line, and the phase's seconds and the whole script's;
+23. print ``{"kernels": [...]}`` (each kernel's launches on the path it
    names: the megakernel's tiled passes on the fused serving path, the
    transmission stage's tiled passes on the sharded steps, the halo
    stage's on the spatial steps, B8a and B8b on the staged sharded and
@@ -4730,6 +4755,335 @@ def busy_and_kernels(fn, reps: int = 5):
             (len(evs) - copies) / reps, copies / reps)
 
 
+# Phase 22: the diffusion family on the card, at each id's published
+# config (bfloat16, remat on). The cuts of the published cells (printed
+# with the numbers, and in PERF.md): the batches are fixed here from runs
+# of tools/diffusion_probe.py on an H100 (the largest that fit; none is
+# caught and retried at run time).
+DIFF_IDS = ("dit-l2", "unet-sdxl")
+DIFF_GEN = {"gen_fast": 4, "gen_1024": 5}     # DDIM steps run (of 4 and 50)
+DIFF_TRAIN = {("dit-l2", "train_256"): 256, ("unet-sdxl", "train_256"): 128,
+              ("unet-sdxl", "train_1024"): 4}     # batch (published 256, 32)
+DIFF_LR = 1e-4
+DIFF_NOISE_RTOL = 1e-3          # step 1's loss against mean(noise^2)
+# The U-Net's width in diff_card_vs_cpu: at the smoke ch=16 each of its
+# GroupNorms' 32 groups holds one channel, which removes the time
+# embedding's per-channel add and with it the whole conditioning path.
+DIFF_CHECK_UNET_CH = 64
+DIFF_PUBLISHED_BATCH = {"train_256": 256, "train_1024": 32}
+DIFF_CUTS = (
+    f"gen_fast: all {DIFF_GEN['gen_fast']} DDIM steps; gen_1024: "
+    f"{DIFF_GEN['gen_1024']} of its 50 DDIM steps; training {TRAIN_STEPS} steps at "
+    f"lr {DIFF_LR} on one repeated batch, batch "
+    + ", ".join(f"{b} of {DIFF_PUBLISHED_BATCH[s]} for {a} {s}"
+                for (a, s), b in DIFF_TRAIN.items())
+    + "; DiT's train_1024 is not run")
+
+
+def diff_module(arch: str):
+    from repro_torch.models import dit, unet
+    return dit if arch == "dit-l2" else unet
+
+
+def diff_cfg(arch: str, res: int, small: bool):
+    """The published config (the U-Net's at ``res``; DiT takes ``res`` as
+    the forward's ``img_res``), or with ``small`` the smoke config."""
+    from repro_torch import configs
+    mod = configs.get_module(arch)
+    if small:
+        return mod.smoke_config()
+    return mod.config(img_res=res) if arch == "unet-sdxl" else mod.config()
+
+
+def diff_table(arch: str, cfg):
+    m = diff_module(arch)
+    return m.dit_param_table(cfg) if arch == "dit-l2" else m.unet_param_table(cfg)
+
+
+def diff_batch(arch: str, cfg, n: int, res: int, device, seed: int) -> dict:
+    """``n`` examples of ``res`` px: latents, timesteps, labels (DiT) or
+    context (U-Net) from ``DiffusionStream`` through ``prefetch_to_device``;
+    noise (and the U-Net's pooled) from a seeded generator on ``device``,
+    with the keys and shapes of the reference's diffusion cells."""
+    from repro_torch.data import DiffusionStream
+    lat = res // 8
+    if arch == "dit-l2":
+        stream = DiffusionStream(n, lat, cfg.latent_ch, n_classes=cfg.n_classes,
+                                 seed=seed)
+    else:
+        stream = DiffusionStream(n, lat, cfg.latent_ch, ctx_len=cfg.ctx_len,
+                                 ctx_dim=cfg.ctx_dim, seed=seed)
+    batch = first_batch(stream, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    batch["noise"] = torch.randn((n, lat, lat, cfg.latent_ch), generator=gen,
+                                 device=device)
+    if arch == "unet-sdxl":
+        batch["pooled"] = torch.randn((n, cfg.ctx_dim), generator=gen, device=device)
+    return batch
+
+
+def diff_cond(arch: str, batch: dict) -> tuple:
+    return ((batch["labels"],) if arch == "dit-l2"
+            else (batch["context"], batch["pooled"]))
+
+
+def enqueue_and_busy(fn) -> dict:
+    """The host's ms to enqueue one call of ``fn`` (a warm one; no
+    synchronise inside), and the device busy ms, kernels and copies of one
+    traced call (busy_and_kernels)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    busy, kernels, copies = busy_and_kernels(fn, reps=1)
+    return {"enqueue_ms": host, "busy_ms": busy, "kernels": kernels, "copies": copies}
+
+
+def sample_diff_cell(arch: str, shape: str, device, clock, seed: int,
+                     small: bool) -> dict:
+    """DIFF_GEN[shape] DDIM steps of ``make_sample_step`` on the shape's
+    batch (CFG doubles it), the ``linspace(999, 1, steps + 1)`` int32
+    ladder of examples/sample_dit.py; then one more call of the last step
+    under the sync debug mode (``tools/diffusion_probe.py --top`` traces
+    a sample step)."""
+    from repro_torch import configs
+    from repro_torch.models import common as cm
+    sh = configs.DIFFUSION_SHAPES[shape]
+    res = 64 if small else sh["img_res"]
+    n = 2 if small else sh["batch"]
+    cfg = diff_cfg(arch, res, small)
+    m = diff_module(arch)
+    base = peak_reset(device)
+    params = cm.init_params(diff_table(arch, cfg), seed, device=device)
+    batch = diff_batch(arch, cfg, n, res, device, seed)
+    step = (m.make_sample_step(cfg, img_res=res) if arch == "dit-l2"
+            else m.make_sample_step(cfg))
+    n_steps = DIFF_GEN[shape]
+    ladder = np.linspace(999, 1, sh["steps"] + 1).astype(np.int32)
+    ts = [torch.full((n,), int(v), dtype=torch.int32, device=device)
+          for v in ladder[:n_steps + 1]]
+    cond = diff_cond(arch, batch)
+    z, ms = batch["latents"], []
+    for i in range(n_steps):
+        z, t = clock(lambda: step(params, z, ts[i], ts[i + 1], *cond))
+        ms.append(t)
+    check(tuple(z.shape) == tuple(batch["latents"].shape) and z.dtype == torch.float32,
+          f"{arch} {shape}: latents {tuple(z.shape)} {z.dtype}")
+    check(bool(torch.isfinite(z).all()), f"{arch} {shape}: non-finite latents")
+    last = lambda: step(params, z, ts[n_steps - 1], ts[n_steps], *cond)  # noqa: E731
+    syncs = count_syncs(last) if device.type == "cuda" else None
+    check(syncs in (None, 0), f"{arch} {shape}: a sample step made {syncs} "
+          "synchronising calls")
+    peak = peak_bytes(device, base)
+    steady = float(np.mean(ms[1:]))
+    print(f"[phase 22] {arch} {shape}: ms {ms}, syncs {syncs}", flush=True)
+    out = {"res": res, "batch": n, "rows": 2 * n, "steps": n_steps,
+           "of_steps": sh["steps"], "dtype": cfg.dtype, "ms": ms, "ms_steady": steady,
+           "denoise_per_s": n / steady * 1e3, "syncs": syncs, "peak_bytes": peak,
+           "latent_std": float(z.std())}
+    del params, batch, z
+    return out
+
+
+def train_diff_cell(arch: str, shape: str, n: int, device, clock, seed: int,
+                    small: bool) -> dict:
+    """TRAIN_STEPS AdamW steps of ``make_train_step(make_loss_fn(cfg),
+    cosine_schedule(DIFF_LR, 1, 4))`` on one repeated batch of ``n``: step
+    1's loss is mean(noise^2) (both models zero-init their output, and
+    step 1's lr is 0), the loss after the last step below step 2's."""
+    from repro_torch import configs
+    from repro_torch.models import common as cm
+    res = 64 if small else configs.DIFFUSION_SHAPES[shape]["img_res"]
+    cfg = diff_cfg(arch, res, small)
+    m = diff_module(arch)
+    table = diff_table(arch, cfg)
+    base = peak_reset(device)
+    params = cm.init_params(table, seed, device=device)
+    batch = diff_batch(arch, cfg, n, res, device, seed)
+    loss = (m.make_loss_fn(cfg, img_res=res) if arch == "dit-l2"
+            else m.make_loss_fn(cfg))
+    mse0 = float(batch["noise"].double().square().mean())
+    params, opt, metrics, ms = run_steps(loss, params, batch, False, clock, DIFF_LR)
+    peak = peak_bytes(device, base)
+    with torch.no_grad():
+        after = float(loss(params, batch)[0])
+    losses = [mm["loss"] for mm in metrics]
+    print(f"[phase 22] train {arch} {shape} b{n}: ms {ms}, losses {losses}, after "
+          f"{after}, mean(noise^2) {mse0}", flush=True)
+    check(bool(np.isfinite(losses + [after]).all()), f"{arch} {shape}: losses {losses}")
+    check(int(opt.step) == TRAIN_STEPS, f"{arch} {shape}: opt.step {int(opt.step)}")
+    check(abs(losses[0] - mse0) <= DIFF_NOISE_RTOL * mse0,
+          f"{arch} {shape}: step 1's loss {losses[0]} vs mean(noise^2) {mse0}")
+    check(after < losses[1], f"{arch} {shape}: loss after step {TRAIN_STEPS} {after} "
+          f"is not below step 2's {losses[1]}")
+    prof = {}
+    if device.type == "cuda":
+        from repro_torch.models.steps import make_train_step
+        from repro_torch.optim import cosine_schedule
+        step = make_train_step(loss, cosine_schedule(DIFF_LR, 1, TRAIN_STEPS))
+        prof = enqueue_and_busy(lambda: step(params, opt, batch))
+    steady = float(np.mean(ms[1:]))
+    out = {"res": res, "batch": n, "dtype": cfg.dtype, "params": cm.param_count(table),
+           "losses": losses, "loss_after": after, "mse0": mse0, "ms": ms,
+           "ms_steady": steady, "images_per_s": n / steady * 1e3, "peak_bytes": peak,
+           **prof}
+    del params, opt, batch
+    return out
+
+
+def fill_zero_leaves(params, seed: int):
+    """``params`` (CPU) with every all-zero leaf drawn from a seeded normal
+    (x 0.1 for vectors, x 1/sqrt(rows) for matrices): the zero-init output
+    leaves would make every comparison of the output empty."""
+    from repro_torch.tree import tree_map
+    gen = torch.Generator().manual_seed(seed)
+
+    def one(t):
+        if t.any():
+            return t
+        scale = 0.1 if t.ndim == 1 else 1.0 / math.sqrt(t.shape[-2])
+        return (torch.randn(t.shape, generator=gen) * scale).to(t.dtype)
+    return tree_map(one, params)
+
+
+def diff_card_vs_cpu(arch: str, device, seed: int) -> dict:
+    """At the smoke config (float32; the U-Net's at DIFF_CHECK_UNET_CH),
+    the same params (zero leaves filled) and inputs: the forward and one
+    sample step on the card against the CPU within LOGIT_RTOL x max |out|,
+    and one train step's update by ``update_check``, every leaf. cuDNN runs
+    deterministic here: ``update_check`` excuses elements by the gradients
+    of a separate backward pass, which must equal the train step's (the
+    default backward convolutions do not repeat bit for bit)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models.steps import make_train_step, value_and_grad
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
+    cpu = torch.device("cpu")
+    cfg = diff_cfg(arch, 0, True)
+    if arch == "unet-sdxl":
+        cfg = dataclasses.replace(cfg, ch=DIFF_CHECK_UNET_CH)
+    m = diff_module(arch)
+    p_cpu = fill_zero_leaves(cm.init_params(diff_table(arch, cfg), seed, device=cpu),
+                             seed)
+    host = diff_batch(arch, cfg, 2, cfg.img_res, cpu, seed)
+    t_next = (host["timesteps"] - 250).clamp(min=0)
+    sides, out = {}, {}
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, dev in (("card", device), ("cpu", cpu)):
+            params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+            batch = tree_map(lambda t: t.to(dev), host)
+            cond = diff_cond(arch, batch)
+            with torch.no_grad():
+                fwd = m.make_forward(cfg)(params, batch["latents"],
+                                          batch["timesteps"], *cond)
+            z = m.make_sample_step(cfg)(params, batch["latents"], batch["timesteps"],
+                                        t_next.to(dev), *cond)
+            grads = value_and_grad(m.make_loss_fn(cfg), params, batch)[2]
+            step = make_train_step(m.make_loss_fn(cfg), cosine_schedule(1e-3, 0, 10))
+            new, _, mm = step(params, adamw_init(params), batch)
+            sides[name] = (fwd.cpu(), z.cpu(), tree_leaves(new), tree_leaves(grads),
+                           float(mm["lr"]), float(mm["loss"]))
+    finally:
+        torch.backends.cudnn.deterministic = was
+    for k, label in ((0, "forward"), (1, "sample")):
+        a, b = sides["card"][k], sides["cpu"][k]
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        check(scale > 0 and err <= LOGIT_RTOL * scale,
+              f"{arch} {label} card vs CPU {err} > {LOGIT_RTOL} x {scale}")
+        out[f"{label}_rel"] = err / scale
+    paths = [p for p, _ in tree_flatten_with_path(p_cpu)[0]]
+    out.update(update_check(tree_leaves(p_cpu), sides["card"][2], sides["cpu"][2],
+                            sides["card"][3], sides["cpu"][3], paths,
+                            sides["cpu"][4], f"{arch} card vs CPU"))
+    out["loss_rel"] = abs(sides["card"][5] - sides["cpu"][5]) / abs(sides["cpu"][5])
+    check(out["loss_rel"] <= 1e-5, f"{arch}: loss card vs CPU {out['loss_rel']}")
+    return out
+
+
+def sample_example(device) -> list:
+    """``examples/sample_dit_torch.py --device <device>``, run in this
+    process as ``python`` runs it; its output lines (its assertions raise)."""
+    import contextlib
+    import io
+    import runpy
+    path = ROOT / "examples" / "sample_dit_torch.py"
+    out, argv = io.StringIO(), sys.argv
+    sys.argv = [str(path), "--device", str(device)]
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(str(path), run_name="__main__")
+    finally:
+        sys.argv = argv
+    lines = out.getvalue().strip().splitlines()
+    check(bool(lines) and lines[-1].endswith("OK"), f"sample_dit_torch.py: {lines}")
+    return lines
+
+
+def phase_diffusion(device: torch.device = None, small: bool = False) -> dict:
+    """Phase 22 (module docstring). ``small``: the smoke configs at tiny
+    sizes, a rehearsal that also runs on the CPU."""
+    device = torch.device("cuda") if device is None else device
+    clock = Clock(device)
+    t0 = time.perf_counter()
+    out = {"gen": {}, "train": {}, "card_vs_cpu": {}}
+    torch.set_num_threads(os.cpu_count() or 1)
+    def stamp(what: str) -> None:
+        print(f"[phase 22] {what} done at {time.perf_counter() - t0:.1f} s", flush=True)
+
+    for k, arch in enumerate(DIFF_IDS):
+        for shape in DIFF_GEN:
+            out["gen"][arch, shape] = sample_diff_cell(arch, shape, device, clock,
+                                                       110 + k, small)
+            stamp(f"{arch} {shape}")
+    for k, ((arch, shape), n) in enumerate(DIFF_TRAIN.items()):
+        out["train"][arch, shape] = train_diff_cell(arch, shape, 2 if small else n,
+                                                    device, clock, 120 + k, small)
+        stamp(f"train {arch} {shape}")
+    if device.type == "cuda":
+        for k, arch in enumerate(DIFF_IDS):
+            out["card_vs_cpu"][arch] = diff_card_vs_cpu(arch, device, 130 + k)
+        stamp("card vs CPU")
+    out["example"] = sample_example(device)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def print_diffusion(df: dict, card: str) -> None:
+    """Phase 22's lines (module docstring), each with the card."""
+    for (arch, shape), r in df["gen"].items():
+        print(f"phase 22 sample {arch} {shape} ({r['dtype']}, {r['res']} px, batch "
+              f"{r['batch']}, CFG rows {r['rows']}, {r['steps']} of {r['of_steps']} "
+              f"DDIM steps, TF32 off; {card}): {r['ms_steady']} ms a denoise step "
+              f"(CUDA events, steps 2-{r['steps']}; each {r['ms']}), "
+              f"{r['denoise_per_s']} denoise steps/s (images x steps), peak "
+              f"{r['peak_bytes']} bytes, synchronising calls in a sample step "
+              f"{r['syncs']}; latent std {r['latent_std']}", flush=True)
+    for (arch, shape), r in df["train"].items():
+        print(f"phase 22 train {arch} {shape} ({r['params']} params, {r['dtype']}, "
+              f"remat, {r['res']} px, batch {r['batch']}, TF32 off; {card}): "
+              f"{r['ms_steady']} ms a step (steps 2-{TRAIN_STEPS}, CUDA events; each "
+              f"{r['ms']}), {r['images_per_s']} images/s, peak {r['peak_bytes']} "
+              f"bytes; losses {r['losses']} (step 1 vs mean(noise^2) {r['mse0']}), "
+              f"after step {TRAIN_STEPS} {r['loss_after']}; host enqueue "
+              f"{r.get('enqueue_ms')} ms, device busy {r.get('busy_ms')} ms, kernels "
+              f"{r.get('kernels')}, copies {r.get('copies')} a step", flush=True)
+    for arch, r in df["card_vs_cpu"].items():
+        print(f"phase 22 card vs CPU {arch} (smoke config"
+              f"{', ch=%d' % DIFF_CHECK_UNET_CH if arch == 'unet-sdxl' else ''}"
+              f", float32, TF32 off): "
+              f"forward rel {r['forward_rel']}, sample step rel {r['sample_rel']} "
+              f"(bound {LOGIT_RTOL}); one step's update, max |diff| / lr "
+              f"{r['max_diff_over_lr']}, excepted {r['tiny_excepted']} (|g| < "
+              f"{TINY_G}) + {r['drift_excepted']} (gradients apart > {UPDATE_RTOL} "
+              f"relative) of {r['elements']}; loss rel {r['loss_rel']}", flush=True)
+    print(f"phase 22 example sample_dit_torch.py: {df['example'][-2:]}", flush=True)
+    print(f"phase 22 cuts: {DIFF_CUTS}", flush=True)
+    print(f"phase 22 took {df['seconds']:.1f} s; card: {card}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -4821,6 +5175,8 @@ def main() -> int:
     stamp("phase 20")
     tr = phase_train()
     stamp("phase 21")
+    df = phase_diffusion()
+    stamp("phase 22")
 
     kernels = []
 
@@ -5035,6 +5391,8 @@ def main() -> int:
           flush=True)
     print_vision(vi, card)
     print_train(tr, card)
+    print_diffusion(df, card)
+    print(f"whole script: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

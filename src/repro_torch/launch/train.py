@@ -1,7 +1,9 @@
 """Training driver: synthetic data -> train_step -> checkpoints, resumable.
 
 The port's copy of the JAX package's ``launch/train.py``, for the LM and
-vision families, on one CUDA card (``--device cpu`` runs it on the CPU;
+vision families (the diffusion family trains through
+``models.steps.make_train_step`` over its ``make_loss_fn``; this CLI
+refuses it with ``SystemExit``, as the reference's does), on one CUDA card (``--device cpu`` runs it on the CPU;
 without a card and without that flag it raises, it never falls back).
 Params come from ``init_params`` with seed 0, batches from the synthetic
 streams through ``prefetch_to_device``, the schedule is
@@ -62,8 +64,13 @@ def build(arch: str, smoke: bool, batch: int, seq_len: int, img_res: int):
         data = ImageStream(batch, res, res, cfg.n_classes)
         has_bn = arch.startswith(("resnet", "efficientnet"))
     else:
-        raise SystemExit(f"the {fam} family's training is not yet ported "
-                         "to repro_torch")
+        raise SystemExit(
+            f"this CLI trains the LM and vision families, not {fam} "
+            f"({arch}); the diffusion models train through "
+            "repro_torch.models.steps.make_train_step over "
+            "repro_torch.models.dit.make_loss_fn or "
+            "repro_torch.models.unet.make_loss_fn, whose batches carry "
+            '"noise" (and the U-Net\'s "context" and "pooled")')
     return cfg, table, loss, data, has_bn
 
 

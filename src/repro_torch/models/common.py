@@ -308,6 +308,42 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def project_heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", h, w)`` as one matmul."""
+    d, nh, hd = w.shape
+    return (h @ w.reshape(d, nh * hd)).unflatten(-1, (nh, hd))
+
+
+# Float32 scores of one query chunk of :func:`full_attention`, at most.
+ATTN_SCORE_BYTES = 2 << 30
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Non-causal softmax attention in float32, the diffusion models' and
+    ViT's.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, H, D) -> (B, Sq, H, D) float32. The
+    scores are the float32 product q . k divided by sqrt(D) after it (q is
+    not pre-scaled). The queries run in chunks whose (B, H, rows, Sk)
+    float32 scores fit ``ATTN_SCORE_BYTES`` (read at call time); each
+    chunk's softmax runs over all keys at once, so every row is the
+    unchunked computation. Under autograd every chunk's probabilities are
+    kept for the backward pass."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qh = q.float().transpose(1, 2)                       # (B, H, Sq, D)
+    kt = k.float().permute(0, 2, 3, 1)                   # (B, H, D, Sk)
+    vh = v.float().transpose(1, 2)                       # (B, H, Sk, D)
+    div = math.sqrt(d)
+    rows = max(1, ATTN_SCORE_BYTES // (b * h * sk * 4))
+    outs = [torch.matmul(torch.softmax(torch.matmul(qh[:, :, i:i + rows], kt)
+                                       / div, dim=-1), vh)
+            for i in range(0, sq, rows)]
+    o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    return o.transpose(1, 2)
+
+
 # ---------------------------------------------------------------------------
 # Conv / pooling helpers (NHWC)
 # ---------------------------------------------------------------------------
@@ -495,6 +531,33 @@ def run_stacked(block, x, stacked: Any, training: bool):
     if not training:
         return x, stacked
     return x, tree_map(lambda *ts: torch.stack(ts), *news)
+
+
+def take_clipped(table: torch.Tensor, ids) -> torch.Tensor:
+    """Rows of ``table`` as the reference's ``table.at[ids].get(
+    mode="clip")`` takes them: a negative id counts from the end (``id +
+    rows``), then every id is clipped into ``[0, rows)``. The result has
+    ``ids``' shape followed by a row's."""
+    ids = torch.as_tensor(ids, device=table.device)
+    n = table.shape[0]
+    flat = ids.reshape(-1).long()
+    flat = torch.where(flat < 0, flat + n, flat).clamp(0, n - 1)
+    return table.index_select(0, flat).reshape(*ids.shape, *table.shape[1:])
+
+
+def cosine_abar(t: torch.Tensor) -> torch.Tensor:
+    """The diffusion models' cosine schedule: alpha-bar at integer step
+    ``t`` (B,), as (B, 1, 1, 1) float32."""
+    return (torch.cos((t.float() / 1000.0) * torch.pi / 2) ** 2)[:, None, None, None]
+
+
+def ddim_update(zt: torch.Tensor, eps: torch.Tensor, t: torch.Tensor,
+                t_next: torch.Tensor) -> torch.Tensor:
+    """One deterministic DDIM step of ``zt`` from ``t`` to ``t_next`` given
+    the (guided) noise estimate ``eps``, in float32."""
+    abar, abar_n = cosine_abar(t), cosine_abar(t_next)
+    z0 = (zt - torch.sqrt(1 - abar) * eps) / torch.sqrt(abar)
+    return torch.sqrt(abar_n) * z0 + torch.sqrt(1 - abar_n) * eps
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

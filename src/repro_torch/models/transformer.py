@@ -374,15 +374,9 @@ def _layer_params(layers: Dict[str, torch.Tensor], i: int):
 
 def _embed(params, tokens, cfg: LMConfig) -> torch.Tensor:
     """Token ids looked up as the reference's ``embed.at[tokens].get(
-    mode="clip")`` does: a negative id counts from the end (``id +
-    vocab``), then every id is clipped into ``[0, vocab)``; cast to the
-    config's dtype."""
-    table = params["embed"]
-    tokens = torch.as_tensor(tokens, device=table.device)
-    ids = tokens.reshape(-1).long()
-    ids = torch.where(ids < 0, ids + cfg.vocab, ids).clamp(0, cfg.vocab - 1)
-    return table.index_select(0, ids).reshape(*tokens.shape, -1).to(
-        cfg.torch_dtype)
+    mode="clip")`` does (``common.take_clipped``), cast to the config's
+    dtype."""
+    return cm.take_clipped(params["embed"], tokens).to(cfg.torch_dtype)
 
 
 def make_forward(cfg: LMConfig, mesh=None,

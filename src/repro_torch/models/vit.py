@@ -10,7 +10,6 @@ a forward's values as they are).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -74,19 +73,10 @@ def vit_param_table(c: ViTConfig, img_res: Optional[int] = None) -> Dict[str, An
     }
 
 
-def _heads(h, w):
-    """``einsum("bsd,dhk->bshk", h, w)`` as one matmul."""
-    d, nh, hd = w.shape
-    return (h @ w.reshape(d, nh * hd)).unflatten(-1, (nh, hd))
-
-
 def _encoder_block(x, lp, cfg: ViTConfig):
     h = cm.layer_norm(x, lp["ln1_s"], lp["ln1_b"])
-    q, k, v = _heads(h, lp["wq"]), _heads(h, lp["wk"]), _heads(h, lp["wv"])
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(
-        q.shape[-1])
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(x.dtype)
+    q, k, v = (cm.project_heads(h, lp[n]) for n in ("wq", "wk", "wv"))
+    o = cm.full_attention(q, k, v).to(x.dtype)
     nh, hd, dm = lp["wo"].shape
     x = x + o.flatten(-2) @ lp["wo"].reshape(nh * hd, dm)
     h = cm.layer_norm(x, lp["ln2_s"], lp["ln2_b"])

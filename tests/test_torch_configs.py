@@ -1,9 +1,10 @@
 """PyTorch port, the dehaze configuration registry, the back-compat aliases
 and the launch-count helper: ``repro_torch.configs`` against the JAX
-package's ``repro.configs`` (the dehaze ids, and the LM ids with the
-checks of the reference's ``tests/test_registry.py``: the published
-configs, parameter counts, MoE active params, head dims of 128, exactly
-three documented ``long_500k`` skips); ``ops.fused_dehaze_dcp``,
+package's ``repro.configs`` (the dehaze ids; every assigned id resolves
+and an unknown one raises; the LM and diffusion ids with the checks of
+the reference's ``tests/test_registry.py``: the published configs,
+parameter counts, MoE active params, head dims of 128, exactly three
+documented ``long_500k`` skips, the diffusion shapes and ``all_cells``); ``ops.fused_dehaze_dcp``,
 ``ops.fused_transmission_dcp``, ``fused.fused_dehaze_dcp``,
 ``ref.fused_dehaze_dcp`` and ``ref.fused_transmission_dcp`` against the
 JAX aliases on the same numpy inputs; ``ops.launch_count``.
@@ -41,6 +42,7 @@ DEHAZE = ("dehaze-dcp", "dehaze-cap")
 VISION = ("vit-l16", "efficientnet-b7", "resnet-50", "convnext-b")
 LMS = ("moonshot-v1-16b-a3b", "llama4-scout-17b-a16e", "granite-20b",
        "llama3-8b")
+DIFFUSION = ("dit-l2", "unet-sdxl")
 KW = dict(radius=3, omega=0.95, refine=True, gf_radius=4, gf_eps=1e-3)
 DEHAZE_KW = dict(KW, t0=0.1, gamma=1.0, period=2, lam=0.3)
 
@@ -63,10 +65,12 @@ def test_dehaze_configs_match_jax(arch, kw):
 
 def test_shapes_and_cells_match_jax():
     assert configs.DEHAZE_SHAPES == jconfigs.DEHAZE_SHAPES
-    assert configs.FAMILY_SHAPES == {"dehaze": jconfigs.DEHAZE_SHAPES,
-                                     "vision": jconfigs.VISION_SHAPES,
-                                     "lm": jconfigs.LM_SHAPES}
-    assert sorted(configs.ARCH_MODULES) == sorted(DEHAZE + VISION + LMS)
+    assert configs.FAMILY_SHAPES == jconfigs.FAMILY_SHAPES == {
+        "dehaze": jconfigs.DEHAZE_SHAPES, "vision": jconfigs.VISION_SHAPES,
+        "lm": jconfigs.LM_SHAPES, "diffusion": jconfigs.DIFFUSION_SHAPES}
+    assert sorted(configs.ARCH_MODULES) == sorted(DEHAZE + VISION + LMS
+                                                  + DIFFUSION)
+    assert list(configs.ARCH_MODULES) == list(jconfigs.ARCH_MODULES)
     for arch in DEHAZE:
         assert configs.shapes_for(arch) == jconfigs.shapes_for(arch)
         for shape in configs.shapes_for(arch):
@@ -76,20 +80,63 @@ def test_shapes_and_cells_match_jax():
         configs.cell_skip_reason("dehaze-dcp", "train_4k")
 
 
-def test_zoo_ids_are_not_yet_ported():
-    """The vision and LM ids resolve (tests/test_torch_vision.py and the
-    cases below hold them to the reference); the diffusion ids, and
-    unknown ones, raise."""
-    waiting = [a for a in jconfigs.ASSIGNED_ARCHS if a not in VISION + LMS]
-    assert sorted(waiting) == ["dit-l2", "unet-sdxl"]
-    for arch in waiting + ["nope"]:
-        with pytest.raises(KeyError, match="not yet ported") as e:
-            configs.get_module(arch)
-        assert arch in str(e.value) and "unknown" not in str(e.value)
-        assert "dehaze-dcp" in str(e.value) and "vit-l16" in str(e.value)
-        assert "llama3-8b" in str(e.value)
-    for arch in VISION + LMS:
-        assert configs.get_module(arch).ARCH_ID == arch
+def test_assigned_and_dehaze_ids_resolve_and_unknown_raises():
+    """All ten ``ASSIGNED_ARCHS`` and both dehaze ids resolve to the
+    reference's id and family; an unknown id raises ``KeyError`` naming
+    the known ones."""
+    assert configs.ASSIGNED_ARCHS == jconfigs.ASSIGNED_ARCHS
+    assert sorted(configs.ASSIGNED_ARCHS) == sorted(VISION + LMS + DIFFUSION)
+    for arch in configs.ASSIGNED_ARCHS + DEHAZE:
+        mod, jmod = configs.get_module(arch), jconfigs.get_module(arch)
+        assert (mod.ARCH_ID, mod.FAMILY) == (jmod.ARCH_ID, jmod.FAMILY)
+        assert mod.ARCH_ID == arch
+    with pytest.raises(KeyError, match="unknown arch") as e:
+        configs.get_module("nope")
+    assert "'nope'" in str(e.value)
+    for arch in ("dehaze-dcp", "vit-l16", "llama3-8b", "dit-l2", "unet-sdxl"):
+        assert arch in str(e.value)
+
+
+# --- the diffusion ids (the reference's tests/test_registry.py) ------------------
+
+@pytest.mark.parametrize("arch", DIFFUSION)
+@pytest.mark.parametrize("kw", [{}, dict(remat=False, dtype="float32")])
+def test_diffusion_configs_match_jax(arch, kw):
+    mod, jmod = configs.get_module(arch), jconfigs.get_module(arch)
+    assert (mod.ARCH_ID, mod.FAMILY) == (jmod.ARCH_ID, jmod.FAMILY) == (
+        arch, "diffusion")
+    assert dataclasses.asdict(mod.config(**kw)) == \
+        dataclasses.asdict(jmod.config(**kw))
+    assert dataclasses.asdict(mod.smoke_config()) == \
+        dataclasses.asdict(jmod.smoke_config())
+    assert mod.config().torch_dtype == torch.bfloat16 and mod.config().remat
+    assert mod.smoke_config().torch_dtype == torch.float32
+    assert configs.shapes_for(arch) == jconfigs.shapes_for(arch) == \
+        jconfigs.DIFFUSION_SHAPES
+    for shape in configs.DIFFUSION_SHAPES:
+        assert configs.cell_skip_reason(arch, shape) is None
+
+
+def test_exact_assigned_diffusion_configs():
+    c = configs.get_module("dit-l2").config()
+    assert (c.img_res, c.patch, c.n_layers, c.d_model, c.n_heads) == \
+        (256, 2, 24, 1024, 16)
+    assert (c.latent_res, c.n_tokens(), c.n_tokens(1024)) == (32, 256, 4096)
+    c = configs.get_module("unet-sdxl").config()
+    assert (c.img_res, c.ch, c.ch_mult, c.n_res_blocks, c.transformer_depth,
+            c.ctx_dim) == (1024, 320, (1, 2, 4), 2, (1, 2, 10), 2048)
+    assert configs.get_module("unet-sdxl").config(img_res=512).latent_res == 64
+
+
+def test_diffusion_shapes_and_all_cells_match_jax():
+    assert configs.DIFFUSION_SHAPES == jconfigs.DIFFUSION_SHAPES
+    assert set(configs.DIFFUSION_SHAPES) == {"train_256", "gen_1024",
+                                             "gen_fast", "train_1024"}
+    for dehaze in (False, True):
+        assert configs.all_cells(dehaze) == jconfigs.all_cells(dehaze)
+    assert len(configs.all_cells()) == 40
+    assert len(configs.all_cells(include_dehaze=True)) == 48
+    assert ("dit-l2", "gen_1024") in configs.all_cells()
 
 
 # --- the LM ids (the reference's tests/test_registry.py) -----------------------

@@ -377,5 +377,6 @@ def test_train_cli_resumes_from_a_reference_checkpoint(arch, tmp_path):
 def test_train_cli_needs_a_card_or_the_cpu_flag(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         train.run(["--arch", "resnet-50", "--smoke", "--steps", "1"])
-    with pytest.raises(KeyError, match="not yet ported"):
-        train.build("dit-l2", True, 2, 16, 0)
+    for arch in ("dit-l2", "unet-sdxl"):
+        with pytest.raises(SystemExit, match="make_train_step"):
+            train.build(arch, True, 2, 16, 0)
