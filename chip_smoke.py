@@ -344,7 +344,30 @@ any error:
    one train step's update by phase 21's rule, every leaf. Then
    ``examples/sample_dit_torch.py`` on the card. The cuts are printed in
    a ``cuts`` line, and the phase's seconds and the whole script's;
-23. print ``{"kernels": [...]}`` (each kernel's launches on the path it
+23. the LM's model axis, the dry run and a sharded train step (no
+   kernel; each part in processes of its own, so no gloo or fake group
+   meets the phases' NCCL group): (a) a one-rank run (float32, TF32 off,
+   published widths with the layers cut: llama3-8b 2, moonshot 1 with
+   its 64 experts, llama4-scout 4 with layer 3 global) writes its logits
+   and caches, then two gloo ranks sharing the card on a (1 data, 2
+   model) mesh, each drawing its param pieces in turn, run the same
+   params and tokens: llama3's tensor-parallel forward of 256 tokens with
+   ``seq_shard`` off and on and with ``embed_shard="dm"``, llama3's
+   prefill of 4096 tokens and 8 decode tokens under ``decode_seq_shard``,
+   moonshot's prefill of 512 (the expert all-to-all) and 8 decode tokens
+   (the replicated body), llama4's prefill of one 8192-token chunk and 8
+   decode tokens past it under ``decode_seq_shard`` (the window mask);
+   the MoE ids at capacity factor E / k, so no token drops on either
+   side; logits within 1e-4 x max |logit| and caches within 1e-5 of the
+   one-rank run, decode ms a token at two ranks against one; (b) beside
+   it, ``python -m repro_torch.launch.dryrun --both-meshes --force`` for
+   llama4-scout ``long_500k`` (``decode_seq_shard``), moonshot
+   ``train_4k``, unet-sdxl ``gen_fast``, resnet-50 ``cls_224`` and
+   dehaze-dcp ``stream_2160p``, every record ok, ``--summary``'s rows
+   printed; (c) llama3-8b's smoke config, one train step on two gloo ranks
+   (data 2, model 1, ZeRO-1 moments) against one rank's step on the whole
+   batch by phase 21's update rule; the phase's seconds;
+24. print ``{"kernels": [...]}`` (each kernel's launches on the path it
    names: the megakernel's tiled passes on the fused serving path, the
    transmission stage's tiled passes on the sharded steps, the halo
    stage's on the spatial steps, B8a and B8b on the staged sharded and
@@ -5084,6 +5107,331 @@ def print_diffusion(df: dict, card: str) -> None:
     print(f"phase 22 took {df['seconds']:.1f} s; card: {card}", flush=True)
 
 
+# --- phase 23: the LM's model axis, the dry run, a sharded train step --------
+
+MA_FWD_TOKENS = 256              # the tensor-parallel forwards' sequence
+MA_DECODE = 8                    # decode tokens after each prefill
+MA_TOL_LOGIT = 1e-4              # x max |logit| of the one-rank run
+MA_TOL_CACHE = 1e-5
+MA_WORLD = 2                     # two gloo ranks sharing the card
+# (label, arch, layers, config overrides, kind, prompt): the layers cut as
+# in phase 21; the MoE ids' capacity factor E / k ("no_drop"), so that no
+# expert can overflow (a rank's capacity is then its token count) and one
+# rank drops no token where two do not either. llama4's prompt is one
+# 8192-token chunk; its decode tokens pass it, so the window mask acts.
+MA_CASES = (
+    ("llama3 tp", "llama3-8b", 2, {}, "forward", MA_FWD_TOKENS),
+    ("llama3 tp seq_shard", "llama3-8b", 2, {"seq_shard": True}, "forward",
+     MA_FWD_TOKENS),
+    ("llama3 tp embed dm", "llama3-8b", 2, {"embed_shard": "dm"}, "forward",
+     MA_FWD_TOKENS),
+    ("llama3 flash-decoding", "llama3-8b", 2, {"decode_seq_shard": True},
+     "serve", 4096),
+    ("moonshot experts", "moonshot-v1-16b-a3b", 1,
+     {"moe_capacity_factor": "no_drop"}, "serve", 512),
+    ("llama4 flash-decoding", "llama4-scout-17b-a16e", 4,
+     {"decode_seq_shard": True, "moe_capacity_factor": "no_drop"}, "serve", 8192),
+)
+# One cell a family, the riskiest of each (phase 23(b)).
+DRYRUN_CELLS = (("llama4-scout-17b-a16e", "long_500k", ("decode_seq_shard=True",)),
+                ("moonshot-v1-16b-a3b", "train_4k", ()),
+                ("unet-sdxl", "gen_fast", ()),
+                ("resnet-50", "cls_224", ()),
+                ("dehaze-dcp", "stream_2160p", ()))
+
+
+def ma_cfg(arch: str, layers: int, over: dict):
+    """The published config, float32, ``layers`` layers, ``over`` on top."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get_module(arch).config(), n_layers=layers,
+                              dtype="float32", remat=False)
+    if over.get("moe_capacity_factor") == "no_drop":
+        over = dict(over, moe_capacity_factor=cfg.moe_experts / cfg.moe_topk)
+    return dataclasses.replace(cfg, **over)
+
+
+def ma_tokens(cfg, n: int, seed: int, device) -> torch.Tensor:
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (1, n), generator=g).to(device)
+
+
+def ma_params(cfg, seed: int, device, mesh=None):
+    """``init_params``' values: whole, or with ``mesh`` this rank's pieces
+    (each leaf drawn whole on the card, cut and freed, so a rank never
+    holds the whole tree)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+    table = T.lm_param_table(cfg)
+    if mesh is None:
+        return cm.init_params(table, seed, device=device)
+    specs = tree_leaves(T.lm_param_specs(cfg, mesh, serving=True), is_leaf=cm.is_spec)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    leaves, treedef = tree_flatten(table, is_leaf=lambda s: isinstance(s, cm.ParamSpec))
+    out = []
+    for spec, ps in zip(leaves, specs):
+        if spec.init == "normal":
+            w = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
+            w = (w * (spec.scale * cm.fanin_scale(spec))).to(dtype=spec.dtype)
+        else:
+            w = (torch.zeros if spec.init == "zeros" else torch.ones)(
+                spec.shape, dtype=spec.dtype, device=device)
+        out.append(cm.local_shard(w, ps, mesh).contiguous())
+        del w
+    torch.cuda.empty_cache()
+    return tree_unflatten(treedef, out)
+
+
+def ma_case_run(case, params, device, mesh, clock) -> dict:
+    """One case of phase 23(a) on this process (``params`` whole, or this
+    rank's pieces on ``mesh``): the logits (whole over the vocabulary)
+    and, for a serve, the cache and the decode ms."""
+    from repro_torch.models import transformer as T
+    label, arch, layers, over, kind, prompt = case
+    cfg = ma_cfg(arch, layers, over)
+    axes = ("data",) if mesh is not None else None
+    toks = ma_tokens(cfg, prompt + MA_DECODE, 231, device)
+    out = {}
+    with torch.no_grad():
+        if kind == "forward":
+            out["logits"] = [T.make_forward(cfg, mesh, axes)(params, toks[:, :prompt])[0]]
+            return out
+        prefill = T.make_prefill(cfg, mesh, axes, max_len=prompt + MA_DECODE)
+        decode = T.make_decode_step(cfg, mesh, axes)
+        last, cache = prefill(params, toks[:, :prompt])
+        logits, ms = [last], []
+        for i in range(MA_DECODE):
+            (lg, cache), t = clock(lambda: decode(params, cache, toks[:, prompt + i:][:, :1]))
+            logits.append(lg[:, 0])
+            ms.append(t)
+        out.update(logits=logits, k=cache["k"], v=cache["v"], pos=int(cache["pos"]),
+                   decode_ms=ms)
+    return out
+
+
+def ma_train_run(device, mesh=None) -> dict:
+    """Phase 23(c): one train step of llama3-8b's smoke config (float32) on
+    4 sequences: whole on one rank, or on (data 2, model 1) with the batch
+    split and ZeRO-1 moments. Returns p0, the new params, the gradients
+    (meaned over the ranks) and the lr."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.cells import _zero1_pspecs
+    from repro_torch.models import common as cm
+    from repro_torch.models import parallel as par
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = configs.get_module("llama3-8b").smoke_config()
+    table = T.lm_param_table(cfg)
+    p0 = cm.init_params(table, 232, device=device)
+    g = torch.Generator(device="cpu").manual_seed(233)
+    toks = torch.randint(0, cfg.vocab, (4, 16), generator=g)
+    batch = {"tokens": toks.to(device), "labels": toks.roll(-1, 1).to(device)}
+    sched = cosine_schedule(1e-3, 0, 10)
+    params = tree_map(lambda t: t.clone(), p0)
+    if mesh is None:
+        loss = T.make_loss_fn(cfg)
+        grads = steps.value_and_grad(loss, params, batch)[2]
+        new, opt, m = steps.make_train_step(loss, sched)(params, adamw_init(params), batch)
+    else:
+        sizes = cm.mesh_sizes(mesh)
+        pspecs = cm.param_pspecs(table, T.lm_rules(cfg), sizes)
+        mspecs = _zero1_pspecs(table, pspecs, ("data",), sizes["data"])
+        pl = steps.TrainPlacement(mesh, ("data",), pspecs, mspecs)
+        i = mesh.get_local_rank("data")
+        local = tree_map(lambda t: t[2 * i:2 * i + 2], batch)
+        loss = T.make_loss_fn(cfg, mesh, ("data",))
+        grads = tree_map(lambda t: par.all_reduce_(t.contiguous(), mesh.get_group("data"))
+                         / sizes["data"], steps.value_and_grad(loss, params, local)[2])
+        opt = steps.init_opt_state(params, pl)
+        new, opt, m = steps.make_train_step(loss, sched, placement=pl)(params, opt, local)
+        moment_elems = sum(t.numel() for t in tree_leaves(opt.mu))
+        dist.barrier()
+    return {"p0": tree_leaves(p0), "new": tree_leaves(new), "grads": tree_leaves(grads),
+            "lr": float(m["lr"]), "loss": float(m["loss"]),
+            "moment_elems": None if mesh is None else moment_elems,
+            "param_elems": sum(t.numel() for t in tree_leaves(p0))}
+
+
+def phase23_child(argv) -> int:
+    """A process of phase 23(a)/(c): ``ref`` (one rank, no mesh; writes
+    the outputs) or ``rank R`` of MA_WORLD gloo ranks sharing the card
+    (compares its outputs with ref's, writes its errors and times)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    role, rank, tmp = argv[0], int(argv[1]), Path(argv[2])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    clock = Clock(device)
+    if role == "ref":
+        for n, case in enumerate(MA_CASES):
+            params = ma_params(ma_cfg(*case[1:4]), 230, device)
+            out = ma_case_run(case, params, device, None, clock)
+            del params
+            torch.save({k: ([t.cpu() for t in v] if k == "logits" else
+                            v.cpu() if isinstance(v, torch.Tensor) else v)
+                        for k, v in out.items()}, tmp / f"ref{n}.pt")
+            del out
+            torch.cuda.empty_cache()
+        tr = ma_train_run(device)
+        torch.save({k: ([t.cpu() for t in v] if isinstance(v, list) else v)
+                    for k, v in tr.items()}, tmp / "ref_train.pt")
+        return 0
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), MA_WORLD),
+                            rank=rank, world_size=MA_WORLD)
+    mesh = init_device_mesh("cpu", (1, MA_WORLD), mesh_dim_names=("data", "model"))
+    res = {"cases": {}}
+    for n, case in enumerate(MA_CASES):
+        # Each rank draws its pieces in turn: a leaf is whole while it is cut.
+        for r in range(MA_WORLD):
+            if r == rank:
+                params = ma_params(ma_cfg(*case[1:4]), 230, device, mesh)
+            dist.barrier()
+        out = ma_case_run(case, params, device, mesh, clock)
+        del params
+        ref = torch.load(tmp / f"ref{n}.pt")
+        errs = [float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(out["logits"], ref["logits"])]
+        r = {"logit_rel": max(errs)}
+        if "k" in out:
+            i = mesh.get_local_rank("model")
+            for name in ("k", "v"):
+                want = ref[name]
+                n_loc = out[name].shape[2]
+                if case[3].get("decode_seq_shard"):
+                    want = want[:, :, i * n_loc:(i + 1) * n_loc]
+                elif out[name].shape[3] != want.shape[3]:
+                    h = out[name].shape[3]
+                    want = want[:, :, :, i * h:(i + 1) * h]
+                r[f"{name}_err"] = float((out[name].cpu() - want).abs().max())
+            r.update(pos=out["pos"], decode_ms=out["decode_ms"],
+                     ref_decode_ms=ref["decode_ms"], cache_shape=list(out["k"].shape))
+        res["cases"][case[0]] = r
+        del out, ref
+        torch.cuda.empty_cache()
+    train_mesh = init_device_mesh("cpu", (MA_WORLD, 1), mesh_dim_names=("data", "model"))
+    tr = ma_train_run(device, train_mesh)
+    want = torch.load(tmp / "ref_train.pt")
+    res["train"] = update_check(want["p0"], tr["new"], want["new"], tr["grads"],
+                                want["grads"], [str(i) for i in range(len(tr["new"]))],
+                                want["lr"], "phase 23 sharded train")
+    res["train"].update(loss=tr["loss"], ref_loss=want["loss"],
+                        moment_elems=tr["moment_elems"], param_elems=tr["param_elems"])
+    (tmp / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_model_axis() -> dict:
+    """Phase 23 (module docstring). The dry runs (CPU only) start first and
+    run beside (a) and (c), each part in processes of its own, so that no
+    fake or gloo group meets the phases' NCCL group."""
+    import gc
+    t0 = time.perf_counter()
+    # The children need most of the card: this process gives back what
+    # its allocator holds from the earlier phases.
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0] if torch.cuda.is_available() else None
+    tmp = ROOT / "build" / "phase23"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), GLOO_SOCKET_IFNAME="lo",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    dry_dir = tmp / "dryrun"
+    dry = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a, "--shape", s,
+         "--both-meshes", "--force", "--results-dir", str(dry_dir / f"{a}__{s}"),
+         *sum((["--override", o] for o in over), [])],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for a, s, over in DRYRUN_CELLS]
+    me = [sys.executable, str(Path(__file__).resolve()), "--phase23-child"]
+    ref = subprocess.run(me + ["ref", "0", str(tmp)], env=env, capture_output=True,
+                         text=True, timeout=600)
+    check(ref.returncode == 0, f"phase 23 one-rank run: {ref.stdout[-2000:]} "
+          f"{ref.stderr[-3000:]}")
+    ranks = [subprocess.Popen(me + ["rank", str(r), str(tmp)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(MA_WORLD)]
+    logs = [p.communicate(timeout=900)[0] for p in ranks]
+    for r, (p, log) in enumerate(zip(ranks, logs)):
+        check(p.returncode == 0, f"phase 23 rank {r}: {log[-4000:]}")
+    t_ranks = time.perf_counter() - t0
+    out = {"ranks": [json.loads((tmp / f"rank{r}.json").read_text())
+                     for r in range(MA_WORLD)]}
+    for r, res in enumerate(out["ranks"]):
+        for label, c in res["cases"].items():
+            check(c["logit_rel"] <= MA_TOL_LOGIT,
+                  f"phase 23 {label} rank {r}: logits {c['logit_rel']} x max |logit|")
+            for name in ("k_err", "v_err"):
+                if name in c:
+                    check(c[name] <= MA_TOL_CACHE, f"phase 23 {label} rank {r}: "
+                          f"cache {name} {c[name]}")
+            if "pos" in c:
+                prompt = [x for x in MA_CASES if x[0] == label][0][5]
+                check(c["pos"] == prompt + MA_DECODE, f"phase 23 {label}: pos {c['pos']}")
+        tr = res["train"]
+        check(abs(tr["loss"] - tr["ref_loss"]) <= 1e-5 * abs(tr["ref_loss"]),
+              f"phase 23 sharded train rank {r}: loss {tr['loss']} vs {tr['ref_loss']}")
+        check(tr["moment_elems"] * MA_WORLD >= tr["param_elems"]
+              and tr["moment_elems"] < tr["param_elems"],
+              f"phase 23 ZeRO-1: {tr['moment_elems']} moment elements of "
+              f"{tr['param_elems']}")
+    out["dryrun"] = {}
+    for (a, s, over), p in zip(DRYRUN_CELLS, dry):
+        log = p.communicate(timeout=900)[0]
+        check(p.returncode == 0, f"phase 23 dry run {a} {s}: {log[-4000:]}")
+        recs = [json.loads(f.read_text()) for f in sorted((dry_dir / f"{a}__{s}").glob("*.json"))
+                if f.name != "model_flops.json"]
+        check(len(recs) == 2 and all(r["status"] == "ok" for r in recs),
+              f"phase 23 dry run {a} {s}: {[r.get('status') for r in recs]} {log[-3000:]}")
+        summ = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                               "--summary", "--results-dir", str(dry_dir / f"{a}__{s}")],
+                              env=env, capture_output=True, text=True, timeout=120)
+        out["dryrun"][a, s] = {"over": over, "summary": summ.stdout.strip().splitlines()[1:],
+                               "wall_s": [r["wall_s"] for r in recs],
+                               "calls": [r["collective_calls"] for r in recs]}
+    out["seconds"] = time.perf_counter() - t0
+    out["ranks_seconds"] = t_ranks
+    out["free_bytes"] = free
+    return out
+
+
+def print_model_axis(ma: dict, card: str) -> None:
+    """Phase 23's lines (module docstring), each with the card."""
+    for r, res in enumerate(ma["ranks"]):
+        for label, c in res["cases"].items():
+            line = (f"phase 23 model axis {label} rank {r} of {MA_WORLD} (gloo on one "
+                    f"card, float32, TF32 off; {card}): logits within "
+                    f"{c['logit_rel']} x max |logit| of one rank")
+            if "pos" in c:
+                line += (f", cache k {c['k_err']} v {c['v_err']} (local {c['cache_shape']}),"
+                         f" pos {c['pos']}; decode ms a token {float(np.mean(c['decode_ms'][1:]))}"
+                         f" at {MA_WORLD} ranks (each {c['decode_ms']}) against "
+                         f"{float(np.mean(c['ref_decode_ms'][1:]))} on one")
+            print(line, flush=True)
+        tr = res["train"]
+        print(f"phase 23 sharded train rank {r} (llama3-8b smoke, data {MA_WORLD} x model 1, "
+              f"ZeRO-1 moments {tr['moment_elems']} of {tr['param_elems']} elements): "
+              f"update vs one rank, max |diff| / lr {tr['max_diff_over_lr']}, excepted "
+              f"{tr['tiny_excepted']} + {tr['drift_excepted']} of {tr['elements']}; loss "
+              f"{tr['loss']} vs {tr['ref_loss']}", flush=True)
+    for (a, s), d in ma["dryrun"].items():
+        print(f"phase 23 dry run {a} {s} {' '.join(d['over'])} (fake 256/512-rank groups, "
+              f"CPU, H100 datasheet constants): wall {d['wall_s']} s, collectives "
+              f"{d['calls']}", flush=True)
+        for row in d["summary"]:
+            print(f"phase 23 dry run | {row}", flush=True)
+    print(f"phase 23 took {ma['seconds']:.1f} s (the ranks' part "
+          f"{ma['ranks_seconds']:.1f} s; {ma['free_bytes']} bytes of the card "
+          f"free at its start); card: {card}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -5177,6 +5525,8 @@ def main() -> int:
     stamp("phase 21")
     df = phase_diffusion()
     stamp("phase 22")
+    mx = phase_model_axis()
+    stamp("phase 23")
 
     kernels = []
 
@@ -5392,6 +5742,7 @@ def main() -> int:
     print_vision(vi, card)
     print_train(tr, card)
     print_diffusion(df, card)
+    print_model_axis(mx, card)
     print(f"whole script: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
@@ -5402,4 +5753,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase23-child"]:
+        sys.exit(phase23_child(sys.argv[2:]))
     sys.exit(main())

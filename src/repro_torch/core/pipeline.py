@@ -79,13 +79,14 @@ DeviceLike = Union[None, str, torch.device]
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` -> the current CUDA device; otherwise ``torch.device``.
     A CUDA request without a CUDA device raises ``RuntimeError``: nothing
-    falls back to the CPU."""
+    falls back to the CPU. ``"meta"`` (shapes only, for the dry run's
+    traces) is taken as given."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on CUDA unless device='cpu' is passed, and no "
             "CUDA device is available")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -445,27 +446,26 @@ def _all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
         (x.shape[0], -1) + tuple(x.shape[2:]))
 
 
-def _batch_gather(mesh, batch_axes: Tuple[str, ...]):
-    """``(gather, index)`` for the frame axes ``batch_axes``: ``gather(x)``
-    concatenates every frame shard's ``x`` along axis 0 in the reference's
-    order (``lax.all_gather(x, batch_axes, tiled=True)``: row-major over
-    the axes in the order given) and ``index`` is this rank's place in it.
+def batch_group(mesh, batch_axes: Tuple[str, ...]):
+    """``(group, order, index)`` for the batch axes ``batch_axes``: the
+    group of the ranks that differ only in those axes, ``order[i]`` the
+    place in the group's own order of the rank at place ``i`` of the
+    reference's order (row-major over the axes in the order given;
+    ``None`` where the two agree), and ``index`` this rank's place in the
+    reference's order.
 
-    The group is the ranks that differ only in the axes of size > 1. With
-    one such axis (or none: then the first axis) it is that axis's group.
-    With several, the first call for a set of such axes makes one group for
-    each coordinate of the other mesh axes, every rank making every group
-    in the same order (``dist.new_group`` is collective), and keeps them on
-    the mesh for later calls; the gathered blocks are put in the
-    reference's order where the group's own order differs."""
+    With one axis of size > 1 (or none: then the first axis) the group is
+    that axis's group. With several, the first call for a set of such axes
+    makes one group for each coordinate of the other mesh axes, every rank
+    making every group in the same order (``dist.new_group`` is
+    collective), and keeps them on the mesh for later calls."""
     sizes = [_mesh_axis_size(mesh, ax) for ax in batch_axes]
     index = 0
     for ax, n in zip(batch_axes, sizes):
         index = index * n + (mesh.get_local_rank(ax) if n > 1 else 0)
     live = [ax for ax, n in zip(batch_axes, sizes) if n > 1]
     if len(live) <= 1:
-        group = mesh.get_group(live[0] if live else batch_axes[0])
-        return (lambda x: _all_gather(x, group)), index
+        return mesh.get_group(live[0] if live else batch_axes[0]), None, index
     names = list(mesh.mesh_dim_names)
     dims = [names.index(ax) for ax in live]
     others = [d for d in range(len(names)) if d not in dims]
@@ -484,8 +484,20 @@ def _batch_gather(mesh, batch_axes: Tuple[str, ...]):
     group = cache[key]
     got = dist.get_process_group_ranks(group)        # the group's order
     order = [got.index(r) for r in ranks]
-    if order == list(range(n)):
+    return group, (None if order == list(range(n)) else order), index
+
+
+def _batch_gather(mesh, batch_axes: Tuple[str, ...]):
+    """``(gather, index)`` for the frame axes ``batch_axes``: ``gather(x)``
+    concatenates every frame shard's ``x`` along axis 0 in the reference's
+    order (``lax.all_gather(x, batch_axes, tiled=True)``: row-major over
+    the axes in the order given) and ``index`` is this rank's place in it,
+    over :func:`batch_group`'s group; the gathered blocks are put in the
+    reference's order where the group's own order differs."""
+    group, order, index = batch_group(mesh, batch_axes)
+    if order is None:
         return (lambda x: _all_gather(x, group)), index
+    n = len(order)
 
     def gather(x):
         blocks = _all_gather(x, group).view((n,) + tuple(x.shape))

@@ -168,6 +168,111 @@ def param_pspecs(table: Any, rules: Optional[Mapping] = None,
     return tree_map(one, table, is_leaf=_is_spec)
 
 
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size of a ``DeviceMesh`` (or of a mapping of sizes)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return {n: mesh.size(i) for i, n in enumerate(names)}
+    return dict(mesh)
+
+
+def mesh_coords(mesh) -> Dict[str, int]:
+    """Axis name -> this rank's coordinate on a ``DeviceMesh``."""
+    return {n: mesh.get_local_rank(n) for n in mesh.mesh_dim_names}
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def shard_index(entry, sizes: Mapping[str, int],
+                coords: Mapping[str, int]) -> Tuple[int, int]:
+    """``(index, count)`` of a rank's shard along a dimension whose spec
+    entry is ``entry``: row-major over the named axes, as JAX tiles a
+    dimension over a tuple of mesh axes."""
+    index, count = 0, 1
+    for a in _entry_axes(entry):
+        index, count = index * sizes[a] + coords[a], count * sizes[a]
+    return index, count
+
+
+def _spec_entries(spec: Tuple, ndim: int) -> Tuple:
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def local_shape(shape: Sequence[int], spec: Tuple,
+                sizes: Mapping[str, int]) -> Tuple[int, ...]:
+    """The shape of each rank's shard of a ``shape`` leaf placed by
+    ``spec``."""
+    out = []
+    for dim, entry in zip(shape, _spec_entries(spec, len(shape))):
+        n = math.prod(sizes[a] for a in _entry_axes(entry))
+        if dim % n:
+            raise ValueError(f"dimension {dim} does not split over {entry} "
+                             f"({n} ranks)")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def local_shard(tensor: torch.Tensor, spec: Tuple, mesh,
+                coords: Optional[Mapping[str, int]] = None) -> torch.Tensor:
+    """The slice of ``tensor`` that ``spec`` (a ``param_pspecs`` tuple)
+    places on the rank at ``coords`` of ``mesh`` (a ``DeviceMesh``, whose
+    own rank is the default, or a mapping of axis sizes): the counterpart
+    of ``jax.device_put(x, NamedSharding(mesh, P(*spec)))`` on that device.
+    A view of ``tensor``."""
+    sizes = mesh_sizes(mesh)
+    coords = mesh_coords(mesh) if coords is None else coords
+    local_shape(tensor.shape, spec, sizes)              # divisibility
+    out = tensor
+    for d, entry in enumerate(_spec_entries(spec, tensor.dim())):
+        i, n = shard_index(entry, sizes, coords)
+        if n > 1:
+            size = tensor.shape[d] // n
+            out = out.narrow(d, i * size, size)
+    return out
+
+
+def is_spec(x) -> bool:
+    """A leaf of a tree of specs: a plain tuple of mesh-axis entries (not
+    a named tuple such as ``AdamWState``)."""
+    return type(x) is tuple
+
+
+def map_with_specs(fn, tree: Any, specs: Any) -> Any:
+    """``fn(leaf, spec)`` over the leaves of ``tree`` and the matching
+    spec tuples of ``specs`` (the same structure, spec tuples as leaves)."""
+    leaves, treedef = tree_flatten(tree)
+    spec_leaves = tree_leaves(specs, is_leaf=is_spec)
+    if len(spec_leaves) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves and {len(spec_leaves)} specs")
+    return tree_unflatten(treedef, [fn(t, s) for t, s in zip(leaves, spec_leaves)])
+
+
+def shard_params(params: Any, pspecs: Any, mesh,
+                 coords: Optional[Mapping[str, int]] = None) -> Any:
+    """Each leaf of ``params`` cut to this rank's piece by its spec
+    (:func:`local_shard`), contiguous."""
+    return map_with_specs(
+        lambda t, s: local_shard(t, s, mesh, coords).contiguous(), params, pspecs)
+
+
+def unshard_params(params: Any, pspecs: Any, mesh) -> Any:
+    """The whole tree from every rank's pieces: each dimension named by a
+    spec is all-gathered over its axes' groups of the ``DeviceMesh``, the
+    last axis of a tuple first, so a tuple gathers row-major. Collective:
+    every rank calls it and gets the whole tree."""
+    from repro_torch.models import parallel
+
+    def one(t: torch.Tensor, spec: Tuple) -> torch.Tensor:
+        for d, entry in enumerate(_spec_entries(spec, t.dim())):
+            t = parallel.all_gather_axes(t, d, _entry_axes(entry), mesh)
+        return t.contiguous()
+    return map_with_specs(one, params, pspecs)
+
+
 def param_count(table: Any) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(table,
                                                        is_leaf=_is_spec))
@@ -418,21 +523,42 @@ def max_pool(x: torch.Tensor, window: int, stride: int,
     return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1)
 
 
+def batch_stats_group(mesh, batch_axes):
+    """The group a data-parallel step's training BatchNorm means its
+    statistics over: the batch axes' group of ``mesh``, or None (one
+    device, no batch axes, or axes of size 1)."""
+    if mesh is None or not batch_axes:
+        return None
+    sizes = mesh_sizes(mesh)
+    if math.prod(sizes[a] for a in batch_axes) == 1:
+        return None
+    from repro_torch.core.pipeline import batch_group
+    return batch_group(mesh, tuple(batch_axes))[0]
+
+
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                mean: torch.Tensor, var: torch.Tensor, training: bool,
-               eps: float = 1e-5, axis_name: Optional[str] = None):
+               eps: float = 1e-5, axis_name=None):
     """BatchNorm. In training mode returns (y, batch_mean, batch_var), the
     variance as E[x^2] - E[x]^2 in float32; in inference mode (y, mean,
-    var) from the running stats. ``axis_name`` is the reference's sync-BN
-    axis; its models pass ``None``, and the port takes nothing else."""
-    if axis_name is not None:
-        raise NotImplementedError("cross-replica (sync) BatchNorm is not "
-                                  "ported; the zoo's models pass None")
+    var) from the running stats. ``axis_name``: None, or the process group
+    (:func:`batch_stats_group`) whose ranks' equal batch shards the
+    training statistics are meaned over, the whole batch's, as GSPMD takes
+    the reference's over a batch-sharded array. The reference's named
+    sync-BN axis (a string) has no counterpart and raises."""
+    if isinstance(axis_name, str):
+        raise NotImplementedError("a named sync-BN axis is not ported; pass "
+                                  "None or the batch axes' process group")
     x32 = x.float()
     if training:
         red = tuple(range(x.ndim - 1))
         bm = x32.mean(dim=red)
-        bv = x32.square().mean(dim=red) - bm.square()
+        msq = x32.square().mean(dim=red)
+        if axis_name is not None:
+            from repro_torch.models import parallel
+            bm = parallel.mean_of_shards(bm, axis_name)
+            msq = parallel.mean_of_shards(msq, axis_name)
+        bv = msq - bm.square()
     else:
         bm, bv = mean.float(), var.float()
     y = (x32 - bm) * torch.rsqrt(bv + eps) * scale.float() + bias

@@ -148,7 +148,8 @@ def _mbconv(p, x, stride, training, axis_name):
 def make_forward(cfg: EfficientNetConfig, mesh=None, batch_axes=("data",),
                  training: bool = False):
     """forward(params, images) -> (logits, params_with_new_bn_stats)."""
-    axis_name = None
+    # BatchNorm's statistics over the batch axes' group, as resnet's.
+    axis_name = cm.batch_stats_group(mesh, batch_axes)
 
     def forward(params, images):
         new_params = dict(params)

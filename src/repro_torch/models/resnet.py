@@ -105,7 +105,10 @@ def _bottleneck(p, x, stride, training, axis_name):
 def make_forward(cfg: ResNetConfig, mesh=None, batch_axes=("data",),
                  training: bool = False):
     """forward(params, images) -> (logits, params_with_new_bn_stats)."""
-    axis_name = None  # the reference's sync-BN axis, unset there too
+    # The reference leaves its sync-BN axis unset (GSPMD takes the
+    # statistics over the whole batch); the port means them over the batch
+    # axes' group.
+    axis_name = cm.batch_stats_group(mesh, batch_axes)
 
     def forward(params, images):
         new_params = dict(params)

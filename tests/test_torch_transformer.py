@@ -17,7 +17,9 @@ window; a decode past ``max_len`` (the cache write clamps); a moonshot
 MoE whose capacity factor drops tokens (``top_e`` equal wherever the
 top-k margin exceeds 1e-5, ``y`` within tolerance); ``remat`` on and off
 under both policies giving equal gradients; the param tables and cache
-helpers against the reference's; a mesh with a model axis refused."""
+helpers against the reference's; a mesh of several devices given as a
+mapping of sizes refused (the model axis runs on gloo ranks in
+``tests/test_torch_model_axis.py``)."""
 import dataclasses
 
 import jax
@@ -295,11 +297,14 @@ def test_cache_helpers_match_reference():
 
 
 def test_model_axis_is_refused():
+    """A mesh of more than one device given as a mapping of sizes is
+    refused: its collectives need a DeviceMesh's groups (the model axis
+    itself runs on gloo ranks, ``tests/test_torch_model_axis.py``)."""
     cfg = configs.get_module("moonshot-v1-16b-a3b").smoke_config()
     for make in (T.make_forward, T.make_loss_fn, T.make_decode_step,
                  T.make_prefill, T.make_moe_ffn):
-        with pytest.raises(NotImplementedError, match="model axis"):
+        with pytest.raises(ValueError, match="needs a DeviceMesh"):
             make(cfg, {"data": 1, "model": 2})
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(ValueError, match="needs a DeviceMesh"):
             make(cfg, {"data": 2, "model": 1})
         make(cfg, {"data": 1, "model": 1})
