@@ -1,12 +1,43 @@
 """Shared inputs of the PyTorch-port differential tests (tests/test_torch_*).
 
 The inputs are numpy arrays made from seeds; each test hands the same
-arrays to the JAX package and to the port.
+arrays to the JAX package and to the port. ``launch_counters_restored``
+keeps the kernels' launch counters from one test out of the next.
 """
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
+
+from repro_torch.kernels import fused, staged
+
+
+def _counter_tables():
+    """Every module-level launch counter of the port: the tables that
+    ``ops.launch_counters()`` lists, the staged kernels' wide routes and
+    the megakernel's launches by library variant."""
+    return (staged.launches, staged.wide_launches, fused.launches,
+            fused.transmission_launches, fused.halo_launches,
+            fused.variant_launches)
+
+
+def counter_snapshot():
+    """A copy of every launch counter, to compare with a later one."""
+    return tuple(dict(t) for t in _counter_tables())
+
+
+@pytest.fixture(autouse=True)
+def launch_counters_restored():
+    """Put every launch counter back as it was before the test, whatever
+    the test raised, reset or seeded. Autouse in each file that imports
+    it, so a count read in one test never holds another test's launches."""
+    saved = counter_snapshot()
+    yield
+    with staged.launch_lock:
+        for table, counts in zip(_counter_tables(), saved):
+            table.clear()
+            table.update(counts)
 
 
 def ramp_frames(seed, *lead, h, w):

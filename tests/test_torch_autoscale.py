@@ -384,9 +384,21 @@ def test_autoscale_ramp_matches_fixed_lanes_and_reference(mode, overlap,
 
 # --- deadline-aware eviction -------------------------------------------------------
 
-def _evict_cell(server, request, policy, streams, clock, **kw):
+def _evict_cell(server, request, policy, streams, clock, pulled=None,
+                **kw):
+    """Serve ``streams`` on one lane: ``(report, (stream, frame id) in the
+    sink's order)``. Each stream's monitor thread calls the sink on its
+    own, so that order holds within a stream only. ``pulled``, if given,
+    gets ``(stream, frame index)`` in the order the server takes frames
+    from the requests' iterators, which is the order of its ticks."""
     seq = []
-    rep = server.serve_many([request(sid, iter(v), **req_kw)
+
+    def frames(sid, v):
+        for i, f in enumerate(v):
+            if pulled is not None:
+                pulled.append((sid, i))
+            yield f
+    rep = server.serve_many([request(sid, frames(sid, v), **req_kw)
                              for sid, v, req_kw in streams], n_lanes=1,
                             sink=lambda sid, fid, f: seq.append((sid, fid)),
                             policy=policy, clock=clock, **kw)
@@ -396,7 +408,8 @@ def _evict_cell(server, request, policy, streams, clock, **kw):
 @pytest.mark.parametrize("overlap", [False, True])
 def test_tardy_stream_checkpoints_requeues_and_resumes(overlap):
     """A past-deadline stream holding the only lane is preempted after 2
-    ticks: the waiter serves, the tardy stream resumes from its checkpoint
+    ticks: the waiter serves (its frames taken before the tardy stream's
+    last), the tardy stream resumes from its checkpoint
     (the same iterator: no frame twice), the same evictions, admissions
     and per-stream frames as the JAX server, its final A within 1e-5 of
     the reference's and bit-equal to an uninterrupted serve's."""
@@ -404,9 +417,10 @@ def test_tardy_stream_checkpoints_requeues_and_resumes(overlap):
     tardy, waiter = _videos([12, 4], seed=53)
     streams = [("tardy", tardy, dict(deadline=0.0)), ("waiter", waiter, {})]
     srv = ElasticServer(cfg, batch=2, timeout_s=5.0, device="cpu")
+    pulled = []
     rep, seq = _evict_cell(srv, StreamRequest,
                            ScalePolicy(evict_tardy_after=2), streams,
-                           lambda: 100.0, tick_overlap=overlap)
+                           lambda: 100.0, pulled=pulled, tick_overlap=overlap)
     assert rep.overlap_ticks == (rep.ticks if overlap else 0)
     jsrv = JaxServer(JaxConfig(kernel_mode="ref", **KW), batch=2,
                      timeout_s=5.0)
@@ -421,7 +435,8 @@ def test_tardy_stream_checkpoints_requeues_and_resumes(overlap):
         got = [fid for s, fid in seq if s == sid]
         assert got == [fid for s, fid in jseq if s == sid]
         assert got == list(range(rep.per_stream[sid].frames))
-    assert seq.index(("waiter", 3)) < seq.index(("tardy", 11))
+    # The waiter is served before the tardy stream's last tick.
+    assert pulled.index(("waiter", 3)) < pulled.index(("tardy", 11))
     assert srv.store.cursor("tardy") == 12
     np.testing.assert_allclose(as_np(srv.store.get("tardy").A),
                                as_np(jsrv.store.get("tardy").A),

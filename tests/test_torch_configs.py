@@ -34,7 +34,8 @@ from repro_torch.core import normalize as tn
 from repro_torch.core import pipeline
 from repro_torch.kernels import fused, ops, ref, staged
 
-from _torch_common import as_np, ramp_frames
+from _torch_common import as_np, counter_snapshot, ramp_frames
+from _torch_common import launch_counters_restored  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -288,12 +289,6 @@ def test_frames_per_block_other_than_zero_raises(fpb):
 
 # --- launch counts -------------------------------------------------------------
 
-def _counters():
-    return (dict(staged.launches), dict(staged.wide_launches),
-            dict(fused.launches), dict(fused.transmission_launches),
-            dict(fused.halo_launches))
-
-
 def _lane_step(device):
     """A staged lane step (3 lanes x 2 frames of 8x12) and its inputs."""
     cfg = DehazeConfig(kernel_mode="pallas", patch_radius=1, gf_radius=2,
@@ -305,18 +300,19 @@ def _lane_step(device):
     return step, (frames, ids, tn.init_atmo_state_lanes(3, device))
 
 
-def test_launch_count_is_zero_on_the_cpu(monkeypatch):
-    """The plain versions launch nothing; counts set before the call stay."""
-    monkeypatch.setitem(staged.launches, "box_filter", 5)
-    monkeypatch.setitem(fused.launches, "tmap_tile", 3)
-    before = _counters()
+def test_launch_count_is_zero_on_the_cpu():
+    """The plain versions launch nothing; counts set before the call stay
+    (``launch_counters_restored`` puts them back after the test)."""
+    staged.launches["box_filter"] = 5
+    fused.launches["tmap_tile"] = 3
+    before = counter_snapshot()
     step, args = _lane_step("cpu")
     assert ops.launch_count(step, *args) == {"total": 0}
     x, a, ids = _inputs()
     assert ops.launch_count(
         ops.fused_dehaze_dcp, torch.from_numpy(x), torch.from_numpy(ids),
         *_torch_state(a), mode="fused", **DEHAZE_KW) == {"total": 0}
-    assert _counters() == before
+    assert counter_snapshot() == before
 
 
 def test_launch_count_counts_a_staged_step_by_difference(monkeypatch):
@@ -334,10 +330,12 @@ def test_launch_count_counts_a_staged_step_by_difference(monkeypatch):
     monkeypatch.setattr(staged, "_lib", lambda: Lib())
     monkeypatch.setattr(staged, "_check_cuda", lambda *t: None)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
-    monkeypatch.setitem(staged.launches, "box_filter", 5)
-    monkeypatch.setitem(staged.launches, "merge_topk", 2)
+    # Seeded counts; the module's autouse ``launch_counters_restored`` puts
+    # every counter back afterwards, the step's own launches too.
+    staged.launches["box_filter"] = 5
+    staged.launches["merge_topk"] = 2
     step, args = _lane_step("meta")
-    before = _counters()
+    before = counter_snapshot()
     counts = ops.launch_count(step, *args)
     assert counts == {"staged.dark_channel": 1, "staged.box_filter": 6,
                       "staged.atmolight": 1, "staged.recover": 1,
@@ -345,7 +343,7 @@ def test_launch_count_counts_a_staged_step_by_difference(monkeypatch):
     assert len(calls) == 10
     assert staged.launches["box_filter"] == 11
     assert staged.launches["merge_topk"] == 2
-    assert _counters()[2:] == before[2:]
+    assert counter_snapshot()[2:] == before[2:]
     names = ops.launch_counters()
     assert {f"staged.{k}" for k in staged.launches} <= set(names)
     assert {f"fused_transmission_halo.{k}" for k in fused.halo_launches} \

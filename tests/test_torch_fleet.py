@@ -39,12 +39,25 @@ def _videos(n, length, seed=5, h=12, w=16):
             for _ in range(n)]
 
 
-def _serve(srv, request, vids, **kw):
-    got = {}
+def _serve(srv, request, vids, spill=False, **kw):
+    """Serve ``vids`` as streams s0, s1, ...: ``(report, frames by stream,
+    final states)``. ``spill`` forces a first-fit spill on 2 hosts x 2
+    lanes: s0 and s1, which host 0 admits first, hold their second tick
+    (frames from ``srv.batch``) until another stream's first frame has been
+    taken, which only host 1 can do, and only once host 0's lanes are both
+    claimed."""
+    got, gate = {}, threading.Event()
+
+    def frames(i, v):
+        if not spill:
+            return iter(v)
+        return (_gated(v, gate, hold_from=srv.batch) if i < 2
+                else _gated(v, gate, opens=True))
     rep = srv.serve_many(
-        [request(f"s{i}", iter(v)) for i, v in enumerate(vids)],
+        [request(f"s{i}", frames(i, v)) for i, v in enumerate(vids)],
         sink=lambda sid, fid, f: got.setdefault(sid, []).append(
             (fid, as_np(f))), **kw)
+    assert gate.is_set() == spill
     finals = {f"s{i}": srv.store.get(f"s{i}") for i in range(len(vids))}
     return rep, got, finals
 
@@ -61,8 +74,8 @@ def references():
                                  batch=4, timeout_s=5.0, device="cpu")
             jsrv = JaxServer(JaxConfig(kernel_mode=mode, **KW), batch=4,
                              timeout_s=5.0)
-            jax_run = _serve(jsrv, JaxRequest, _videos(6, 8), n_lanes=2,
-                             n_hosts=2)
+            jax_run = _serve(jsrv, JaxRequest, _videos(6, 8), spill=True,
+                             n_lanes=2, n_hosts=2)
             cache[mode] = (_serve(base, StreamRequest, _videos(6, 8),
                                   n_lanes=2), base, jax_run, jsrv)
         return cache[mode]
@@ -75,15 +88,17 @@ def references():
 def test_fleet_serve_matches_single_host(n_hosts, mode, overlap, references):
     """Per stream: the emitted frames (J carries the EMA trajectory), their
     order, the final state and the cursor bit-equal to the one-host serve;
-    no migration; at 2 hosts first-fit spills, every admission lands on
-    the stream's placement, and as many admissions as the JAX fleet, its J
-    within 2e-4 and A within 1e-5."""
+    no migration; at 2 hosts first-fit spills (forced, in both packages:
+    ``_serve``'s ``spill``), every admission lands on the stream's
+    placement, and as many admissions as the JAX fleet, its J within 2e-4
+    and A within 1e-5."""
     (rep_w, want, fin_w), base, (jrep, jgot, jfin), jsrv = references(mode)
     assert rep_w.frames == 48 and rep_w.skipped == 0
     srv = ElasticServer(DehazeConfig(kernel_mode=mode, **KW), batch=4,
                         timeout_s=5.0, device="cpu")
-    rep, got, fin = _serve(srv, StreamRequest, _videos(6, 8), n_lanes=2,
-                           n_hosts=n_hosts, tick_overlap=overlap)
+    rep, got, fin = _serve(srv, StreamRequest, _videos(6, 8),
+                           spill=n_hosts > 1, n_lanes=2, n_hosts=n_hosts,
+                           tick_overlap=overlap)
     assert rep.frames == 48 and rep.skipped == 0 and rep.stragglers == 0
     assert rep.n_hosts == n_hosts and rep.migrations == 0
     assert rep.overlap_ticks == (rep.ticks if overlap else 0)

@@ -31,6 +31,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
 from _torch_common import as_np, ramp_frames, wire
+from _torch_common import launch_counters_restored  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -406,7 +407,6 @@ def test_transmission_stages_pick_tiles_or_ten_passes_by_shape(
     kernel = {"candidate": "topk_merge"}
     assert calls == [prefix + kernel.get(p, p) for p in ran]
     assert {p: n for p, n in counts.items() if n} == dict.fromkeys(ran, 1)
-    fused.reset_launches()
 
 
 # --- contracts: dispatch, no fallback ----------------------------------------

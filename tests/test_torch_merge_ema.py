@@ -32,6 +32,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import staged
 
 from _torch_common import as_np
+from _torch_common import launch_counters_restored  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -232,7 +233,6 @@ def _step_launches(device, monkeypatch):
         staged.reset_launches()
         step(frames(4), ids(4), tn.init_atmo_state(device))
         counts[name] = dict(staged.launches)
-    staged.reset_launches()
     return counts
 
 

@@ -117,6 +117,7 @@ def _ref_params(cfg):
 
 
 _RANK = textwrap.dedent("""
+    import os
     import sys
     import numpy as np
     import torch
@@ -230,6 +231,12 @@ _RANK = textwrap.dedent("""
             res[f"{shape}/{k}"] = back[k].numpy()
     np.savez(tmp + f"/out{rank}.npz", **res)
     dist.destroy_process_group()
+    # Leave without the interpreter's teardown: under load, torch's C++
+    # teardown at exit can abort a rank (std::terminate) after its outputs
+    # are saved.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 """)
 
 _JAX_CHILD = textwrap.dedent("""

@@ -162,6 +162,7 @@ def test_gather_puts_blocks_in_the_reference_order(axes, layout, monkeypatch):
 
 _RANK = textwrap.dedent("""
     import json
+    import os
     import sys
     import numpy as np
     import torch
@@ -215,6 +216,12 @@ _RANK = textwrap.dedent("""
                         res[f"{key}_{k}"] = v.numpy()
     np.savez(out, **res)
     dist.destroy_process_group()
+    # Leave without the interpreter's teardown: under load, torch's C++
+    # teardown at exit can abort a rank (std::terminate) after its outputs
+    # are saved.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 """)
 
 

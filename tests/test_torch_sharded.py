@@ -46,6 +46,7 @@ from repro_torch.kernels import fused, staged
 from repro_torch.launch.mesh import make_host_mesh
 
 from _torch_common import as_np, ramp_frames, wire
+from _torch_common import launch_counters_restored  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -152,6 +153,7 @@ def test_lane_sharded_step_matches_jax(mesh, mode, lane_native, monkeypatch):
 # --- two ranks ---------------------------------------------------------------
 
 _RANK = textwrap.dedent("""
+    import os
     import sys
     import numpy as np
     import torch
@@ -193,6 +195,12 @@ _RANK = textwrap.dedent("""
             res[f"spatial_{mode}_{key}"] = v.numpy()
     np.savez(out, **res)
     dist.destroy_process_group()
+    # Leave without the interpreter's teardown: under load, torch's C++
+    # teardown at exit can abort a rank (std::terminate) after its outputs
+    # are saved.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 """)
 
 

@@ -46,6 +46,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
 from _torch_common import as_np, ramp_frames, wire
+from _torch_common import launch_counters_restored  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -241,6 +242,7 @@ CELLS = ([("122", "frame", a, k, m) for a in ("dcp", "cap") for k in (1, 4)
 CELL_IDS = ["-".join(map(str, c)) for c in CELLS]
 
 _RANK = textwrap.dedent("""
+    import os
     import sys
     import numpy as np
     import torch
@@ -326,6 +328,12 @@ _RANK = textwrap.dedent("""
         res[f"{tag}_coords"] = np.asarray(coords(mesh))
     np.savez(out, **res)
     dist.destroy_process_group()
+    # Leave without the interpreter's teardown: under load, torch's C++
+    # teardown at exit can abort a rank (std::terminate) after its outputs
+    # are saved.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 """)
 
 _JAX = textwrap.dedent("""

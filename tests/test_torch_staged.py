@@ -39,7 +39,8 @@ from repro_torch.kernels import _build, staged
 from repro_torch.kernels import ops as tops
 from repro_torch.stream import ElasticServer, StreamRequest, StreamStateStore
 
-from _torch_common import as_np, ramp_frames, wire
+from _torch_common import as_np, counter_snapshot, ramp_frames, wire
+from _torch_common import launch_counters_restored  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -626,12 +627,13 @@ def test_staged_min_filter_and_topk_reach_the_kernels_off_the_cpu(
         raise AssertionError("the plain version ran for a device tensor")
     for name in ("min_filter", "atmolight_topk"):
         monkeypatch.setattr(staged, f"plain_{name}", plain)
+    before = counter_snapshot()
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         tops.min_filter_2d(_meta(2, 8, 8), 1, mode=mode)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         tops.atmospheric_light(_meta(2, 8, 8, 3), _meta(2, 8, 8), k=4,
                                mode=mode)
-    assert not any(staged.launches.values())
+    assert counter_snapshot() == before      # this test launched nothing
 
 
 def test_failed_staged_build_raises_instead_of_the_plain_version(
@@ -648,11 +650,12 @@ def test_failed_staged_build_raises_instead_of_the_plain_version(
         raise AssertionError("the plain version ran for a device tensor")
     for name in staged.KERNELS:
         monkeypatch.setattr(staged, f"plain_{name}", plain)
+    before = counter_snapshot()
     with pytest.raises(RuntimeError, match="nvcc"):
         staged.dark_channel_op(_meta(2, 8, 8, 3), 1)
     with pytest.raises(RuntimeError, match="nvcc"):
         tops.box_filter_2d(_meta(2, 8, 8), 1, mode="pallas")
-    assert not any(staged.launches.values())
+    assert counter_snapshot() == before      # this test launched nothing
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_and_other_dtypes():
